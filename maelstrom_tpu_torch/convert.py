@@ -1,0 +1,36 @@
+"""State carried between the JAX package and the port.
+
+Both packages name their state by the same dataclass fields, so a state
+travels as nested dicts of numpy arrays keyed by field name
+(`net.pool.valid`, `nodes.seen`, `channels.a`, ...). The tests build such
+a dict from a JAX `SimState`; these functions turn it into the port's
+`SimState` and back, so that both packages can start from one state and
+be compared leaf for leaf."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .net.tpu import Msgs
+from .sim import SimState, make_sim
+from .tree import from_numpy, resolve_device, to_numpy
+
+
+def state_from_numpy(tree: dict, program, cfg, device="cuda") -> SimState:
+    """The port's SimState holding the arrays of `tree` (every leaf must
+    match the shape of the port's own fresh state)."""
+    dev = resolve_device(device)
+    template = make_sim(program, cfg, device=dev)
+    return from_numpy(template, tree, dev)
+
+
+def state_to_numpy(sim: SimState) -> dict:
+    return to_numpy(sim)
+
+
+def msgs_from_numpy(tree: dict, device="cuda") -> Msgs:
+    """A Msgs batch (an injection plan, an inbox) from a dict of numpy
+    arrays with one common shape."""
+    dev = resolve_device(device)
+    shape = np.asarray(tree["valid"]).shape
+    return from_numpy(Msgs.empty(shape, dev), tree, dev)

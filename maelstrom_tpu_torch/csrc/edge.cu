@@ -1,0 +1,170 @@
+// K1 edge_read and K2 edge_write: the static edge exchange.
+//
+// Replaces maelstrom_tpu/net/static.py:edge_read (:325) and the non-spill
+// forms of maelstrom_tpu/net/static.py:edge_write (:168). Channels are
+// [N, D, ring, L] planes (valid u8; type, a, b, c int32); the round's
+// lanes are [N, D, L].
+//
+// Bound: both move a few tens of bytes per lane and compute almost
+// nothing, so they are bound by device-memory bytes (about 30 MB a round
+// at 100k nodes, D 4, L 2). Design: one thread per (node, edge, lane), so
+// neighbouring threads touch neighbouring lanes and the L-wide runs of a
+// cell; the round counter is read on the device, so a run of rounds needs
+// no host sync.
+//
+// edge_read race: missing edges (nb < 0) are clipped to row (0, 0), so
+// several threads may read that row while another thread clears it. The
+// clear of cell `round % ring` is therefore a second launch on the same
+// stream, after every route has read its cell.
+//
+// edge_write: each lane writes exactly one cell of its own (n, d, ., l)
+// column, so no two threads write one cell, and the three JAX forms
+// (uniform arrival, ring <= 4, broadcast select) are the same per-lane
+// code. The counters are summed per block with __syncthreads_count and
+// added with one atomicAdd each: integer sums, equal in any order. The
+// latency and the deliver mask are read through their strides: on the
+// round's path they are a broadcast scalar and an [N, D] mask, and an
+// expanded copy of them would move more bytes than the write itself.
+#include "common.cuh"
+
+namespace {
+
+// element strides of an [N, D, L] view; 0 where it is broadcast
+struct Strides3 {
+  long long s0, s1, s2;
+};
+
+__global__ void route_kernel(const u8* __restrict__ valid,
+                             const int* __restrict__ type,
+                             const int* __restrict__ a,
+                             const int* __restrict__ b,
+                             const int* __restrict__ c,
+                             const int* __restrict__ nb,
+                             const int* __restrict__ rev,
+                             const int* __restrict__ round_ptr,
+                             u8* __restrict__ o_valid, int* __restrict__ o_type,
+                             int* __restrict__ o_a, int* __restrict__ o_b,
+                             int* __restrict__ o_c, int N, int D, int ring,
+                             int L) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  long long total = (long long)N * D * L;
+  if (i >= total) return;
+  int l = (int)(i % L);
+  long long me = i / L;  // m * D + e
+  int s = mt_mod(*round_ptr, ring);
+  int n = nb[me];
+  int r = rev[me];
+  long long row = (long long)mt_clip(n, 0, N - 1) * D + mt_clip(r, 0, D - 1);
+  long long src = (row * ring + s) * L + l;
+  o_valid[i] = (valid[src] != 0) && n >= 0;
+  o_type[i] = type[src];
+  o_a[i] = a[src];
+  o_b[i] = b[src];
+  o_c[i] = c[src];
+}
+
+__global__ void clear_kernel(u8* __restrict__ valid,
+                             const int* __restrict__ round_ptr,
+                             long long ND, int ring, int L) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= ND * L) return;
+  int s = mt_mod(*round_ptr, ring);
+  valid[((i / L) * ring + s) * L + i % L] = 0;
+}
+
+__global__ void write_kernel(u8* __restrict__ cv, int* __restrict__ ct,
+                             int* __restrict__ ca, int* __restrict__ cb,
+                             int* __restrict__ cc,
+                             const u8* __restrict__ ov,
+                             const int* __restrict__ ot,
+                             const int* __restrict__ oa,
+                             const int* __restrict__ ob,
+                             const int* __restrict__ oc,
+                             const int* __restrict__ lat,
+                             const u8* __restrict__ mask,
+                             const int* __restrict__ round_ptr,
+                             int* __restrict__ overwrites,
+                             int* __restrict__ lat_clipped, long long ND,
+                             int D, int ring, int L, int uniform,
+                             Strides3 ls, Strides3 ms) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  int ow = 0, clipped = 0;
+  if (i < ND * L) {
+    long long nd = i / L;
+    long long n = nd / D;
+    int d = (int)(nd % D), l = (int)(i % L);
+    bool ok = ov[i] != 0 && mask[n * ms.s0 + d * ms.s1 + l * ms.s2] != 0;
+    int lt = lat[n * ls.s0 + d * ls.s1 + l * ls.s2];
+    int lr = uniform ? lat[0] : lt;  // uniform: entry 0's arrival cell
+    int off = mt_clip(lr, 0, ring - 1);
+    off = off < 1 ? 1 : off;
+    int slot = mt_mod(*round_ptr + off, ring);
+    clipped = ok && lt > ring - 1;
+    if (ok) {
+      long long dst = ((i / L) * ring + slot) * L + i % L;
+      ow = cv[dst] != 0;
+      cv[dst] = 1;
+      ct[dst] = ot[i];
+      ca[dst] = oa[i];
+      cb[dst] = ob[i];
+      cc[dst] = oc[i];
+    }
+  }
+  int n_ow = __syncthreads_count(ow);
+  int n_clip = __syncthreads_count(clipped);
+  if (threadIdx.x == 0) {
+    if (n_ow) atomicAdd(overwrites, n_ow);
+    if (n_clip) atomicAdd(lat_clipped, n_clip);
+  }
+}
+
+constexpr int kThreads = 256;
+
+}  // namespace
+
+// ptrs: ch.valid, ch.type, ch.a, ch.b, ch.c, neighbors, rev, round,
+//       inbox.valid, inbox.type, inbox.a, inbox.b, inbox.c
+// ints: N, D, ring, L
+MT_API int mt_edge_read(void* const* p, int n_ptrs, const long long* v,
+                        int n_ints, void* stream) {
+  if (mt_bad_args(n_ptrs, 13, n_ints, 4)) return cudaErrorInvalidValue;
+  int N = (int)v[0], D = (int)v[1], ring = (int)v[2], L = (int)v[3];
+  long long total = (long long)N * D * L;
+  if (total == 0) return cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  route_kernel<<<mt_blocks(total, kThreads), kThreads, 0, st>>>(
+      (const u8*)p[0], (const int*)p[1], (const int*)p[2], (const int*)p[3],
+      (const int*)p[4], (const int*)p[5], (const int*)p[6],
+      (const int*)p[7], (u8*)p[8], (int*)p[9], (int*)p[10], (int*)p[11],
+      (int*)p[12], N, D, ring, L);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  clear_kernel<<<mt_blocks(total, kThreads), kThreads, 0, st>>>(
+      (u8*)p[0], (const int*)p[7], (long long)N * D, ring, L);
+  return cudaGetLastError();
+}
+
+// ptrs: ch.valid, ch.type, ch.a, ch.b, ch.c, out.valid, out.type, out.a,
+//       out.b, out.c, latency_rounds, deliver_mask, round, ch.overwrites,
+//       ch.lat_clipped
+// ints: N, D, ring, L, uniform_arrival, then the [N, D, L] element strides
+//       of latency_rounds and of deliver_mask (3 each; 0 on a broadcast
+//       axis, so a round's scalar latency and per-edge mask are read in
+//       place, not expanded)
+MT_API int mt_edge_write(void* const* p, int n_ptrs, const long long* v,
+                         int n_ints, void* stream) {
+  if (mt_bad_args(n_ptrs, 15, n_ints, 11)) return cudaErrorInvalidValue;
+  long long ND = v[0] * v[1];
+  int D = (int)v[1], ring = (int)v[2], L = (int)v[3], uniform = (int)v[4];
+  Strides3 ls = {v[5], v[6], v[7]}, ms = {v[8], v[9], v[10]};
+  long long total = ND * L;
+  if (total == 0) return cudaSuccess;
+  write_kernel<<<mt_blocks(total, kThreads), kThreads, 0,
+                 (cudaStream_t)stream>>>(
+      (u8*)p[0], (int*)p[1], (int*)p[2], (int*)p[3], (int*)p[4],
+      (const u8*)p[5], (const int*)p[6], (const int*)p[7], (const int*)p[8],
+      (const int*)p[9], (const int*)p[10], (const u8*)p[11],
+      (const int*)p[12], (int*)p[13], (int*)p[14], ND, D, ring, L, uniform,
+      ls, ms);
+  return cudaGetLastError();
+}

@@ -1,0 +1,186 @@
+"""Builds, loads and launches the port's hand-written CUDA kernels.
+
+The sources live in `maelstrom_tpu_torch/csrc/*.cu`. At first use each is
+compiled by its own `nvcc` (all started together) for `sm_90a` and linked
+into one shared library with a plain C interface, loaded with `ctypes`.
+The library lands in `maelstrom_tpu_torch/_build/`, named by a hash of the
+sources, so editing a source rebuilds it. Nothing is built or imported at
+module import: the CPU tests import every module of the port.
+
+Every C entry point has one signature,
+
+    int mt_<name>(void* const* ptrs, int n_ptrs,
+                  const long long* ints, int n_ints, void* stream)
+
+taking the tensors' device pointers and the integer arguments in the order
+its source documents, and returns `cudaGetLastError()` after the launch
+(or `cudaErrorInvalidValue` for a wrong argument count).
+
+Dispatch rule for every wrapper (`use_kernel`): tensors on the CPU take the
+plain PyTorch version; tensors on a CUDA device launch the kernel or raise.
+`forced_plain()` runs the plain versions on the card too, so a caller can
+hold a whole run through the kernels against one through the plain
+versions; nothing on the main path enters it."""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import torch
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD = PKG / "_build"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+
+
+class Kernel:
+    """One C entry point of the library, with its launch count."""
+
+    def __init__(self, name: str, source: str, replaces: str):
+        self.name = name            # C symbol is mt_<name>
+        self.source = source        # path in the repo
+        self.replaces = replaces    # file:line of the JAX function
+        self.launches = 0
+
+    def launch(self, tensors, ints, device, strided=()) -> None:
+        """`strided`: those of `tensors` that the kernel indexes through
+        strides passed among `ints`; every other tensor must be
+        contiguous."""
+        for t in tensors:
+            if t.device != device:
+                raise ValueError(f"{self.name}: tensor on {t.device}, "
+                                 f"expected {device}")
+            if not (t.is_contiguous() or any(t is s for s in strided)):
+                raise ValueError(f"{self.name}: non-contiguous tensor")
+        fn = getattr(_library(), f"mt_{self.name}")
+        ptrs = (ctypes.c_void_p * len(tensors))(
+            *[t.data_ptr() for t in tensors])
+        vals = (ctypes.c_longlong * len(ints))(*[int(i) for i in ints])
+        stream = torch.cuda.current_stream(device).cuda_stream
+        with torch.cuda.device(device):
+            err = fn(ptrs, len(tensors), vals, len(ints),
+                     ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError(f"kernel {self.name} failed to launch: "
+                               f"CUDA error {err}")
+        self.launches += 1
+
+
+EDGE_READ = Kernel("edge_read", "maelstrom_tpu_torch/csrc/edge.cu",
+                   "maelstrom_tpu/net/static.py:325")
+EDGE_WRITE = Kernel("edge_write", "maelstrom_tpu_torch/csrc/edge.cu",
+                    "maelstrom_tpu/net/static.py:168")
+BROADCAST_STEP = Kernel("broadcast_step",
+                        "maelstrom_tpu_torch/csrc/broadcast.cu",
+                        "maelstrom_tpu/nodes/broadcast.py:205")
+REPLY_COMPACT = Kernel("reply_compact", "maelstrom_tpu_torch/csrc/compact.cu",
+                       "maelstrom_tpu/sim.py:496")
+KERNELS = (EDGE_READ, EDGE_WRITE, BROADCAST_STEP, REPLY_COMPACT)
+
+_state = {"lib": None, "forced_plain": False}
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.name: k.launches for k in KERNELS}
+
+
+@contextlib.contextmanager
+def forced_plain():
+    """Inside this block CUDA tensors take the plain versions too."""
+    prev = _state["forced_plain"]
+    _state["forced_plain"] = True
+    try:
+        yield
+    finally:
+        _state["forced_plain"] = prev
+
+
+def use_kernel(t: torch.Tensor) -> bool:
+    """True when `t` must go through the kernel, False for the plain
+    version (CPU tensors, or inside `forced_plain`)."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {t.device}")
+    return not _state["forced_plain"]
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
+                           "the machine with the card")
+    return nvcc
+
+
+def build(verbose: bool = False) -> Path:
+    """Compiles every source (one nvcc each, in parallel) and links the
+    library, unless the library for these sources exists. Returns its
+    path."""
+    BUILD.mkdir(exist_ok=True)
+    lib = BUILD / f"libmt_kernels_{_digest()}.so"
+    if lib.exists():
+        return lib
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        def compile_one(src: Path) -> Path:
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *ARCH, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            if verbose:
+                cmd.insert(1, "-Xptxas=-v")
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name}:\n"
+                                   f"{res.stdout}{res.stderr}")
+            if verbose and res.stderr:
+                print(res.stderr, file=sys.stderr, flush=True)
+            return obj
+
+        srcs = sorted(CSRC.glob("*.cu"))
+        with ThreadPoolExecutor(max_workers=len(srcs)) as pool:
+            objs = list(pool.map(compile_one, srcs))
+        part = Path(tmp) / lib.name
+        res = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(part),
+                              *map(str, objs)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{res.stdout}"
+                               f"{res.stderr}")
+        os.replace(part, lib)
+    return lib
+
+
+def _library():
+    if _state["lib"] is None:
+        lib = ctypes.CDLL(str(build()))
+        for k in KERNELS:
+            fn = getattr(lib, f"mt_{k.name}")
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                           ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        _state["lib"] = lib
+    return _state["lib"]

@@ -1,0 +1,256 @@
+"""Static edge channels: the sort-free path for topology traffic.
+
+Counterpart of `maelstrom_tpu/net/static.py`. Message lane j from node n
+to its d-th neighbour always lands in the same inbox slot of that
+neighbour (its reverse-edge index), so delivery is a fixed permutation of
+flat (node, edge) rows. Latency is a small ring of per-edge cells indexed
+by arrival round.
+
+The channels are a mutable buffer here: `edge_read` clears the consumed
+cell and `edge_write` fills cells in place (both also return the
+channels), where the JAX version copies the ring every round. A round
+therefore consumes the channels it is given.
+
+Each function has a hand-written CUDA kernel (`csrc/edge.cu`) and a plain
+PyTorch version; `kernels.use_kernel` picks by the tensors' device."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .. import kernels as K
+from ..tree import Struct
+from .tpu import I32
+
+__all__ = ["EdgeMsgs", "EdgeChannels", "EdgeConfig", "LANE_STRIDE",
+           "make_channels", "reverse_index", "edge_write", "edge_read"]
+
+# send-lane field width of the JAX package's packed `sent` plane; lane
+# counts stay under it
+LANE_STRIDE = 64
+
+
+@dataclass
+class EdgeMsgs(Struct):
+    """Per-edge message lanes: fields shaped [N, D, LANES]."""
+    valid: torch.Tensor
+    type: torch.Tensor
+    a: torch.Tensor
+    b: torch.Tensor
+    c: torch.Tensor
+    # send round of each message in journaled runs (the CLI runner
+    # slice); always None here
+    sent: object = None
+
+    @classmethod
+    def empty(cls, shape, device) -> "EdgeMsgs":
+        def z():
+            return torch.zeros(shape, dtype=I32, device=device)
+        return cls(valid=torch.zeros(shape, dtype=torch.bool, device=device),
+                   type=z(), a=z(), b=z(), c=z())
+
+
+@dataclass
+class EdgeChannels(Struct):
+    """In-flight edge messages: fields shaped [N, D, ring, LANES],
+    indexed by arrival round % ring."""
+    valid: torch.Tensor
+    type: torch.Tensor
+    a: torch.Tensor
+    b: torch.Tensor
+    c: torch.Tensor
+    overwrites: torch.Tensor    # i32 scalar: messages lost to collision
+    lat_clipped: torch.Tensor   # i32 scalar: latency draws clipped to ring
+    sent: object = None         # journaled runs only (see EdgeMsgs.sent)
+
+
+@dataclass(frozen=True)
+class EdgeConfig:
+    """Static shape of the edge exchange (see the JAX package's
+    `EdgeConfig`). `uniform_arrival`: every entry of a round's latency
+    array is equal, and entry 0's arrival cell is used for all."""
+    n_nodes: int
+    degree: int
+    lanes: int
+    ring: int = 2
+    spill: bool = False
+    uniform_arrival: bool = False
+
+
+def _no_spill(cfg: EdgeConfig) -> None:
+    if cfg.spill:
+        raise NotImplementedError(
+            "EdgeConfig.spill (the collision-free write for randomized "
+            "latency) is ported with the fault slice")
+
+
+def make_channels(cfg: EdgeConfig, device,
+                  track_send_round: bool = False) -> EdgeChannels:
+    _no_spill(cfg)
+    if track_send_round:
+        raise NotImplementedError(
+            "track_send_round (journal pairing) is ported with the CLI "
+            "runner slice")
+    shape = (cfg.n_nodes, cfg.degree, cfg.ring, cfg.lanes)
+
+    def z():
+        return torch.zeros(shape, dtype=I32, device=device)
+    return EdgeChannels(valid=torch.zeros(shape, dtype=torch.bool,
+                                          device=device),
+                        type=z(), a=z(), b=z(), c=z(),
+                        overwrites=torch.zeros((), dtype=I32, device=device),
+                        lat_clipped=torch.zeros((), dtype=I32,
+                                                device=device))
+
+
+def reverse_index(neighbors: np.ndarray) -> np.ndarray:
+    """rev[n, d] = e such that neighbors[neighbors[n, d], e] == n; -1 for
+    missing edges. Topologies must be symmetric."""
+    neighbors = np.asarray(neighbors)
+    n, deg = neighbors.shape
+    rev = np.full((n, deg), -1, dtype=np.int32)
+    for i in range(n):
+        for d in range(deg):
+            m = neighbors[i, d]
+            if m < 0:
+                continue
+            back = np.nonzero(neighbors[m] == i)[0]
+            if not back.size:
+                raise ValueError(f"topology not symmetric: {i}->{m}")
+            rev[i, d] = back[0]
+    return rev
+
+
+def _check(name, t, shape, dtype):
+    if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+        raise ValueError(f"{name}: got {tuple(t.shape)} {t.dtype}, "
+                         f"expected {tuple(shape)} {dtype}")
+
+
+def _check_channels(cfg: EdgeConfig, ch: EdgeChannels):
+    shape = (cfg.n_nodes, cfg.degree, cfg.ring, cfg.lanes)
+    _check("channels.valid", ch.valid, shape, torch.bool)
+    for f in ("type", "a", "b", "c"):
+        _check(f"channels.{f}", getattr(ch, f), shape, I32)
+
+
+# --- edge_write -----------------------------------------------------------
+
+def _arrival(cfg: EdgeConfig, latency_rounds, round_):
+    """Arrival cell of every lane: (round + max(clip(lat, 0, ring-1), 1))
+    % ring; under `uniform_arrival` every lane takes entry 0's."""
+    lat = torch.clamp(latency_rounds.clamp(0, cfg.ring - 1), min=1)
+    arrival = torch.remainder(round_ + lat, cfg.ring)
+    if cfg.uniform_arrival:
+        arrival = arrival.reshape(-1)[0].expand(arrival.shape)
+    return arrival
+
+
+def edge_write_plain(cfg: EdgeConfig, ch: EdgeChannels, out: EdgeMsgs,
+                     round_, latency_rounds, deliver_mask) -> EdgeChannels:
+    """Writes each lane where `out.valid & deliver_mask` into its arrival
+    cell, in place, counting writes onto a valid cell (`overwrites`) and
+    clipped latency draws. Every lane owns its (n, d, ., l) column, so
+    the three forms of the JAX version (uniform arrival, ring <= 4,
+    broadcast select) are one gather and one scatter."""
+    ok = out.valid & deliver_mask
+    arr = _arrival(cfg, latency_rounds, round_).long().unsqueeze(2)
+    clipped = (ok & (latency_rounds > cfg.ring - 1)).sum(dtype=I32)
+    cell_valid = torch.gather(ch.valid, 2, arr).squeeze(2)
+    ch.overwrites += (ok & cell_valid).sum(dtype=I32)
+    ch.lat_clipped += clipped
+    for f in ("type", "a", "b", "c"):
+        chf = getattr(ch, f)
+        old = torch.gather(chf, 2, arr).squeeze(2)
+        chf.scatter_(2, arr, torch.where(ok, getattr(out, f),
+                                         old).unsqueeze(2))
+    ch.valid.scatter_(2, arr, (cell_valid | ok).unsqueeze(2))
+    return ch
+
+
+def edge_write(cfg: EdgeConfig, ch: EdgeChannels, out: EdgeMsgs,
+               round_, latency_rounds, deliver_mask) -> EdgeChannels:
+    """Writes this round's outgoing lanes into the rings (in place).
+
+    latency_rounds: i32 [N, D, L] delay in rounds; deliver_mask: bool
+    broadcastable to [N, D, L]; round_: i32 scalar tensor."""
+    _no_spill(cfg)
+    shape = (cfg.n_nodes, cfg.degree, cfg.lanes)
+    _check_channels(cfg, ch)
+    if tuple(out.valid.shape) != shape:
+        raise ValueError(f"edge_write: outbox {tuple(out.valid.shape)} "
+                         f"!= channel lanes {shape}")
+    if not K.use_kernel(ch.valid):
+        return edge_write_plain(cfg, ch, out, round_, latency_rounds,
+                                deliver_mask)
+    # broadcast views, read through their strides (no expanded copy)
+    lat = latency_rounds.to(I32).expand(shape)
+    mask = deliver_mask.to(torch.bool).expand(shape)
+    for name, t, dt in (("valid", out.valid, torch.bool),
+                        ("type", out.type, I32), ("a", out.a, I32),
+                        ("b", out.b, I32), ("c", out.c, I32)):
+        _check(f"out.{name}", t, shape, dt)
+    _check("round", round_, (), I32)
+    K.EDGE_WRITE.launch(
+        [ch.valid, ch.type, ch.a, ch.b, ch.c,
+         out.valid.contiguous(), out.type.contiguous(), out.a.contiguous(),
+         out.b.contiguous(), out.c.contiguous(), lat, mask, round_,
+         ch.overwrites, ch.lat_clipped],
+        [cfg.n_nodes, cfg.degree, cfg.ring, cfg.lanes,
+         int(cfg.uniform_arrival), *lat.stride(), *mask.stride()],
+        ch.valid.device, strided=(lat, mask))
+    return ch
+
+
+# --- edge_read ------------------------------------------------------------
+
+def _route_rows(cfg: EdgeConfig, neighbors, rev):
+    safe_nb = neighbors.clamp(0, cfg.n_nodes - 1)
+    safe_rev = rev.clamp(0, cfg.degree - 1)
+    return (safe_nb * cfg.degree + safe_rev).reshape(-1).long()
+
+
+def edge_read_plain(cfg: EdgeConfig, ch: EdgeChannels, neighbors, rev,
+                    round_):
+    """Reads cell `round % ring` routed to the receiving end of each edge
+    (inbox[m, e] = cell of row (nb[m, e], rev[m, e])), masks missing
+    edges, then clears that cell of every row in place."""
+    N, D, L = cfg.n_nodes, cfg.degree, cfg.lanes
+    s = torch.remainder(round_, cfg.ring).reshape(1).long()
+    flat = _route_rows(cfg, neighbors, rev)
+
+    def route(f):
+        return f.index_select(2, s).reshape(N * D, L)[flat].reshape(N, D, L)
+
+    inbox = EdgeMsgs(valid=route(ch.valid) & (neighbors >= 0)[:, :, None],
+                     type=route(ch.type), a=route(ch.a), b=route(ch.b),
+                     c=route(ch.c))
+    ch.valid.index_fill_(2, s, False)
+    return ch, inbox
+
+
+def edge_read(cfg: EdgeConfig, ch: EdgeChannels, neighbors, rev,
+              round_) -> tuple[EdgeChannels, EdgeMsgs]:
+    """(channels with this round's cell cleared, inbox EdgeMsgs [N, D, L]);
+    inbox slot (m, e) holds what m's e-th neighbour sent it."""
+    _check_channels(cfg, ch)
+    N, D, L = cfg.n_nodes, cfg.degree, cfg.lanes
+    _check("neighbors", neighbors, (N, D), I32)
+    _check("rev", rev, (N, D), I32)
+    if not K.use_kernel(ch.valid):
+        return edge_read_plain(cfg, ch, neighbors, rev, round_)
+    _check("round", round_, (), I32)
+    inbox = EdgeMsgs(
+        valid=torch.empty((N, D, L), dtype=torch.bool,
+                          device=ch.valid.device),
+        **{f: torch.empty((N, D, L), dtype=I32, device=ch.valid.device)
+           for f in ("type", "a", "b", "c")})
+    K.EDGE_READ.launch(
+        [ch.valid, ch.type, ch.a, ch.b, ch.c, neighbors.contiguous(),
+         rev.contiguous(), round_, inbox.valid, inbox.type, inbox.a,
+         inbox.b, inbox.c],
+        [N, D, cfg.ring, L], ch.valid.device)
+    return ch, inbox

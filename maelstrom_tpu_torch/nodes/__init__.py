@@ -1,0 +1,188 @@
+"""Node programs of the port.
+
+Counterpart of `maelstrom_tpu/nodes/__init__.py`: a node program is a
+batched state machine whose per-node state is a dict of tensors with a
+leading node axis, plus the host-boundary contract that keeps the JSON
+protocol as the compatibility surface (`request_for_op`, `encode_body`,
+`decode_body`, `completion`). This slice ports the broadcast program;
+`get_program` names the slice that brings any other.
+
+Type code 0 is reserved (invalid slot), 1 is the shared RPC error reply;
+programs define their own codes from 10 up."""
+
+from __future__ import annotations
+
+import json
+import math
+from typing import Any, Callable
+
+T_INVALID = 0
+T_ERROR = 1     # error reply: a = error code, b = interned text
+
+HOST = "host"   # sentinel: op handled host-side, no message injected
+
+
+class EncodeCapacityError(ValueError):
+    """A static encode capacity (value table, command table) is
+    exhausted; the runner completes the op as a definite fail."""
+
+
+class Intern:
+    """Bidirectional value <-> int32 table for opaque payloads crossing the
+    host/device boundary."""
+
+    def __init__(self):
+        self._fwd: dict[str, int] = {}
+        self._rev: list[Any] = []
+
+    def id(self, value) -> int:
+        key = json.dumps(value, sort_keys=True, default=str)
+        i = self._fwd.get(key)
+        if i is None:
+            i = len(self._rev)
+            self._fwd[key] = i
+            self._rev.append(value)
+        return i
+
+    def peek(self, value):
+        """Existing id for a value, or None, without growing the table."""
+        return self._fwd.get(json.dumps(value, sort_keys=True, default=str))
+
+    def __len__(self):
+        return len(self._rev)
+
+    def value(self, i: int):
+        return self._rev[i]
+
+
+class NodeProgram:
+    """Base class for the port's batched node programs."""
+
+    name = "abstract"
+    inbox_cap = 8
+    outbox_cap = 8
+    needs_state_reads = False
+    # True when every inbox lane is decoded by message type, never by
+    # position (a prerequisite of the spill write)
+    edge_lanes_symmetric = False
+    reply_payload_words = 0
+    durable_keys: tuple | None = None
+
+    def __init__(self, opts: dict, nodes: list[str]):
+        self.opts = opts
+        self.nodes = nodes
+        self.n_nodes = len(nodes)
+
+    def init_state(self):
+        """Per-node state dict, leading axis n_nodes."""
+        raise NotImplementedError
+
+    def request_for_op(self, op: dict):
+        """Generator op -> protocol body dict, or HOST."""
+        raise NotImplementedError
+
+    def node_for_op(self, op: dict):
+        return None
+
+    def encode_body(self, body: dict, intern: Intern):
+        """Protocol body -> (type, a, b, c) words."""
+        raise NotImplementedError
+
+    def decode_body(self, t: int, a: int, b: int, c: int, intern: Intern):
+        """Words -> protocol body dict."""
+        if t == T_ERROR:
+            return {"type": "error", "code": int(a),
+                    "text": intern.value(b) if 0 <= b < len(intern._rev)
+                    else ""}
+        raise ValueError(f"{self.name}: unknown reply type code {t}")
+
+    def completion(self, op: dict, body: dict,
+                   read_state: Callable[[], Any], intern: Intern) -> dict:
+        return {**op, "type": "ok"}
+
+    def reply_payload(self, state, node_idx):
+        raise NotImplementedError
+
+    def completion_payload(self, op: dict, body: dict, payload,
+                           intern: Intern) -> dict:
+        raise NotImplementedError
+
+    def durable_view(self, state):
+        """The persisted subset of `state`; None when all of it is."""
+        if self.durable_keys is None:
+            return None
+        return {k: state[k] for k in self.durable_keys}
+
+
+def edge_timing(opts: dict, n_nodes: int) -> tuple[int, int, int]:
+    """Edge-channel sizing: (ring, retry_rounds, lat_rounds), as the JAX
+    package computes it."""
+    lat = (opts.get("latency") or {}).get("mean", 0)
+    ms_per_round = opts.get("ms_per_round", 1.0)
+    lat_rounds = int(math.ceil(lat / ms_per_round))
+    dist = (opts.get("latency") or {}).get("dist", "constant")
+    slack = 1 if dist == "constant" else 8
+    scale_headroom = int(opts.get("max_latency_scale",
+                                  10 if n_nodes <= 4096 else 1))
+    ring = max(2, lat_rounds * slack * scale_headroom + 2)
+    nm = opts.get("nemesis")
+    if isinstance(nm, (set, frozenset, list, tuple)) and "duplicate" in nm:
+        ring += 2
+    retry_rounds = max(2 * (lat_rounds + 1) + 4, 10)
+    return ring, retry_rounds, lat_rounds
+
+
+def edge_capacity(opts: dict, program) -> tuple[bool, int, bool]:
+    """Spill decision and lane sizing of a program's EdgeConfig:
+    (spill, channel_lanes, uniform_arrival)."""
+    from ..net.static import LANE_STRIDE
+    n = program.n_nodes
+    lanes = program.lanes
+    if lanes > LANE_STRIDE:
+        raise ValueError(
+            f"{program.name}: {lanes} edge lanes exceed LANE_STRIDE")
+    dist = (opts.get("latency") or {}).get("dist", "constant")
+    tolerates = getattr(program, "tolerates_channel_overwrites", False)
+    if dist != "constant" and not tolerates \
+            and not program.edge_lanes_symmetric:
+        raise ValueError(
+            f"{program.name}: randomized latency with no retransmission "
+            f"requires spill-mode channels, which need type-dispatched "
+            f"(symmetric) inbox lanes")
+    spill = (program.edge_lanes_symmetric and dist != "constant"
+             and (n <= 4096 or not tolerates))
+    if spill and n <= 4096:
+        lanes = min(2 * lanes, LANE_STRIDE)
+    return spill, lanes, dist == "constant"
+
+
+PROGRAMS: dict[str, Callable] = {}
+
+# the slice of the port that brings each of the JAX package's other
+# programs
+LATER = {
+    **dict.fromkeys(("echo", "unique-ids", "g-set", "g-counter",
+                     "pn-counter", "kafka", "broadcast-batched"),
+                    "the other node programs"),
+    **dict.fromkeys(("lin-kv", "txn-list-append", "txn-rw-register"),
+                    "raft lin-kv and the cluster axis"),
+    **dict.fromkeys(("compartment", "services", "lin-tso", "seq-kv",
+                     "lww-kv", "ordered", "solo"),
+                    "the role-partitioned programs"),
+}
+
+
+def register(cls):
+    PROGRAMS[cls.name] = cls
+    return cls
+
+
+def get_program(name: str, opts: dict, nodes: list[str],
+                device="cuda") -> NodeProgram:
+    from . import broadcast  # noqa: F401  (registers the program)
+    if name not in PROGRAMS:
+        later = LATER.get(name.split(":")[0], "a later slice")
+        raise ValueError(f"node program {name!r} is not ported to "
+                         f"maelstrom_tpu_torch yet (comes with {later}); "
+                         f"have {sorted(PROGRAMS)}")
+    return PROGRAMS[name](opts, nodes, device=device)

@@ -1,0 +1,69 @@
+"""The port stands alone: every module of `maelstrom_tpu_torch` imports
+with `jax`, `flax` and `maelstrom_tpu` blocked, and its entry points run
+on the CUDA device unless the caller names the CPU."""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from maelstrom_tpu_torch.bench import run_broadcast_bench
+from maelstrom_tpu_torch.net.tpu import NetConfig
+from maelstrom_tpu_torch.nodes import get_program
+from maelstrom_tpu_torch.sim import make_run_fn, make_sim
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+
+GUARD = """
+import ast, pkgutil, sys
+for name in ("jax", "flax", "maelstrom_tpu"):
+    sys.modules[name] = None
+import maelstrom_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(maelstrom_tpu_torch.__path__,
+                                              "maelstrom_tpu_torch.")]
+for m in mods:
+    __import__(m)
+# the chip smoke imports inside its phases: import it, then every module
+# any of its import statements names
+import chip_smoke
+with open(chip_smoke.__file__) as f:
+    tree = ast.parse(f.read())
+for node in ast.walk(tree):
+    if isinstance(node, ast.Import):
+        for alias in node.names:
+            __import__(alias.name)
+    elif isinstance(node, ast.ImportFrom) and node.module != "__future__":
+        __import__(node.module)
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax",
+       "jaxlib", "maelstrom_tpu") and sys.modules[m] is not None]
+assert not bad, bad
+print(len(mods))
+"""
+
+
+def test_port_imports_with_jax_blocked():
+    res = subprocess.run([sys.executable, "-c", GUARD], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) >= 12    # every module was imported
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    # decided inside the test: on a machine with a card this check is
+    # about the default, not about its absence
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    nodes = [f"n{i}" for i in range(4)]
+    opts = {"max_values": 8}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_program("broadcast", opts, nodes)
+    prog = get_program("broadcast", opts, nodes, device="cpu")
+    cfg = NetConfig(n_nodes=4, n_clients=1)
+    for call in (lambda: make_sim(prog, cfg), lambda: make_run_fn(prog, cfg),
+                 lambda: run_broadcast_bench(n_nodes=4, values=2,
+                                             rounds=4)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

@@ -1,0 +1,166 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card, at shapes the chip smoke does not reach: several value windows
+(V 100 and 1024), lines with missing edges, deep rings, wide reply
+buffers. The plain version runs on the CPU from the same numpy inputs.
+Tolerance: exact (int32 and bool).
+
+These tests need a CUDA device and skip without one. They import
+nothing of JAX, so they run on a machine without it:
+
+    python -m pytest tests/test_torch_kernels_gpu.py -m gpu --noconftest
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from maelstrom_tpu_torch import kernels as K
+from maelstrom_tpu_torch.net import static
+from maelstrom_tpu_torch.net.tpu import Msgs
+from maelstrom_tpu_torch.nodes import get_program
+from maelstrom_tpu_torch.sim import compact_replies
+from maelstrom_tpu_torch.tree import leaves, to, tree_map
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU form)")
+    return torch.device("cuda")
+
+
+def _equal(got, ref):
+    if isinstance(got, tuple):
+        assert len(got) == len(ref)
+        for g, r in zip(got, ref):
+            _equal(g, r)
+        return
+    gl, rl = leaves(got), leaves(ref)
+    assert [p for p, _ in gl] == [p for p, _ in rl]
+    for (p, g), (_q, r) in zip(gl, rl):
+        np.testing.assert_array_equal(g.cpu().numpy(), r.cpu().numpy(),
+                                      err_msg=p)
+
+
+def _tensors(d, device):
+    return {k: torch.tensor(v, device=device) for k, v in d.items()}
+
+
+@pytest.mark.parametrize("topo,n,ring,uniform,views",
+                         [("grid", 50, 2, True, False),
+                          ("line", 9, 3, False, False),
+                          ("tree3", 40, 8, False, False),
+                          ("line", 33, 5, True, False),
+                          ("grid", 50, 2, True, True),
+                          ("tree3", 40, 4, False, True)])
+def test_edge_kernels_match_plain(cuda, topo, n, ring, uniform, views):
+    """`views`: latency and deliver mask come as broadcast views, as the
+    round passes them (a scalar or [N, 1, L] latency, an [N, D, 1]
+    mask), and the kernel reads them through their strides."""
+    rng = np.random.default_rng(n * ring)
+    prog = get_program("broadcast", {"topology": topo, "max_values": 8},
+                       [f"n{i}" for i in range(n)], device="cpu")
+    D, L = prog.D, 3
+    cfg = static.EdgeConfig(n_nodes=n, degree=D, lanes=L, ring=ring,
+                            uniform_arrival=uniform)
+    shape = (n, D, ring, L)
+    ch = {"valid": rng.random(shape) < 0.4,
+          **{f: rng.integers(-99, 99, shape, dtype=np.int32)
+             for f in ("type", "a", "b", "c")},
+          "overwrites": np.int32(3), "lat_clipped": np.int32(1)}
+    out = {"valid": rng.random((n, D, L)) < 0.6,
+           **{f: rng.integers(-99, 99, (n, D, L), dtype=np.int32)
+              for f in ("type", "a", "b", "c")}}
+    lat_shape = ((() if uniform else (n, 1, L)) if views else (n, D, L))
+    lat = rng.integers(0, ring + 2, lat_shape, dtype=np.int32)
+    mask = rng.random((n, D, 1) if views else (n, D, L)) < 0.8
+    rnd = np.int32(rng.integers(0, 40))
+    results = []
+    for dev in ("cpu", cuda):
+        c = static.EdgeChannels(**_tensors(ch, dev))
+        c = static.edge_write(cfg, c, static.EdgeMsgs(**_tensors(out, dev)),
+                              torch.tensor(rnd, device=dev),
+                              torch.tensor(lat, device=dev).expand(n, D, L),
+                              torch.tensor(mask, device=dev).expand(n, D, L))
+        c, inbox = static.edge_read(cfg, c, prog.neighbors.to(dev),
+                                    prog.rev.to(dev),
+                                    torch.tensor(rnd + 1, device=dev))
+        results.append((c, inbox))
+    torch.cuda.synchronize()
+    _equal(results[1], results[0])
+
+
+@pytest.mark.parametrize("V", [32, 100, 1024])
+@pytest.mark.parametrize("mode", [{}, {"eager_resend": True},
+                                  {"naive_broadcast": True},
+                                  {"naive_broadcast": True,
+                                   "skip_sender": False}])
+@pytest.mark.parametrize("per_nb", [1, 4])
+def test_broadcast_step_matches_plain(cuda, V, mode, per_nb):
+    rng = np.random.default_rng(V + per_nb)
+    nodes = [f"n{i}" for i in range(45)]
+    opts = {"topology": "grid", "max_values": V,
+            "gossip_per_neighbor": per_nb, **mode}
+    progs = {d: get_program("broadcast", opts, nodes, device=d)
+             for d in ("cpu", "cuda")}
+    p = progs["cpu"]
+    N, D, W, L, Kc = p.n_nodes, p.D, p.n_windows, p.edge_cfg.lanes, 4
+    state = {"seen": rng.random((N, V)) < 0.3,
+             "owed": rng.random((N, D, W)) < 0.3,
+             **{k: rng.random((N, D, V)) < 0.2
+                for k in ("pending", "inflight", "inflight_old")}}
+    etype = rng.choice(np.array([14, 14, 15, 0], np.int32), (N, D, L))
+    edge_in = {"valid": rng.random((N, D, L)) < 0.6, "type": etype,
+               "a": np.where(etype == 15, rng.integers(0, W + 1, (N, D, L)),
+                             rng.integers(-2, V + 3, (N, D, L))
+                             ).astype(np.int32),
+               **{f: rng.integers(-2**31, 2**31, (N, D, L), dtype=np.int64
+                                  ).astype(np.int32) for f in ("b", "c")}}
+    client = {"valid": rng.random((N, Kc)) < 0.5,
+              "type": rng.choice(np.array([10, 12, 0], np.int32), (N, Kc)),
+              "a": rng.integers(-1, V + 2, (N, Kc), dtype=np.int32),
+              **{f: rng.integers(-5, 999, (N, Kc), dtype=np.int32)
+                 for f in ("src", "dest", "due", "mid", "reply_to", "b",
+                           "c")}}
+    for rnd in (p.retry_rounds * 2, p.retry_rounds * 2 + 3):
+        out = {}
+        for d, prog in progs.items():
+            out[d] = prog.edge_step(
+                _tensors(state, d),
+                static.EdgeMsgs(**_tensors(edge_in, d)),
+                Msgs(**_tensors(client, d)),
+                {"round": torch.tensor(rnd, dtype=torch.int32, device=d)})
+        torch.cuda.synchronize()
+        for g, r in zip(out["cuda"], out["cpu"]):
+            _equal(g, r)
+
+
+@pytest.mark.parametrize("NK,K_,CC,p_valid",
+                         [(400, 4, 2, 0.01), (400, 4, 64, 0.05),
+                          (5000, 5, 3000, 0.5), (3000, 3, 10, 0.0),
+                          (64, 4, 100, 0.9)])
+def test_reply_compact_matches_plain(cuda, NK, K_, CC, p_valid):
+    rng = np.random.default_rng(NK + CC)
+    flat = {"valid": rng.random(NK) < p_valid,
+            **{f: rng.integers(-9, 999, NK, dtype=np.int32)
+               for f in ("src", "dest", "due", "mid", "reply_to", "type",
+                         "a", "b", "c")}}
+    res = {d: compact_replies(Msgs(**_tensors(flat, d)), K_, CC,
+                              torch.tensor(77, dtype=torch.int32, device=d))
+           for d in ("cpu", cuda)}
+    torch.cuda.synchronize()
+    for g, r in zip(res[cuda], res["cpu"]):
+        _equal(g, r)
+
+
+def test_kernels_launch_on_cuda_tensors(cuda):
+    before = K.launch_counts()
+    flat = tree_map(lambda f: f.reshape(-1), Msgs.empty((8, 4), "cpu"))
+    compact_replies(to(flat, cuda), 4, 2,
+                    torch.tensor(0, dtype=torch.int32, device=cuda))
+    assert K.launch_counts()["reply_compact"] == \
+        before["reply_compact"] + 1

@@ -1,0 +1,120 @@
+"""The port's edge exchange (`maelstrom_tpu_torch/net/static.py`, kernels
+K1 edge_read and K2 edge_write) against the JAX package's, on random
+channel states, outboxes, masks and latencies. Tolerance: exact."""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from maelstrom_tpu.net import static as JS
+from maelstrom_tpu.workloads.broadcast import TOPOLOGIES, topology_indices
+from maelstrom_tpu_torch.net import static as PS
+from test_torch_support import assert_trees_equal, jax_tree_to_numpy
+
+LANES = 3
+
+# (ring, uniform_arrival, topology, n_nodes): uniform arrival takes one
+# latency a round; ring 3 is the JAX version's ring <= 4 form and ring 8
+# its broadcast-select form, with a latency for each lane; the line has
+# missing edges (its end nodes have degree 1 of 2)
+CASES = [(2, True, "grid", 16), (6, True, "grid", 14), (3, False, "grid", 9),
+         (8, False, "grid", 12), (4, True, "line", 7), (8, False, "line", 6)]
+
+
+def _topology(name, n):
+    nodes = [f"n{i}" for i in range(n)]
+    nb = topology_indices(TOPOLOGIES[name](nodes), nodes)
+    return nb, JS.reverse_index(nb)
+
+
+def _random_inputs(seed, ring, uniform, topo, n):
+    rng = np.random.default_rng(seed)
+    nb, rev = _topology(topo, n)
+    D = nb.shape[1]
+    shape = (n, D, ring, LANES)
+    ch = {"valid": rng.random(shape) < 0.4,
+          **{f: rng.integers(-50, 50, shape, dtype=np.int32)
+             for f in ("type", "a", "b", "c")},
+          "overwrites": np.int32(rng.integers(0, 9)),
+          "lat_clipped": np.int32(rng.integers(0, 9))}
+    oshape = (n, D, LANES)
+    out = {"valid": rng.random(oshape) < 0.6,
+           **{f: rng.integers(-1000, 1000, oshape, dtype=np.int32)
+              for f in ("type", "a", "b", "c")}}
+    if uniform:
+        lat = np.full(oshape, rng.integers(0, ring + 2), dtype=np.int32)
+    else:
+        lat = rng.integers(0, ring + 2, oshape, dtype=np.int32)
+    mask = rng.random(oshape) < 0.8
+    rnd = int(rng.integers(0, 50))
+    return nb, rev, ch, out, lat, mask, rnd
+
+
+def _configs(ring, uniform, nb):
+    n, D = nb.shape
+    kw = dict(n_nodes=n, degree=D, lanes=LANES, ring=ring,
+              uniform_arrival=uniform)
+    return JS.EdgeConfig(**kw), PS.EdgeConfig(**kw)
+
+
+def _jax_channels(ch):
+    return JS.EdgeChannels(**{k: jnp.asarray(v) for k, v in ch.items()})
+
+
+def _torch_channels(ch):
+    return PS.EdgeChannels(**{k: torch.tensor(np.asarray(v))
+                              for k, v in ch.items()})
+
+
+@pytest.mark.parametrize("ring,uniform,topo,n", CASES)
+def test_edge_write_matches_jax(ring, uniform, topo, n):
+    nb, rev, ch, out, lat, mask, rnd = _random_inputs(ring * 31 + n, ring,
+                                                      uniform, topo, n)
+    jcfg, pcfg = _configs(ring, uniform, nb)
+    ref = JS.edge_write(
+        jcfg, _jax_channels(ch),
+        JS.EdgeMsgs(**{k: jnp.asarray(v) for k, v in out.items()}),
+        jnp.int32(rnd), jnp.asarray(lat), jnp.asarray(mask))
+    got = PS.edge_write(
+        pcfg, _torch_channels(ch),
+        PS.EdgeMsgs(**{k: torch.tensor(v) for k, v in out.items()}),
+        torch.tensor(rnd, dtype=torch.int32), torch.tensor(lat),
+        torch.tensor(mask))
+    ref_np = jax_tree_to_numpy(ref)
+    assert_trees_equal(ref_np, jax_tree_to_numpy(got))
+    assert int(got.overwrites) > int(ch["overwrites"])   # collisions hit
+
+
+@pytest.mark.parametrize("ring,uniform,topo,n", CASES)
+def test_edge_read_matches_jax(ring, uniform, topo, n):
+    nb, rev, ch, _out, _lat, _mask, rnd = _random_inputs(ring * 17 + n, ring,
+                                                         uniform, topo, n)
+    jcfg, pcfg = _configs(ring, uniform, nb)
+    ref_ch, ref_in = JS.edge_read(jcfg, _jax_channels(ch), jnp.asarray(nb),
+                                  jnp.asarray(rev), jnp.int32(rnd))
+    got_ch, got_in = PS.edge_read(pcfg, _torch_channels(ch),
+                                  torch.tensor(nb), torch.tensor(rev),
+                                  torch.tensor(rnd, dtype=torch.int32))
+    for ref, got in ((ref_ch, got_ch), (ref_in, got_in)):
+        ref_np = jax_tree_to_numpy(ref)
+        assert_trees_equal(ref_np, jax_tree_to_numpy(got))
+    if topo == "line":
+        assert (nb < 0).any()
+
+
+def test_spill_and_send_round_tracking_are_refused():
+    cfg = PS.EdgeConfig(n_nodes=4, degree=2, lanes=2, spill=True)
+    with pytest.raises(NotImplementedError, match="spill"):
+        PS.make_channels(cfg, "cpu")
+    cfg = PS.EdgeConfig(n_nodes=4, degree=2, lanes=2)
+    with pytest.raises(NotImplementedError, match="track_send_round"):
+        PS.make_channels(cfg, "cpu", track_send_round=True)
+
+
+def test_reverse_index_matches_jax():
+    for topo, n in (("grid", 10), ("line", 5), ("tree3", 13), ("total", 5)):
+        nb, rev = _topology(topo, n)
+        np.testing.assert_array_equal(PS.reverse_index(nb), rev)
