@@ -8,10 +8,15 @@ Run from the root of the repository on a machine with one CUDA card:
 It builds the port's CUDA kernels from `maelstrom_tpu_torch/csrc`, holds
 each kernel against its plain PyTorch version on the card (exact equality:
 they compute on int32 and bool), drives the 1024-node graft path through
-the kernels and through the plain versions, and runs the broadcast bench
+the kernels and through the plain versions, runs the broadcast bench
 (`maelstrom_tpu_torch.bench.run_broadcast_bench`) at 16,384 nodes against
-the JAX reference's message counts and at 100,000 nodes, the main path.
-Every phase prints one JSON line; any failed check exits non-zero. The
+the JAX reference's message counts and at 100,000 nodes (slice 1's main
+path), then the port's CLI (`python -m maelstrom_tpu_torch test`): small
+runs whose history.jsonl must hash to the JAX runner's (`PINNED_CLI`),
+and the 100,000-node broadcast test at the CLI's defaults, this slice's
+main path. Every phase prints one JSON line; any failed check exits
+non-zero. The line before the last lists every kernel with its launches
+on the main path, its time, its plain version's time and its bound; the
 last line is `{"ok": true, "device": {...}}`.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
@@ -131,17 +136,17 @@ def phase_build():
           "library": os.path.relpath(lib, ROOT)})
 
 
-def _program(n, V, per_nb, eager=False, naive=False):
+def _program(n, V, per_nb, eager=False, naive=False, latency=0):
     from maelstrom_tpu_torch.nodes import get_program
     return get_program("broadcast",
                        {"topology": "grid", "max_values": V,
                         "gossip_per_neighbor": per_nb,
-                        "latency": {"mean": 0}, "eager_resend": eager,
+                        "latency": {"mean": latency}, "eager_resend": eager,
                         "naive_broadcast": naive},
                        [f"n{i}" for i in range(n)], device="cuda")
 
 
-def _random_channels(g, cfg):
+def _random_channels(g, cfg, sent=False):
     import torch
     from maelstrom_tpu_torch.net.static import EdgeChannels
     shape = (cfg.n_nodes, cfg.degree, cfg.ring, cfg.lanes)
@@ -153,7 +158,8 @@ def _random_channels(g, cfg):
         valid=torch.rand(shape, generator=g, device="cuda") < 0.4,
         type=ints(), a=ints(), b=ints(), c=ints(),
         overwrites=torch.zeros((), dtype=torch.int32, device="cuda"),
-        lat_clipped=torch.zeros((), dtype=torch.int32, device="cuda"))
+        lat_clipped=torch.zeros((), dtype=torch.int32, device="cuda"),
+        sent=ints() if sent else None)
 
 
 def _random_edge_msgs(g, shape, V, W):
@@ -174,7 +180,7 @@ def _random_edge_msgs(g, shape, V, W):
                     type=typ, a=a, b=word(), c=word())
 
 
-def _random_client(g, N, K, V):
+def _random_client(g, N, K, V, p_valid=0.01):
     import torch
     from maelstrom_tpu_torch.net.tpu import Msgs
 
@@ -183,16 +189,18 @@ def _random_client(g, N, K, V):
                              dtype=torch.int32)
     typ = torch.tensor([10, 10, 12, 0], dtype=torch.int32, device="cuda")[
         torch.randint(0, 4, (N, K), generator=g, device="cuda")]
-    return Msgs(valid=torch.rand((N, K), generator=g, device="cuda") < 0.01,
+    return Msgs(valid=torch.rand((N, K), generator=g, device="cuda")
+                < p_valid,
                 src=ints(N, N + 1), dest=ints(0, N), due=ints(0, 99),
                 mid=ints(0, 9999), reply_to=ints(-1, 0), type=typ,
                 a=ints(-1, V + 2), b=ints(0, 9), c=ints(0, 9))
 
 
-def kernel_checks(shape_name, n, V, per_nb, timed):
-    """Each kernel against its plain version on random inputs at one
-    shape; returns {kernel: {max_abs_err, ms, plain_ms, bound_ms}} (times
-    only when `timed`)."""
+def kernel_checks(shape_name, n, V, per_nb, timed, cc=2, p_client=0.01):
+    """K1-K4 against their plain versions on random inputs at one shape
+    (client requests in a node's inbox with probability `p_client`, K4
+    compacting into `cc` slots); returns {kernel: {max_abs_err, ms,
+    plain_ms, bound_ms}} (times only when `timed`)."""
     import torch
     from maelstrom_tpu_torch import sim as S
     from maelstrom_tpu_torch.net import static
@@ -275,7 +283,7 @@ def kernel_checks(shape_name, n, V, per_nb, timed):
                  **{k: torch.rand((N, D, V), generator=g, device="cuda") < .2
                     for k in ("pending", "inflight", "inflight_old")}}
         ein = _random_edge_msgs(g, (N, D, Lp), V, W)
-        cin = _random_client(g, N, Kc, V)
+        cin = _random_client(g, N, Kc, V, p_client)
         ctx = {"round": rnd}
         for rr in (p.retry_rounds * 3, p.retry_rounds * 3 + 1):
             rnd_t = torch.tensor(rr, dtype=torch.int32, device="cuda")
@@ -306,8 +314,9 @@ def kernel_checks(shape_name, n, V, per_nb, timed):
                    lambda: p.edge_step_plain(state, ein, cin, rnd),
                    io_bytes)
 
-    # K4 reply compaction: a sparse round (the main path's) and a dense one
-    CC = 2
+    # K4 reply compaction: a dense round and a sparse one (the main
+    # path's); timed on the last
+    CC = cc
     for p_valid in (0.5, 3.0 / (N * Kc)):
         flat = tree_map(lambda f: f.reshape(N * Kc),
                         _random_client(g, N, Kc, V))
@@ -328,19 +337,173 @@ def kernel_checks(shape_name, n, V, per_nb, timed):
     return out
 
 
-BENCH_SHAPE = ("bench", 100_000, 64, 1)   # name, nodes, values, per_nb
-GRAFT_SHAPE = ("graft", 1024, 32, 4)
+def edge_sent_checks(n=4096, latency=5):
+    """K1 and K2 with the `sent` plane tracked, at the ring depth a
+    5 ms-latency cluster of up to 4096 nodes gets (10 * 5 + 2 = 52):
+    the uniform-arrival form the round calls, with the latency's scalar
+    broadcast, and the per-lane form. Exactness only (the journaled path
+    runs on clusters of 64 nodes or fewer)."""
+    import torch
+    from maelstrom_tpu_torch.net import static
+    g = torch.Generator(device="cuda")
+    g.manual_seed(52)
+    prog = _program(n, 64, 4, latency=latency)
+    cfg = prog.edge_cfg
+    check(cfg.ring == 52 and cfg.uniform_arrival,
+          f"the {latency} ms program's channels are {cfg}, not ring 52")
+    N, D, L = n, prog.D, cfg.lanes
+    rnd = torch.tensor(123, dtype=torch.int32, device="cuda")
+    err = 0
+    ch = _random_channels(g, cfg, sent=True)
+    ck, cp = clone(ch), clone(ch)
+    ck, ink = static.edge_read(cfg, ck, prog.neighbors, prog.rev, rnd)
+    cp, inp = static.edge_read_plain(cfg, cp, prog.neighbors, prog.rev, rnd)
+    torch.cuda.synchronize()
+    check(ink.sent is not None, "edge_read dropped the sent plane")
+    err = max(err, max_abs_err(ck, cp), max_abs_err(ink, inp))
+    per_lane = static.EdgeConfig(n_nodes=N, degree=D, lanes=L, ring=52)
+    for wcfg, lat in (
+            (cfg, torch.full((), latency, dtype=torch.int32,
+                             device="cuda").expand(N, D, L)),
+            (per_lane, torch.randint(0, 60, (N, D, L), generator=g,
+                                     device="cuda", dtype=torch.int32))):
+        ch = _random_channels(g, wcfg, sent=True)
+        eo = _random_edge_msgs(g, (N, D, L), 64, 1)
+        mask = (torch.rand((N, D, 1), generator=g, device="cuda")
+                < 0.9).expand(N, D, L)
+        ck, cp = clone(ch), clone(ch)
+        static.edge_write(wcfg, ck, eo, rnd, lat, mask)
+        static.edge_write_plain(wcfg, cp, eo, rnd, lat, mask)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(ck, cp))
+    check(err == 0, f"edge_read / edge_write with the sent plane at ring "
+          f"52 differ from their plain versions (max abs err {err})")
+    return {"nodes": n, "ring": cfg.ring, "lanes": L, "max_abs_err": err}
 
 
-def phase_kernels(shapes, timed):
+def scan_kernel_checks(timed):
+    """K5 reply_log_append and K6 quiet_probe against their plain
+    versions at the 100,000-node CLI run's shapes: client messages CW =
+    400,000 (the pool's 200,000 client rows and the 200,000 compacted
+    replies), a log of rcap = 800,000 rows with W = 32 payload words of
+    a [100,000, 1024] seen plane; the quiescence planes of the flight
+    pool (800,000), the channels ([100,000, 4, 2, 5]) and the program
+    (3 x [100,000, 4, 1024]). Returns {kernel: {max_abs_err, ms,
+    plain_ms, bound_ms}} (times only when `timed`), K5 timed on a round
+    with a handful of replies (the main path's common round) and K6 on
+    a quiet state (it reads every byte)."""
+    import torch
+    from maelstrom_tpu_torch import sim as S
+    from maelstrom_tpu_torch.net.tpu import Msgs
+    from maelstrom_tpu_torch.runner.tpu_runner import (quiet_probe,
+                                                       quiet_probe_plain)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(400_000)
+    N, V, W, CW = 100_000, 1024, 32, 400_000
+    rcap = 2 * CW
+    seen = torch.rand((N, V), generator=g, device="cuda") < 0.5
+    rnd = torch.tensor(4321, dtype=torch.int32, device="cuda")
+    out = {}
+
+    def cm_of(p_valid):
+        def ints(lo, hi):
+            return torch.randint(lo, hi, (CW,), generator=g, device="cuda",
+                                 dtype=torch.int32)
+        return Msgs(valid=torch.rand(CW, generator=g, device="cuda")
+                    < p_valid, src=ints(-5, N + 5), dest=ints(N, 2 * N),
+                    due=ints(0, 999), mid=ints(0, 1 << 30),
+                    reply_to=ints(-1, 1 << 30), type=ints(0, 20),
+                    a=ints(-9, 9), b=ints(-2**31, 2**31 - 1),
+                    c=ints(-2**31, 2**31 - 1))
+
+    def fresh(rn0):
+        log = S.empty_reply_log(rcap, W, "cuda")
+        return log[:3] + (torch.tensor(rn0, dtype=torch.int32,
+                                       device="cuda"),)
+
+    err = 0
+    # the final reads' round (100,000 of 400,000 valid), one past the
+    # log's end (rows dropped), and the common sparse round
+    for p_valid, rn0, k, k_max, stop in ((0.25, 0, 3, 9, True),
+                                         (0.25, 700_000, 5, 9, False),
+                                         (5.0 / CW, 1234, 9, 9, False)):
+        cm = cm_of(p_valid)
+        logs, exits, rns = [], [], []
+        for fn in (S.append_replies, S.append_replies_plain):
+            log = fresh(rn0)
+            ek = torch.full((), 2**31 - 1, dtype=torch.int32, device="cuda")
+            rns.append(fn(log, cm, seen, N, rnd, k, k_max, stop, ek))
+            logs.append(log[:3])
+            exits.append(ek)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(logs[0], logs[1]),
+                  max_abs_err(rns[0], rns[1]),
+                  max_abs_err(exits[0], exits[1]))
+    check(err == 0, f"reply_log_append differs from its plain version "
+          f"(max abs err {err})")
+    n_valid = int(cm.valid.sum())
+    r = {"max_abs_err": err,
+         # cm's valid bytes, then for each valid row its 9 int fields
+         # read, its log row written (1 + 9 * 4 + 4 stamp + 4 W payload)
+         # and its seen row read
+         "bound_ms": bound_ms(CW + n_valid * (36 + 41 + 4 * W + V)),
+         "valid_rows": n_valid}
+    if timed:
+        log, ek = fresh(1234), torch.zeros((), dtype=torch.int32,
+                                           device="cuda")
+        r["ms"] = cuda_ms(lambda: S.append_replies(
+            log, cm, seen, N, rnd, 9, 9, False, ek))
+        r["plain_ms"] = cuda_ms(lambda: S.append_replies_plain(
+            log, cm, seen, N, rnd, 9, 9, False, ek))
+    out["reply_log_append"] = r
+
+    planes = [torch.zeros(800_000, dtype=torch.bool, device="cuda"),
+              torch.zeros((N, 4, 2, 5), dtype=torch.bool, device="cuda")] + [
+        torch.zeros((N, 4, V), dtype=torch.bool, device="cuda")
+        for _ in range(3)]
+    err = 0
+    for i, p in enumerate(planes):
+        for at in (0, p.numel() // 3 + 7, p.numel() - 1):
+            p.view(-1)[at] = True
+            got, ref = quiet_probe(planes), quiet_probe_plain(planes)
+            torch.cuda.synchronize()
+            err = max(err, int(got) != int(ref), int(got) != 0)
+            p.view(-1)[at] = False
+    got, ref = quiet_probe(planes), quiet_probe_plain(planes)
+    torch.cuda.synchronize()
+    err = max(err, int(got) != int(ref), int(got) != 1)
+    check(err == 0, "quiet_probe differs from its plain version")
+    r = {"max_abs_err": err, "bound_ms": bound_ms(nbytes(*planes))}
+    if timed:
+        r["ms"] = cuda_ms(lambda: quiet_probe(planes))
+        r["plain_ms"] = cuda_ms(lambda: quiet_probe_plain(planes))
+    out["quiet_probe"] = r
+    return out
+
+
+# name, nodes, values, gossip per neighbour, K4 slots, client density
+BENCH_SHAPE = ("bench", 100_000, 64, 1, 2, 0.01)
+GRAFT_SHAPE = ("graft", 1024, 32, 4, 2, 0.01)
+# the 100,000-node CLI run at its defaults: 1024 values, 4 gossip lanes,
+# client_cap 200,000; the final reads put a request in every node's
+# inbox
+CLI_SHAPE = ("cli100k", 100_000, 1024, 4, 200_000, 0.5)
+
+
+def phase_kernels(shapes, timed, with_scan=False):
     res = {}
-    for shape_name, n, V, per_nb in shapes:
+    for shape_name, n, V, per_nb, cc, p_client in shapes:
         t0 = time.perf_counter()
-        r = kernel_checks(shape_name, n, V, per_nb, timed)
-        emit({"phase": "kernels_vs_plain", "shape": shape_name,
-              "nodes": n, "values": V, "gossip_per_neighbor": per_nb,
-              "timed": timed, "seconds": time.perf_counter() - t0,
-              "kernels": r})
+        r = kernel_checks(shape_name, n, V, per_nb, timed, cc, p_client)
+        if with_scan and shape_name == "cli100k":
+            r.update(scan_kernel_checks(timed))
+        line = {"phase": "kernels_vs_plain", "shape": shape_name,
+                "nodes": n, "values": V, "gossip_per_neighbor": per_nb,
+                "client_slots": cc, "timed": timed,
+                "seconds": time.perf_counter() - t0, "kernels": r}
+        if not timed and shape_name == "graft":
+            line["edge_sent"] = edge_sent_checks()
+        emit(line)
         res[shape_name] = r
     return res
 
@@ -373,7 +536,7 @@ def phase_graft():
     before = K.launch_counts()
     sim_k, msgs_k = run_fn(make_sim(prog, cfg, seed=3), plan)
     torch.cuda.synchronize()
-    grew = {k: K.launch_counts()[k] - before[k] for k in before}
+    grew = {k: K.launch_counts()[k] - before[k] for k in ROUND_KERNELS}
     with K.forced_plain():
         flat_before = K.launch_counts()
         sim_p, msgs_p = run_fn(make_sim(prog, cfg, seed=3), plan)
@@ -398,7 +561,7 @@ def phase_graft():
         check(np.array_equal(mk[k][mk["valid"]], mp[k][mk["valid"]]),
               f"graft replies: {k} differs")
     check(all(v > 0 for v in grew.values()),
-          f"graft path did not launch every kernel: {grew}")
+          f"graft path did not launch every round kernel: {grew}")
     emit({"phase": "graft_path", "nodes": N, "values": V, "rounds": R,
           "equal": True, "launches": grew,
           "replies": int(mk["valid"].sum()),
@@ -441,8 +604,9 @@ def phase_bench_16k(smi):
 
 
 def phase_main_path(smi):
-    """The main path: the 100,000-node bench in both modes, with every
-    launch counter set to 0 just before and read just after."""
+    """Slice 1's main path: the 100,000-node bench in both modes, with
+    every launch counter set to 0 just before and read just after; it
+    runs the round's kernels K1-K4."""
     from maelstrom_tpu_torch import kernels as K
     from maelstrom_tpu_torch.bench import run_broadcast_bench
     K.reset_launches()
@@ -450,11 +614,229 @@ def phase_main_path(smi):
                               gossip=1, pool=8192, eager=True, seed=1)
     launches = K.launch_counts()
     _bench_checks(rec)
-    check(all(v > 0 for v in launches.values()),
-          f"the main path did not launch every kernel: {launches}")
+    check(all(launches[k] > 0 for k in ROUND_KERNELS),
+          f"the bench did not launch every round kernel: {launches}")
     emit({"phase": "bench_100k", **_bench_line(rec, smi,
                                                {"launches": launches})})
     return launches
+
+
+# the round's kernels (K1-K4); the CLI runner adds K5 and K6
+ROUND_KERNELS = ("edge_read", "edge_write", "broadcast_step",
+                 "reply_compact")
+
+# The port's CLI on the three parity configurations of
+# tests/test_torch_runner.py (the e2e tests' grid and line runs, the
+# README's tree4 run without its nemesis), here at the default 1024-value
+# table, and a 1024-node run (64 values, to keep its JAX reference short
+# on the CPU) whose client_cap (2048) fills the kernels' 4096-row client
+# batches
+CLI_BASE = ["test", "-w", "broadcast", "--node", "tpu:broadcast", "--seed",
+            "7", "--rate", "20"]
+CLI_SMALL = [
+    ("grid5", CLI_BASE + ["--node-count", "5", "--topology", "grid",
+                          "--time-limit", "2"]),
+    ("line8-latency5", CLI_BASE + ["--node-count", "8", "--topology",
+                                   "line", "--latency", "5",
+                                   "--time-limit", "2"]),
+    ("tree4-25-latency10", CLI_BASE + ["--node-count", "25", "--topology",
+                                       "tree4", "--latency", "10",
+                                       "--time-limit", "1"]),
+    ("grid1024", CLI_BASE + ["--node-count", "1024", "--topology", "grid",
+                             "--time-limit", "1", "--max-values", "64"]),
+]
+# sha256 of the JAX runner's history.jsonl for each run above, on the
+# CPU (`python -m maelstrom_tpu <args> --no-audit`); re-derived by
+#   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_runner.py -m slow
+PINNED_CLI = {
+    "grid5": "4b105b08385de9acbf1fb2f8b57e09dcb8acbaf8fe5320f7627f7f0861b19234",
+    "line8-latency5":
+        "2329871b340d02b4da10feb9461e24e0e8036f4cdbb4cbc1bcf4015c8f871601",
+    "tree4-25-latency10":
+        "631347a029cbc7d046645531e9c91b64d854c99726752f17eeccc12b2e1f01f3",
+    "grid1024":
+        "b17b0e79bc5d4953987642fcafb199d01831370097b255b5b26919fb661755d7",
+}
+
+# The slice's full-width run: the README's 100,000-node broadcast at the
+# CLI's defaults (grid, latency 0, rate 5, time limit 10 s, recovery
+# 10 s, concurrency = node count: client_cap 200,000, pool 800,000), on
+# one card. CLI_100K_TIME_LIMIT cuts its time limit only if the smoke
+# outgrows its own (None: not cut).
+CLI_100K = ["test", "-w", "broadcast", "--node", "tpu:broadcast",
+            "--node-count", "100000"]
+CLI_100K_TIME_LIMIT = None
+
+
+def _cli_run(args, store):
+    """The port's CLI in this process (its prints go to stderr); returns
+    (exit code, store dir, results, timing, history bytes, wall s)."""
+    import contextlib
+    import hashlib
+    from maelstrom_tpu_torch import cli
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        rc = cli.main(args + ["--store", store])
+    wall = time.perf_counter() - t0
+    d = os.path.realpath(os.path.join(store, "latest"))
+    with open(os.path.join(d, "results.json")) as f:
+        results = json.load(f)
+    with open(os.path.join(d, "timing.json")) as f:
+        timing = json.load(f)
+    with open(os.path.join(d, "history.jsonl"), "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    return rc, d, results, timing, digest, wall
+
+
+def _cli_checks(name, rc, results, timing):
+    check(rc == 0 and results["valid"] is True,
+          f"cli {name}: exit {rc}, valid {results.get('valid')}")
+    check(results["net"]["dropped-overflow"] == 0,
+          f"cli {name}: pool overflow")
+    check(timing["drains"] < timing["final-round"] / 4,
+          f"cli {name}: {timing['drains']} host drains for "
+          f"{timing['final-round']} rounds")
+
+
+def phase_cli_small():
+    """The port's CLI through the kernels on the pinned runs: each
+    history.jsonl must hash to the JAX runner's."""
+    import shutil
+    from maelstrom_tpu_torch import kernels as K
+    store = os.path.join(ROOT, "store", "chip_smoke")
+    shutil.rmtree(store, ignore_errors=True)
+    K.reset_launches()
+    runs = {}
+    for name, args in CLI_SMALL:
+        rc, _d, res, tm, digest, wall = _cli_run(args, store)
+        _cli_checks(name, rc, res, tm)
+        check(digest == PINNED_CLI[name],
+              f"cli {name}: history.jsonl sha256 {digest}, the JAX "
+              f"runner's {PINNED_CLI[name]}")
+        runs[name] = {"wall_s": wall, "final_round": tm["final-round"],
+                      "rounds_executed": tm["rounds-executed"],
+                      "dispatches": tm["dispatches"], "drains": tm["drains"],
+                      "history_sha256_equal": True}
+    launches = K.launch_counts()
+    check(all(v > 0 for v in launches.values()),
+          f"cli_small did not launch every kernel: {launches}")
+    emit({"phase": "cli_small", "runs": runs, "launches": launches})
+
+
+def phase_cli_100k(smi):
+    """The slice's main path: the 100,000-node CLI run, with every launch
+    counter set to 0 just before and read just after."""
+    import shutil
+    from maelstrom_tpu_torch import kernels as K
+    store = os.path.join(ROOT, "store", "chip_smoke_100k")
+    shutil.rmtree(store, ignore_errors=True)
+    args = list(CLI_100K)
+    reduced = None
+    if CLI_100K_TIME_LIMIT is not None:
+        args += ["--time-limit", str(CLI_100K_TIME_LIMIT)]
+        reduced = {"time_limit_s": CLI_100K_TIME_LIMIT, "from": 10.0}
+    K.reset_launches()
+    rc, d, res, tm, _digest, wall = _cli_run(args, store)
+    launches = K.launch_counts()
+    _cli_checks("100k", rc, res, tm)
+    check(res["workload"]["valid"] is True and res["workload"][
+        "lost-count"] == 0, f"cli 100k: workload {res['workload']}")
+    check(all(v > 0 for v in launches.values()),
+          f"the 100,000-node CLI run did not launch every kernel: "
+          f"{launches}")
+    delivered = res["net"]["all"]["recv-count"]
+    host_s = (tm["poll-s"] + tm["replies-s"] + tm["journal-s"]
+              + tm["check-s"] + tm["store-s"])
+    emit({"phase": "cli_100k", "args": args, "reduced": reduced,
+          "valid": res["valid"], "wall_s": wall,
+          "scan_s": tm["scan-s"], "drain_s": tm["drain-s"],
+          "quiet_s": tm["quiet-s"], "host_s": host_s,
+          "generator_s": tm["poll-s"], "replies_s": tm["replies-s"],
+          "check_s": tm["check-s"], "store_s": tm["store-s"],
+          "final_round": tm["final-round"],
+          "rounds_executed": tm["rounds-executed"],
+          "rounds_bumped": tm["rounds-bumped"],
+          "ms_per_executed_round": 1e3 * tm["scan-s"]
+          / max(tm["rounds-executed"], 1),
+          "dispatches": tm["dispatches"], "drains": tm["drains"],
+          "quiet_probes": tm["quiet-probes"], "bumps": tm["bumps"],
+          "scan_host_syncs": tm["scan-host-syncs"],
+          "scan_replayed_rounds": tm["scan-replayed-rounds"],
+          "history_ops": tm["history-ops"],
+          "messages_delivered": delivered,
+          "msgs_per_sec": delivered / wall,
+          "dropped_overflow": res["net"]["dropped-overflow"],
+          "stable_latencies": res["workload"]["stable-latencies"],
+          "stable_count": res["workload"]["stable-count"],
+          "launches": launches, "nvidia_smi": smi})
+    shutil.rmtree(store, ignore_errors=True)
+    return launches
+
+
+def phase_cli_profile():
+    """Device busy time of the 100,000-node CLI run's scan rounds: the
+    runner's own program, config and scan fn (reply log, CC 200,000,
+    pool 800,000), 50 broadcasts injected, 200 rounds untraced so gossip
+    is in flight, then 40 rounds timed on the host clock and 40 traced
+    with torch.profiler. Idle share = 1 - busy / host ms a round. Also
+    times the runner's two torch-op helpers at this shape: the bump
+    (round += k) and the packer (the dispatch's log and next_mid
+    concatenated for one copy to the host), each against the bytes it
+    must move."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from maelstrom_tpu_torch import core
+    from maelstrom_tpu_torch.nodes.broadcast import T_BCAST
+    from maelstrom_tpu_torch.runner.tpu_runner import TpuRunner
+    from maelstrom_tpu_torch.sim import make_scan_fn
+    from maelstrom_tpu_torch.tree import leaves
+    test = core.build_test({"workload": "broadcast",
+                            "node": "tpu:broadcast",
+                            "node_count": 100_000, "journal_rows": False})
+    runner = TpuRunner(test)
+    prog, cfg = runner.program, runner.cfg
+    scan = make_scan_fn(prog, cfg, reply_cap=runner.reply_log_cap,
+                        device=runner.device)
+    rows = [(p, {}, (p * 2654435761) % cfg.n_nodes, T_BCAST, p, 0, 0)
+            for p in range(50)]
+    inject = runner._encode_inject(rows)
+    empty = runner._encode_inject([])
+    sim, _cm, _k, log = scan(runner.sim, inject, 200, False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim = scan(sim, empty, 40, False)[0]
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0) / 40
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sim = scan(sim, empty, 40, False)[0]
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in evs) / 1e3 / 40
+    check(busy_ms > 0, "cli profile: the trace holds no device time")
+    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:12]
+    runner.sim = sim
+    tree = ((), log, sim.net.next_mid)
+    pack, _unpack = runner._make_packer(tree)
+    packed_bytes = nbytes(pack(tree))
+    helpers = {
+        "bump": {"ms": cuda_ms(lambda: runner._bump(1)),
+                 "bound_ms": bound_ms(8)},
+        "packer": {"ms": cuda_ms(lambda: pack(tree)),
+                   # every leaf read once, the packed array written once
+                   "bound_ms": bound_ms(nbytes(*[t for _p, t in
+                                                 leaves(tree)])
+                                        + packed_bytes),
+                   "packed_bytes": packed_bytes}}
+    emit({"phase": "cli_profile", "rounds": 40,
+          "host_ms_per_round": host_ms,
+          "device_busy_ms_per_round": busy_ms,
+          "device_idle_share": max(0.0, 1 - busy_ms / host_ms),
+          "top": [{"name": e.key[:60],
+                   "ms_per_round": e.self_device_time_total / 1e3 / 40,
+                   "calls_per_round": e.count / 40} for e in top],
+          "helpers": helpers})
 
 
 def main() -> int:
@@ -471,21 +853,26 @@ def main() -> int:
 
     smi = phase_device()
     phase_build()
-    checks = phase_kernels([BENCH_SHAPE, GRAFT_SHAPE], timed=False)
+    checks = phase_kernels([BENCH_SHAPE, GRAFT_SHAPE, CLI_SHAPE],
+                           timed=False, with_scan=True)
     phase_graft()
     phase_bench_16k(smi)
-    launches = phase_main_path(smi)
-    # kernel times last: the profiler they are read from stays out of
-    # the bench phases' wall-clock timing
-    bench = phase_kernels([BENCH_SHAPE], timed=True)["bench"]
+    phase_main_path(smi)
+    phase_cli_small()
+    launches = phase_cli_100k(smi)
+    # profiles and kernel times last: the profiler they are read from
+    # stays out of the runs' wall-clock timing
+    phase_cli_profile()
+    phase_kernels([BENCH_SHAPE], timed=True)
+    cli = phase_kernels([CLI_SHAPE], timed=True, with_scan=True)["cli100k"]
 
     emit({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": launches[k.name],
          "max_abs_err": max(r[k.name]["max_abs_err"] for r in
-                            (checks["bench"], checks["graft"], bench)),
-         "ms": bench[k.name]["ms"], "plain_ms": bench[k.name]["plain_ms"],
-         "bound_ms": bench[k.name]["bound_ms"], "bound_by": "bytes",
+                            (*checks.values(), cli) if k.name in r),
+         "ms": cli[k.name]["ms"], "plain_ms": cli[k.name]["plain_ms"],
+         "bound_ms": cli[k.name]["bound_ms"], "bound_by": "bytes",
          "library_ms": None} for k in K.KERNELS]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,13 @@
 """maelstrom_tpu_torch: the PyTorch / CUDA port of maelstrom_tpu.
 
 The JAX package `maelstrom_tpu` stays the reference; this package imports
-nothing of it, nor JAX. This slice ports the single-cluster broadcast
-round on the static edge channels (`sim.make_sim`, `sim.make_run_fn`,
-`bench.run_broadcast_bench`), with hand-written CUDA kernels for the edge
-exchange, the gossip step and the reply compaction (`csrc/`,
-`kernels/`). Entry points run on the CUDA device unless the caller passes
-`device="cpu"`, where the kernels' plain PyTorch versions run."""
+nothing of it, nor JAX. Slice 1 ports the single-cluster broadcast round
+on the static edge channels (`sim.make_sim`, `sim.make_run_fn`,
+`bench.run_broadcast_bench`); slice 2 the scan-ahead (`sim.make_scan_fn`)
+and the CLI runner (`python -m maelstrom_tpu_torch test -w broadcast`,
+`runner.tpu_runner.run_tpu_test`), with copies of the host modules the
+runner needs. Hand-written CUDA kernels (`csrc/`, `kernels/`) carry the
+edge exchange, the gossip step, the reply compaction, the scan's reply
+log and the quiescence probe. Entry points run on the CUDA device unless
+the caller passes `device="cpu"` (`--device cpu`), where the kernels'
+plain PyTorch versions run."""

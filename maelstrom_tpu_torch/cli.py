@@ -1,0 +1,263 @@
+"""The command line: `python -m maelstrom_tpu_torch test ...`.
+
+Counterpart of the `test` subcommand of `maelstrom_tpu/cli.py`, with its
+option names and defaults. This slice runs the broadcast workload on the
+built-in program (`--node tpu:broadcast`) on one card, or on the CPU
+with `--device cpu`. Every other option of the JAX CLI is recognised and
+refused unless it holds its default, with an error that names the slice
+of the port that brings it (`OUT_OF_SCOPE`).
+
+    python -m maelstrom_tpu_torch test -w broadcast --node tpu:broadcast \\
+        --node-count 25 --topology tree4 --latency 10 [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+
+WORKLOADS = ["broadcast", "broadcast-batched", "echo", "g-set", "g-counter",
+             "pn-counter", "lin-kv", "lin-mutex", "lin-tso",
+             "txn-list-append", "unique-ids", "kafka", "txn-rw-register"]
+
+# (option, refused when, the slice of the port that brings it)
+OUT_OF_SCOPE = [
+    ("--bin", lambda v: v is not None,
+     "the host-process path (external node binaries)"),
+    ("--workload", lambda v: v != "broadcast", "the other node programs"),
+    ("--nemesis", lambda v: bool(v.strip(" ,")), "the fault slice"),
+    ("--nemesis-targets", lambda v: v is not None, "the fault slice"),
+    ("--nemesis-seed", lambda v: v is not None, "the fault slice"),
+    ("--latency-dist", lambda v: v != "constant", "the PRNG slice"),
+    ("--p-loss", lambda v: v > 0, "the fault slice"),
+    ("--latency-scale", lambda v: v != 1.0, "the fault slice"),
+    ("--client-retries", lambda v: v > 0, "retries and backoff"),
+    ("--continuous", bool, "continuous mode"),
+    ("--continuous-window-ms", lambda v: v is not None, "continuous mode"),
+    ("--fleet", lambda v: v is not None and v > 1, "mesh and fleet"),
+    ("--fleet-sweep", lambda v: v is not None, "mesh and fleet"),
+    ("--mesh", lambda v: v is not None, "mesh and fleet"),
+    ("--sessions", lambda v: v == "columnar", "mesh and fleet"),
+    ("--checkpoint-every", lambda v: v is not None,
+     "checkpoint and resume"),
+    ("--resume", lambda v: v is not None, "checkpoint and resume"),
+    ("--sync-checkpoint", bool, "checkpoint and resume"),
+    ("--telemetry", lambda v: v is not None and v != "off",
+     "telemetry rings"),
+    ("--check-workers", lambda v: v is not None and v > 0,
+     "the overlap pipeline"),
+    ("--device-checker", lambda v: v == "on", "device Elle"),
+    ("--byz-rate", lambda v: v != 1.0, "the byzantine adversary"),
+    ("--byz-attacks", lambda v: v is not None, "the byzantine adversary"),
+    ("--ordering", lambda v: v is not None, "the role-partitioned programs"),
+    ("--roles", lambda v: v is not None, "the role-partitioned programs"),
+    ("--service-roles", lambda v: v is not None,
+     "the role-partitioned programs"),
+    ("--election-timeout-rounds", lambda v: v is not None,
+     "the role-partitioned programs"),
+    ("--ballot-width", lambda v: v is not None,
+     "the role-partitioned programs"),
+    ("--compartment-retry", lambda v: v is not None,
+     "the role-partitioned programs"),
+    ("--leader-lease-ms", lambda v: v is not None,
+     "the role-partitioned programs"),
+    ("--kafka-groups", lambda v: v is not None, "the other node programs"),
+    ("--session-timeout-ms", lambda v: v is not None,
+     "the other node programs"),
+    ("--poll-batch", lambda v: v is not None, "the other node programs"),
+    ("--batch-max", lambda v: v is not None, "the other node programs"),
+]
+
+
+class ScopeError(ValueError):
+    """An option this slice of the port does not run."""
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="maelstrom_tpu_torch",
+        description="The PyTorch / CUDA port of maelstrom_tpu.")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    t = sub.add_parser("test", help="Run a single test")
+    t.add_argument("--node", help="Built-in node program: tpu:broadcast")
+    t.add_argument("-w", "--workload", default="lin-kv", choices=WORKLOADS,
+                   help="What workload to run (this slice: broadcast)")
+    t.add_argument("--device", default="cuda",
+                   help="cuda (the default) or cpu: the kernels' plain "
+                        "PyTorch versions on the CPU")
+    t.add_argument("--node-count", type=int,
+                   help="How many nodes to run. Overrides --nodes.")
+    t.add_argument("--nodes", help="Comma-separated node names")
+    t.add_argument("--rate", type=float, default=5.0,
+                   help="Approximate number of requests/sec")
+    t.add_argument("--time-limit", type=float, default=10.0,
+                   help="Test duration in seconds")
+    t.add_argument("--concurrency", type=int,
+                   help="Number of client workers")
+    t.add_argument("--latency", type=float, default=0,
+                   help="Mean network latency in ms")
+    t.add_argument("--topology", default="grid",
+                   choices=["line", "grid", "tree", "tree2", "tree3",
+                            "tree4", "total"],
+                   help="Network topology offered to broadcast nodes")
+    t.add_argument("--max-values", type=int,
+                   help="Broadcast value-table capacity (default 1024)")
+    t.add_argument("--nemesis-interval", type=float, default=10.0,
+                   help="Seconds between nemesis operations")
+    t.add_argument("--client-backoff-ms", type=float, default=50.0)
+    t.add_argument("--client-backoff-cap-ms", type=float, default=2000.0)
+    t.add_argument("--key-count", type=int)
+    t.add_argument("--max-txn-length", type=int, default=4)
+    t.add_argument("--max-writes-per-key", type=int, default=16)
+    t.add_argument("--consistency-models", default="strict-serializable")
+    t.add_argument("--log-stderr", action="store_true")
+    t.add_argument("--log-net-send", action="store_true")
+    t.add_argument("--log-net-recv", action="store_true")
+    t.add_argument("--seed", type=int, default=0, help="PRNG seed")
+    t.add_argument("--store", default="store", help="Store directory root")
+    t.add_argument("--max-scan", type=int,
+                   help="Upper bound on rounds per scan dispatch "
+                        "(default 65536)")
+    t.add_argument("--journal-scan-cap", type=int,
+                   help="Journal rows buffered on the device per "
+                        "dispatch on journaled runs (default 256)")
+    t.add_argument("--reply-log-cap", type=int,
+                   help="Client replies buffered on the device per "
+                        "dispatch (default 256)")
+    t.add_argument("--timeout-ms", type=float, default=None,
+                   help="Client RPC timeout in virtual ms (default 5000)")
+    t.add_argument("--ms-per-round", type=float, default=1.0,
+                   help="Virtual milliseconds per simulation round")
+    t.add_argument("--no-audit", action="store_true",
+                   help="Accepted for compatibility: the static-audit "
+                        "block is not ported, so results never carry it")
+    t.add_argument("--no-overlap", action="store_true",
+                   help="Accepted for compatibility: the overlapped "
+                        "analysis pipeline is not ported")
+    t.add_argument("--on-preempt", choices=["checkpoint", "abort"],
+                   default="checkpoint",
+                   help="Accepted for compatibility: without checkpoints "
+                        "a signal ends the run")
+    # the JAX CLI's options this slice refuses unless at their default
+    t.add_argument("--bin")
+    t.add_argument("--latency-dist", default="constant",
+                   choices=["constant", "uniform", "exponential"])
+    t.add_argument("--p-loss", type=float, default=0.0)
+    t.add_argument("--latency-scale", type=float, default=1.0)
+    t.add_argument("--nemesis", default="")
+    t.add_argument("--nemesis-targets")
+    t.add_argument("--nemesis-seed", type=int)
+    t.add_argument("--client-retries", type=int, default=0)
+    t.add_argument("--continuous", action="store_true")
+    t.add_argument("--continuous-window-ms", type=float)
+    t.add_argument("--fleet", type=int)
+    t.add_argument("--fleet-sweep", choices=["seed", "nemesis", "capacity"])
+    t.add_argument("--mesh")
+    t.add_argument("--sessions", choices=["coroutine", "columnar"])
+    t.add_argument("--checkpoint-every", type=float)
+    t.add_argument("--resume")
+    t.add_argument("--sync-checkpoint", action="store_true")
+    t.add_argument("--telemetry", nargs="?", const="auto", default=None)
+    t.add_argument("--check-workers", type=int)
+    t.add_argument("--device-checker", choices=["auto", "on", "off"])
+    t.add_argument("--byz-rate", type=float, default=1.0)
+    t.add_argument("--byz-attacks")
+    t.add_argument("--ordering", choices=["raft", "compartment", "batched"])
+    t.add_argument("--roles")
+    t.add_argument("--service-roles")
+    t.add_argument("--election-timeout-rounds", type=int)
+    t.add_argument("--ballot-width", type=int)
+    t.add_argument("--compartment-retry", type=int)
+    t.add_argument("--leader-lease-ms", type=float)
+    t.add_argument("--kafka-groups", type=int)
+    t.add_argument("--session-timeout-ms", type=float)
+    t.add_argument("--poll-batch", type=int)
+    t.add_argument("--batch-max", type=int)
+    return p
+
+
+def check_scope(args) -> None:
+    """Raises ScopeError naming the first option this slice refuses."""
+    for flag, refused, slice_ in OUT_OF_SCOPE:
+        value = getattr(args, flag.lstrip("-").replace("-", "_"))
+        if refused(value):
+            raise ScopeError(f"{flag} {value!r}: maelstrom_tpu_torch does "
+                             f"not run it yet; it comes with {slice_}")
+    if args.node != "tpu:broadcast":
+        raise ScopeError(f"--node {args.node!r}: this slice runs "
+                         f"--node tpu:broadcast (other programs come with "
+                         f"the other node programs)")
+
+
+def opts_from_args(args) -> dict:
+    check_scope(args)
+    opts = {
+        "workload": args.workload,
+        "bin": None,
+        "node": args.node,
+        "device": args.device,
+        "node_count": args.node_count,
+        "nodes": args.nodes.split(",") if isinstance(args.nodes, str)
+        else None,
+        "rate": args.rate,
+        "time_limit": args.time_limit,
+        "concurrency": args.concurrency,
+        "latency": {"mean": args.latency, "dist": args.latency_dist},
+        "p_loss": args.p_loss,
+        "latency_scale": args.latency_scale,
+        "continuous": False,
+        "nemesis": set(),
+        "nemesis_interval": args.nemesis_interval,
+        "client_retries": args.client_retries,
+        "client_backoff_ms": args.client_backoff_ms,
+        "client_backoff_cap_ms": args.client_backoff_cap_ms,
+        "topology": args.topology,
+        "key_count": args.key_count,
+        "max_txn_length": args.max_txn_length,
+        "max_writes_per_key": args.max_writes_per_key,
+        "consistency_models": [m.strip() for m in
+                               args.consistency_models.split(",")
+                               if m.strip()],
+        "log_stderr": args.log_stderr,
+        "log_net_send": args.log_net_send,
+        "log_net_recv": args.log_net_recv,
+        "seed": args.seed,
+        "store_root": args.store,
+        "ms_per_round": args.ms_per_round,
+        "checkpoint_every": None,
+        "resume": None,
+        "sync_checkpoint": False,
+        "on_preempt": args.on_preempt,
+        "no_overlap": args.no_overlap,
+        "audit": False,
+        "audit_trace": False,
+    }
+    # performance knobs: only forwarded when given, so the runner's own
+    # defaults stay in one place
+    for k in ("max_scan", "journal_scan_cap", "reply_log_cap",
+              "max_values", "timeout_ms"):
+        v = getattr(args, k, None)
+        if v is not None:
+            opts[k] = v
+    return opts
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(levelname)s [%(name)s] %(message)s")
+    args = build_parser().parse_args(argv)
+    if args.cmd == "test":
+        from . import core
+        try:
+            results = core.run(opts_from_args(args))
+        except (ValueError, NotImplementedError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        valid = results.get("valid")
+        print("\nEverything looks good! ヽ(‘ー`)ノ" if valid is True else
+              ("\nValidity unknown (;￣ー￣)" if valid == "unknown" else
+               "\nAnalysis invalid! (ﾉಥ益ಥ)ﾉ ┻━┻"))
+        return 0 if valid is True else (2 if valid == "unknown" else 1)
+    return 1

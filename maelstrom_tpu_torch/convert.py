@@ -18,9 +18,12 @@ from .tree import from_numpy, resolve_device, to_numpy
 
 def state_from_numpy(tree: dict, program, cfg, device="cuda") -> SimState:
     """The port's SimState holding the arrays of `tree` (every leaf must
-    match the shape of the port's own fresh state)."""
+    match the shape of the port's own fresh state; channels carrying a
+    `sent` plane give a state that tracks it)."""
     dev = resolve_device(device)
-    template = make_sim(program, cfg, device=dev)
+    track = (tree.get("channels") or {}).get("sent") is not None
+    template = make_sim(program, cfg, device=dev,
+                        track_edge_send_round=track)
     return from_numpy(template, tree, dev)
 
 

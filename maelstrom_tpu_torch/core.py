@@ -1,0 +1,133 @@
+"""Test composition and execution: the maelstrom-test equivalent.
+
+Counterpart of `maelstrom_tpu/core.py` for the parts this slice runs:
+`DEFAULTS`, `parse_nodes`, and the built-in-program branch of
+`build_test` (generator phases, the composed checker suite), without the
+host network and external node processes. `run` makes the store dir,
+attaches the network journal and the run log, and hands the test to
+`runner.tpu_runner.run_tpu_test`."""
+
+from __future__ import annotations
+
+import logging
+import os
+
+from . import generators as g
+from . import nemesis as nem
+from . import store
+from .checkers import Compose, Stats, UnhandledExceptions
+from .checkers.perf import PerfChecker, TimelineChecker
+from .net.journal import Journal
+from .tree import resolve_device
+
+log = logging.getLogger("maelstrom")
+
+# The JAX package's option defaults, key for key (test.json stores the
+# keys of this dict). The CLI refuses non-default values of the options
+# this slice does not port.
+DEFAULTS = dict(
+    workload="lin-kv", node_count=None, nodes=None, rate=5.0,
+    time_limit=10.0, concurrency=None, latency={"mean": 0,
+                                                "dist": "constant"},
+    nemesis=set(), nemesis_interval=10.0, topology="grid",
+    key_count=None, max_txn_length=4, max_writes_per_key=16,
+    consistency_models=["strict-serializable"], log_stderr=False,
+    log_net_send=False, log_net_recv=False, seed=0, store_root="store",
+    client_retries=0, client_backoff_ms=50.0, client_backoff_cap_ms=2000.0,
+    mesh=None, check_workers=None, no_overlap=False,
+    device_checker="auto",
+    checkpoint_every=None, resume=None, sync_checkpoint=False,
+    on_preempt="checkpoint",
+    audit=True, audit_trace=False,
+    fleet=1, fleet_sweep="seed", nemesis_seed=None,
+    p_loss=None, latency_scale=1.0,
+    continuous=False, continuous_window_ms=250.0,
+    kafka_groups=0, session_timeout_ms=2500.0, poll_batch=8,
+    batch_max=16, batch_dup_rate=0.25,
+    telemetry=None,
+    roles=None, service_roles=None, nemesis_targets=None,
+    byz_rate=1.0, byz_attacks=None,
+    election_timeout_rounds=60, ballot_width=6,
+    availability_dip_rounds=None,
+    leader_lease_ms=None,
+    ordering=None,
+    sessions=None,
+)
+
+
+def parse_nodes(opts: dict) -> list[str]:
+    """--node-count N overrides --nodes, generating n0..n(N-1)
+    (reference `core.clj:197-204`)."""
+    if opts.get("node_count"):
+        return [f"n{i}" for i in range(opts["node_count"])]
+    if opts.get("nodes"):
+        return opts["nodes"]
+    return ["n0", "n1", "n2", "n3", "n4"]
+
+
+def build_test(opts: dict) -> dict:
+    opts = {**DEFAULTS, **opts}
+    nodes = parse_nodes(opts)
+    opts["nodes"] = nodes
+    if not opts.get("concurrency"):
+        opts["concurrency"] = len(nodes)
+    name = opts.get("name") or str(opts["workload"])
+    if opts["workload"] != "broadcast":
+        raise NotImplementedError(
+            f"workload {opts['workload']!r} is ported with the other node "
+            f"programs")
+    from .workloads.broadcast import workload as broadcast_workload
+    workload = broadcast_workload(opts)
+    # the empty fault set only (anything else raises): no nemesis
+    # generator to run beside the clients, no faults to heal
+    nem.package(set(opts["nemesis"]), interval_s=opts["nemesis_interval"])
+
+    # Generator composition (reference core.clj:58-71)
+    rate = opts["rate"]
+    if rate > 0:
+        main = g.stagger(1.0 / rate, workload["generator"])
+    else:
+        main = g.sleep(opts["time_limit"])
+    main = g.time_limit(opts["time_limit"], g.clients(main))
+    # Final phases (reference core.clj:66-71): the recovery window and
+    # the final reads
+    main = g.phases(main, g.Log("Waiting for recovery..."),
+                    g.sleep(opts.get("recovery_s", 10)),
+                    g.clients(workload["final_generator"]))
+
+    checker = Compose({
+        "perf": PerfChecker(),
+        "timeline": TimelineChecker(),
+        "exceptions": UnhandledExceptions(),
+        "stats": Stats(),
+        "net": None,        # the runner's device-counter net stats
+        "workload": workload["checker"],
+    })
+    return {**opts, "name": name, "generator": main, "checker": checker}
+
+
+def run(opts: dict) -> dict:
+    """Runs a complete test: build, drive, check, store. Returns the
+    results map (with "valid")."""
+    test = build_test(opts)
+    node_spec = str(test.get("node") or "")
+    if not node_spec.startswith("tpu:"):
+        raise NotImplementedError(
+            "external node binaries (--bin) run on the host network, "
+            "which is not ported; use --node tpu:<program>")
+    resolve_device(test.get("device") or "cuda")  # before the store dir
+    test_dir = store.make_test_dir(test["store_root"], test["name"])
+    test["store_dir"] = test_dir
+    test["journal"] = Journal(dir=os.path.join(test_dir, "net-journal"))
+    # persist the console log alongside the results (the reference's
+    # jepsen.log, doc/results.md:17)
+    log_handler = logging.FileHandler(os.path.join(test_dir, "run.log"))
+    log_handler.setFormatter(logging.Formatter(
+        "%(asctime)s %(levelname)s [%(name)s] %(message)s"))
+    logging.getLogger().addHandler(log_handler)
+    try:
+        from .runner.tpu_runner import run_tpu_test
+        return run_tpu_test(test, test_dir)
+    finally:
+        logging.getLogger().removeHandler(log_handler)
+        log_handler.close()

@@ -25,9 +25,17 @@
 // latency and the deliver mask are read through their strides: on the
 // round's path they are a broadcast scalar and an [N, D] mask, and an
 // expanded copy of them would move more bytes than the write itself.
+//
+// The `sent` plane (journaled runs only): K2 writes round * LANE_STRIDE +
+// lane into each lane it writes (maelstrom_tpu/net/static.py:192-197) and
+// K1 routes the plane with the other fields (:363). Both take it as an
+// optional pointer; when it is null the test is one uniform branch and
+// the bench path moves no more bytes than without it.
 #include "common.cuh"
 
 namespace {
+
+constexpr int kLaneStride = 64;  // net/static.py LANE_STRIDE
 
 // element strides of an [N, D, L] view; 0 where it is broadcast
 struct Strides3 {
@@ -44,8 +52,10 @@ __global__ void route_kernel(const u8* __restrict__ valid,
                              const int* __restrict__ round_ptr,
                              u8* __restrict__ o_valid, int* __restrict__ o_type,
                              int* __restrict__ o_a, int* __restrict__ o_b,
-                             int* __restrict__ o_c, int N, int D, int ring,
-                             int L) {
+                             int* __restrict__ o_c,
+                             const int* __restrict__ sent,
+                             int* __restrict__ o_sent, int N, int D,
+                             int ring, int L) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   long long total = (long long)N * D * L;
   if (i >= total) return;
@@ -61,6 +71,7 @@ __global__ void route_kernel(const u8* __restrict__ valid,
   o_a[i] = a[src];
   o_b[i] = b[src];
   o_c[i] = c[src];
+  if (sent) o_sent[i] = sent[src];
 }
 
 __global__ void clear_kernel(u8* __restrict__ valid,
@@ -84,7 +95,8 @@ __global__ void write_kernel(u8* __restrict__ cv, int* __restrict__ ct,
                              const u8* __restrict__ mask,
                              const int* __restrict__ round_ptr,
                              int* __restrict__ overwrites,
-                             int* __restrict__ lat_clipped, long long ND,
+                             int* __restrict__ lat_clipped,
+                             int* __restrict__ cs, long long ND,
                              int D, int ring, int L, int uniform,
                              Strides3 ls, Strides3 ms) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -108,6 +120,7 @@ __global__ void write_kernel(u8* __restrict__ cv, int* __restrict__ ct,
       ca[dst] = oa[i];
       cb[dst] = ob[i];
       cc[dst] = oc[i];
+      if (cs) cs[dst] = *round_ptr * kLaneStride + l;
     }
   }
   int n_ow = __syncthreads_count(ow);
@@ -123,11 +136,14 @@ constexpr int kThreads = 256;
 }  // namespace
 
 // ptrs: ch.valid, ch.type, ch.a, ch.b, ch.c, neighbors, rev, round,
-//       inbox.valid, inbox.type, inbox.a, inbox.b, inbox.c
+//       inbox.valid, inbox.type, inbox.a, inbox.b, inbox.c, ch.sent,
+//       inbox.sent (the last two both null or both set)
 // ints: N, D, ring, L
 MT_API int mt_edge_read(void* const* p, int n_ptrs, const long long* v,
                         int n_ints, void* stream) {
-  if (mt_bad_args(n_ptrs, 13, n_ints, 4)) return cudaErrorInvalidValue;
+  if (mt_bad_args(n_ptrs, 15, n_ints, 4) || (p[13] == nullptr) !=
+      (p[14] == nullptr))
+    return cudaErrorInvalidValue;
   int N = (int)v[0], D = (int)v[1], ring = (int)v[2], L = (int)v[3];
   long long total = (long long)N * D * L;
   if (total == 0) return cudaSuccess;
@@ -136,7 +152,7 @@ MT_API int mt_edge_read(void* const* p, int n_ptrs, const long long* v,
       (const u8*)p[0], (const int*)p[1], (const int*)p[2], (const int*)p[3],
       (const int*)p[4], (const int*)p[5], (const int*)p[6],
       (const int*)p[7], (u8*)p[8], (int*)p[9], (int*)p[10], (int*)p[11],
-      (int*)p[12], N, D, ring, L);
+      (int*)p[12], (const int*)p[13], (int*)p[14], N, D, ring, L);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   clear_kernel<<<mt_blocks(total, kThreads), kThreads, 0, st>>>(
@@ -153,7 +169,7 @@ MT_API int mt_edge_read(void* const* p, int n_ptrs, const long long* v,
 //       place, not expanded)
 MT_API int mt_edge_write(void* const* p, int n_ptrs, const long long* v,
                          int n_ints, void* stream) {
-  if (mt_bad_args(n_ptrs, 15, n_ints, 11)) return cudaErrorInvalidValue;
+  if (mt_bad_args(n_ptrs, 16, n_ints, 11)) return cudaErrorInvalidValue;
   long long ND = v[0] * v[1];
   int D = (int)v[1], ring = (int)v[2], L = (int)v[3], uniform = (int)v[4];
   Strides3 ls = {v[5], v[6], v[7]}, ms = {v[8], v[9], v[10]};
@@ -164,7 +180,7 @@ MT_API int mt_edge_write(void* const* p, int n_ptrs, const long long* v,
       (u8*)p[0], (int*)p[1], (int*)p[2], (int*)p[3], (int*)p[4],
       (const u8*)p[5], (const int*)p[6], (const int*)p[7], (const int*)p[8],
       (const int*)p[9], (const int*)p[10], (const u8*)p[11],
-      (const int*)p[12], (int*)p[13], (int*)p[14], ND, D, ring, L, uniform,
-      ls, ms);
+      (const int*)p[12], (int*)p[13], (int*)p[14], (int*)p[15], ND, D, ring,
+      L, uniform, ls, ms);
   return cudaGetLastError();
 }

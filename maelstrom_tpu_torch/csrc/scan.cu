@@ -1,0 +1,256 @@
+// K5 reply_log_append and K6 quiet_probe: the device half of the scan-ahead
+// loop and of the runner's quiescence probe.
+//
+// K5 replaces append_replies in maelstrom_tpu/sim.py:_build_scan_fn
+// (:821-837, with BroadcastProgram.reply_payload and _pack_seen_words,
+// maelstrom_tpu/nodes/broadcast.py:338-351) and the scan's exit condition
+// `cond` (:839-845). One launch (two past 4096 rows) takes a round's
+// client messages cm [CW] and
+//   - writes each valid row's ten Msgs fields at rn + (valid rows before
+//     it) of the reply log [rcap], dropping positions >= rcap as JAX's
+//     mode="drop" scatter does;
+//   - writes the row's round stamp (the post-round counter, read on the
+//     device) and its payload: the W = n_windows * 2 words packing
+//     seen[clip(src, 0, N - 1)], 32 values a word, low bit first, bit 31
+//     kept as the sign as JAX's int32 sums keep it;
+//   - writes rn + (every valid row) into rn_out, and the scan's exit
+//     flag: go = k < k_max & ~(stop & any valid) & rn_out + CW <= rcap;
+//     where go fails, exit_k takes k unless an earlier round already set
+//     it. The host reads exit_k once a chunk of rounds.
+// JAX gathers a payload for all CW rows and drops the invalid ones; this
+// touches only the valid rows.
+//
+// Bound: CW valid bytes read once, plus (41 + 4 W + V) bytes for each
+// valid row; the main path's rounds carry few replies, so it is bound by
+// the valid-byte read and by launch latency. Design: segments of kSeg
+// rows, as K4. Up to kSeg rows one block walks the rows a tile of
+// kThreads at a time, ranking them with warp ballots (no count launch);
+// past kSeg a count launch writes each segment's valid count and every
+// emit block sums the counts before its segment. Blocks whose segment
+// holds no valid row leave at once, except the last, which writes rn_out
+// and the flag. rn is double-buffered (rn_in read by every block, rn_out
+// written once), so no block can read a half-updated counter.
+//
+// K6 replaces the jitted _quiet in maelstrom_tpu/runner/tpu_runner.py
+// (:2048) with BroadcastProgram.quiescent (nodes/broadcast.py:332-336):
+// quiet = no byte set in any of up to kMaxPlanes bool planes (the flight
+// pool's valid, the channels' valid, the program's pending / inflight /
+// inflight_old). A pure reduction, bound by bytes: 16-byte loads over
+// each plane's aligned body, a block-wide OR, and one byte store by every
+// block that saw a set byte (all store 0 into the flag the wrapper set to
+// 1, so their order does not matter).
+#include <cstring>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kSeg = 16 * kThreads;  // rows a block
+constexpr int kMaxPlanes = 8;
+
+struct AppendArgs {
+  // cm [CW]
+  const u8* valid;
+  const int *src, *dest, *due, *mid, *reply_to, *type, *a, *b, *c;
+  // the log [rcap]; plog [rcap, W] and seen [N, V] null when W == 0
+  u8* l_valid;
+  int *l_src, *l_dest, *l_due, *l_mid, *l_reply_to, *l_type, *l_a, *l_b,
+      *l_c, *l_rounds, *l_plog;
+  const u8* seen;
+  const int* round_ptr;  // post-round counter: the stamp
+  const int* rn_in;
+  int* rn_out;
+  int* exit_k;
+  int* seg_count;  // scratch [n_segments] (used past kSeg rows)
+};
+constexpr int kAppendPtrs = sizeof(AppendArgs) / sizeof(void*);
+
+struct AppendInts {
+  long long CW;
+  int rcap, W, N, V, k, k_max, stop, n_seg;
+};
+
+__device__ int block_sum(int x, int* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
+  __syncthreads();  // `red` may still be read from a previous call
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  int s = 0;
+  for (int w = 0; w < kWarps; ++w) s += red[w];
+  return s;
+}
+
+__global__ void count_kernel(const u8* __restrict__ valid,
+                             int* __restrict__ seg_count, long long n) {
+  __shared__ int red[kWarps];
+  const long long lo = (long long)blockIdx.x * kSeg;
+  int cnt = 0;
+  for (long long i = lo + threadIdx.x; i < lo + kSeg && i < n;
+       i += kThreads)
+    cnt += valid[i] != 0;
+  cnt = block_sum(cnt, red);
+  if (threadIdx.x == 0) seg_count[blockIdx.x] = cnt;
+}
+
+__device__ void write_row(const AppendArgs& A, const AppendInts& I,
+                          long long i, long long pos) {
+  A.l_valid[pos] = 1;
+  A.l_src[pos] = A.src[i];
+  A.l_dest[pos] = A.dest[i];
+  A.l_due[pos] = A.due[i];
+  A.l_mid[pos] = A.mid[i];
+  A.l_reply_to[pos] = A.reply_to[i];
+  A.l_type[pos] = A.type[i];
+  A.l_a[pos] = A.a[i];
+  A.l_b[pos] = A.b[i];
+  A.l_c[pos] = A.c[i];
+  A.l_rounds[pos] = *A.round_ptr;
+  if (I.W == 0) return;
+  const int node = mt_clip(A.src[i], 0, I.N - 1);
+  const u8* row = A.seen + (long long)node * I.V;
+  for (int w = 0; w < I.W; ++w) {
+    unsigned word = 0u;
+    for (int j = 0; j < 32; ++j) {
+      const int v = w * 32 + j;
+      if (v < I.V && row[v]) word |= 1u << j;
+    }
+    A.l_plog[pos * I.W + w] = (int)word;  // bit 31 becomes the sign
+  }
+}
+
+__global__ void append_kernel(AppendArgs A, AppendInts I) {
+  __shared__ int red[kWarps];
+  __shared__ int warp_base[kWarps];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int b = blockIdx.x;
+  const bool last = b == I.n_seg - 1;
+  int before = 0;
+  if (I.n_seg > 1) {
+    for (int s = t; s < b; s += kThreads) before += A.seg_count[s];
+    before = block_sum(before, red);
+    if (A.seg_count[b] == 0 && !last) return;  // uniform across the block
+  }
+  const int rn = *A.rn_in;
+  const long long lo = (long long)b * kSeg;
+  long long vr = before;  // valid rows before the current tile
+  for (long long tile = lo; tile < lo + kSeg && tile < I.CW;
+       tile += kThreads) {
+    const long long i = tile + t;
+    const bool v = i < I.CW && A.valid[i] != 0;
+    const unsigned m = __ballot_sync(0xffffffffu, v);
+    __syncthreads();  // warp_base may still be read by the last tile
+    if (lane == 0) warp_base[warp] = __popc(m);
+    __syncthreads();
+    int wb = 0, tile_valid = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      if (w < warp) wb += warp_base[w];
+      tile_valid += warp_base[w];
+    }
+    if (v) {
+      const long long pos =
+          rn + vr + wb + __popc(m & ((1u << lane) - 1u));
+      if (pos < I.rcap) write_row(A, I, i, pos);
+    }
+    vr += tile_valid;
+  }
+  if (last && t == 0) {
+    const long long total = vr;  // every valid row of cm
+    const long long rn2 = rn + total;
+    *A.rn_out = (int)rn2;
+    const bool go =
+        I.k < I.k_max && !(I.stop && total > 0) && rn2 + I.CW <= I.rcap;
+    if (!go && *A.exit_k > I.k) *A.exit_k = I.k;
+  }
+}
+
+struct Planes {
+  const u8* ptr[kMaxPlanes];
+  long long n[kMaxPlanes];
+  int count;
+};
+
+__global__ void quiet_kernel(Planes P, u8* __restrict__ quiet) {
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long nth = (long long)gridDim.x * blockDim.x;
+  bool busy = false;
+  for (int k = 0; k < P.count; ++k) {
+    const u8* p = P.ptr[k];
+    const long long n = P.n[k];
+    long long head = (long long)((16 - ((uintptr_t)p & 15)) & 15);
+    if (head > n) head = n;
+    for (long long i = tid; i < head; i += nth) busy |= p[i] != 0;
+    const uint4* q = reinterpret_cast<const uint4*>(p + head);
+    const long long n16 = (n - head) / 16;
+    for (long long i = tid; i < n16; i += nth) {
+      const uint4 x = q[i];
+      busy |= (x.x | x.y | x.z | x.w) != 0u;
+    }
+    for (long long i = head + n16 * 16 + tid; i < n; i += nth)
+      busy |= p[i] != 0;
+  }
+  if (__syncthreads_or(busy) && threadIdx.x == 0) *quiet = 0;
+}
+
+}  // namespace
+
+// ptrs: the fields of AppendArgs in order
+// ints: CW, rcap (>= 1), W, N, V, k, k_max, stop, and the
+//       length of the seg_count scratch (ceil(CW / 4096) entries needed
+//       past 4096 rows)
+MT_API int mt_reply_log_append(void* const* p, int n_ptrs,
+                               const long long* v, int n_ints,
+                               void* stream) {
+  if (mt_bad_args(n_ptrs, kAppendPtrs, n_ints, 9))
+    return cudaErrorInvalidValue;
+  AppendArgs A;
+  memcpy(&A, p, sizeof(A));
+  AppendInts I;
+  I.CW = v[0];
+  I.rcap = (int)v[1];
+  I.W = (int)v[2];
+  I.N = (int)v[3];
+  I.V = (int)v[4];
+  I.k = (int)v[5];
+  I.k_max = (int)v[6];
+  I.stop = (int)v[7];
+  I.n_seg = (int)((I.CW + kSeg - 1) / kSeg);
+  if (I.CW < 1 || (I.n_seg > 1 && I.n_seg > v[8]) || I.rcap < 1 ||
+      A.l_valid == nullptr ||
+      (I.W > 0 && (A.l_plog == nullptr || A.seen == nullptr)))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (I.n_seg > 1) {
+    count_kernel<<<I.n_seg, kThreads, 0, st>>>(A.valid, A.seg_count, I.CW);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  append_kernel<<<I.n_seg, kThreads, 0, st>>>(A, I);
+  return cudaGetLastError();
+}
+
+// ptrs: the bool planes (1 to 8), then the quiet flag (a bool the caller
+//       set to 1)
+// ints: each plane's length in bytes, in the same order
+MT_API int mt_quiet_probe(void* const* p, int n_ptrs, const long long* v,
+                          int n_ints, void* stream) {
+  const int count = n_ptrs - 1;
+  if (count < 1 || count > kMaxPlanes || n_ints != count)
+    return cudaErrorInvalidValue;
+  Planes P;
+  long long total = 0;
+  for (int k = 0; k < count; ++k) {
+    P.ptr[k] = (const u8*)p[k];
+    P.n[k] = v[k];
+    total += v[k];
+  }
+  P.count = count;
+  long long blocks = (total / 16 + kThreads - 1) / kThreads;
+  if (blocks < 1) blocks = 1;
+  if (blocks > 132 * 8) blocks = 132 * 8;
+  quiet_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      P, (u8*)p[count]);
+  return cudaGetLastError();
+}

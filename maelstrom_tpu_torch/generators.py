@@ -1,0 +1,488 @@
+"""Jepsen-style operation generators.
+
+A copy of `maelstrom_tpu/generators.py`, cut to the combinators the
+broadcast workload and the test's phase composition use: `stagger`,
+`mix`, `each_thread`, `phases`, `time_limit`, `sleep`, `Log`, the
+client routing wrapper, and the leaf generators behind them.
+They are pure generators, as there:
+
+  - result is an op dict   -> dispatch it (process/time filled in)
+  - result is PENDING      -> nothing yet; ask again at ctx["time"] >=
+                              the generator's next interesting time
+  - result is None         -> exhausted forever
+
+`update(ctx, event)` lets generators observe invocations/completions.
+ctx is {"time": ns, "free": processes, "processes": processes}, where
+"nemesis" is a special process; all others are client workers.
+
+One change of representation, none of behaviour: ctx["free"] and
+ctx["processes"] are ordered views that are iterated lazily (`Procs`,
+and `FreeSet.rotated` for the runner's free workers), where the JAX
+package builds lists. A test with 100,000 client workers emits 100,000
+final reads in one pass, and building a 100,000-entry list for every op
+made that pass quadratic. Each generator asks only for what it needs (the
+first free process, whether any is left), in the order the lists had.
+"""
+
+from __future__ import annotations
+
+import math
+import random
+from typing import Optional
+
+PENDING = "pending"
+NEMESIS = "nemesis"
+
+
+class Procs:
+    """An ordered view of processes, optionally filtered by `pred`,
+    iterated lazily: `bool(view)` and `view[0]` look no further than the
+    first match."""
+
+    __slots__ = ("_base", "_pred")
+
+    def __init__(self, base, pred=None):
+        self._base = base
+        self._pred = pred
+
+    def __iter__(self):
+        if self._pred is None:
+            return iter(self._base)
+        pred = self._pred
+        return (p for p in self._base if pred(p))
+
+    def __bool__(self):
+        for _ in self:
+            return True
+        return False
+
+    def __getitem__(self, i):
+        if i != 0:
+            raise IndexError("a process view only answers [0]")
+        for p in self:
+            return p
+        raise IndexError("no process in view")
+
+
+class FreeSet:
+    """The runner's set of free processes. Besides set membership it
+    answers "the j-th free process in str order" in O(log n) (a Fenwick
+    tree over the processes ranked by `str`), so `rotated(k)` gives the
+    first process of `rotate_free`'s list without sorting the set."""
+
+    def __init__(self, processes):
+        self._order = sorted(processes, key=str)
+        self._rank = {p: i for i, p in enumerate(self._order)}
+        self._tree = [0] * (len(self._order) + 1)
+        self._members: set = set()
+        self._size = len(self._order)
+        self.version = 0
+        self._log = 1 << max(self._size.bit_length() - 1, 0)
+
+    def _bump(self, i, d):
+        i += 1
+        while i <= self._size:
+            self._tree[i] += d
+            i += i & -i
+
+    def add(self, p):
+        if p not in self._members:
+            self._members.add(p)
+            self._bump(self._rank[p], 1)
+            self.version += 1
+
+    def discard(self, p):
+        if p in self._members:
+            self._members.discard(p)
+            self._bump(self._rank[p], -1)
+            self.version += 1
+
+    def __len__(self):
+        return len(self._members)
+
+    def _select(self, j: int) -> int:
+        """Rank (in str order) of the j-th member, 0-based."""
+        pos, rem, step = 0, j + 1, self._log
+        while step:
+            nxt = pos + step
+            if nxt <= self._size and self._tree[nxt] < rem:
+                pos = nxt
+                rem -= self._tree[nxt]
+            step >>= 1
+        return pos
+
+    def rotated(self, k: int) -> "Procs":
+        """The free processes in str order, rotated to start at the
+        (k mod n)-th: `rotate_free`'s list, as a lazy view. The view
+        refuses to be read after the set changes."""
+        n = len(self._members)
+        if not n:
+            return Procs(())
+        return Procs(_Rotated(self, self._select(k % n)))
+
+
+class _Rotated:
+    """Iterates a FreeSet's members in str order from rank `start`,
+    wrapping around."""
+
+    __slots__ = ("fs", "start", "version")
+
+    def __init__(self, fs: FreeSet, start: int):
+        self.fs, self.start, self.version = fs, start, fs.version
+
+    def __iter__(self):
+        fs = self.fs
+        if fs.version != self.version:
+            raise RuntimeError("free set changed under its view")
+        order, m = fs._order, fs._members
+        for i in range(self.start, len(order)):
+            if order[i] in m:
+                yield order[i]
+        for i in range(self.start):
+            if order[i] in m:
+                yield order[i]
+
+
+def rotate_free(free: FreeSet, dispatch_count: int) -> Procs:
+    """Rotates the sorted free-process list by a monotonically increasing
+    dispatch counter so successive ops spread across workers — and
+    therefore across nodes (worker i talks to node i % n). Leaf generators
+    take free[0]; always offering the same first worker would starve every
+    node but one of client traffic (fatal for e.g. a raft leader elsewhere).
+    The counter must count dispatches, not history length: history grows by
+    two per op (invoke + completion), which aliases even-sized pools.
+    The list is sorted by `str`, as the JAX package sorts it."""
+    return free.rotated(dispatch_count)
+
+
+def client_processes(ctx):
+    """Processes visible in this context. Routing to clients vs the nemesis
+    is done by the OnProcesses wrappers (clients()/nemesis_gen()), so leaf
+    generators simply take whatever the context offers."""
+    return ctx["processes"]
+
+
+def free_clients(ctx):
+    return ctx["free"]
+
+
+class Gen:
+    def op(self, ctx):
+        raise NotImplementedError
+
+    def update(self, ctx, event):
+        return self
+
+    def next_interesting_time(self, ctx) -> float:
+        """After this generator returned PENDING at ctx["time"]: the
+        earliest ctx time (ns) at which it might produce an op *without any
+        new completion event*, or +inf if only a completion (reply/timeout
+        freeing a worker) can unblock it. Lets the runner scan many rounds
+        in one dispatch, stopping exactly where the generator could next
+        act. Returning a too-late time would delay ops (wrong); too-early
+        merely costs a dispatch (safe). The inf default is correct for
+        every generator that PENDs only for lack of free processes."""
+        return math.inf
+
+
+def fill_op(op: dict, ctx, process) -> dict:
+    out = dict(op)
+    out.setdefault("process", process)
+    out["time"] = ctx["time"]
+    out.setdefault("type", "invoke")
+    return out
+
+
+def to_gen(x) -> Optional[Gen]:
+    """Checks that `x` is a generator (the JAX package also coerces maps
+    and iterables, which no generator of this slice passes)."""
+    if x is None or isinstance(x, Gen):
+        return x
+    raise TypeError(f"can't coerce {x!r} to a generator")
+
+
+class Counting(Gen):
+    """Emits {"f": f, "value": 0}, {"f": f, "value": 1}, ... (reference
+    `broadcast.clj:229-233`)."""
+
+    def __init__(self, f: str, n: int = 0):
+        self.f = f
+        self.n = n
+
+    def op(self, ctx):
+        free = free_clients(ctx)
+        if not free:
+            return PENDING, self
+        op_map = {"f": self.f, "value": self.n}
+        return fill_op(op_map, ctx, free[0]), Counting(self.f, self.n + 1)
+
+
+class Repeat(Gen):
+    def __init__(self, op_map: dict):
+        self.op_map = op_map
+
+    def op(self, ctx):
+        free = free_clients(ctx)
+        if not free:
+            return PENDING, self
+        return fill_op(self.op_map, ctx, free[0]), self
+
+
+class EachThread(Gen):
+    """Emits the op once on every client process
+    (jepsen gen/each-thread; used for final reads,
+    reference `broadcast.clj:239`). Successor states share one `done`
+    set, as Stagger/MixG successors share their RNG: a state is never
+    polled again once it has emitted, and copying the set for every op
+    was quadratic in the worker count."""
+
+    def __init__(self, op_map: dict, done: set | None = None):
+        self.op_map = op_map
+        self.done = set() if done is None else done
+
+    def op(self, ctx):
+        done = self.done
+        p = next((q for q in free_clients(ctx) if q not in done), None)
+        if p is None:
+            if all(q in done for q in client_processes(ctx)):
+                return None, self
+            return PENDING, self
+        done.add(p)
+        return fill_op(self.op_map, ctx, p), EachThread(self.op_map, done)
+
+
+class TimeLimit(Gen):
+    """Stops emitting after dt_ns of ctx time (jepsen gen/time-limit,
+    reference `core.clj:62`)."""
+
+    def __init__(self, dt_ns: int, gen, t0: int | None = None):
+        self.dt_ns = dt_ns
+        self.gen = to_gen(gen)
+        self.t0 = t0
+
+    def op(self, ctx):
+        t0 = ctx["time"] if self.t0 is None else self.t0
+        if ctx["time"] - t0 >= self.dt_ns:
+            return None, self
+        res, g2 = self.gen.op(ctx)
+        return res, TimeLimit(self.dt_ns, g2, t0)
+
+    def update(self, ctx, event):
+        return TimeLimit(self.dt_ns, self.gen.update(ctx, event), self.t0)
+
+    def next_interesting_time(self, ctx) -> float:
+        t0 = ctx["time"] if self.t0 is None else self.t0
+        if ctx["time"] - t0 >= self.dt_ns:
+            return math.inf     # already exhausted: nothing more, ever
+        # expiry matters: it exhausts this gen, which can advance Phases
+        return min(self.gen.next_interesting_time(ctx), t0 + self.dt_ns)
+
+
+class Stagger(Gen):
+    """Rate limiting: introduces random delays averaging dt between ops
+    (jepsen gen/stagger; reference `core.clj:59` uses (stagger (/ rate)))."""
+
+    def __init__(self, dt_ns: float, gen, next_time: float | None = None,
+                 rng: random.Random | None = None):
+        self.dt_ns = dt_ns
+        self.gen = to_gen(gen)
+        self.next_time = next_time
+        self.rng = rng or random.Random(1)
+
+    def op(self, ctx):
+        t = ctx["time"]
+        nt = t if self.next_time is None else self.next_time
+        if t < nt:
+            return PENDING, self
+        res, g2 = self.gen.op(ctx)
+        if res is None or res == PENDING:
+            return res, Stagger(self.dt_ns, g2, nt, self.rng)
+        # schedule next emission: uniform in [0, 2*dt] after this one
+        nt2 = nt + self.rng.uniform(0, 2 * self.dt_ns)
+        return res, Stagger(self.dt_ns, g2, nt2, self.rng)
+
+    def update(self, ctx, event):
+        return Stagger(self.dt_ns, self.gen.update(ctx, event),
+                       self.next_time, self.rng)
+
+    def next_interesting_time(self, ctx) -> float:
+        if self.next_time is not None and ctx["time"] < self.next_time:
+            return self.next_time
+        return self.gen.next_interesting_time(ctx)
+
+
+class Sleep(Gen):
+    """Emits nothing for dt, then is exhausted (jepsen gen/sleep,
+    reference `core.clj:69`)."""
+
+    def __init__(self, dt_ns: int, t0: int | None = None):
+        self.dt_ns = dt_ns
+        self.t0 = t0
+
+    def op(self, ctx):
+        t0 = ctx["time"] if self.t0 is None else self.t0
+        if self.t0 is None:
+            return PENDING, Sleep(self.dt_ns, ctx["time"])
+        if ctx["time"] - t0 >= self.dt_ns:
+            return None, self
+        return PENDING, self
+
+    def next_interesting_time(self, ctx) -> float:
+        t0 = ctx["time"] if self.t0 is None else self.t0
+        return t0 + self.dt_ns
+
+
+class Log(Gen):
+    """Logs a message once, emits no ops (jepsen gen/log,
+    reference `core.clj:68`)."""
+
+    def __init__(self, message: str, done: bool = False):
+        self.message = message
+        self.done = done
+
+    def op(self, ctx):
+        if not self.done:
+            import logging
+            logging.getLogger("maelstrom").info(self.message)
+            self.done = True    # mutate: callers may re-poll the same node
+        return None, Log(self.message, True)
+
+
+class Phases(Gen):
+    """Runs generators in sequence; a phase must be exhausted AND all its
+    ops completed (every process free) before the next phase starts
+    (jepsen gen/phases, reference `core.clj:66-71`)."""
+
+    def __init__(self, *gens):
+        self.gens = [to_gen(g) for g in gens if g is not None]
+
+    def op(self, ctx):
+        if not self.gens:
+            return None, self
+        res, g2 = self.gens[0].op(ctx)
+        if res is None:
+            # phase exhausted; wait for quiescence before advancing
+            if set(ctx["free"]) >= set(ctx["processes"]):
+                nxt = Phases(*self.gens[1:])
+                if not nxt.gens:
+                    return None, nxt
+                return nxt.op(ctx)
+            rest = Phases()
+            rest.gens = [g2] + self.gens[1:]
+            return PENDING, rest
+        p = Phases()
+        p.gens = [g2] + self.gens[1:]
+        return res, p
+
+    def update(self, ctx, event):
+        if not self.gens:
+            return self
+        p = Phases()
+        p.gens = [self.gens[0].update(ctx, event)] + self.gens[1:]
+        return p
+
+    def next_interesting_time(self, ctx) -> float:
+        # Advancement past an exhausted phase requires quiescence (a
+        # completion event), so the current phase alone bounds the time.
+        if not self.gens:
+            return math.inf
+        return self.gens[0].next_interesting_time(ctx)
+
+
+class OnProcesses(Gen):
+    """Restricts a generator to a subset of processes. The basis for
+    gen/clients (client processes only) and gen/nemesis (the nemesis
+    process), reference `core.clj:60,67,70`."""
+
+    def __init__(self, pred, gen):
+        self.pred = pred
+        self.gen = to_gen(gen)
+
+    def op(self, ctx):
+        sub = dict(ctx)
+        sub["free"] = Procs(ctx["free"], self.pred)
+        sub["processes"] = Procs(ctx["processes"], self.pred)
+        if not sub["processes"]:
+            return None, self
+        res, g2 = self.gen.op(sub)
+        return res, OnProcesses(self.pred, g2)
+
+    def update(self, ctx, event):
+        return OnProcesses(self.pred, self.gen.update(ctx, event))
+
+    def next_interesting_time(self, ctx) -> float:
+        return self.gen.next_interesting_time(ctx)
+
+
+class _NotNemesis:
+    """Picklable predicate: client processes only."""
+
+    def __call__(self, p):
+        return p != NEMESIS
+
+
+def clients(gen):
+    return OnProcesses(_NotNemesis(), gen)
+
+
+class MixG(Gen):
+    """Random mixture of generators (clean implementation)."""
+
+    def __init__(self, gens, rng: random.Random | None = None):
+        self.gens = [to_gen(g) for g in gens]
+        self.rng = rng or random.Random(0)
+
+    def op(self, ctx):
+        # Fruitless polls must be rng-neutral: the scan-ahead fast path
+        # polls once per *dispatch* while the per-round path polls once per
+        # *round*, and any draw consumed on a PENDING poll would make their
+        # op streams diverge (breaking scan/per-round equivalence and
+        # deterministic resume). Child successor states from fruitless
+        # polls are already discarded below for the same reason.
+        st = self.rng.getstate()
+        live = list(range(len(self.gens)))
+        pending = False
+        while live:
+            j = self.rng.randrange(len(live))
+            i = live[j]
+            res, g2 = self.gens[i].op(ctx)
+            if res is None:
+                live.pop(j)
+                continue
+            if res == PENDING:
+                pending = True
+                live.pop(j)
+                continue
+            gens2 = list(self.gens)
+            gens2[i] = g2
+            return res, MixG(gens2, self.rng)
+        self.rng.setstate(st)
+        return (PENDING if pending else None), self
+
+    def next_interesting_time(self, ctx) -> float:
+        return min((gen.next_interesting_time(ctx) for gen in self.gens),
+                   default=math.inf)
+
+
+def mix(gens, rng=None):
+    return MixG(gens, rng)
+
+
+def stagger(dt_seconds: float, gen, rng=None):
+    return Stagger(dt_seconds * 1e9, gen, rng=rng)
+
+
+def time_limit(seconds: float, gen):
+    return TimeLimit(int(seconds * 1e9), gen)
+
+
+def sleep(seconds: float):
+    return Sleep(int(seconds * 1e9))
+
+
+def each_thread(op_map: dict):
+    return EachThread(op_map)
+
+
+def phases(*gens):
+    return Phases(*gens)

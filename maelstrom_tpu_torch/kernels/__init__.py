@@ -56,8 +56,11 @@ class Kernel:
     def launch(self, tensors, ints, device, strided=()) -> None:
         """`strided`: those of `tensors` that the kernel indexes through
         strides passed among `ints`; every other tensor must be
-        contiguous."""
+        contiguous. A None entry passes a null pointer (an optional
+        plane the kernel skips)."""
         for t in tensors:
+            if t is None:
+                continue
             if t.device != device:
                 raise ValueError(f"{self.name}: tensor on {t.device}, "
                                  f"expected {device}")
@@ -65,7 +68,7 @@ class Kernel:
                 raise ValueError(f"{self.name}: non-contiguous tensor")
         fn = getattr(_library(), f"mt_{self.name}")
         ptrs = (ctypes.c_void_p * len(tensors))(
-            *[t.data_ptr() for t in tensors])
+            *[None if t is None else t.data_ptr() for t in tensors])
         vals = (ctypes.c_longlong * len(ints))(*[int(i) for i in ints])
         stream = torch.cuda.current_stream(device).cuda_stream
         with torch.cuda.device(device):
@@ -86,7 +89,13 @@ BROADCAST_STEP = Kernel("broadcast_step",
                         "maelstrom_tpu/nodes/broadcast.py:205")
 REPLY_COMPACT = Kernel("reply_compact", "maelstrom_tpu_torch/csrc/compact.cu",
                        "maelstrom_tpu/sim.py:496")
-KERNELS = (EDGE_READ, EDGE_WRITE, BROADCAST_STEP, REPLY_COMPACT)
+REPLY_LOG_APPEND = Kernel("reply_log_append",
+                          "maelstrom_tpu_torch/csrc/scan.cu",
+                          "maelstrom_tpu/sim.py:821")
+QUIET_PROBE = Kernel("quiet_probe", "maelstrom_tpu_torch/csrc/scan.cu",
+                     "maelstrom_tpu/runner/tpu_runner.py:2048")
+KERNELS = (EDGE_READ, EDGE_WRITE, BROADCAST_STEP, REPLY_COMPACT,
+           REPLY_LOG_APPEND, QUIET_PROBE)
 
 _state = {"lib": None, "forced_plain": False}
 

@@ -41,8 +41,9 @@ class EdgeMsgs(Struct):
     a: torch.Tensor
     b: torch.Tensor
     c: torch.Tensor
-    # send round of each message in journaled runs (the CLI runner
-    # slice); always None here
+    # packed send identity (round * LANE_STRIDE + send lane) of each
+    # message on journaled runs (channels made with track_send_round);
+    # None otherwise
     sent: object = None
 
     @classmethod
@@ -64,7 +65,7 @@ class EdgeChannels(Struct):
     c: torch.Tensor
     overwrites: torch.Tensor    # i32 scalar: messages lost to collision
     lat_clipped: torch.Tensor   # i32 scalar: latency draws clipped to ring
-    sent: object = None         # journaled runs only (see EdgeMsgs.sent)
+    sent: object = None         # i32 plane on journaled runs (EdgeMsgs.sent)
 
 
 @dataclass(frozen=True)
@@ -89,11 +90,10 @@ def _no_spill(cfg: EdgeConfig) -> None:
 
 def make_channels(cfg: EdgeConfig, device,
                   track_send_round: bool = False) -> EdgeChannels:
+    """`track_send_round` adds the `sent` plane, so journal recv rows
+    pair exactly to their sends; without it the exchange moves no more
+    bytes than the bench path needs."""
     _no_spill(cfg)
-    if track_send_round:
-        raise NotImplementedError(
-            "track_send_round (journal pairing) is ported with the CLI "
-            "runner slice")
     shape = (cfg.n_nodes, cfg.degree, cfg.ring, cfg.lanes)
 
     def z():
@@ -103,7 +103,8 @@ def make_channels(cfg: EdgeConfig, device,
                         type=z(), a=z(), b=z(), c=z(),
                         overwrites=torch.zeros((), dtype=I32, device=device),
                         lat_clipped=torch.zeros((), dtype=I32,
-                                                device=device))
+                                                device=device),
+                        sent=z() if track_send_round else None)
 
 
 def reverse_index(neighbors: np.ndarray) -> np.ndarray:
@@ -135,6 +136,8 @@ def _check_channels(cfg: EdgeConfig, ch: EdgeChannels):
     _check("channels.valid", ch.valid, shape, torch.bool)
     for f in ("type", "a", "b", "c"):
         _check(f"channels.{f}", getattr(ch, f), shape, I32)
+    if ch.sent is not None:
+        _check("channels.sent", ch.sent, shape, I32)
 
 
 # --- edge_write -----------------------------------------------------------
@@ -153,7 +156,8 @@ def edge_write_plain(cfg: EdgeConfig, ch: EdgeChannels, out: EdgeMsgs,
                      round_, latency_rounds, deliver_mask) -> EdgeChannels:
     """Writes each lane where `out.valid & deliver_mask` into its arrival
     cell, in place, counting writes onto a valid cell (`overwrites`) and
-    clipped latency draws. Every lane owns its (n, d, ., l) column, so
+    clipped latency draws; a tracked `sent` plane takes round *
+    LANE_STRIDE + lane. Every lane owns its (n, d, ., l) column, so
     the three forms of the JAX version (uniform arrival, ring <= 4,
     broadcast select) are one gather and one scatter."""
     ok = out.valid & deliver_mask
@@ -162,11 +166,14 @@ def edge_write_plain(cfg: EdgeConfig, ch: EdgeChannels, out: EdgeMsgs,
     cell_valid = torch.gather(ch.valid, 2, arr).squeeze(2)
     ch.overwrites += (ok & cell_valid).sum(dtype=I32)
     ch.lat_clipped += clipped
-    for f in ("type", "a", "b", "c"):
+    new = {f: getattr(out, f) for f in ("type", "a", "b", "c")}
+    if ch.sent is not None:
+        lane = torch.arange(cfg.lanes, dtype=I32, device=ok.device)
+        new["sent"] = (round_ * LANE_STRIDE + lane).expand(ok.shape)
+    for f, val in new.items():
         chf = getattr(ch, f)
         old = torch.gather(chf, 2, arr).squeeze(2)
-        chf.scatter_(2, arr, torch.where(ok, getattr(out, f),
-                                         old).unsqueeze(2))
+        chf.scatter_(2, arr, torch.where(ok, val, old).unsqueeze(2))
     ch.valid.scatter_(2, arr, (cell_valid | ok).unsqueeze(2))
     return ch
 
@@ -198,7 +205,7 @@ def edge_write(cfg: EdgeConfig, ch: EdgeChannels, out: EdgeMsgs,
         [ch.valid, ch.type, ch.a, ch.b, ch.c,
          out.valid.contiguous(), out.type.contiguous(), out.a.contiguous(),
          out.b.contiguous(), out.c.contiguous(), lat, mask, round_,
-         ch.overwrites, ch.lat_clipped],
+         ch.overwrites, ch.lat_clipped, ch.sent],
         [cfg.n_nodes, cfg.degree, cfg.ring, cfg.lanes,
          int(cfg.uniform_arrival), *lat.stride(), *mask.stride()],
         ch.valid.device, strided=(lat, mask))
@@ -217,7 +224,8 @@ def edge_read_plain(cfg: EdgeConfig, ch: EdgeChannels, neighbors, rev,
                     round_):
     """Reads cell `round % ring` routed to the receiving end of each edge
     (inbox[m, e] = cell of row (nb[m, e], rev[m, e])), masks missing
-    edges, then clears that cell of every row in place."""
+    edges, then clears that cell of every row in place. A tracked `sent`
+    plane is routed with the other fields."""
     N, D, L = cfg.n_nodes, cfg.degree, cfg.lanes
     s = torch.remainder(round_, cfg.ring).reshape(1).long()
     flat = _route_rows(cfg, neighbors, rev)
@@ -227,7 +235,8 @@ def edge_read_plain(cfg: EdgeConfig, ch: EdgeChannels, neighbors, rev,
 
     inbox = EdgeMsgs(valid=route(ch.valid) & (neighbors >= 0)[:, :, None],
                      type=route(ch.type), a=route(ch.a), b=route(ch.b),
-                     c=route(ch.c))
+                     c=route(ch.c),
+                     sent=None if ch.sent is None else route(ch.sent))
     ch.valid.index_fill_(2, s, False)
     return ch, inbox
 
@@ -243,14 +252,17 @@ def edge_read(cfg: EdgeConfig, ch: EdgeChannels, neighbors, rev,
     if not K.use_kernel(ch.valid):
         return edge_read_plain(cfg, ch, neighbors, rev, round_)
     _check("round", round_, (), I32)
+    dev = ch.valid.device
+
+    def i32():
+        return torch.empty((N, D, L), dtype=I32, device=dev)
     inbox = EdgeMsgs(
-        valid=torch.empty((N, D, L), dtype=torch.bool,
-                          device=ch.valid.device),
-        **{f: torch.empty((N, D, L), dtype=I32, device=ch.valid.device)
-           for f in ("type", "a", "b", "c")})
+        valid=torch.empty((N, D, L), dtype=torch.bool, device=dev),
+        type=i32(), a=i32(), b=i32(), c=i32(),
+        sent=None if ch.sent is None else i32())
     K.EDGE_READ.launch(
         [ch.valid, ch.type, ch.a, ch.b, ch.c, neighbors.contiguous(),
          rev.contiguous(), round_, inbox.valid, inbox.type, inbox.a,
-         inbox.b, inbox.c],
-        [N, D, cfg.ring, L], ch.valid.device)
+         inbox.b, inbox.c, ch.sent, inbox.sent],
+        [N, D, cfg.ring, L], dev)
     return ch, inbox

@@ -5,10 +5,10 @@ Counterpart of `maelstrom_tpu/net/tpu.py`: the same struct-of-arrays
 semantics, held against it leaf for leaf by `tests/test_torch_pool.py`.
 
 The flight pool stays plain tensor ops: on the broadcast path it carries
-only client RPCs, one message a round. Where the JAX version skips
-delivery under `lax.cond` when nothing is due, this one always runs the
-delivery pass, which then yields the same state and an all-invalid client
-batch: branching on device data would cost a host sync every round.
+only client RPCs. Where the JAX version skips delivery under `lax.cond`
+when nothing is due, this one always runs the delivery pass, which then
+yields the same state, and selects the same empty client batch on the
+device: branching on device data would cost a host sync every round.
 
 Random draws (loss, duplication, randomized latency) need the port's PRNG,
 which is a later slice; `check_scope` refuses configs that use them."""
@@ -304,6 +304,14 @@ def _deliver(cfg: NetConfig, net: NetState):
         corder = _sort_by(torch.where(to_client, pool.due, INT32_MAX),
                           P)[:CC]
         client_msgs = pool.at_rows(corder).replace(valid=to_client[corder])
+        # with nothing due the JAX version skips delivery and returns an
+        # empty batch: its invalid rows hold the empty fields, not pool
+        # rows
+        any_due = due.any()
+        client_msgs = client_msgs.replace(**{
+            f: torch.where(any_due, getattr(client_msgs, f),
+                           -1 if f == "reply_to" else 0)
+            for f in Msgs.__dataclass_fields__ if f != "valid"})
         c_taken = torch.zeros(P, dtype=torch.bool, device=dev)
         c_taken[corder] = client_msgs.valid
     else:
@@ -326,12 +334,15 @@ def advance(net: NetState) -> NetState:
     return net.replace(round=net.round + 1)
 
 
-def stats_dict(net: NetState) -> dict:
+def stats_dict(net: NetState, transfer=None) -> dict:
     """The counters on the host, as the JAX package's `stats_dict` gives
-    them; `sent_by_type` becomes {type code: count} of nonzero buckets."""
+    them; `sent_by_type` becomes {type code: count} of nonzero buckets.
+    Given a `TransferStats`, the read is booked there as one drain."""
+    host = (transfer.fetch(net.stats) if transfer is not None
+            else tree_map(lambda t: t.cpu().numpy(), net.stats))
     out = {}
     for name in NetStats.__dataclass_fields__:
-        a = getattr(net.stats, name).cpu()
+        a = getattr(host, name)
         if name == "sent_by_type":
             out[name] = {int(t): int(c) for t, c in
                          enumerate(a.reshape(-1, TYPE_BUCKETS).sum(0)) if c}

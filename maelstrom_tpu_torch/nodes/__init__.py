@@ -156,6 +156,29 @@ def edge_capacity(opts: dict, program) -> tuple[bool, int, bool]:
     return spill, lanes, dist == "constant"
 
 
+def wire_name_table(program_module) -> dict[int, str]:
+    """Wire-code -> name table for the send-count-by-type netstats
+    breakdown (the JAX package's `wire_name_table`): a module's
+    ``WIRE_NAMES`` dict pins names outright, otherwise they derive from
+    its ``T_*`` int constants; aliased codes resolve to the
+    alphabetically-first name, and the program's names shadow the shared
+    reply vocabulary (``T_ERROR`` etc.) defined here."""
+    import sys
+    names: dict[int, str] = {}
+    shared = sys.modules[__name__]
+    for source in (program_module, shared):
+        if source is None:
+            continue
+        for code, name in (getattr(source, "WIRE_NAMES", None)
+                           or {}).items():
+            names.setdefault(int(code), str(name))
+        for k in sorted(vars(source)):
+            v = vars(source)[k]
+            if k.startswith("T_") and isinstance(v, int):
+                names.setdefault(v, k[2:].lower())
+    return names
+
+
 PROGRAMS: dict[str, Callable] = {}
 
 # the slice of the port that brings each of the JAX package's other

@@ -26,6 +26,7 @@ import torch
 from .. import kernels as K
 from ..net.static import EdgeConfig, EdgeMsgs, reverse_index
 from ..net.tpu import I32
+from ..sim import pack_words
 from ..tree import resolve_device
 from ..workloads.broadcast import TOPOLOGIES, topology_indices
 from . import (EncodeCapacityError, NodeProgram, edge_capacity, edge_timing,
@@ -310,20 +311,21 @@ class BroadcastProgram(NodeProgram):
                                           ctx["round"])
         return self.edge_step_plain(state, edge_in, client_in, ctx["round"])
 
-    def quiescent(self, state):
-        """True when no value is awaiting digest confirmation."""
-        return ~(state["pending"].any() | state["inflight"].any()
-                 | state["inflight_old"].any())
+    def quiet_planes(self, state):
+        """The bool planes of the JAX package's `quiescent` (idle when no
+        value awaits digest confirmation: no byte set in any), for the
+        runner's fused quiescence probe (kernel K6)."""
+        return [state["pending"], state["inflight"], state["inflight_old"]]
+
+    def reply_payload_plane(self, state):
+        """The [N, V] bool plane whose packed words (`reply_payload`) the
+        scan's reply log snapshots (kernel K5)."""
+        return state["seen"]
 
     def _pack_seen_words(self, rows):
-        """[..., V] bool rows -> [..., n_windows*2] i32, 32 values per
-        word, low bit = lowest value index (bit 31 wraps to the sign, as
-        in the int32 sum of the JAX version)."""
-        lead = rows.shape[:-1]
-        bits = _cat_zeros(rows, self.Vp - self.V).reshape(
-            *lead, self.n_windows * 2, 32).to(torch.int64)
-        shifts = torch.arange(32, dtype=torch.int64, device=rows.device)
-        return (bits << shifts).sum(dim=-1).to(I32)
+        """[..., V] bool rows -> [..., n_windows*2] i32 (`sim.pack_words`,
+        the layout K3 and K5 write)."""
+        return pack_words(rows, self.n_windows * 2)
 
     def reply_payload(self, state, node_idx):
         """[M] node indices -> [M, W] i32: the nodes' seen bitmaps."""

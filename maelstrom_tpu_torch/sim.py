@@ -7,7 +7,9 @@ Counterpart of `maelstrom_tpu/sim.py` for the edge-channel path:
 
 `make_round_fn` gives that round for interactive use; `make_run_fn` loops
 it over a pre-scheduled injection plan on the device, with no host sync
-inside the loop: the benchmark path.
+inside the loop: the benchmark path. `make_scan_fn` is the runner's
+scan-ahead: rounds until an exit condition holds, with every client
+reply appended to a device-resident log (kernel K5, `csrc/scan.cu`).
 
 A round consumes the `SimState` it is given: the edge channels are
 updated in place (see `net/static.py`). Keep only the returned state.
@@ -25,7 +27,7 @@ import torch
 from . import kernels as K
 from .net import static
 from .net import tpu as T
-from .net.tpu import I32, Msgs, NetConfig, NetState
+from .net.tpu import I32, INT32_MAX, Msgs, NetConfig, NetState
 from .tree import Struct, resolve_device, tree_map
 
 
@@ -233,3 +235,228 @@ def make_run_fn(program, cfg: NetConfig, collect_client_msgs: bool = False,
             return sim, tree_map(lambda *fs: torch.stack(fs), *outs)
         return sim, torch.stack(outs)
     return run_fn
+
+
+# --- the scan-ahead (make_scan_fn) ------------------------------------------
+
+# rounds a chunk of the scan: the host reads the exit flag once a chunk
+SCAN_CHUNK = 16
+
+_LOG_FIELDS = tuple(Msgs.__dataclass_fields__)
+
+
+def empty_reply_log(rcap: int, W: int, device):
+    """A fresh reply log: (Msgs [rcap], rounds i32 [rcap], payload i32
+    [rcap, W] or None, rn i32 scalar), empty as the JAX package makes
+    it."""
+    plog = (torch.zeros((rcap, W), dtype=I32, device=device) if W
+            else None)
+    return (Msgs.empty(rcap, device),
+            torch.zeros(rcap, dtype=I32, device=device), plog,
+            torch.zeros((), dtype=I32, device=device))
+
+
+def pack_words(rows, W: int):
+    """[..., V] bool rows -> [..., W] i32 words, 32 values a word, low bit
+    = lowest value index; bit 31 wraps to the sign, as the int32 sum of
+    the JAX package's `_pack_seen_words` does (the broadcast program's
+    reply payload)."""
+    pad = W * 32 - rows.shape[-1]
+    if pad:
+        rows = torch.cat([rows, rows.new_zeros(rows.shape[:-1] + (pad,))],
+                         dim=-1)
+    bits = rows.reshape(*rows.shape[:-1], W, 32).to(torch.int64)
+    shifts = torch.arange(32, dtype=torch.int64, device=rows.device)
+    return (bits << shifts).sum(dim=-1).to(I32)
+
+
+def append_replies_plain(log, cm: Msgs, seen, n_nodes: int, round_i,
+                         k: int, k_max: int, stop: bool, exit_k):
+    """The JAX package's `append_replies` and the scan's `cond`, in place:
+    cm's valid rows go to rows rn, rn+1, ... of the log (rows at rcap or
+    beyond are dropped), stamped with `round_i`, with the packed words of
+    seen[clip(src)] as payload. Returns rn' = rn + every valid row. When
+    go = k < k_max & ~(stop & any valid) & rn' + CW <= rcap fails and
+    exit_k > k, exit_k becomes k."""
+    rlog, rounds, plog, rn = log
+    valid = cm.valid
+    CW, rcap = valid.shape[0], rounds.shape[0]
+    total = valid.sum(dtype=I32)
+    pos = rn.long() + torch.cumsum(valid, 0) - valid.long()
+    keep = valid & (pos < rcap)
+    at = pos[keep]
+    for f in _LOG_FIELDS:
+        getattr(rlog, f)[at] = getattr(cm, f)[keep]
+    rounds[at] = round_i.to(I32)
+    if plog is not None:
+        src = cm.src[keep].clamp(0, n_nodes - 1).long()
+        plog[at] = pack_words(seen[src], plog.shape[1])
+    rn2 = rn + total
+    go = (k < k_max) & ~(stop & (total > 0)) & (rn2 + CW <= rcap)
+    exit_k.copy_(torch.where(~go & (exit_k > k), k, exit_k))
+    return rn2
+
+
+def append_replies(log, cm: Msgs, seen, n_nodes: int, round_i, k: int,
+                   k_max: int, stop: bool, exit_k):
+    """Appends a round's client replies to the scan's reply log and sets
+    the scan's exit flag (see `append_replies_plain`); the kernel is K5
+    `reply_log_append` in `csrc/scan.cu`. `seen` is the program's [N, V]
+    bool plane whose packed words are the reply payload (None without
+    payload)."""
+    if not K.use_kernel(cm.valid):
+        return append_replies_plain(log, cm, seen, n_nodes, round_i, k,
+                                    k_max, stop, exit_k)
+    dev = cm.valid.device
+    CW = cm.valid.shape[0]
+    for f in _LOG_FIELDS:
+        t = getattr(cm, f)
+        if tuple(t.shape) != (CW,) or t.dtype != (
+                torch.bool if f == "valid" else I32):
+            raise ValueError(f"append_replies cm.{f}: {tuple(t.shape)} "
+                             f"{t.dtype}")
+    for name, t in (("round", round_i), ("exit_k", exit_k)):
+        if t.shape != () or t.dtype != I32:
+            raise ValueError(f"append_replies: {name} must be an i32 "
+                             f"scalar")
+    rlog, rounds, plog, rn = log
+    rcap = rounds.shape[0]
+    W = 0 if plog is None else plog.shape[1]
+    if W and (seen is None or seen.dim() != 2 or seen.shape[0] != n_nodes
+              or seen.dtype != torch.bool or seen.shape[1] > W * 32):
+        raise ValueError("append_replies: payload needs the [N, V] bool "
+                         "plane, V <= 32 W")
+    V = seen.shape[1] if W else 0
+    rn_out = torch.empty((), dtype=I32, device=dev)
+    seg_count = torch.empty(max(1, -(-CW // 4096)), dtype=I32, device=dev)
+    K.REPLY_LOG_APPEND.launch(
+        [getattr(cm, f).contiguous() for f in _LOG_FIELDS]
+        + [getattr(rlog, f) for f in _LOG_FIELDS]
+        + [rounds, plog, seen.contiguous() if V else None, round_i, rn,
+           rn_out, exit_k, seg_count],
+        [CW, rcap, W, n_nodes, V, k, k_max, int(stop), seg_count.numel()],
+        dev)
+    return rn_out
+
+
+def _reset_log_tail(log, rn_from):
+    """Empties the log rows at or past the device count `rn_from` (the
+    rows a rolled-back stretch appended)."""
+    rlog, rounds, plog, _rn = log
+    tail = torch.arange(rounds.shape[0], device=rounds.device) >= rn_from
+    for f in _LOG_FIELDS:
+        getattr(rlog, f).masked_fill_(tail, -1 if f == "reply_to" else 0)
+    rounds.masked_fill_(tail, 0)
+    if plog is not None:
+        plog.masked_fill_(tail[:, None], 0)
+
+
+def make_scan_fn(program, cfg: NetConfig, reply_cap: int = 256,
+                 journal_cap: int | None = None, device="cuda",
+                 chunk: int = SCAN_CHUNK, fetch=None):
+    """scan_fn(sim, inject, k_max, stop_on_reply=True) -> (sim', cm, k,
+    (rlog, rounds, plog, rn)[, buf]): the JAX package's `make_scan_fn`
+    in its non-continuous form with a reply log (the runner's only
+    form). `inject` is applied in the first round; then
+    injection-free rounds run while k < k_max, no client reply arrived
+    when `stop_on_reply`, and the reply log has room for a whole round
+    of replies (rcap = max(reply_cap, 2 * CW), CW the width of a round's
+    client messages). k (a host int) counts the rounds executed, >= 1.
+    `journal_cap` collects every round's io into [cap, ...] buffers
+    (rows past k zero) and bounds k_max. Each call makes a fresh log.
+
+    The loop stays on the device. JAX runs it as one while_loop; here
+    rounds run in chunks of `chunk`, each ending with one host read of
+    the exit flag K5 keeps (`fetch(tensor) -> int`, `int` by default).
+    A chunk that ran past the exit round is rolled back: the state
+    cloned at its start (the channels, the one part a round updates in
+    place) is restored, the log rows it appended are emptied, and
+    exactly the rounds up to the exit round are replayed. Rounds draw
+    no random numbers in this slice, so the replay is the same rounds.
+    The host reads at most ceil(k / chunk) flags a dispatch;
+    `scan_fn.host_syncs` counts them."""
+    dev = resolve_device(device)
+    T.check_scope(cfg)
+    _check_program(program, cfg, dev)
+    cap = None if journal_cap is None else max(1, int(journal_cap))
+    rcap_req = max(1, int(reply_cap))
+    W = int(getattr(program, "reply_payload_words", 0) or 0)
+    N = cfg.n_nodes
+    CC = max(cfg.n_clients, 1)
+    chunk = max(1, int(chunk))
+    read = fetch or (lambda t: int(t))
+    checked = []
+
+    def scan_fn(sim: SimState, inject: Msgs, k_max, stop_on_reply=True):
+        if not checked:     # one host read per scan fn, not per dispatch
+            _check_no_draws(sim.net)
+            checked.append(True)
+        k_max = int(k_max)
+        stop = bool(stop_on_reply)
+        if cap is not None:
+            k_max = min(k_max, cap)
+        last = max(k_max, 1)
+        empty = Msgs.empty(CC, dev)
+        exit_k = torch.full((), INT32_MAX, dtype=I32, device=dev)
+        st = {"log": None, "buf": None}
+
+        def step(cur, k):
+            """Round k (1-based) from state `cur`."""
+            sim2, cm2, io = _round(program, cfg, cur,
+                                   inject if k == 1 else empty)
+            if cap is not None:
+                if st["buf"] is None:
+                    st["buf"] = tree_map(
+                        lambda x: torch.zeros((cap,) + tuple(x.shape),
+                                              dtype=x.dtype, device=dev),
+                        io)
+                tree_map(lambda b, x: b[k - 1].copy_(x), st["buf"], io)
+            log = st["log"]
+            if log is None:
+                cw = cm2.valid.shape[0]
+                log = empty_reply_log(max(rcap_req, 2 * cw), W, dev)
+            seen = program.reply_payload_plane(sim2.nodes) if W else None
+            rn2 = append_replies(log, cm2, seen, N, sim2.net.round, k,
+                                 k_max, stop, exit_k)
+            st["log"] = log[:3] + (rn2,)
+            return sim2, cm2
+
+        k, cur, cm = 0, sim, None
+        while True:
+            n = min(chunk, last - k)
+            snap = cur.replace(channels=tree_map(lambda t: t.clone(),
+                                                 cur.channels))
+            rn_snap = None if st["log"] is None else st["log"][3]
+            for j in range(n):
+                cur, cm = step(cur, k + j + 1)
+            if n == 1 and k + 1 >= last:
+                k += 1          # one legit round and nothing after it
+                break
+            e = read(exit_k)
+            scan_fn.host_syncs += 1
+            if e >= k + n:
+                k += n
+                if e == k:
+                    break
+                continue
+            # rounds e+1 .. k+n ran past the exit: roll back and replay
+            cur = snap
+            if rn_snap is None:
+                rn_snap = torch.zeros((), dtype=I32, device=dev)
+            _reset_log_tail(st["log"], rn_snap)
+            st["log"] = st["log"][:3] + (rn_snap,)
+            if st["buf"] is not None:
+                tree_map(lambda b: b[e:k + n].zero_(), st["buf"])
+            for j in range(e - k):
+                cur, cm = step(cur, k + j + 1)
+            scan_fn.replayed += e - k
+            k = e
+            break
+        out = (cur, cm, k, st["log"])
+        if cap is not None:
+            out = out + (st["buf"],)
+        return out
+
+    scan_fn.host_syncs = 0
+    scan_fn.replayed = 0
+    return scan_fn

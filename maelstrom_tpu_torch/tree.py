@@ -39,7 +39,10 @@ def resolve_device(device) -> torch.device:
 
 def tree_map(fn, tree, *rest):
     """Applies `fn` to every tensor leaf (and the matching leaves of
-    `rest`, which share the structure); `None` stays `None`."""
+    `rest`, which share the structure) of dataclasses, dicts and tuples;
+    `None` stays `None`."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
     if tree is None:
         return None
     if dataclasses.is_dataclass(tree):
@@ -50,6 +53,9 @@ def tree_map(fn, tree, *rest):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *[r[k] for r in rest])
                 for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(tree_map(fn, v, *[r[i] for r in rest])
+                     for i, v in enumerate(tree))
     return fn(tree, *rest)
 
 
@@ -63,6 +69,8 @@ def leaves(tree, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
                  for f in dataclasses.fields(tree)]
     elif isinstance(tree, dict):
         items = list(tree.items())
+    elif isinstance(tree, tuple):
+        items = [(str(i), v) for i, v in enumerate(tree)]
     else:
         return [(prefix, tree)]
     out = []
@@ -76,7 +84,9 @@ def to(tree, device):
 
 
 def to_numpy(tree):
-    """Nested dicts of numpy arrays keyed by field name (`None` kept)."""
+    """Nested dicts of numpy arrays keyed by field name (`None` kept).
+    The arrays are copies: a CPU tensor's numpy view would follow the
+    channels, which rounds update in place."""
     if tree is None:
         return None
     if dataclasses.is_dataclass(tree):
@@ -84,7 +94,9 @@ def to_numpy(tree):
                 for f in dataclasses.fields(tree)}
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
-    return tree.detach().cpu().numpy()
+    if isinstance(tree, tuple):
+        return tuple(to_numpy(v) for v in tree)
+    return np.array(tree.detach().cpu().numpy())
 
 
 def from_numpy(template, data, device):

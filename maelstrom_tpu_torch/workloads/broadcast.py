@@ -1,16 +1,19 @@
-"""Broadcast topologies (reference `src/maelstrom/workload/broadcast.clj`).
+"""Broadcast workload (reference `src/maelstrom/workload/broadcast.clj`).
 
-A copy of the topology half of `maelstrom_tpu/workloads/broadcast.py`:
-the generators (grid/line/total/tree2/3/4, reference
-`broadcast.clj:39-177`) as node-id maps, and `topology_indices`, the dense
-neighbour array the edge channels use. The client and checker half comes
-with the CLI runner slice."""
+A copy of `maelstrom_tpu/workloads/broadcast.py` without the host-network
+client and its RPC schemas (external node processes are not ported): the
+topologies (grid/line/total/tree2/3/4, reference `broadcast.clj:39-177`)
+as node-id maps, `topology_indices`, the dense neighbour array the edge
+channels use, and `workload()`, the generator and checker of a test."""
 
 from __future__ import annotations
 
 import math
 
 import numpy as np
+
+from .. import generators as g
+from ..checkers.set_full import BroadcastChecker
 
 
 def grid_topology(nodes):
@@ -98,3 +101,13 @@ def topology_indices(topo: dict, nodes: list[str], max_degree=None):
         for j, m in enumerate(neighbors):
             out[idx[n], j] = idx[m]
     return out
+
+
+def workload(opts: dict) -> dict:
+    return {
+        "generator": g.mix([
+            g.Counting("broadcast"),
+            g.Repeat({"f": "read"})]),
+        "final_generator": g.each_thread({"f": "read", "final": True}),
+        "checker": BroadcastChecker(),
+    }

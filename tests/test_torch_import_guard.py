@@ -11,10 +11,12 @@ import sys
 import pytest
 import torch
 
+from maelstrom_tpu_torch import cli, core
 from maelstrom_tpu_torch.bench import run_broadcast_bench
 from maelstrom_tpu_torch.net.tpu import NetConfig
 from maelstrom_tpu_torch.nodes import get_program
-from maelstrom_tpu_torch.sim import make_run_fn, make_sim
+from maelstrom_tpu_torch.runner.tpu_runner import run_tpu_test
+from maelstrom_tpu_torch.sim import make_run_fn, make_scan_fn, make_sim
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
@@ -49,10 +51,10 @@ def test_port_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", GUARD], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 12    # every module was imported
+    assert int(res.stdout.split()[-1]) >= 29    # every module was imported
 
 
-def test_entry_points_default_to_cuda(monkeypatch):
+def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     # decided inside the test: on a machine with a card this check is
     # about the default, not about its absence
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -62,8 +64,19 @@ def test_entry_points_default_to_cuda(monkeypatch):
         get_program("broadcast", opts, nodes)
     prog = get_program("broadcast", opts, nodes, device="cpu")
     cfg = NetConfig(n_nodes=4, n_clients=1)
+    args = ["test", "-w", "broadcast", "--node", "tpu:broadcast",
+            "--node-count", "4", "--store", str(tmp_path)]
     for call in (lambda: make_sim(prog, cfg), lambda: make_run_fn(prog, cfg),
+                 lambda: make_scan_fn(prog, cfg),
                  lambda: run_broadcast_bench(n_nodes=4, values=2,
-                                             rounds=4)):
+                                             rounds=4),
+                 lambda: run_tpu_test(core.build_test({
+                     "workload": "broadcast", "node": "tpu:broadcast",
+                     "node_count": 4}), str(tmp_path)),
+                 lambda: cli.main(args)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    assert not any(tmp_path.iterdir())      # refused before any store dir
+    # the CLI runs on the CPU when asked
+    assert cli.main(args + ["--device", "cpu", "--time-limit", "0.2",
+                            "--max-values", "8"]) == 0

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card, at shapes the chip smoke does not reach: several value windows
-(V 100 and 1024), lines with missing edges, deep rings, wide reply
-buffers. The plain version runs on the CPU from the same numpy inputs.
+(V 100 and 1024), lines with missing edges, deep rings with the `sent`
+plane, wide reply buffers, reply logs around the one-block and
+two-pass boundary (4096 rows), and quiescence planes of odd lengths
+and alignments. The plain version runs on the CPU from the same numpy inputs.
 Tolerance: exact (int32 and bool).
 
 These tests need a CUDA device and skip without one. They import
@@ -20,7 +22,10 @@ from maelstrom_tpu_torch import kernels as K
 from maelstrom_tpu_torch.net import static
 from maelstrom_tpu_torch.net.tpu import Msgs
 from maelstrom_tpu_torch.nodes import get_program
-from maelstrom_tpu_torch.sim import compact_replies
+from maelstrom_tpu_torch.runner.tpu_runner import (quiet_probe,
+                                                   quiet_probe_plain)
+from maelstrom_tpu_torch.sim import (append_replies, append_replies_plain,
+                                     compact_replies, empty_reply_log)
 from maelstrom_tpu_torch.tree import leaves, to, tree_map
 
 pytestmark = pytest.mark.gpu
@@ -57,10 +62,13 @@ def _tensors(d, device):
                           ("line", 33, 5, True, False),
                           ("grid", 50, 2, True, True),
                           ("tree3", 40, 4, False, True)])
-def test_edge_kernels_match_plain(cuda, topo, n, ring, uniform, views):
+@pytest.mark.parametrize("sent", [False, True], ids=["", "sent"])
+def test_edge_kernels_match_plain(cuda, topo, n, ring, uniform, views,
+                                  sent):
     """`views`: latency and deliver mask come as broadcast views, as the
     round passes them (a scalar or [N, 1, L] latency, an [N, D, 1]
-    mask), and the kernel reads them through their strides."""
+    mask), and the kernel reads them through their strides. `sent`: the
+    journaled runs' send-identity plane is tracked."""
     rng = np.random.default_rng(n * ring)
     prog = get_program("broadcast", {"topology": topo, "max_values": 8},
                        [f"n{i}" for i in range(n)], device="cpu")
@@ -72,6 +80,8 @@ def test_edge_kernels_match_plain(cuda, topo, n, ring, uniform, views):
           **{f: rng.integers(-99, 99, shape, dtype=np.int32)
              for f in ("type", "a", "b", "c")},
           "overwrites": np.int32(3), "lat_clipped": np.int32(1)}
+    if sent:
+        ch["sent"] = rng.integers(0, 9999, shape, dtype=np.int32)
     out = {"valid": rng.random((n, D, L)) < 0.6,
            **{f: rng.integers(-99, 99, (n, D, L), dtype=np.int32)
               for f in ("type", "a", "b", "c")}}
@@ -164,3 +174,51 @@ def test_kernels_launch_on_cuda_tensors(cuda):
                     torch.tensor(0, dtype=torch.int32, device=cuda))
     assert K.launch_counts()["reply_compact"] == \
         before["reply_compact"] + 1
+
+
+@pytest.mark.parametrize("CW,rcap,rn0,W,V,p_valid,stop",
+                         [(37, 80, 0, 2, 50, 0.3, True),
+                          (4096, 8192, 5000, 4, 100, 0.5, False),
+                          (4097, 8194, 0, 0, 0, 0.5, False),
+                          (20000, 40000, 39000, 32, 1024, 0.2, False),
+                          (9000, 18000, 0, 0, 0, 0.01, True)])
+def test_reply_log_append_matches_plain(cuda, CW, rcap, rn0, W, V,
+                                        p_valid, stop):
+    """rn0 near rcap drops the rows past the log's end; W 0: a program
+    without a reply payload."""
+    rng = np.random.default_rng(CW + rn0)
+    n = 77
+    cm = {"valid": rng.random(CW) < p_valid,
+          **{f: rng.integers(-9, 999, CW, dtype=np.int32)
+             for f in ("src", "dest", "due", "mid", "reply_to", "type",
+                       "a", "b", "c")}}
+    seen = rng.random((n, V)) < 0.5
+    res = []
+    for d, fn in (("cpu", append_replies_plain), (cuda, append_replies)):
+        log = empty_reply_log(rcap, W, d)[:3] + (
+            torch.tensor(rn0, dtype=torch.int32, device=d),)
+        ek = torch.full((), 2**31 - 1, dtype=torch.int32, device=d)
+        rn = fn(log, Msgs(**_tensors(cm, d)),
+                torch.tensor(seen, device=d) if W else None, n,
+                torch.tensor(321, dtype=torch.int32, device=d), 4, 6, stop,
+                ek)
+        res.append((log[:3], rn, ek))
+    torch.cuda.synchronize()
+    _equal(res[1], res[0])
+
+
+@pytest.mark.parametrize("sizes,offset", [([1], 0), ([17, 33, 5000], 3),
+                                          ([1 << 20, 15, 64], 1)])
+def test_quiet_probe_matches_plain(cuda, sizes, offset):
+    """Planes of odd lengths, some starting off a 16-byte boundary; one
+    set byte at each plane's head, middle and tail in turn."""
+    planes = [torch.zeros(n + offset, dtype=torch.bool,
+                          device=cuda)[offset:] for n in sizes]
+    assert bool(quiet_probe(planes)) and bool(quiet_probe_plain(planes))
+    for p in planes:
+        for at in (0, p.numel() // 2, p.numel() - 1):
+            p[at] = True
+            assert not bool(quiet_probe(planes))
+            assert bool(quiet_probe(planes)) == bool(
+                quiet_probe_plain(planes))
+            p[at] = False

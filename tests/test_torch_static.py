@@ -1,6 +1,7 @@
 """The port's edge exchange (`maelstrom_tpu_torch/net/static.py`, kernels
 K1 edge_read and K2 edge_write) against the JAX package's, on random
-channel states, outboxes, masks and latencies. Tolerance: exact."""
+channel states, outboxes, masks and latencies, with and without the
+journaled runs' `sent` plane. Tolerance: exact."""
 
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ def _topology(name, n):
     return nb, JS.reverse_index(nb)
 
 
-def _random_inputs(seed, ring, uniform, topo, n):
+def _random_inputs(seed, ring, uniform, topo, n, sent=False):
     rng = np.random.default_rng(seed)
     nb, rev = _topology(topo, n)
     D = nb.shape[1]
@@ -40,6 +41,8 @@ def _random_inputs(seed, ring, uniform, topo, n):
              for f in ("type", "a", "b", "c")},
           "overwrites": np.int32(rng.integers(0, 9)),
           "lat_clipped": np.int32(rng.integers(0, 9))}
+    if sent:
+        ch["sent"] = rng.integers(0, 5000, shape, dtype=np.int32)
     oshape = (n, D, LANES)
     out = {"valid": rng.random(oshape) < 0.6,
            **{f: rng.integers(-1000, 1000, oshape, dtype=np.int32)
@@ -69,10 +72,11 @@ def _torch_channels(ch):
                               for k, v in ch.items()})
 
 
+@pytest.mark.parametrize("sent", [False, True], ids=["", "sent"])
 @pytest.mark.parametrize("ring,uniform,topo,n", CASES)
-def test_edge_write_matches_jax(ring, uniform, topo, n):
+def test_edge_write_matches_jax(ring, uniform, topo, n, sent):
     nb, rev, ch, out, lat, mask, rnd = _random_inputs(ring * 31 + n, ring,
-                                                      uniform, topo, n)
+                                                      uniform, topo, n, sent)
     jcfg, pcfg = _configs(ring, uniform, nb)
     ref = JS.edge_write(
         jcfg, _jax_channels(ch),
@@ -88,10 +92,12 @@ def test_edge_write_matches_jax(ring, uniform, topo, n):
     assert int(got.overwrites) > int(ch["overwrites"])   # collisions hit
 
 
+@pytest.mark.parametrize("sent", [False, True], ids=["", "sent"])
 @pytest.mark.parametrize("ring,uniform,topo,n", CASES)
-def test_edge_read_matches_jax(ring, uniform, topo, n):
+def test_edge_read_matches_jax(ring, uniform, topo, n, sent):
     nb, rev, ch, _out, _lat, _mask, rnd = _random_inputs(ring * 17 + n, ring,
-                                                         uniform, topo, n)
+                                                         uniform, topo, n,
+                                                         sent)
     jcfg, pcfg = _configs(ring, uniform, nb)
     ref_ch, ref_in = JS.edge_read(jcfg, _jax_channels(ch), jnp.asarray(nb),
                                   jnp.asarray(rev), jnp.int32(rnd))
@@ -106,12 +112,19 @@ def test_edge_read_matches_jax(ring, uniform, topo, n):
 
 
 def test_spill_and_send_round_tracking_are_refused():
+    """Spill channels are still refused (the fault slice ports them);
+    send-round tracking, refused in slice 1, now makes the JAX
+    package's zero `sent` plane (slice 2)."""
     cfg = PS.EdgeConfig(n_nodes=4, degree=2, lanes=2, spill=True)
     with pytest.raises(NotImplementedError, match="spill"):
         PS.make_channels(cfg, "cpu")
     cfg = PS.EdgeConfig(n_nodes=4, degree=2, lanes=2)
-    with pytest.raises(NotImplementedError, match="track_send_round"):
-        PS.make_channels(cfg, "cpu", track_send_round=True)
+    kw = dict(n_nodes=4, degree=2, lanes=2)
+    for track in (False, True):
+        ref = JS.make_channels(JS.EdgeConfig(**kw), track_send_round=track)
+        got = PS.make_channels(cfg, "cpu", track_send_round=track)
+        assert_trees_equal(jax_tree_to_numpy(ref), jax_tree_to_numpy(got))
+        assert (got.sent is not None) == track
 
 
 def test_reverse_index_matches_jax():
