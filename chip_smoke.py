@@ -13,11 +13,16 @@ the kernels and through the plain versions, runs the broadcast bench
 the JAX reference's message counts and at 100,000 nodes (slice 1's main
 path), then the port's CLI (`python -m maelstrom_tpu_torch test`): small
 runs whose history.jsonl must hash to the JAX runner's (`PINNED_CLI`),
-and the 100,000-node broadcast test at the CLI's defaults, this slice's
-main path. Every phase prints one JSON line; any failed check exits
-non-zero. The line before the last lists every kernel with its launches
-on the main path, its time, its plain version's time and its bound; the
-last line is `{"ok": true, "device": {...}}`.
+and the 100,000-node broadcast test at the CLI's defaults (slice 2's main
+path). Then the fault slice: K7-K9 and K3 with its stall mask against
+their plain versions at the shapes of the fault runs, K7's draws against
+hashes of `jax.random`'s, the CLI under faults on runs whose histories
+must hash to the JAX runner's (`PINNED_FAULTS`), and the 100,000-node
+test under loss, uniform latency and the kill, pause and duplicate
+nemeses (slice 3's main path). Every phase prints one JSON line; any
+failed check exits non-zero. The line before the last lists every kernel
+with its launches on its path, its time, its plain version's time and
+its bound; the last line is `{"ok": true, "device": {...}}`.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository. It imports nothing of JAX."""
@@ -40,6 +45,29 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PINNED_16K = {"efficient": 4_267_662, "eager": 7_768_330}
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
+# int32 operations a second outside the tensor cores: 132 SMs x 64 INT32
+# lanes x 1.98 GHz boost (H100 SXM; NVIDIA's Hopper architecture paper)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# integer operations of one threefry2x32 hash: 20 rounds of add, rotate
+# (one funnel shift) and xor, 5 key injections of 3 adds, 2 initial adds
+# and the 2 xors of the third key word; a draw adds 4 (the xor of the two
+# words, the shift and or of the float bits, the subtraction)
+THREEFRY_OPS = 20 * 3 + 5 * 3 + 2 + 2
+DRAW_OPS = THREEFRY_OPS + 4
+
+# K7's uniform bits and latency rounds for key PRNGKey(42) over 100,003
+# draws: sha256 of the little-endian uint32 bits, of the int32 rounds of
+# uniform latency (mean 5, scale 1) and of exponential latency (mean 3),
+# from jax.random on the CPU (jax 0.9.0):
+#   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_prng.py -k pins
+PRNG_PIN_N = 100_003
+PINNED_PRNG = {
+    "bits": "5403048bd34ae1e0bd70df9dcb31c0c65c28f4735a0b9756f84902ff6a968f81",
+    "uniform_rounds":
+        "ba1343854879234f1ecc8b821adb59917e410a1bd41489119fd6daf7f15d5e9f",
+    "exponential_rounds":
+        "125a1fdfb04629bf079951498eb5d2c4fbe2a0aa424c82b5315368e924ff44e0",
+}
 
 
 def emit(obj) -> None:
@@ -86,6 +114,13 @@ def nbytes(*tensors) -> int:
 
 def bound_ms(n_bytes: int) -> float:
     return 1e3 * n_bytes / HBM_BYTES_PER_S
+
+
+def bound_of(n_bytes: int, n_ops: int) -> tuple:
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over
+    the memory rate and the int32 operations over the int32 rate."""
+    by, op = bound_ms(n_bytes), 1e3 * n_ops / INT32_OPS_PER_S
+    return (by, "bytes") if by >= op else (op, "operations")
 
 
 def max_abs_err(a, b) -> int:
@@ -624,6 +659,7 @@ def phase_main_path(smi):
 # the round's kernels (K1-K4); the CLI runner adds K5 and K6
 ROUND_KERNELS = ("edge_read", "edge_write", "broadcast_step",
                  "reply_compact")
+CLI_KERNELS = ROUND_KERNELS + ("reply_log_append", "quiet_probe")
 
 # The port's CLI on the three parity configurations of
 # tests/test_torch_runner.py (the e2e tests' grid and line runs, the
@@ -658,14 +694,52 @@ PINNED_CLI = {
         "b17b0e79bc5d4953987642fcafb199d01831370097b255b5b26919fb661755d7",
 }
 
+# The port's CLI under faults on runs small enough for the JAX runner on a
+# CPU (64-value tables, journaled but the 1024-node run): the README's
+# tree4 run with its partition nemesis, a 5-node grid storm (exponential
+# latency, loss and all five fault packages) and a 1024-node grid run
+# under uniform latency, loss and four fault packages (its spill write is
+# K9's main path). tests/test_torch_runner_faults.py holds the first two
+# against the JAX runner on the CPU.
+CLI_FAULT_BASE = CLI_BASE + ["--max-values", "64"]
+CLI_FAULTS_SMALL = [
+    ("tree4-25-partition", CLI_FAULT_BASE + [
+        "--node-count", "25", "--topology", "tree4", "--latency", "10",
+        "--nemesis", "partition", "--nemesis-interval", "0.5",
+        "--time-limit", "2"]),
+    ("grid5-storm", CLI_FAULT_BASE + [
+        "--node-count", "5", "--topology", "grid", "--seed", "23",
+        "--latency", "3", "--latency-dist", "exponential", "--p-loss",
+        "0.02", "--nemesis", "partition,kill,pause,duplicate,weather",
+        "--nemesis-interval", "0.5", "--time-limit", "4"]),
+    ("grid1024-faults", CLI_FAULT_BASE + [
+        "--node-count", "1024", "--topology", "grid", "--latency", "5",
+        "--latency-dist", "uniform", "--p-loss", "0.01", "--nemesis",
+        "partition,kill,pause,duplicate", "--nemesis-interval", "1",
+        "--time-limit", "2"]),
+]
+# sha256 of the JAX runner's history.jsonl for each run above, on the CPU
+# (`python -m maelstrom_tpu <args> --no-audit`); re-derived by
+#   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_runner_faults.py \
+#       -m slow
+PINNED_FAULTS = {
+    "tree4-25-partition":
+        "91b0b556d059abb6b895aed9a01acfcd90a5f9fd3e4beeb05f024d75563129b6",
+    "grid5-storm":
+        "f3bc0fc09c097909a5fc7b269e0d732d74abc121ac16e05df66e8c64b4072f7f",
+    "grid1024-faults":
+        "640071ccc5657797ae9cf59c4ae3de01e60205d21a6675e2495f5c95dc5451d8",
+}
+
 # The slice's full-width run: the README's 100,000-node broadcast at the
 # CLI's defaults (grid, latency 0, rate 5, time limit 10 s, recovery
 # 10 s, concurrency = node count: client_cap 200,000, pool 800,000), on
-# one card. CLI_100K_TIME_LIMIT cuts its time limit only if the smoke
-# outgrows its own (None: not cut).
+# one card. CLI_100K_TIME_LIMIT cuts its time limit (10 s -> 2 s, node
+# count kept) so the smoke, which now also runs the fault slice's
+# 100,000-node test, stays well inside its own time limit.
 CLI_100K = ["test", "-w", "broadcast", "--node", "tpu:broadcast",
             "--node-count", "100000"]
-CLI_100K_TIME_LIMIT = None
+CLI_100K_TIME_LIMIT = 2.0
 
 
 def _cli_run(args, store):
@@ -718,7 +792,7 @@ def phase_cli_small():
                       "dispatches": tm["dispatches"], "drains": tm["drains"],
                       "history_sha256_equal": True}
     launches = K.launch_counts()
-    check(all(v > 0 for v in launches.values()),
+    check(all(launches[k] > 0 for k in CLI_KERNELS),
           f"cli_small did not launch every kernel: {launches}")
     emit({"phase": "cli_small", "runs": runs, "launches": launches})
 
@@ -741,7 +815,7 @@ def phase_cli_100k(smi):
     _cli_checks("100k", rc, res, tm)
     check(res["workload"]["valid"] is True and res["workload"][
         "lost-count"] == 0, f"cli 100k: workload {res['workload']}")
-    check(all(v > 0 for v in launches.values()),
+    check(all(launches[k] > 0 for k in CLI_KERNELS),
           f"the 100,000-node CLI run did not launch every kernel: "
           f"{launches}")
     delivered = res["net"]["all"]["recv-count"]
@@ -773,7 +847,7 @@ def phase_cli_100k(smi):
     return launches
 
 
-def phase_cli_profile():
+def phase_cli_profile(faults=False):
     """Device busy time of the 100,000-node CLI run's scan rounds: the
     runner's own program, config and scan fn (reply log, CC 200,000,
     pool 800,000), 50 broadcasts injected, 200 rounds untraced so gossip
@@ -782,7 +856,8 @@ def phase_cli_profile():
     times the runner's two torch-op helpers at this shape: the bump
     (round += k) and the packer (the dispatch's log and next_mid
     concatenated for one copy to the host), each against the bytes it
-    must move."""
+    must move. With `faults`, the run is CLI_FAULTS_100K's config with
+    its faults installed as `_fault_net` makes them."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -791,11 +866,20 @@ def phase_cli_profile():
     from maelstrom_tpu_torch.runner.tpu_runner import TpuRunner
     from maelstrom_tpu_torch.sim import make_scan_fn
     from maelstrom_tpu_torch.tree import leaves
-    test = core.build_test({"workload": "broadcast",
-                            "node": "tpu:broadcast",
-                            "node_count": 100_000, "journal_rows": False})
-    runner = TpuRunner(test)
+    opts = {"workload": "broadcast", "node": "tpu:broadcast",
+            "node_count": 100_000, "journal_rows": False}
+    if faults:
+        opts.update(latency={"mean": 5, "dist": "uniform"}, p_loss=0.01,
+                    nemesis={"kill", "pause", "duplicate"})
+    runner = TpuRunner(core.build_test(opts))
     prog, cfg = runner.program, runner.cfg
+    if faults:
+        g = torch.Generator(device="cuda")
+        g.manual_seed(5)
+        fnet = _fault_net(cfg, "cuda", g)
+        runner.sim = runner.sim.replace(net=runner.sim.net.replace(
+            p_loss=fnet.p_loss, p_dup=fnet.p_dup, down=fnet.down,
+            paused=fnet.paused))
     scan = make_scan_fn(prog, cfg, reply_cap=runner.reply_log_cap,
                         device=runner.device)
     rows = [(p, {}, (p * 2654435761) % cfg.n_nodes, T_BCAST, p, 0, 0)
@@ -829,7 +913,8 @@ def phase_cli_profile():
                                                  leaves(tree)])
                                         + packed_bytes),
                    "packed_bytes": packed_bytes}}
-    emit({"phase": "cli_profile", "rounds": 40,
+    emit({"phase": "cli_faults_profile" if faults else "cli_profile",
+          "rounds": 40,
           "host_ms_per_round": host_ms,
           "device_busy_ms_per_round": busy_ms,
           "device_idle_share": max(0.0, 1 - busy_ms / host_ms),
@@ -837,6 +922,320 @@ def phase_cli_profile():
                    "ms_per_round": e.self_device_time_total / 1e3 / 40,
                    "calls_per_round": e.count / 40} for e in top],
           "helpers": helpers})
+
+
+# --- the fault slice ----------------------------------------------------------
+
+# The 100,000-node fault run's shapes (CLI_FAULTS_100K): grid, 1024
+# values, 4 gossip lanes + the digest lane, concurrency 100,000, uniform
+# latency (no spill past 4,096 nodes), duplication and stall compiled in;
+# and the 1024-node spill shape of the pinned grid1024-faults run (ring
+# 5 * 8 * 10 + 2 + 2 = 404, 10 channel lanes for 5 out lanes)
+FAULT_SHAPE = {"nodes": 100_000, "values": 1024, "lanes": 5,
+               "clients": 100_000}
+SPILL_SHAPE = {"nodes": 1024, "ring": 404, "channel_lanes": 10,
+               "out_lanes": 5}
+
+
+def _fault_net(cfg, dev, g):
+    """A net with the fault run's faults installed: 1% loss, duplication
+    at 0.25, about a third of the nodes killed or paused."""
+    import torch
+    from maelstrom_tpu_torch.net import tpu as T
+    N = cfg.n_nodes
+    net = T.set_duplication(T.flaky(T.make_net(cfg, dev), 0.01), 0.25)
+    down = torch.rand(N, generator=g, device=dev) < 0.2
+    paused = torch.rand(N, generator=g, device=dev) < 0.15
+    return net.replace(down=down, paused=paused)
+
+
+def fault_kernel_checks(timed):
+    """K7, K8 and K3 with its stall mask at the 100,000-node fault run's
+    shapes, K9 at the 1024-node spill shape, each against its plain
+    version on the card (`forced_plain`). K7 is timed as one round's
+    draws (the round's split of 7, the pool send's split of 4, and its
+    four draws over the 100,000 client rows); K8 as the round's edge
+    fault pass over [100,000, 4, 5] lanes. Returns {kernel:
+    {max_abs_err, bound_ms, bound_by[, ms, plain_ms]}}."""
+    import torch
+    from maelstrom_tpu_torch import kernels as K
+    from maelstrom_tpu_torch import prng
+    from maelstrom_tpu_torch import sim as S
+    from maelstrom_tpu_torch.net import static
+    from maelstrom_tpu_torch.net import tpu as T
+    g = torch.Generator(device="cuda")
+    g.manual_seed(31)
+    out = {}
+    N, V, M = FAULT_SHAPE["nodes"], FAULT_SHAPE["values"], \
+        FAULT_SHAPE["clients"]
+    prog = _program(N, V, 4, latency=5)
+    D, L = prog.D, prog.lanes
+    cfg = T.NetConfig(n_nodes=N, n_clients=M, latency_mean_rounds=5.0,
+                      latency_dist="uniform", enable_stall=True,
+                      enable_duplication=True)
+    net = _fault_net(cfg, "cuda", g)
+    key = prng.PRNGKey(77, "cuda")
+
+    def record(name, err, n_bytes, n_ops, fn_k, fn_p, extra=None):
+        check(err == 0, f"{name} differs from its plain version (max abs "
+              f"err {err})")
+        b, by = bound_of(n_bytes, n_ops)
+        r = {"max_abs_err": err, "bound_ms": b, "bound_by": by,
+             **(extra or {})}
+        if timed:
+            r["ms"] = cuda_ms(fn_k)
+            with K.forced_plain():
+                r["plain_ms"] = cuda_ms(fn_p)
+        out[name] = r
+
+    # K7: one round's draws on the pool path
+    lat_spec = ("latency", "uniform", 5.0, net.latency_scale)
+
+    def k7_round():
+        keys = prng.split(key, 7)
+        ks = prng.split(keys[1], 4)
+        return (keys, ks) + tuple(prng.draws(
+            ks, M, [lat_spec, ("mask", net.p_loss),
+                    ("mask", net.p_dup), lat_spec]))
+    got = k7_round()
+    with K.forced_plain():
+        ref = k7_round()
+    torch.cuda.synchronize()
+    err = max_abs_err(got, ref)
+    record("threefry", err, 11 * 8 + M * (4 + 1 + 1 + 4), (11 + 4 * M)
+           * DRAW_OPS, k7_round, k7_round, {"draws": 4 * M + 11})
+
+    # K8: the round's edge faults
+    valid = torch.rand((N, D, L), generator=g, device="cuda") < 0.3
+    keys = prng.split(key, 7)
+
+    def k8():
+        return S.edge_faults(cfg, prog.neighbors, net, valid, keys)
+    got = k8()
+    with K.forced_plain():
+        ref = k8()
+    torch.cuda.synchronize()
+    err = max_abs_err(got, ref)
+    n_el = N * D * L
+    # reads: valid lanes, neighbours, the component labels, down and
+    # paused; writes: deliver, lat, dup, dup_lat
+    record("edge_faults", err,
+           n_el + N * D * 4 + N * 4 + 2 * N + n_el * (1 + 4 + 1 + 4) + 32,
+           4 * n_el * DRAW_OPS, k8, k8, {"lanes": n_el})
+
+    # K3 with the stall mask, efficient mode at V 1024
+    p = _program(N, V, 4)
+    W, Kc = p.n_windows, p.inbox_cap
+    state = {"seen": torch.rand((N, V), generator=g, device="cuda") < .3,
+             "owed": torch.rand((N, D, W), generator=g, device="cuda") < .3,
+             **{k: torch.rand((N, D, V), generator=g, device="cuda") < .2
+                for k in ("pending", "inflight", "inflight_old")}}
+    ein = _random_edge_msgs(g, (N, D, p.edge_cfg.lanes), V, W)
+    cin = _random_client(g, N, Kc, V, 0.01)
+    stall = net.down | net.paused
+    rnd = torch.tensor(p.retry_rounds * 3, dtype=torch.int32, device="cuda")
+    ctx = {"round": rnd, "stall": stall}
+
+    def k3():
+        return p.edge_step(state, ein, cin, ctx)
+    got = k3()
+    with K.forced_plain():
+        ref = k3()
+    torch.cuda.synchronize()
+    err = max_abs_err(got, ref)
+    so, eo, co = got
+    io = (nbytes(*state.values(), stall, p.neighbors,
+                 *[getattr(ein, f) for f in ("valid", "type", "a", "b",
+                                             "c")],
+                 *[getattr(cin, f) for f in ("valid", "src", "due", "mid",
+                                             "type", "a", "b", "c")])
+          + nbytes(*so.values(), *[getattr(eo, f) for f in
+                                   ("valid", "type", "a", "b", "c")],
+                   *[getattr(co, f) for f in ("valid", "src", "dest", "due",
+                                              "mid", "reply_to", "type",
+                                              "a", "b", "c")]))
+    record("broadcast_step_stall", err, io, 0, k3, k3,
+           {"stalled_nodes": int(stall.sum())})
+
+    # K9 at the 1024-node spill shape
+    sp = _program(SPILL_SHAPE["nodes"], 64, 4, latency=5)
+    Ns, Ds = SPILL_SHAPE["nodes"], sp.D
+    R, Lc, Lo = (SPILL_SHAPE["ring"], SPILL_SHAPE["channel_lanes"],
+                 SPILL_SHAPE["out_lanes"])
+    wcfg = static.EdgeConfig(n_nodes=Ns, degree=Ds, lanes=Lc, ring=R,
+                             spill=True)
+    occ = torch.randint(0, 3, (Ns, Ds, R, 1), generator=g, device="cuda")
+    ch = _random_channels(g, wcfg, sent=True)
+    ch.valid.copy_(torch.arange(Lc, device="cuda") < occ)
+    eo = _random_edge_msgs(g, (Ns, Ds, Lo), 64, 1)
+    lat = torch.randint(0, 11, (Ns, Ds, Lo), generator=g, device="cuda",
+                        dtype=torch.int32)
+    mask = torch.rand((Ns, Ds, 1), generator=g, device="cuda") < 0.9
+    rnd = torch.tensor(321, dtype=torch.int32, device="cuda")
+    ck, cp = clone(ch), clone(ch)
+    static.edge_write(wcfg, ck, eo, rnd, lat, mask)
+    with K.forced_plain():
+        static.edge_write(wcfg, cp, eo, rnd, lat, mask)
+    torch.cuda.synchronize()
+    err = max_abs_err(ck, cp)
+    ok_lanes = int((eo.valid & mask).sum())
+    # out lanes read (valid, latency, mask), for each written lane its
+    # cell's Lc valid bytes and 21 bytes written (valid, 4 fields, sent)
+    # timed on the written channels again (in place: the cells fill up,
+    # the work of a call stays the same)
+    record("edge_write_spill", err,
+           Ns * Ds * Lo * 5 + Ns * Ds + ok_lanes * (Lc + 21), 0,
+           lambda: static.edge_write(wcfg, ck, eo, rnd, lat, mask),
+           lambda: static.edge_write(wcfg, cp, eo, rnd, lat, mask))
+    return out
+
+
+def phase_fault_kernels(timed):
+    t0 = time.perf_counter()
+    r = fault_kernel_checks(timed)
+    emit({"phase": "kernels_vs_plain", "shape": "faults", "timed": timed,
+          "fault_shape": FAULT_SHAPE, "spill_shape": SPILL_SHAPE,
+          "seconds": time.perf_counter() - t0, "kernels": r})
+    return r
+
+
+def phase_prng_pins():
+    """K7's bits and latency rounds against the hashes of jax.random's."""
+    import hashlib
+    import numpy as np
+    import torch
+    from maelstrom_tpu_torch import prng
+    key = prng.PRNGKey(42, "cuda")
+    one = torch.ones((), dtype=torch.float32, device="cuda")
+    n = PRNG_PIN_N
+    got = {"bits": prng.random_bits(key, (n,)),
+           "uniform_rounds": prng.latency_rounds(key, (n,), "uniform", 5.0,
+                                                 one),
+           "exponential_rounds": prng.latency_rounds(
+               key, (n,), "exponential", 3.0, one)}
+    dig = {}
+    for k, t in got.items():
+        a = t.cpu().numpy()
+        a = a.astype("<u4" if k == "bits" else "<i4")
+        dig[k] = hashlib.sha256(np.ascontiguousarray(a).tobytes()
+                                ).hexdigest()
+        check(dig[k] == PINNED_PRNG[k], f"prng pin {k}: {dig[k]}, jax's "
+              f"{PINNED_PRNG[k]}")
+    emit({"phase": "prng_pins", "draws": n, "equal": True})
+
+
+def phase_cli_faults_small():
+    """The port's CLI under faults through the kernels on the pinned runs:
+    each history.jsonl must hash to the JAX runner's. The 1024-node run
+    is K9's path (randomized latency on 4,096 nodes or fewer); its launch
+    counts are read here."""
+    import shutil
+    from maelstrom_tpu_torch import kernels as K
+    store = os.path.join(ROOT, "store", "chip_smoke_faults")
+    shutil.rmtree(store, ignore_errors=True)
+    K.reset_launches()
+    runs = {}
+    for name, args in CLI_FAULTS_SMALL:
+        rc, _d, res, tm, digest, wall = _cli_run(args, store)
+        _cli_checks(name, rc, res, tm)
+        check(digest == PINNED_FAULTS[name],
+              f"cli {name}: history.jsonl sha256 {digest}, the JAX "
+              f"runner's {PINNED_FAULTS[name]}")
+        runs[name] = {"wall_s": wall, "final_round": tm["final-round"],
+                      "rounds_executed": tm["rounds-executed"],
+                      "dispatches": tm["dispatches"], "drains": tm["drains"],
+                      "nemesis_ops": tm["nemesis-ops"],
+                      "faults": {k: res["net"][k] for k in
+                                 ("lost", "dropped-partition",
+                                  "dropped-down", "duplicated",
+                                  "channel-overwrites", "latency-clipped")},
+                      "history_sha256_equal": True}
+    launches = K.launch_counts()
+    check(launches["edge_write_spill"] > 0,
+          f"cli_faults_small did not launch the spill write: {launches}")
+    shutil.rmtree(store, ignore_errors=True)
+    emit({"phase": "cli_faults_small", "runs": runs, "launches": launches})
+    return launches
+
+
+# Slice 3's main path: the 100,000-node test under 1% loss, uniform
+# latency of mean 5 ms and the kill, pause and duplicate nemeses every
+# 2 s, at the CLI's other defaults (grid, rate 5, time limit 10 s,
+# recovery 10 s, 1024 values, concurrency 100,000). No partition or
+# weather at this size: the JAX package's partitions are an N x N block
+# matrix built by Python loops, and weather's slow fronts need ring
+# headroom it gives only to clusters of 4,096 nodes or fewer.
+CLI_FAULTS_100K = ["test", "-w", "broadcast", "--node", "tpu:broadcast",
+                   "--node-count", "100000", "--latency", "5",
+                   "--latency-dist", "uniform", "--p-loss", "0.01",
+                   "--nemesis", "kill,pause,duplicate",
+                   "--nemesis-interval", "2"]
+FAULT_PATH_KERNELS = ("threefry", "edge_faults", "broadcast_step_stall")
+
+
+def phase_cli_faults_100k(smi):
+    """The fault slice's main path, with every launch counter set to 0
+    just before and read just after."""
+    import shutil
+    from maelstrom_tpu_torch import kernels as K
+    store = os.path.join(ROOT, "store", "chip_smoke_faults_100k")
+    shutil.rmtree(store, ignore_errors=True)
+    K.reset_launches()
+    rc, d, res, tm, _digest, wall = _cli_run(list(CLI_FAULTS_100K), store)
+    launches = K.launch_counts()
+    _cli_checks("faults 100k", rc, res, tm)
+    w, net = res["workload"], res["net"]
+    check(w["valid"] is True and w["lost-count"] == 0,
+          f"cli faults 100k: workload {w}")
+    check(net["latency-clipped"] == 0, "cli faults 100k: clipped draws")
+    for k in FAULT_PATH_KERNELS + ("edge_read", "edge_write"):
+        check(launches[k] > 0, f"the 100,000-node fault run did not launch "
+              f"{k}: {launches}")
+    for k in ("lost", "dropped-down", "duplicated"):
+        check(net[k] > 0, f"cli faults 100k: no {k}")
+    fs = set()
+    with open(os.path.join(d, "history.jsonl")) as f:
+        for line in f:
+            if '"nemesis"' in line:
+                op = json.loads(line)
+                if op.get("type") == "info":
+                    fs.add(op["f"])
+    check({"start-kill", "start-pause", "start-duplicate"} <= fs,
+          f"cli faults 100k: nemesis ops {sorted(fs)}")
+    host_s = (tm["poll-s"] + tm["replies-s"] + tm["journal-s"]
+              + tm["check-s"] + tm["store-s"] + tm["nemesis-s"])
+    emit({"phase": "cli_faults_100k", "args": CLI_FAULTS_100K,
+          "valid": res["valid"], "wall_s": wall,
+          "scan_s": tm["scan-s"], "drain_s": tm["drain-s"],
+          "quiet_s": tm["quiet-s"], "host_s": host_s,
+          "generator_s": tm["poll-s"], "replies_s": tm["replies-s"],
+          "nemesis_s": tm["nemesis-s"], "nemesis_ops": tm["nemesis-ops"],
+          "check_s": tm["check-s"], "store_s": tm["store-s"],
+          "final_round": tm["final-round"],
+          "rounds_executed": tm["rounds-executed"],
+          "rounds_bumped": tm["rounds-bumped"],
+          "ms_per_executed_round": 1e3 * tm["scan-s"]
+          / max(tm["rounds-executed"], 1),
+          "dispatches": tm["dispatches"], "drains": tm["drains"],
+          "scan_host_syncs": tm["scan-host-syncs"],
+          "scan_replayed_rounds": tm["scan-replayed-rounds"],
+          "history_ops": tm["history-ops"],
+          "nemesis_info_ops": sorted(fs),
+          "faults": {k: net[k] for k in ("lost", "dropped-partition",
+                                         "dropped-down", "duplicated",
+                                         "dropped-overflow",
+                                         "channel-overwrites",
+                                         "latency-clipped")},
+          "workload_lost_count": w["lost-count"],
+          "stable_count": w["stable-count"],
+          "stable_latencies": w["stable-latencies"],
+          "availability": {k: res["availability"].get(k) for k in
+                           ("longest-ok-gap-rounds", "dip-count",
+                            "failover-recovery-rounds")},
+          "messages_delivered": net["all"]["recv-count"],
+          "launches": launches, "nvidia_smi": smi})
+    shutil.rmtree(store, ignore_errors=True)
+    return launches
 
 
 def main() -> int:
@@ -858,21 +1257,31 @@ def main() -> int:
     phase_graft()
     phase_bench_16k(smi)
     phase_main_path(smi)
+    fchecks = phase_fault_kernels(timed=False)
+    phase_prng_pins()
     phase_cli_small()
     launches = phase_cli_100k(smi)
+    launches.update({"edge_write_spill":
+                     phase_cli_faults_small()["edge_write_spill"]})
+    flaunches = phase_cli_faults_100k(smi)
+    launches.update({k: flaunches[k] for k in FAULT_PATH_KERNELS})
     # profiles and kernel times last: the profiler they are read from
     # stays out of the runs' wall-clock timing
     phase_cli_profile()
+    phase_cli_profile(faults=True)
     phase_kernels([BENCH_SHAPE], timed=True)
     cli = phase_kernels([CLI_SHAPE], timed=True, with_scan=True)["cli100k"]
+    cli.update(phase_fault_kernels(timed=True))
 
     emit({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": launches[k.name],
          "max_abs_err": max(r[k.name]["max_abs_err"] for r in
-                            (*checks.values(), cli) if k.name in r),
+                            (*checks.values(), fchecks, cli)
+                            if k.name in r),
          "ms": cli[k.name]["ms"], "plain_ms": cli[k.name]["plain_ms"],
-         "bound_ms": cli[k.name]["bound_ms"], "bound_by": "bytes",
+         "bound_ms": cli[k.name]["bound_ms"],
+         "bound_by": cli[k.name].get("bound_by", "bytes"),
          "library_ms": None} for k in K.KERNELS]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -6,8 +6,11 @@ on the static edge channels (`sim.make_sim`, `sim.make_run_fn`,
 `bench.run_broadcast_bench`); slice 2 the scan-ahead (`sim.make_scan_fn`)
 and the CLI runner (`python -m maelstrom_tpu_torch test -w broadcast`,
 `runner.tpu_runner.run_tpu_test`), with copies of the host modules the
-runner needs. Hand-written CUDA kernels (`csrc/`, `kernels/`) carry the
-edge exchange, the gossip step, the reply compaction, the scan's reply
-log and the quiescence probe. Entry points run on the CUDA device unless
+runner needs; slice 3 the threefry PRNG (`prng`, bit for bit with
+`jax.random`), loss, randomized latency and the partition, kill, pause,
+duplicate and weather nemeses (`nemesis`). Hand-written CUDA kernels
+(`csrc/`, `kernels/`) carry the edge exchange, the gossip step (with its
+stall mask), the reply compaction, the scan's reply log, the quiescence
+probe, the random draws, the edge fault masks and the spill write. Entry points run on the CUDA device unless
 the caller passes `device="cpu"` (`--device cpu`), where the kernels'
 plain PyTorch versions run."""

@@ -1,10 +1,10 @@
 """Availability accounting: no-reply gaps in virtual rounds.
 
-A copy of `maelstrom_tpu/checkers/availability.py` without the kill
-recovery times and the election report (kills come with the fault
-slice; broadcast holds no elections). It folds the history's ok
-completions into no-reply gaps (virtual rounds, so the numbers are
-deterministic per seed). Purely observational: `valid` is always
+A copy of `maelstrom_tpu/checkers/availability.py` without the election
+report (broadcast holds no elections). It folds the history's ok
+completions into no-reply gaps and, when the nemesis killed nodes, the
+rounds from each kill to the next ok completion (virtual rounds, so the
+numbers are deterministic per seed). Purely observational: `valid` is always
 True. Everything but `check-wall-s` is a pure function of the
 history."""
 
@@ -33,9 +33,11 @@ def gaps_rounds(ok_rounds: list, start_r: int, end_r: int) -> list:
 
 
 def availability_block(history, ms_per_round: float, end_round: int,
-                       dip_threshold_rounds: int) -> dict:
-    """The pure (history-only) part of the block: longest no-ok gap and
-    dips past the threshold. All units are VIRTUAL rounds."""
+                       dip_threshold_rounds: int,
+                       kill_rounds: list | None = None) -> dict:
+    """The pure (history-only) part of the block: longest no-ok gap,
+    dips past the threshold, and per-kill recovery times. All units are
+    VIRTUAL rounds."""
     history = coerce_history(history)
     ns_pr = ms_per_round * 1e6
     ok_r = sorted(int(o.time // ns_pr) for o in history
@@ -43,7 +45,7 @@ def availability_block(history, ms_per_round: float, end_round: int,
     gaps = gaps_rounds(ok_r, 0, int(end_round))
     longest = max((g for _s, g in gaps), default=int(end_round))
     dips = [(s, g) for s, g in gaps if g > dip_threshold_rounds]
-    return {
+    out = {
         "ok-count": len(ok_r),
         "final-round": int(end_round),
         "longest-ok-gap-rounds": int(longest),
@@ -53,6 +55,23 @@ def availability_block(history, ms_per_round: float, end_round: int,
         "dips": [{"from-round": int(s), "rounds": int(g)}
                  for s, g in dips[:32]],
     }
+    if kill_rounds is None:
+        kill_rounds = [int(o.time // ns_pr) for o in history
+                       if o.process == "nemesis" and o.type == "invoke"
+                       and o.f == "start-kill"]
+    if kill_rounds:
+        import bisect
+        rec = []
+        for kr in kill_rounds:
+            i = bisect.bisect_right(ok_r, kr)
+            rec.append((ok_r[i] - kr) if i < len(ok_r)
+                       else (int(end_round) - kr))
+        out["failover-recovery-rounds"] = {
+            "per-kill": [int(x) for x in rec],
+            "mean": round(sum(rec) / len(rec), 2),
+            "max": int(max(rec)),
+        }
+    return out
 
 
 class AvailabilityChecker(Checker):

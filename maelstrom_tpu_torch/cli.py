@@ -1,14 +1,16 @@
 """The command line: `python -m maelstrom_tpu_torch test ...`.
 
 Counterpart of the `test` subcommand of `maelstrom_tpu/cli.py`, with its
-option names and defaults. This slice runs the broadcast workload on the
+option names and defaults. The port runs the broadcast workload on the
 built-in program (`--node tpu:broadcast`) on one card, or on the CPU
-with `--device cpu`. Every other option of the JAX CLI is recognised and
-refused unless it holds its default, with an error that names the slice
-of the port that brings it (`OUT_OF_SCOPE`).
+with `--device cpu`, under loss, randomized latency and the partition,
+kill, pause, duplicate and weather nemeses. Every other option of the
+JAX CLI is recognised and refused unless it holds its default, with an
+error that names the slice of the port that brings it (`OUT_OF_SCOPE`).
 
     python -m maelstrom_tpu_torch test -w broadcast --node tpu:broadcast \\
-        --node-count 25 --topology tree4 --latency 10 [--device cpu]
+        --node-count 25 --topology tree4 --latency 10 --nemesis partition \\
+        [--device cpu]
 """
 
 from __future__ import annotations
@@ -26,12 +28,10 @@ OUT_OF_SCOPE = [
     ("--bin", lambda v: v is not None,
      "the host-process path (external node binaries)"),
     ("--workload", lambda v: v != "broadcast", "the other node programs"),
-    ("--nemesis", lambda v: bool(v.strip(" ,")), "the fault slice"),
-    ("--nemesis-targets", lambda v: v is not None, "the fault slice"),
-    ("--nemesis-seed", lambda v: v is not None, "the fault slice"),
-    ("--latency-dist", lambda v: v != "constant", "the PRNG slice"),
-    ("--p-loss", lambda v: v > 0, "the fault slice"),
-    ("--latency-scale", lambda v: v != 1.0, "the fault slice"),
+    ("--nemesis", lambda v: "byzantine" in _faults(v),
+     "the byzantine adversary"),
+    ("--nemesis-targets", lambda v: v is not None,
+     "the role-partitioned programs"),
     ("--client-retries", lambda v: v > 0, "retries and backoff"),
     ("--continuous", bool, "continuous mode"),
     ("--continuous-window-ms", lambda v: v is not None, "continuous mode"),
@@ -70,6 +70,11 @@ OUT_OF_SCOPE = [
 ]
 
 
+def _faults(spec: str) -> set:
+    """--nemesis kill,pause -> {"kill", "pause"}."""
+    return set(filter(None, spec.split(",")))
+
+
 class ScopeError(ValueError):
     """An option this slice of the port does not run."""
 
@@ -103,8 +108,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Network topology offered to broadcast nodes")
     t.add_argument("--max-values", type=int,
                    help="Broadcast value-table capacity (default 1024)")
+    t.add_argument("--nemesis", default="",
+                   help="Comma-separated fault packages: partition, kill, "
+                        "pause, duplicate, weather")
     t.add_argument("--nemesis-interval", type=float, default=10.0,
                    help="Seconds between nemesis operations")
+    t.add_argument("--nemesis-seed", type=int,
+                   help="Seed of the nemesis decision streams (default: "
+                        "--seed)")
+    t.add_argument("--latency-dist", default="constant",
+                   choices=["constant", "uniform", "exponential"],
+                   help="Latency distribution")
+    t.add_argument("--p-loss", type=float, default=0.0,
+                   help="Probability of losing each message")
+    t.add_argument("--latency-scale", type=float, default=1.0,
+                   help="Baseline latency scale factor (the weather "
+                        "nemesis restores it)")
     t.add_argument("--client-backoff-ms", type=float, default=50.0)
     t.add_argument("--client-backoff-cap-ms", type=float, default=2000.0)
     t.add_argument("--key-count", type=int)
@@ -141,13 +160,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "a signal ends the run")
     # the JAX CLI's options this slice refuses unless at their default
     t.add_argument("--bin")
-    t.add_argument("--latency-dist", default="constant",
-                   choices=["constant", "uniform", "exponential"])
-    t.add_argument("--p-loss", type=float, default=0.0)
-    t.add_argument("--latency-scale", type=float, default=1.0)
-    t.add_argument("--nemesis", default="")
     t.add_argument("--nemesis-targets")
-    t.add_argument("--nemesis-seed", type=int)
     t.add_argument("--client-retries", type=int, default=0)
     t.add_argument("--continuous", action="store_true")
     t.add_argument("--continuous-window-ms", type=float)
@@ -207,7 +220,7 @@ def opts_from_args(args) -> dict:
         "p_loss": args.p_loss,
         "latency_scale": args.latency_scale,
         "continuous": False,
-        "nemesis": set(),
+        "nemesis": _faults(args.nemesis),
         "nemesis_interval": args.nemesis_interval,
         "client_retries": args.client_retries,
         "client_backoff_ms": args.client_backoff_ms,
@@ -236,7 +249,7 @@ def opts_from_args(args) -> dict:
     # performance knobs: only forwarded when given, so the runner's own
     # defaults stay in one place
     for k in ("max_scan", "journal_scan_cap", "reply_log_cap",
-              "max_values", "timeout_ms"):
+              "max_values", "timeout_ms", "nemesis_seed"):
         v = getattr(args, k, None)
         if v is not None:
             opts[k] = v

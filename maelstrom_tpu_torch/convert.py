@@ -2,7 +2,9 @@
 
 Both packages name their state by the same dataclass fields, so a state
 travels as nested dicts of numpy arrays keyed by field name
-(`net.pool.valid`, `nodes.seen`, `channels.a`, ...). The tests build such
+(`net.pool.valid`, `nodes.seen`, `channels.a`, the threefry `key`, the
+fault masks and scalars `net.down`, `net.block_matrix`, `net.p_loss`, ...,
+`channels.overwrites`). The tests build such
 a dict from a JAX `SimState`; these functions turn it into the port's
 `SimState` and back, so that both packages can start from one state and
 be compared leaf for leaf."""

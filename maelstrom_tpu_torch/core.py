@@ -1,9 +1,10 @@
 """Test composition and execution: the maelstrom-test equivalent.
 
-Counterpart of `maelstrom_tpu/core.py` for the parts this slice runs:
+Counterpart of `maelstrom_tpu/core.py` for the parts the port runs:
 `DEFAULTS`, `parse_nodes`, and the built-in-program branch of
-`build_test` (generator phases, the composed checker suite), without the
-host network and external node processes. `run` makes the store dir,
+`build_test` (the nemesis package beside the clients, the generator
+phases with the nemesis's final heal, the composed checker suite),
+without the host network and external node processes. `run` makes the store dir,
 attaches the network journal and the run log, and hands the test to
 `runner.tpu_runner.run_tpu_test`."""
 
@@ -78,9 +79,8 @@ def build_test(opts: dict) -> dict:
             f"programs")
     from .workloads.broadcast import workload as broadcast_workload
     workload = broadcast_workload(opts)
-    # the empty fault set only (anything else raises): no nemesis
-    # generator to run beside the clients, no faults to heal
-    nem.package(set(opts["nemesis"]), interval_s=opts["nemesis_interval"])
+    nemesis_pkg = nem.package(set(opts["nemesis"]),
+                              interval_s=opts["nemesis_interval"])
 
     # Generator composition (reference core.clj:58-71)
     rate = opts["rate"]
@@ -88,12 +88,18 @@ def build_test(opts: dict) -> dict:
         main = g.stagger(1.0 / rate, workload["generator"])
     else:
         main = g.sleep(opts["time_limit"])
-    main = g.time_limit(opts["time_limit"], g.clients(main))
-    # Final phases (reference core.clj:66-71): the recovery window and
-    # the final reads
-    main = g.phases(main, g.Log("Waiting for recovery..."),
-                    g.sleep(opts.get("recovery_s", 10)),
-                    g.clients(workload["final_generator"]))
+    main = g.time_limit(opts["time_limit"],
+                        g.nemesis_wrap(nemesis_pkg["generator"], main))
+    # Final phases (reference core.clj:66-71): the nemesis heals every
+    # fault type it injected, then the recovery window and the final
+    # reads
+    phase_list = [main]
+    if nemesis_pkg["final_generator"] is not None:
+        phase_list.append(g.nemesis_gen(nemesis_pkg["final_generator"]))
+    phase_list += [g.Log("Waiting for recovery..."),
+                   g.sleep(opts.get("recovery_s", 10)),
+                   g.clients(workload["final_generator"])]
+    main = g.phases(*phase_list)
 
     checker = Compose({
         "perf": PerfChecker(),
@@ -103,7 +109,8 @@ def build_test(opts: dict) -> dict:
         "net": None,        # the runner's device-counter net stats
         "workload": workload["checker"],
     })
-    return {**opts, "name": name, "generator": main, "checker": checker}
+    return {**opts, "name": name, "generator": main, "checker": checker,
+            "nemesis_pkg": nemesis_pkg}
 
 
 def run(opts: dict) -> dict:

@@ -23,6 +23,12 @@
 // are pending, jax.lax.top_k fills the remaining slots with the 0-priority
 // ties in index order, that is the lowest-index values that are not
 // pending; the kernel writes the same values into edge_out.a.
+//
+// The stall mask (mt_broadcast_step_stall) is the JAX round's freeze of
+// killed and paused nodes (maelstrom_tpu/sim.py:_freeze_nodes, :94-112,
+// and the output masks at :476-488): a stalled node writes its old planes
+// into the fresh ones and no valid edge or client row. Folding it into the
+// step saves a second pass over the [N, D, V] planes.
 #include <cstring>
 
 #include "common.cuh"
@@ -49,6 +55,8 @@ struct StepArgs {
   u8* oc_valid;
   int *oc_src, *oc_dest, *oc_due, *oc_mid, *oc_reply_to, *oc_type, *oc_a,
       *oc_b, *oc_c;
+  // [N] killed or paused nodes (mt_broadcast_step_stall); null otherwise
+  const u8* stall;
 };
 constexpr int kStepPtrs = sizeof(StepArgs) / sizeof(void*);
 
@@ -91,6 +99,8 @@ __global__ void step_kernel(StepArgs A, StepDims S) {
   unsigned* tmask = sm + 6 * Cp;  // sent on the current edge
   const int round = *A.round;
   const long long nV = (long long)n * V;
+  // a stalled node keeps its planes and sends nothing
+  const bool st = A.stall != nullptr && A.stall[n] != 0;
 
   // --- pass 1: client broadcasts and gossip arrivals fold into seen ---
   for (int c = 0; c < Cp; ++c) {
@@ -114,7 +124,7 @@ __global__ void step_kernel(StepArgs A, StepDims S) {
       const bool s = A.seen[nV + v] != 0;
       nw = got && !s;
       s2 = s || got;
-      A.o_seen[nV + v] = s2;
+      A.o_seen[nV + v] = st ? s : s2;
     }
     const unsigned sb = __ballot_sync(FULL, s2);
     const unsigned nb = __ballot_sync(FULL, nw);
@@ -131,7 +141,7 @@ __global__ void step_kernel(StepArgs A, StepDims S) {
     long long i = (long long)n * S.K + k;
     const bool cb = A.c_valid[i] && A.c_type[i] == T_BCAST;
     const bool rd = A.c_valid[i] && A.c_type[i] == T_READ;
-    A.oc_valid[i] = cb || rd;
+    A.oc_valid[i] = (cb || rd) && !st;
     A.oc_src[i] = A.c_src[i];
     A.oc_dest[i] = A.c_src[i];
     A.oc_due[i] = A.c_due[i];
@@ -203,7 +213,8 @@ __global__ void step_kernel(StepArgs A, StepDims S) {
         const bool f0 = A.inflight[ndV + v] != 0;
         const bool o0 = A.inflight_old[ndV + v] != 0;
         pend = (p0 || (nw && eok) || (o0 && requeue)) && !known;
-        A.o_inflight_old[ndV + v] = (requeue ? f0 : o0) && !known;
+        A.o_inflight_old[ndV + v] =
+            st ? o0 : (requeue ? f0 : o0) && !known;
         i2 = f0 && !known && !requeue;
       }
       const unsigned pb = __ballot_sync(FULL, pend);
@@ -229,7 +240,7 @@ __global__ void step_kernel(StepArgs A, StepDims S) {
           p = next_bit(pmask, p, hi, true);
           if (p < 0) break;
           const long long o = nd * S.Lout + goff + cnt;
-          A.oe_valid[o] = eok;
+          A.oe_valid[o] = eok && !st;
           A.oe_a[o] = p;
           tmask[p >> 5] |= 1u << (p & 31);
           ++cnt;
@@ -258,7 +269,10 @@ __global__ void step_kernel(StepArgs A, StepDims S) {
       const int v = c * 32 + lane;
       if (v >= V) break;
       const bool pend = bit_of(pmask, v), sent = bit_of(tmask, v);
-      if (S.naive) {
+      if (st) {
+        A.o_pending[ndV + v] = A.pending[ndV + v];
+        if (!S.naive) A.o_inflight[ndV + v] = A.inflight[ndV + v];
+      } else if (S.naive) {
         A.o_pending[ndV + v] = pend && !sent;
       } else if (S.eager) {
         A.o_pending[ndV + v] = pend;
@@ -279,13 +293,15 @@ __global__ void step_kernel(StepArgs A, StepDims S) {
           o = A.owed[nd * S.W + w] || amask[2 * w] || amask[2 * w + 1];
         const unsigned ob = __ballot_sync(FULL, o);
         if (ob && w_send < 0) w_send = w0 + __ffs(ob) - 1;
-        if (w < S.W) A.o_owed[nd * S.W + w] = o && w != w_send;
+        if (w < S.W)
+          A.o_owed[nd * S.W + w] =
+              st ? A.owed[nd * S.W + w] : o && w != w_send;
       }
       if (lane == 0) {
         const bool have = w_send >= 0;
         const int ws = have ? w_send : 0;
         const long long o = nd * S.Lout;
-        A.oe_valid[o] = have && eok;
+        A.oe_valid[o] = have && eok && !st;
         A.oe_type[o] = T_DIGEST;
         A.oe_a[o] = ws;
         A.oe_b[o] = (int)smask[2 * ws];
@@ -298,13 +314,18 @@ __global__ void step_kernel(StepArgs A, StepDims S) {
 
 }  // namespace
 
-// ptrs: the fields of StepArgs in order; ints: the fields of StepDims
-MT_API int mt_broadcast_step(void* const* p, int n_ptrs, const long long* v,
-                             int n_ints, void* stream) {
-  if (mt_bad_args(n_ptrs, kStepPtrs, n_ints, 12))
+namespace {
+
+int launch_step(void* const* p, int n_ptrs, const long long* v, int n_ints,
+                void* stream, bool with_stall) {
+  if (mt_bad_args(n_ptrs, kStepPtrs - (with_stall ? 0 : 1), n_ints, 12))
     return cudaErrorInvalidValue;
   StepArgs args;
-  memcpy(&args, p, sizeof(args));
+  memcpy(&args, p, sizeof(void*) * n_ptrs);
+  if (!with_stall)
+    args.stall = nullptr;
+  else if (args.stall == nullptr)
+    return cudaErrorInvalidValue;
   StepDims dims = {(int)v[0], (int)v[1], (int)v[2],  (int)v[3],
                    (int)v[4], (int)v[5], (int)v[6],  (int)v[7],
                    (int)v[8], (int)v[9], (int)v[10], (int)v[11]};
@@ -318,4 +339,21 @@ MT_API int mt_broadcast_step(void* const* p, int n_ptrs, const long long* v,
   step_kernel<<<mt_blocks(dims.N, kWarps), kWarps * 32, smem,
                 (cudaStream_t)stream>>>(args, dims);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// ptrs: the fields of StepArgs in order but the last (stall); ints: the
+// fields of StepDims
+MT_API int mt_broadcast_step(void* const* p, int n_ptrs, const long long* v,
+                             int n_ints, void* stream) {
+  return launch_step(p, n_ptrs, v, n_ints, stream, false);
+}
+
+// K3 with the stall mask (enable_stall): ptrs: every field of StepArgs,
+// the [N] stall mask last
+MT_API int mt_broadcast_step_stall(void* const* p, int n_ptrs,
+                                   const long long* v, int n_ints,
+                                   void* stream) {
+  return launch_step(p, n_ptrs, v, n_ints, stream, true);
 }

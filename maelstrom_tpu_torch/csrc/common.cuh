@@ -34,3 +34,77 @@ __device__ __forceinline__ int mt_clip(int x, int lo, int hi) {
 static inline unsigned mt_blocks(long long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
+
+// --- threefry2x32 (jax.random in partitionable mode) ------------------------
+//
+// K7 (prng.cu) and K8 (faults.cu) draw the JAX package's random numbers:
+// the 20-round threefry2x32 of jax/_src/prng.py, counters (i >> 32,
+// i & 0xFFFFFFFF) for flat index i. The float steps use the _rn
+// intrinsics so that nvcc never contracts them into an FMA: each is one
+// float32 rounding, as in XLA.
+
+__device__ __forceinline__ unsigned mt_rotl(unsigned x, int r) {
+  return (x << r) | (x >> (32 - r));
+}
+
+__device__ __forceinline__ void mt_threefry2x32(unsigned k0, unsigned k1,
+                                                unsigned& x0, unsigned& x1) {
+  const unsigned ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  x0 += ks[0];
+  x1 += ks[1];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x0 += x1;
+      x1 = mt_rotl(x1, rot[i & 1][j]);
+      x1 ^= x0;
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + (unsigned)(i + 1);
+  }
+}
+
+// 32 random bits at flat index i of `key`'s stream (bits1 ^ bits2)
+__device__ __forceinline__ unsigned mt_random_bits(const unsigned* key,
+                                                   unsigned long long i) {
+  unsigned x0 = (unsigned)(i >> 32), x1 = (unsigned)i;
+  mt_threefry2x32(key[0], key[1], x0, x1);
+  return x0 ^ x1;
+}
+
+// jax.random.uniform's float in [0, 1): 23 random mantissa bits
+__device__ __forceinline__ float mt_unit(unsigned bits) {
+  return __fsub_rn(__uint_as_float((bits >> 9) | 0x3f800000u), 1.0f);
+}
+
+// latency rounds from a uniform u (net/tpu.py draw_latency_rounds):
+// dist 1 uniform over [0, 2 mean], dist 2 exponential of that mean;
+// rintf rounds half to even, as jnp.round
+__device__ __forceinline__ int mt_latency(float u, int dist, float mean) {
+  const float x = dist == 1 ? __fmul_rn(u, __fmul_rn(2.0f, mean))
+                            : __fmul_rn(-log1pf(-u), mean);
+  return (int)rintf(x);
+}
+
+// Adds the block's sum of each x[k] to *dst[k] with one atomic a counter
+// (skipped when the sum is 0): a warp reduction, shared-memory atomics,
+// then one global atomic. Integer sums, so any order gives the same
+// total. Every thread of the block must call it; blockDim.x is a
+// multiple of 32.
+template <int NC>
+__device__ __forceinline__ void mt_block_add(const int (&x)[NC],
+                                             int* const (&dst)[NC]) {
+  __shared__ int s[NC];
+  if (threadIdx.x < NC) s[threadIdx.x] = 0;
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    const int w = __reduce_add_sync(0xffffffffu, x[k]);
+    if ((threadIdx.x & 31) == 0 && w) atomicAdd(&s[k], w);
+  }
+  __syncthreads();
+  if (threadIdx.x < NC && s[threadIdx.x])
+    atomicAdd(dst[threadIdx.x], s[threadIdx.x]);
+}

@@ -1,4 +1,5 @@
-// K1 edge_read and K2 edge_write: the static edge exchange.
+// K1 edge_read, K2 edge_write and K9 edge_write_spill: the static edge
+// exchange.
 //
 // Replaces maelstrom_tpu/net/static.py:edge_read (:325) and the non-spill
 // forms of maelstrom_tpu/net/static.py:edge_write (:168). Channels are
@@ -31,6 +32,23 @@
 // K1 routes the plane with the other fields (:363). Both take it as an
 // optional pointer; when it is null the test is one uniform branch and
 // the bench path moves no more bytes than without it.
+//
+// K9 edge_write_spill replaces
+// maelstrom_tpu/net/static.py:_edge_write_spill (:267-322), the
+// collision-free write that broadcast takes under randomized latency on
+// 4,096 nodes or fewer. Cells are filled from lane 0
+// up (edge_read clears whole cells), so an incoming lane goes to lane
+// occ + rank of its arrival cell: occ the cell's occupancy before this
+// write, rank the number of this round's earlier lanes (in out-lane order)
+// aimed at the same cell. It is written when that lane is below the
+// channel's Lc lanes, and counted in `overwrites` otherwise; clipped
+// latency draws are counted as in K2, and a tracked `sent` plane takes
+// round * LANE_STRIDE + out lane. Design: one thread a (node, edge), which
+// owns every cell of its ring row, so the occupancies are read before any
+// write of the round and no two threads touch one cell; the rank is the
+// O(Lo^2) count of the JAX version. Bound: bytes (the out lanes, and Lc
+// valid bytes of each targeted cell) and, at a handful of lanes, launch
+// latency.
 #include "common.cuh"
 
 namespace {
@@ -131,6 +149,69 @@ __global__ void write_kernel(u8* __restrict__ cv, int* __restrict__ ct,
   }
 }
 
+constexpr int kMaxLanes = 64;  // LANE_STRIDE
+
+__global__ void spill_kernel(u8* __restrict__ cv, int* __restrict__ ct,
+                             int* __restrict__ ca, int* __restrict__ cb,
+                             int* __restrict__ cc,
+                             const u8* __restrict__ ov,
+                             const int* __restrict__ ot,
+                             const int* __restrict__ oa,
+                             const int* __restrict__ ob,
+                             const int* __restrict__ oc,
+                             const int* __restrict__ lat,
+                             const u8* __restrict__ mask,
+                             const int* __restrict__ round_ptr,
+                             int* __restrict__ overwrites,
+                             int* __restrict__ lat_clipped,
+                             int* __restrict__ cs, long long ND, int D,
+                             int ring, int Lc, int Lo, Strides3 ls,
+                             Strides3 ms) {
+  const long long nd = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  int cnt[2] = {0, 0};  // overwrites, clipped
+  if (nd < ND) {
+    const long long n = nd / D;
+    const int d = (int)(nd % D);
+    const int round = *round_ptr;
+    int cell[kMaxLanes], lane[kMaxLanes];
+    // pass 1: arrival cells, ranks and occupancies, before any write
+    for (int l = 0; l < Lo; ++l) {
+      const bool ok = ov[nd * Lo + l] != 0 &&
+                      mask[n * ms.s0 + d * ms.s1 + l * ms.s2] != 0;
+      const int lt = lat[n * ls.s0 + d * ls.s1 + l * ls.s2];
+      int off = mt_clip(lt, 0, ring - 1);
+      off = off < 1 ? 1 : off;
+      cnt[1] += ok && lt > ring - 1;
+      cell[l] = ok ? mt_mod(round + off, ring) : -1;
+      lane[l] = -1;
+      if (!ok) continue;
+      int rank = 0;
+      for (int j = 0; j < l; ++j) rank += cell[j] == cell[l];
+      const u8* cvalid = cv + (nd * ring + cell[l]) * Lc;
+      int occ = 0;
+      for (int m = 0; m < Lc; ++m) occ += cvalid[m] != 0;
+      if (occ + rank < Lc)
+        lane[l] = occ + rank;
+      else
+        ++cnt[0];
+    }
+    // pass 2: the writes
+    for (int l = 0; l < Lo; ++l) {
+      if (lane[l] < 0) continue;
+      const long long dst = (nd * ring + cell[l]) * Lc + lane[l];
+      const long long src = nd * Lo + l;
+      cv[dst] = 1;
+      ct[dst] = ot[src];
+      ca[dst] = oa[src];
+      cb[dst] = ob[src];
+      cc[dst] = oc[src];
+      if (cs) cs[dst] = round * kLaneStride + l;
+    }
+  }
+  int* const dst[2] = {overwrites, lat_clipped};
+  mt_block_add<2>(cnt, dst);
+}
+
 constexpr int kThreads = 256;
 
 }  // namespace
@@ -182,5 +263,29 @@ MT_API int mt_edge_write(void* const* p, int n_ptrs, const long long* v,
       (const int*)p[9], (const int*)p[10], (const u8*)p[11],
       (const int*)p[12], (int*)p[13], (int*)p[14], (int*)p[15], ND, D, ring,
       L, uniform, ls, ms);
+  return cudaGetLastError();
+}
+
+// ptrs: as mt_edge_write (the channels with Lc lanes, the out lanes with
+//       Lo <= Lc lanes, latency_rounds and deliver_mask read through their
+//       strides, round, ch.overwrites, ch.lat_clipped, ch.sent or null)
+// ints: N, D, ring, Lc, Lo, then the [N, D, Lo] element strides of
+//       latency_rounds and of deliver_mask
+MT_API int mt_edge_write_spill(void* const* p, int n_ptrs,
+                               const long long* v, int n_ints,
+                               void* stream) {
+  if (mt_bad_args(n_ptrs, 16, n_ints, 11)) return cudaErrorInvalidValue;
+  long long ND = v[0] * v[1];
+  int D = (int)v[1], ring = (int)v[2], Lc = (int)v[3], Lo = (int)v[4];
+  if (Lo > kMaxLanes || Lo > Lc) return cudaErrorInvalidValue;
+  Strides3 ls = {v[5], v[6], v[7]}, ms = {v[8], v[9], v[10]};
+  if (ND == 0) return cudaSuccess;
+  spill_kernel<<<mt_blocks(ND, kThreads), kThreads, 0,
+                 (cudaStream_t)stream>>>(
+      (u8*)p[0], (int*)p[1], (int*)p[2], (int*)p[3], (int*)p[4],
+      (const u8*)p[5], (const int*)p[6], (const int*)p[7], (const int*)p[8],
+      (const int*)p[9], (const int*)p[10], (const u8*)p[11],
+      (const int*)p[12], (int*)p[13], (int*)p[14], (int*)p[15], ND, D, ring,
+      Lc, Lo, ls, ms);
   return cudaGetLastError();
 }

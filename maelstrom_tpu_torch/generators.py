@@ -1,9 +1,10 @@
 """Jepsen-style operation generators.
 
 A copy of `maelstrom_tpu/generators.py`, cut to the combinators the
-broadcast workload and the test's phase composition use: `stagger`,
-`mix`, `each_thread`, `phases`, `time_limit`, `sleep`, `Log`, the
-client routing wrapper, and the leaf generators behind them.
+broadcast workload, the nemesis schedules and the test's phase
+composition use: `stagger`, `mix`, `each_thread`, `phases`,
+`time_limit`, `sleep`, `Log`, `Seq` over a `cycle`, `Any2`, the client
+and nemesis routing wrappers, and the leaf generators behind them.
 They are pure generators, as there:
 
   - result is an op dict   -> dispatch it (process/time filled in)
@@ -199,6 +200,60 @@ def to_gen(x) -> Optional[Gen]:
     if x is None or isinstance(x, Gen):
         return x
     raise TypeError(f"can't coerce {x!r} to a generator")
+
+
+class cycle:
+    """Endless iterator over a fixed element list (the nemesis on/off
+    schedule feeds one to Seq)."""
+
+    def __init__(self, elements, i: int = 0):
+        self.elements = list(elements)
+        self.i = i
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        x = self.elements[self.i % len(self.elements)]
+        self.i += 1
+        return x
+
+
+class Seq(Gen):
+    """Emits ops from an iterable, one per request. Elements may themselves
+    be generators (e.g. the nemesis cycle interleaves Sleep gens with op
+    maps); a nested generator runs until exhausted, then Seq advances."""
+
+    def __init__(self, iterable):
+        self.it = iter(iterable)
+        self.head = None        # lookahead buffer (op map or nested Gen)
+
+    def op(self, ctx):
+        while True:
+            if self.head is None:
+                try:
+                    self.head = next(self.it)
+                except StopIteration:
+                    return None, self
+            h = self.head
+            if isinstance(h, Gen) or callable(h) or not isinstance(h, dict):
+                sub = to_gen(h)
+                res, sub2 = sub.op(ctx)
+                if res is None:
+                    self.head = None    # nested gen exhausted: next element
+                    continue
+                self.head = sub2        # keep successor state
+                return res, self
+            free = free_clients(ctx)
+            if not free:
+                return PENDING, self
+            self.head = None
+            return fill_op(h, ctx, free[0]), self
+
+    def next_interesting_time(self, ctx) -> float:
+        if isinstance(self.head, Gen):
+            return self.head.next_interesting_time(ctx)
+        return math.inf
 
 
 class Counting(Gen):
@@ -421,8 +476,54 @@ class _NotNemesis:
         return p != NEMESIS
 
 
+class _IsNemesis:
+    def __call__(self, p):
+        return p == NEMESIS
+
+
 def clients(gen):
     return OnProcesses(_NotNemesis(), gen)
+
+
+def nemesis_gen(gen):
+    return OnProcesses(_IsNemesis(), gen)
+
+
+class Any2(Gen):
+    """Interleaves two generators: each request tries both, preferring
+    whichever has an op ready (used to run nemesis alongside clients,
+    like jepsen's `gen/nemesis` wrapping in `core.clj:60-61`)."""
+
+    def __init__(self, a, b):
+        self.a = to_gen(a)
+        self.b = to_gen(b)
+
+    def op(self, ctx):
+        res_a, a2 = self.a.op(ctx) if self.a else (None, None)
+        if res_a not in (None, PENDING):
+            return res_a, Any2(a2, self.b)
+        res_b, b2 = self.b.op(ctx) if self.b else (None, None)
+        if res_b not in (None, PENDING):
+            return res_b, Any2(a2 if self.a else None, b2)
+        if res_a is None and res_b is None:
+            return None, self
+        return PENDING, Any2(a2 if self.a else None, b2 if self.b else None)
+
+    def update(self, ctx, event):
+        return Any2(self.a.update(ctx, event) if self.a else None,
+                    self.b.update(ctx, event) if self.b else None)
+
+    def next_interesting_time(self, ctx) -> float:
+        return min(self.a.next_interesting_time(ctx) if self.a else math.inf,
+                   self.b.next_interesting_time(ctx) if self.b else math.inf)
+
+
+def nemesis_wrap(nemesis_g, client_g):
+    """Clients run client_g; the nemesis process runs nemesis_g
+    (jepsen gen/nemesis with two args)."""
+    if nemesis_g is None:
+        return clients(client_g)
+    return Any2(nemesis_gen(nemesis_g), clients(client_g))
 
 
 class MixG(Gen):

@@ -94,8 +94,19 @@ REPLY_LOG_APPEND = Kernel("reply_log_append",
                           "maelstrom_tpu/sim.py:821")
 QUIET_PROBE = Kernel("quiet_probe", "maelstrom_tpu_torch/csrc/scan.cu",
                      "maelstrom_tpu/runner/tpu_runner.py:2048")
+THREEFRY = Kernel("threefry", "maelstrom_tpu_torch/csrc/prng.cu",
+                  "maelstrom_tpu/net/tpu.py:238")
+EDGE_FAULTS = Kernel("edge_faults", "maelstrom_tpu_torch/csrc/faults.cu",
+                     "maelstrom_tpu/sim.py:545")
+EDGE_WRITE_SPILL = Kernel("edge_write_spill",
+                          "maelstrom_tpu_torch/csrc/edge.cu",
+                          "maelstrom_tpu/net/static.py:267")
+BROADCAST_STEP_STALL = Kernel("broadcast_step_stall",
+                              "maelstrom_tpu_torch/csrc/broadcast.cu",
+                              "maelstrom_tpu/sim.py:94")
 KERNELS = (EDGE_READ, EDGE_WRITE, BROADCAST_STEP, REPLY_COMPACT,
-           REPLY_LOG_APPEND, QUIET_PROBE)
+           REPLY_LOG_APPEND, QUIET_PROBE, THREEFRY, EDGE_FAULTS,
+           EDGE_WRITE_SPILL, BROADCAST_STEP_STALL)
 
 _state = {"lib": None, "forced_plain": False}
 

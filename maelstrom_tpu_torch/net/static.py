@@ -11,6 +11,13 @@ cell and `edge_write` fills cells in place (both also return the
 channels), where the JAX version copies the ring every round. A round
 therefore consumes the channels it is given.
 
+Under randomized latency two sends of one (edge, lane) can aim at one
+cell. By default the later overwrites the earlier (counted); with
+`EdgeConfig.spill` (the collision-free write, taken by programs whose
+inbox lanes are decoded by type) an incoming message takes the next free
+lane of its cell instead, and the channels have more lanes than a round
+sends.
+
 Each function has a hand-written CUDA kernel (`csrc/edge.cu`) and a plain
 PyTorch version; `kernels.use_kernel` picks by the tensors' device."""
 
@@ -26,7 +33,8 @@ from ..tree import Struct
 from .tpu import I32
 
 __all__ = ["EdgeMsgs", "EdgeChannels", "EdgeConfig", "LANE_STRIDE",
-           "make_channels", "reverse_index", "edge_write", "edge_read"]
+           "make_channels", "reverse_index", "edge_write",
+           "edge_write_spill", "edge_read"]
 
 # send-lane field width of the JAX package's packed `sent` plane; lane
 # counts stay under it
@@ -72,7 +80,9 @@ class EdgeChannels(Struct):
 class EdgeConfig:
     """Static shape of the edge exchange (see the JAX package's
     `EdgeConfig`). `uniform_arrival`: every entry of a round's latency
-    array is equal, and entry 0's arrival cell is used for all."""
+    array is equal, and entry 0's arrival cell is used for all. `spill`:
+    the collision-free write; `lanes` then counts the channels' lanes,
+    which may exceed the lanes a round sends."""
     n_nodes: int
     degree: int
     lanes: int
@@ -81,19 +91,11 @@ class EdgeConfig:
     uniform_arrival: bool = False
 
 
-def _no_spill(cfg: EdgeConfig) -> None:
-    if cfg.spill:
-        raise NotImplementedError(
-            "EdgeConfig.spill (the collision-free write for randomized "
-            "latency) is ported with the fault slice")
-
-
 def make_channels(cfg: EdgeConfig, device,
                   track_send_round: bool = False) -> EdgeChannels:
     """`track_send_round` adds the `sent` plane, so journal recv rows
     pair exactly to their sends; without it the exchange moves no more
     bytes than the bench path needs."""
-    _no_spill(cfg)
     shape = (cfg.n_nodes, cfg.degree, cfg.ring, cfg.lanes)
 
     def z():
@@ -178,21 +180,62 @@ def edge_write_plain(cfg: EdgeConfig, ch: EdgeChannels, out: EdgeMsgs,
     return ch
 
 
-def edge_write(cfg: EdgeConfig, ch: EdgeChannels, out: EdgeMsgs,
-               round_, latency_rounds, deliver_mask) -> EdgeChannels:
-    """Writes this round's outgoing lanes into the rings (in place).
+def edge_write_spill_plain(cfg: EdgeConfig, ch: EdgeChannels,
+                           out: EdgeMsgs, round_, latency_rounds,
+                           deliver_mask) -> EdgeChannels:
+    """The collision-free write (the JAX package's `_edge_write_spill`),
+    in place: each lane where `out.valid & deliver_mask` goes to lane
+    occ + rank of its arrival cell, occ the cell's valid lanes before
+    the write and rank the number of earlier out lanes aimed at the same
+    cell; past the channel's lanes it is dropped and counted in
+    `overwrites`. Clipped draws are counted; a tracked `sent` plane
+    takes round * LANE_STRIDE + out lane."""
+    N, D, R, Lc = ch.valid.shape
+    Lo = out.valid.shape[2]
+    ok = out.valid & deliver_mask
+    lat = latency_rounds.expand(ok.shape)
+    ch.lat_clipped += (ok & (lat > cfg.ring - 1)).sum(dtype=I32)
+    arrival = torch.remainder(round_ + lat.clamp(0, R - 1).clamp(min=1), R)
+    cell = torch.where(ok, arrival, R).long()            # R = parked
+    jl = torch.arange(Lo, device=ok.device)
+    lower = jl[None, :] < jl[:, None]                    # [l, j]
+    same = cell[:, :, None, :] == cell[:, :, :, None]    # [N, D, l, j]
+    rank = (same & lower & ok[:, :, None, :]).sum(dim=3)
+    occ = ch.valid.sum(dim=3)                            # [N, D, R]
+    occ_at = torch.gather(occ, 2, cell.clamp(0, R - 1))
+    lane = occ_at + rank
+    write = ok & (lane < Lc)
+    ch.overwrites += (ok & (lane >= Lc)).sum(dtype=I32)
+    n_i, d_i, l_i = torch.nonzero(write, as_tuple=True)
+    at = (n_i, d_i, cell[write], lane[write])
+    ch.valid[at] = True
+    for f in ("type", "a", "b", "c"):
+        getattr(ch, f)[at] = getattr(out, f)[write]
+    if ch.sent is not None:
+        ch.sent[at] = (round_ * LANE_STRIDE + l_i).to(I32)
+    return ch
 
-    latency_rounds: i32 [N, D, L] delay in rounds; deliver_mask: bool
-    broadcastable to [N, D, L]; round_: i32 scalar tensor."""
-    _no_spill(cfg)
-    shape = (cfg.n_nodes, cfg.degree, cfg.lanes)
-    _check_channels(cfg, ch)
-    if tuple(out.valid.shape) != shape:
-        raise ValueError(f"edge_write: outbox {tuple(out.valid.shape)} "
-                         f"!= channel lanes {shape}")
+
+def edge_write_spill(cfg: EdgeConfig, ch: EdgeChannels, out: EdgeMsgs,
+                     round_, latency_rounds,
+                     deliver_mask) -> EdgeChannels:
+    """The collision-free write (see `edge_write_spill_plain`); the kernel
+    is K9 `edge_write_spill` in `csrc/edge.cu`."""
+    Lo = out.valid.shape[2]
+    shape = (cfg.n_nodes, cfg.degree, Lo)
+    if Lo > cfg.lanes or Lo > LANE_STRIDE:
+        raise ValueError(f"edge_write_spill: {Lo} out lanes for "
+                         f"{cfg.lanes} channel lanes")
     if not K.use_kernel(ch.valid):
-        return edge_write_plain(cfg, ch, out, round_, latency_rounds,
-                                deliver_mask)
+        return edge_write_spill_plain(cfg, ch, out, round_, latency_rounds,
+                                      deliver_mask)
+    return _launch_write(K.EDGE_WRITE_SPILL, cfg, ch, out, round_,
+                         latency_rounds, deliver_mask, shape,
+                         [cfg.n_nodes, cfg.degree, cfg.ring, cfg.lanes, Lo])
+
+
+def _launch_write(kernel, cfg, ch, out, round_, latency_rounds,
+                  deliver_mask, shape, dims):
     # broadcast views, read through their strides (no expanded copy)
     lat = latency_rounds.to(I32).expand(shape)
     mask = deliver_mask.to(torch.bool).expand(shape)
@@ -201,15 +244,38 @@ def edge_write(cfg: EdgeConfig, ch: EdgeChannels, out: EdgeMsgs,
                         ("b", out.b, I32), ("c", out.c, I32)):
         _check(f"out.{name}", t, shape, dt)
     _check("round", round_, (), I32)
-    K.EDGE_WRITE.launch(
+    kernel.launch(
         [ch.valid, ch.type, ch.a, ch.b, ch.c,
          out.valid.contiguous(), out.type.contiguous(), out.a.contiguous(),
          out.b.contiguous(), out.c.contiguous(), lat, mask, round_,
          ch.overwrites, ch.lat_clipped, ch.sent],
-        [cfg.n_nodes, cfg.degree, cfg.ring, cfg.lanes,
-         int(cfg.uniform_arrival), *lat.stride(), *mask.stride()],
+        dims + [*lat.stride(), *mask.stride()],
         ch.valid.device, strided=(lat, mask))
     return ch
+
+
+def edge_write(cfg: EdgeConfig, ch: EdgeChannels, out: EdgeMsgs,
+               round_, latency_rounds, deliver_mask) -> EdgeChannels:
+    """Writes this round's outgoing lanes into the rings (in place).
+
+    latency_rounds: i32 [N, D, L] delay in rounds; deliver_mask: bool
+    broadcastable to [N, D, L]; round_: i32 scalar tensor. Spill
+    channels take the collision-free write (`edge_write_spill`)."""
+    _check_channels(cfg, ch)
+    if cfg.spill:
+        return edge_write_spill(cfg, ch, out, round_, latency_rounds,
+                                deliver_mask)
+    shape = (cfg.n_nodes, cfg.degree, cfg.lanes)
+    if tuple(out.valid.shape) != shape:
+        raise ValueError(f"edge_write: outbox {tuple(out.valid.shape)} "
+                         f"!= channel lanes {shape}")
+    if not K.use_kernel(ch.valid):
+        return edge_write_plain(cfg, ch, out, round_, latency_rounds,
+                                deliver_mask)
+    return _launch_write(K.EDGE_WRITE, cfg, ch, out, round_, latency_rounds,
+                         deliver_mask, shape,
+                         [cfg.n_nodes, cfg.degree, cfg.ring, cfg.lanes,
+                          int(cfg.uniform_arrival)])
 
 
 # --- edge_read ------------------------------------------------------------

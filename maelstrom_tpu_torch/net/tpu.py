@@ -10,15 +10,19 @@ when nothing is due, this one always runs the delivery pass, which then
 yields the same state, and selects the same empty client batch on the
 device: branching on device data would cost a host sync every round.
 
-Random draws (loss, duplication, randomized latency) need the port's PRNG,
-which is a later slice; `check_scope` refuses configs that use them."""
+Loss, duplication and randomized latency draw from the key a caller
+passes (`prng`, bit for bit with `jax.random`). The fault API at the end
+is the host's surgery on a `NetState` between dispatches (the nemesis):
+each returns a new state and changes none in place."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
+from .. import prng
 from ..tree import Struct, tree_map
 
 I32 = torch.int32
@@ -136,14 +140,11 @@ class NetConfig:
 
 def check_scope(cfg: NetConfig) -> None:
     """Refuses the parts of the network that later slices port."""
+    if cfg.latency_dist not in prng.DISTS:
+        raise ValueError(f"unknown latency dist {cfg.latency_dist!r}")
     later = [
-        (cfg.latency_dist != "constant",
-         f"latency_dist={cfg.latency_dist!r} (PRNG slice)"),
-        (cfg.enable_duplication, "enable_duplication (fault slice)"),
-        (cfg.enable_stall, "enable_stall (fault slice)"),
         (cfg.enable_byz, "enable_byz (adversary slice)"),
         (cfg.telemetry, "telemetry (observability slice)"),
-        (cfg.partition_groups > 1, "partition_groups > 1 (fault slice)"),
         (bool(cfg.unit_words), "unit_words (batched-broadcast slice)"),
     ]
     for hit, what in later:
@@ -183,16 +184,18 @@ def payload_units(cfg: NetConfig, types, words, valid):
     return u.sum(dtype=I32)
 
 
-def draw_latency_rounds(cfg: NetConfig, scale, shape):
-    """Latency in rounds: the constant distribution only (the others
-    draw random numbers, which the PRNG slice ports)."""
-    if cfg.latency_dist != "constant":
-        raise NotImplementedError(
-            f"latency_dist={cfg.latency_dist!r} needs the PRNG slice")
-    # a float32 product, as jnp.float32(mean) * scale; the Python scalar
-    # needs no host-to-device copy
-    mean = scale.to(torch.float32) * float(cfg.latency_mean_rounds)
-    return torch.round(mean).to(I32).expand(shape)
+def draw_latency_rounds(cfg: NetConfig, key, scale, shape):
+    """Latency draw in rounds (the JAX package's `draw_latency_rounds`,
+    reference `net.clj:64-76`): constant(mean), a broadcast scalar that
+    draws nothing; uniform over [0, 2*mean] and exponential of that mean
+    from `key` (K7 on the card)."""
+    if cfg.latency_dist == "constant":
+        # a float32 product, as jnp.float32(mean) * scale; the Python
+        # scalar needs no host-to-device copy
+        mean = prng.mean_rounds(cfg.latency_mean_rounds, scale)
+        return torch.round(mean).to(I32).expand(shape)
+    return prng.latency_rounds(key, shape, cfg.latency_dist,
+                               cfg.latency_mean_rounds, scale)
 
 
 def _scatter_drop(dst, idx, src):
@@ -226,29 +229,57 @@ def _scatter_new(cfg: NetConfig, pool: Msgs, incoming: Msgs):
     return pool, ok
 
 
-def _send(cfg: NetConfig, net: NetState, out: Msgs):
+def _send(cfg: NetConfig, net: NetState, out: Msgs, key):
     """Enqueues a flat batch `out` [M] into the flight pool: ids by
-    prefix sum, due = round + max(1, latency), free-slot scatter.
-    Returns (net', sent_view). Loss is not drawn: callers have checked
-    that p_loss is 0 (`sim.make_run_fn`)."""
+    prefix sum (before the loss roll, reference `net.clj:205-214`), due
+    = round + max(1, latency), the loss roll, free-slot scatter, and
+    with duplication a second copy of kept server-to-server rows under
+    an independent latency draw. `key` is split as the JAX package
+    splits it. Returns (net', sent_view)."""
     M = out.valid.shape[0]
+    dup_on = cfg.enable_duplication
+    ks = prng.split(key, 4 if dup_on else 2)
+    # the draws: latency (k_lat), loss (k_loss)[, duplication (k_dup) and
+    # its latency (k_dlat)]
+    lat_spec = (None if cfg.latency_dist == "constant" else
+                ("latency", cfg.latency_dist, cfg.latency_mean_rounds,
+                 net.latency_scale))
+    d_lat, d_lost, d_dup, d_dlat = prng.draws(
+        ks, M, [lat_spec, ("mask", net.p_loss)]
+        + ([("mask", net.p_dup), lat_spec] if dup_on else [None, None]))
     new = out.valid
     rank = torch.cumsum(new, 0, dtype=I32) - 1
     mid = net.next_mid + rank
     client = involves_client(cfg, out.src, out.dest)
-    lat = torch.where(client, 0,
-                      draw_latency_rounds(cfg, net.latency_scale, (M,)))
+    if d_lat is None:
+        d_lat = draw_latency_rounds(cfg, None, net.latency_scale, (M,))
+    lat = torch.where(client, 0, d_lat)
     due = (net.round + torch.clamp(lat, min=1)).to(I32)
-    keep = new
+    lost = new & d_lost
+    keep = new & ~lost
     pool, ok = _scatter_new(cfg, net.pool,
                             out.replace(valid=keep, mid=mid, due=due))
     sent_view = out.replace(valid=new, mid=mid, due=due)
+    n_dup = None
+    if dup_on:
+        # at-least-once amplification of kept server-to-server rows, same
+        # id, independent latency; a copy that finds no slot is skipped
+        dup = keep & ~client & d_dup
+        lat2 = (draw_latency_rounds(cfg, None, net.latency_scale, (M,))
+                if d_dlat is None else d_dlat)
+        due2 = (net.round + torch.clamp(lat2, min=1)).to(I32)
+        pool, dup_ok = _scatter_new(cfg, pool, out.replace(
+            valid=dup, mid=mid, due=due2))
+        n_dup = dup_ok.sum(dtype=I32)
     n_new = new.sum(dtype=I32)
     st = net.stats
     st = st.replace(
         sent_all=st.sent_all + n_new,
         sent_servers=st.sent_servers + (new & ~client).sum(dtype=I32),
+        lost=st.lost + lost.sum(dtype=I32),
         dropped_overflow=st.dropped_overflow + (keep & ~ok).sum(dtype=I32),
+        duplicated=(st.duplicated if n_dup is None
+                    else st.duplicated + n_dup),
         sent_by_type=count_by_type(st.sent_by_type, out.type, new))
     return net.replace(pool=pool, stats=st,
                        next_mid=net.next_mid + n_new), sent_view
@@ -271,9 +302,23 @@ def _deliver(cfg: NetConfig, net: NetState):
     client_msg = involves_client(cfg, pool.src, pool.dest)
     src_i = pool.src.clamp(0, cfg.n_total - 1).long()
     dest_i = pool.dest.clamp(0, cfg.n_total - 1).long()
-    blocked = (net.component[src_i] != net.component[dest_i]) & ~client_msg
+    blocked = net.component[src_i] != net.component[dest_i]
+    if cfg.partition_groups > 1:
+        # directional grudges: may src's group reach dest's group?
+        bg = net.block_groups.long()
+        blocked = blocked | net.block_matrix[bg[src_i], bg[dest_i]]
+    blocked = blocked & ~client_msg
+    if cfg.enable_stall:
+        # a paused dest's mail waits in the pool; a down dest's is
+        # consumed and dropped
+        dest_node = pool.dest < N
+        nd = pool.dest.clamp(0, N - 1).long()
+        due = due & ~(dest_node & net.paused[nd])
+        to_down = due & ~blocked & dest_node & net.down[nd]
+    else:
+        to_down = torch.zeros_like(due)
     to_client = due & ~blocked & (pool.dest >= N)
-    to_node = due & ~blocked & (pool.dest < N)
+    to_node = due & ~blocked & (pool.dest < N) & ~to_down
     dropped = due & blocked
 
     # node delivery: (dest, due-age) composite key, earlier-due first
@@ -319,19 +364,105 @@ def _deliver(cfg: NetConfig, net: NetState):
         client_msgs = Msgs.empty(0, dev)
         c_taken = to_client
 
-    consumed = taken | dropped | c_taken
+    consumed = taken | dropped | c_taken | to_down
     pool = pool.replace(valid=pool.valid & ~consumed)
     st = net.stats
     st = st.replace(
         recv_all=st.recv_all + taken.sum(dtype=I32)
         + c_taken.sum(dtype=I32),
         recv_servers=st.recv_servers + (taken & ~client_msg).sum(dtype=I32),
-        dropped_partition=st.dropped_partition + dropped.sum(dtype=I32))
+        dropped_partition=st.dropped_partition + dropped.sum(dtype=I32),
+        dropped_down=st.dropped_down + to_down.sum(dtype=I32))
     return net.replace(pool=pool, stats=st), inbox, client_msgs
 
 
 def advance(net: NetState) -> NetState:
     return net.replace(round=net.round + 1)
+
+
+# --- fault API: host-side surgery between dispatches (net.clj:104-121) ---
+
+def _on(like, values, dtype):
+    """`values` (numpy, a list or a tensor) as a tensor on `like`'s
+    device."""
+    return torch.as_tensor(np.asarray(values), dtype=dtype).to(like.device)
+
+
+def partition_components(net: NetState, labels) -> NetState:
+    """Component labels per node (clients keep theirs): nodes in
+    different components cannot exchange node-to-node messages."""
+    labels = _on(net.component, labels, I32)
+    comp = net.component.clone()
+    comp[:labels.shape[0]] = labels
+    return net.replace(component=comp)
+
+
+def partition_grudge(net: NetState, groups, matrix) -> NetState:
+    """A directional grudge: `groups` labels each node (clients keep
+    group 0) and `matrix[g_src, g_dest]` blocks src -> dest. The matrix
+    shape is the config's `partition_groups` squared."""
+    matrix = _on(net.block_matrix, matrix, torch.bool)
+    if tuple(matrix.shape) != tuple(net.block_matrix.shape):
+        raise ValueError(
+            f"grudge matrix shape {tuple(matrix.shape)} != configured "
+            f"{tuple(net.block_matrix.shape)}; set "
+            f"NetConfig.partition_groups")
+    groups = _on(net.block_groups, groups, I32)
+    g2 = net.block_groups.clone()
+    g2[:groups.shape[0]] = groups
+    return net.replace(block_groups=g2, block_matrix=matrix)
+
+
+def set_down(net: NetState, mask) -> NetState:
+    """Crash-killed nodes: they stop stepping and their mail is dropped
+    (enable_stall)."""
+    return net.replace(down=_on(net.down, mask, torch.bool))
+
+
+def set_paused(net: NetState, mask) -> NetState:
+    """Paused nodes: they stop stepping, keep their state, and pool mail
+    waits for them (enable_stall)."""
+    return net.replace(paused=_on(net.paused, mask, torch.bool))
+
+
+def _full(like, value):
+    return torch.full_like(like, float(value))
+
+
+def set_duplication(net: NetState, p: float) -> NetState:
+    """Server-to-server duplication probability (enable_duplication)."""
+    return net.replace(p_dup=_full(net.p_dup, p))
+
+
+def heal(net: NetState) -> NetState:
+    """Clears partitions: component labels and directional grudges."""
+    return net.replace(component=torch.zeros_like(net.component),
+                       block_groups=torch.zeros_like(net.block_groups),
+                       block_matrix=torch.zeros_like(net.block_matrix))
+
+
+def slow(net: NetState, factor: float = 10.0) -> NetState:
+    return net.replace(latency_scale=net.latency_scale * factor)
+
+
+def fast(net: NetState) -> NetState:
+    return net.replace(latency_scale=torch.ones_like(net.latency_scale))
+
+
+def flaky(net: NetState, p: float = 0.5) -> NetState:
+    return net.replace(p_loss=_full(net.p_loss, p))
+
+
+def set_latency_scale(net: NetState, scale: float) -> NetState:
+    """Absolute latency-scale install (the weather nemesis and
+    --latency-scale; slow/fast are relative)."""
+    return net.replace(latency_scale=_full(net.latency_scale, scale))
+
+
+def set_weather(net: NetState, p_loss: float, scale: float) -> NetState:
+    """One weather front: loss probability and latency scale at once."""
+    return net.replace(p_loss=_full(net.p_loss, p_loss),
+                       latency_scale=_full(net.latency_scale, scale))
 
 
 def stats_dict(net: NetState, transfer=None) -> dict:

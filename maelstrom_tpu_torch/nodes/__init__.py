@@ -16,6 +16,8 @@ import json
 import math
 from typing import Any, Callable
 
+import torch
+
 T_INVALID = 0
 T_ERROR = 1     # error reply: a = error code, b = interned text
 
@@ -65,6 +67,9 @@ class NodeProgram:
     # True when every inbox lane is decoded by message type, never by
     # position (a prerequisite of the spill write)
     edge_lanes_symmetric = False
+    # True when a round's lanes on an edge are one logical message: the
+    # loss and latency draws are then shared across the lanes
+    edge_atomic_rpc = False
     reply_payload_words = 0
     durable_keys: tuple | None = None
 
@@ -108,10 +113,26 @@ class NodeProgram:
         raise NotImplementedError
 
     def durable_view(self, state):
-        """The persisted subset of `state`; None when all of it is."""
+        """The persisted subset of `state` (the same tensors, no copy);
+        None when all of it is."""
         if self.durable_keys is None:
             return None
         return {k: state[k] for k in self.durable_keys}
+
+    def restore(self, fresh, durable, state, mask):
+        """Crash-restart: nodes where the [N] bool `mask` is set come back
+        with their volatile state rebuilt from `fresh` (an init_state()
+        dict) overlaid with their `durable` entries; the others keep
+        `state`. A fully durable program keeps all of it."""
+        if self.durable_keys is None:
+            return state
+        recovered = {**fresh, **durable}
+
+        def pick(k):
+            o, r = state[k], recovered[k]
+            m = mask.reshape(mask.shape + (1,) * (r.dim() - 1))
+            return torch.where(m, r, o)
+        return {k: pick(k) for k in state}
 
 
 def edge_timing(opts: dict, n_nodes: int) -> tuple[int, int, int]:

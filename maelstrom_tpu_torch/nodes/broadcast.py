@@ -15,6 +15,10 @@ requeued by a two-generation retry tick. Eager mode resends pending values
 every round until a digest clears them; naive mode forwards each new value
 once per edge with no digests.
 
+Killed and paused nodes (`ctx["stall"]`) keep their state and send
+nothing: the JAX round's freeze (`sim._freeze`), which the kernel folds
+into the step.
+
 `edge_step` has a hand-written CUDA kernel (`csrc/broadcast.cu`) and the
 plain PyTorch version `edge_step_plain`."""
 
@@ -26,7 +30,7 @@ import torch
 from .. import kernels as K
 from ..net.static import EdgeConfig, EdgeMsgs, reverse_index
 from ..net.tpu import I32
-from ..sim import pack_words
+from ..sim import _freeze, pack_words
 from ..tree import resolve_device
 from ..workloads.broadcast import TOPOLOGIES, topology_indices
 from . import (EncodeCapacityError, NodeProgram, edge_capacity, edge_timing,
@@ -65,11 +69,6 @@ class BroadcastProgram(NodeProgram):
     def __init__(self, opts, nodes, device="cuda"):
         super().__init__(opts, nodes)
         self.device = resolve_device(device)
-        dist = (opts.get("latency") or {}).get("dist", "constant")
-        if dist != "constant":
-            raise NotImplementedError(
-                f"latency dist {dist!r} draws random numbers: the PRNG "
-                f"slice ports it")
         topo = (opts.get("topology_map")
                 or TOPOLOGIES[opts.get("topology", "grid")](nodes))
         nb = topology_indices(topo, nodes)
@@ -267,8 +266,13 @@ class BroadcastProgram(NodeProgram):
                 raise ValueError(f"edge_step {name}: {tuple(t.shape)} "
                                  f"{t.dtype}, expected {shape} {dtype}")
 
-    def _edge_step_kernel(self, state, edge_in, client_in, round_):
+    def _edge_step_kernel(self, state, edge_in, client_in, round_,
+                          stall=None):
         self._check_inputs(state, edge_in, client_in, round_)
+        if stall is not None and (tuple(stall.shape) != (self.n_nodes,)
+                                  or stall.dtype != torch.bool):
+            raise ValueError(f"edge_step stall: {tuple(stall.shape)} "
+                             f"{stall.dtype}")
         N, D = self.n_nodes, self.D
         dev = edge_in.valid.device
         L = edge_in.valid.shape[2]
@@ -296,7 +300,11 @@ class BroadcastProgram(NodeProgram):
                 + [new_state[k] for k in _STATE]
                 + [getattr(edge_out, f) for f in _EDGE]
                 + [getattr(client_out, f) for f in _CLIENT_OUT])
-        K.BROADCAST_STEP.launch(
+        kernel = K.BROADCAST_STEP
+        if stall is not None:
+            kernel = K.BROADCAST_STEP_STALL
+            ptrs.append(stall.contiguous())
+        kernel.launch(
             ptrs, [N, D, self.V, self.n_windows, L, Kc, Lout, self.per_nb,
                    self.retry_rounds, int(self.naive),
                    int(self.skip_sender), int(self.eager_resend)], dev)
@@ -305,11 +313,21 @@ class BroadcastProgram(NodeProgram):
     def edge_step(self, state, edge_in: EdgeMsgs, client_in, ctx):
         """(state, edge_in [N, D, L], client_in Msgs [N, K], ctx) ->
         (state', edge_out [N, D, lanes], client_out Msgs [N, K]).
-        ctx["round"] is an i32 scalar tensor."""
+        ctx["round"] is an i32 scalar tensor; ctx.get("stall"), when
+        given, the [N] bool mask of killed or paused nodes, which keep
+        their state and emit no valid row."""
+        stall = ctx.get("stall")
         if K.use_kernel(edge_in.valid):
             return self._edge_step_kernel(state, edge_in, client_in,
-                                          ctx["round"])
-        return self.edge_step_plain(state, edge_in, client_in, ctx["round"])
+                                          ctx["round"], stall)
+        out = self.edge_step_plain(state, edge_in, client_in, ctx["round"])
+        if stall is None:
+            return out
+        new, edge_out, client_out = out
+        return (_freeze(stall, state, new),
+                edge_out.replace(valid=edge_out.valid
+                                 & ~stall[:, None, None]),
+                client_out.replace(valid=client_out.valid & ~stall[:, None]))
 
     def quiet_planes(self, state):
         """The bool planes of the JAX package's `quiescent` (idle when no

@@ -7,19 +7,21 @@ iteration polls the (pure, virtual-time) generators for client ops,
 encodes them into the injection batch, runs one scan-ahead dispatch
 (`sim.make_scan_fn`) to the next host-relevant round, decodes the client
 replies its device-resident log collected into history completions, and
-applies timeouts. Quiescent stretches (empty flight pool, drained edge
-channels, idle node program: the fused probe K6) are fast-forwarded in
-one round-counter bump.
+applies timeouts. Nemesis ops run at stretch boundaries: they rewrite
+the network's fault masks and scalars between dispatches
+(`TpuCombinedNemesis`). Quiescent stretches (empty flight pool, drained
+edge channels, idle node program: the fused probe K6) are fast-forwarded
+in one round-counter bump.
 
 Time is virtual: 1 round = `ms_per_round` milliseconds (default 1), so
 the same generators and checkers read it as the JAX package's runner
 does, and a seed fixes the history byte for byte.
 
 Not ported here (their options are refused by the CLI, naming the slice
-that brings each): the nemesis, continuous mode, client retries and
-leader-redirect requeues, checkpoint/resume and preemption, telemetry
-rings, the overlapped analysis pipeline, meshes and fleets, the
-byzantine adversary, and the static-audit and cost blocks of the
+that brings each): continuous mode, client retries and leader-redirect
+requeues, role-targeted faults, checkpoint/resume and preemption,
+telemetry rings, the overlapped analysis pipeline, meshes and fleets,
+the byzantine adversary, and the static-audit and cost blocks of the
 results."""
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from ..checkers import Checker
 from ..checkers.netstats import TransferStats
 from ..errors import ERROR_REGISTRY
 from ..history import History
+from ..nemesis import NemesisDecisions, grudge_matrix
 from ..net import tpu as T
 from ..nodes import EncodeCapacityError, Intern, get_program, \
     wire_name_table
@@ -80,6 +83,88 @@ def quiet_probe(planes) -> torch.Tensor:
 
 def _np_dtype(dt: torch.dtype):
     return torch.empty(0, dtype=dt).numpy().dtype
+
+
+class TpuCombinedNemesis(NemesisDecisions):
+    """Applies the combined fault packages to the simulated network's
+    masks (the JAX runner's executor of the same name, without the
+    byzantine package): partitions install directional block matrices,
+    kill and pause set the per-node down and paused masks, duplicate
+    sets the duplication probability, weather the loss probability and
+    latency scale, and stop-kill restarts killed nodes from the durable
+    store (`NodeProgram.restore`). Decisions come from the seeded
+    streams of `NemesisDecisions`, so a seed gives the JAX runner's
+    fault schedule, op for op."""
+
+    def __init__(self, runner, nodes, seed=0):
+        super().__init__(nodes, seed)
+        self.runner = runner
+        self.killed: list = []
+        self.paused_nodes: list = []
+        self._idx = {n: i for i, n in enumerate(self.nodes)}
+
+    def _mask(self, targets):
+        m = np.zeros(len(self.nodes), bool)
+        for t in targets:
+            m[self._idx[t]] = True
+        return m
+
+    def invoke(self, op):
+        f = op["f"]
+        r = self.runner
+        if f == "start-partition":
+            name, grudge = self.next_grudge()
+            groups, matrix = grudge_matrix(self.nodes, grudge)
+            r._net_surgery(
+                lambda net: T.partition_grudge(net, groups, matrix))
+            return {**op, "type": "info", "value": name}
+        if f == "stop-partition":
+            r._net_surgery(T.heal)
+            return {**op, "type": "info", "value": "healed"}
+        if f == "start-kill":
+            # a node both paused and killed is down until both lift
+            targets = self.next_kill_targets()
+            self.killed = sorted(set(self.killed) | set(targets))
+            mask = self._mask(self.killed)
+            r._net_surgery(lambda net: T.set_down(net, mask))
+            return {**op, "type": "info", "value": f"killed {targets}"}
+        if f == "stop-kill":
+            restarted, self.killed = self.killed, []
+            r.restart_nodes(self._mask(restarted))
+            return {**op, "type": "info",
+                    "value": f"restarted {restarted}"}
+        if f == "start-pause":
+            targets = self.next_pause_targets()
+            self.paused_nodes = sorted(set(self.paused_nodes)
+                                       | set(targets))
+            mask = self._mask(self.paused_nodes)
+            r._net_surgery(lambda net: T.set_paused(net, mask))
+            return {**op, "type": "info", "value": f"paused {targets}"}
+        if f == "stop-pause":
+            resumed, self.paused_nodes = self.paused_nodes, []
+            mask = self._mask([])
+            r._net_surgery(lambda net: T.set_paused(net, mask))
+            return {**op, "type": "info", "value": f"resumed {resumed}"}
+        if f == "start-duplicate":
+            p = self.next_dup_prob()
+            r._net_surgery(lambda net: T.set_duplication(net, p))
+            return {**op, "type": "info", "value": f"duplicate p={p}"}
+        if f == "stop-duplicate":
+            r._net_surgery(lambda net: T.set_duplication(net, 0.0))
+            return {**op, "type": "info", "value": "duplicate off"}
+        if f == "start-weather":
+            name, p, scale = self.next_weather()
+            r._net_surgery(lambda net: T.set_weather(net, p, scale))
+            return {**op, "type": "info",
+                    "value": f"weather {name} p_loss={p} scale={scale}"}
+        if f == "stop-weather":
+            # the run's configured baseline, so the final heal leaves the
+            # network the test asked for
+            base_p = float(r.test.get("p_loss") or 0.0)
+            base_s = float(r.test.get("latency_scale") or 1.0)
+            r._net_surgery(lambda net: T.set_weather(net, base_p, base_s))
+            return {**op, "type": "info", "value": "weather cleared"}
+        raise ValueError(f"unknown nemesis op {f!r}")
 
 
 class TpuNetStats(Checker):
@@ -138,12 +223,19 @@ class TpuNetStats(Checker):
             out["latency-clipped"] = lat_clipped
         # silently destroyed messages invalidate the run: pool overflow
         # always; ring overwrites are a bounded-channel drop of the same
-        # class (legal only if the program retransmits), clipped latency
-        # draws a distortion of the latency model
+        # class (legal only if the program retransmits or the test opts
+        # in), clipped latency draws a distortion of the latency model
+        # (gated unless the test or the program accepts it)
+        prog = self.runner.program
+        tolerated = (test.get("allow_channel_overwrites")
+                     or getattr(prog, "tolerates_channel_overwrites",
+                                False))
+        clip_tolerated = (test.get("allow_latency_clipping")
+                          or getattr(prog, "tolerates_latency_clipping",
+                                     False))
         ok = (c["dropped_overflow"] == 0
-              and (overwrites == 0
-                   or self.runner.program.tolerates_channel_overwrites)
-              and lat_clipped == 0)
+              and (overwrites == 0 or tolerated)
+              and (lat_clipped == 0 or clip_tolerated))
         # host-transfer accounting: drains must stay O(host-relevant
         # rounds), not O(simulated rounds)
         out.update(self.runner.transfer.as_dict())
@@ -176,13 +268,20 @@ class TpuRunner:
         # the pool only ever holds in-flight *client requests*
         default_pool = max(8 * self.concurrency, 64)
         pool_cap = int(test.get("pool_cap") or default_pool)
+        # fault capabilities are static config: a run without a fault
+        # package pays nothing for its round-path work
+        faults = self._fault_set(test)
+        self.faults = faults
         self.cfg = T.NetConfig(
             n_nodes=n, n_clients=self.concurrency, pool_cap=pool_cap,
             inbox_cap=self.program.inbox_cap,
             client_cap=max(2 * self.concurrency, 8),
             latency_mean_rounds=mean_rounds,
             latency_dist=lat.get("dist", "constant"),
-            ms_per_round=self.ms_per_round)
+            ms_per_round=self.ms_per_round,
+            partition_groups=n if "partition" in faults else 1,
+            enable_stall=bool({"kill", "pause"} & faults),
+            enable_duplication="duplicate" in faults)
         # per-message journal rows: on by default for small clusters,
         # where the per-round pull is cheap; large runs keep only the
         # on-device counters
@@ -204,20 +303,57 @@ class TpuRunner:
         self._dispatches = 0
         self.final_round = 0
         # wall seconds by phase of the run (timing.json in the store dir)
+        self.nemesis = None
         self.timing = {"scan-s": 0.0, "drain-s": 0.0, "poll-s": 0.0,
                        "replies-s": 0.0, "journal-s": 0.0, "quiet-s": 0.0,
+                       "nemesis-s": 0.0, "nemesis-ops": 0,
                        "rounds-executed": 0, "rounds-bumped": 0,
                        "dispatches": 0, "quiet-probes": 0, "bumps": 0,
                        "scan-host-syncs": 0, "scan-replayed-rounds": 0}
 
     def _build_sim(self):
-        """This runner's initial simulation state. --p-loss 0 and
-        --latency-scale 1 (the only values in scope) are the state's
-        own defaults."""
-        return make_sim(self.program, self.cfg,
-                        seed=self.test.get("seed", 0),
-                        track_edge_send_round=self.journal_rows,
-                        device=self.device)
+        """This runner's initial simulation state: the seeded key, and
+        --p-loss and --latency-scale installed as the JAX runner installs
+        them (an explicit 0.0 too)."""
+        sim = make_sim(self.program, self.cfg,
+                       seed=self.test.get("seed", 0),
+                       track_edge_send_round=self.journal_rows,
+                       device=self.device)
+        if self.test.get("p_loss") is not None:
+            sim = sim.replace(
+                net=T.flaky(sim.net, float(self.test["p_loss"])))
+        if self.test.get("latency_scale") is not None:
+            sim = sim.replace(net=T.set_latency_scale(
+                sim.net, float(self.test["latency_scale"])))
+        return sim
+
+    @staticmethod
+    def _fault_set(test: dict) -> set:
+        """The nemesis fault packages this run can see (static config,
+        known before the first round)."""
+        pkg = test.get("nemesis_pkg") or {}
+        faults = set(pkg.get("faults") or ())
+        if not faults:
+            nm = test.get("nemesis")
+            if isinstance(nm, (set, frozenset, list, tuple)):
+                faults = set(nm)
+        return faults
+
+    def _net_surgery(self, fn):
+        """Applies a host-side fault update `net -> net'` (grudges,
+        down and paused masks, duplication, weather) between dispatches."""
+        self.sim = self.sim.replace(net=fn(self.sim.net))
+
+    def restart_nodes(self, mask):
+        """Crash-restart (stop-kill): masked nodes come back with their
+        volatile state rebuilt from the durable store
+        (`NodeProgram.restore`), and their down flag clears."""
+        prog, sim = self.program, self.sim
+        m = torch.as_tensor(np.asarray(mask, bool)).to(self.device)
+        nodes = prog.restore(prog.init_state(), sim.durable, sim.nodes, m)
+        self.sim = sim.replace(
+            nodes=nodes, net=sim.net.replace(down=sim.net.down & ~m),
+            durable=prog.durable_view(nodes))
 
     def _bump(self, k: int):
         """Fast-forward: round += k (a torch op on the round counter)."""
@@ -299,7 +435,12 @@ class TpuRunner:
         test = self.test
         C = self.concurrency
         gen = g.to_gen(test["generator"])
-        processes = list(range(C))
+        nem_seed = test.get("nemesis_seed")
+        if nem_seed is None:
+            nem_seed = test.get("seed", 0)
+        if (test.get("nemesis_pkg") or {}).get("generator") is not None:
+            self.nemesis = TpuCombinedNemesis(self, self.nodes, nem_seed)
+        processes = list(range(C)) + ([g.NEMESIS] if self.nemesis else [])
         free = g.FreeSet(processes)
         for p in processes:
             free.add(p)
@@ -378,6 +519,18 @@ class TpuRunner:
                 history.append_row("invoke", op.get("f"), op.get("value"),
                                    process, ctx["time"],
                                    final=op.get("final", False))
+                if process == g.NEMESIS:
+                    # fault surgery between dispatches
+                    t_n = time.perf_counter()
+                    completed = self.nemesis.invoke(op)
+                    self.timing["nemesis-s"] += time.perf_counter() - t_n
+                    self.timing["nemesis-ops"] += 1
+                    gen = self._complete(history, gen, ctx, process,
+                                         completed, free)
+                    ctx = {"time": self._time_ns(r),
+                           "free": self._free_rotated(free),
+                           "processes": processes}
+                    continue
                 node_idx = process % N      # the worker's bound node
                 body = program.request_for_op(op)
                 try:
@@ -645,7 +798,8 @@ def run_tpu_test(test: dict, test_dir: str) -> dict:
     from ..checkers.availability import AvailabilityChecker
     test["checker"].checkers["net"] = TpuNetStats(runner)
     test["checker"].checkers["availability"] = AvailabilityChecker(runner)
-    test["nemesis"] = None
+    test["nemesis"] = (True if (test.get("nemesis_pkg") or {}).get(
+        "generator") is not None else None)
     history = runner.run()
     t_run1 = time.perf_counter()
     test["transfer"] = runner.transfer

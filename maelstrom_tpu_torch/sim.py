@@ -14,9 +14,9 @@ reply appended to a device-resident log (kernel K5, `csrc/scan.cu`).
 A round consumes the `SimState` it is given: the edge channels are
 updated in place (see `net/static.py`). Keep only the returned state.
 
-`SimState.key` is a placeholder `uint32[2]` built from the seed: this
-slice runs only configs that draw no random numbers, and the key is not
-advanced. The PRNG slice makes it live."""
+`SimState.key` is the threefry key (`prng`), split every round as the JAX
+package splits it, whatever the config draws; the fault masks and draws
+of the edge sends are kernel K8 (`csrc/faults.cu`)."""
 
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from dataclasses import dataclass
 import torch
 
 from . import kernels as K
+from . import prng
 from .net import static
 from .net import tpu as T
 from .net.tpu import I32, INT32_MAX, Msgs, NetConfig, NetState
@@ -35,7 +36,7 @@ from .tree import Struct, resolve_device, tree_map
 class SimState(Struct):
     net: NetState
     nodes: object             # program state dict, leading axis N
-    key: torch.Tensor         # uint32[2] placeholder (see module docstring)
+    key: torch.Tensor         # uint32[2] threefry key
     channels: object = None   # EdgeChannels
     durable: object = None    # persisted subset of node state, or None
     telemetry: object = None  # the observability slice
@@ -63,18 +64,19 @@ def make_sim(program, cfg: NetConfig, seed: int = 0, device="cuda",
     channels = static.make_channels(program.edge_cfg, dev,
                                     track_send_round=track_edge_send_round)
     nodes = program.init_state()
-    key = torch.tensor([0, seed & 0xFFFFFFFF], dtype=torch.uint32).to(dev)
+    key = prng.PRNGKey(seed, dev)
     return SimState(net=T.make_net(cfg, dev), nodes=nodes, key=key,
                     channels=channels, durable=program.durable_view(nodes))
 
 
 def _freeze(stall, old, new):
-    """Per-leaf select: stalled nodes keep their old row, live nodes take
-    the stepped one. Leaves lead with the node axis."""
-    def pick(o, n):
+    """Per-leaf select: stalled (killed or paused) nodes keep their old
+    row, live nodes take the stepped one. Leaves lead with the node
+    axis."""
+    def pick(n, o):
         m = stall.reshape(stall.shape + (1,) * (n.dim() - 1))
         return torch.where(m, o, n)
-    return tree_map(pick, old, new)
+    return tree_map(pick, new, old)     # in the stepped tree's key order
 
 
 # --- reply compaction (K4) -------------------------------------------------
@@ -139,15 +141,140 @@ def _round(program, cfg: NetConfig, sim: SimState, inject: Msgs):
     return _round_edge(program, cfg, sim, inject)
 
 
+# --- the edge fault block (K8) ------------------------------------------------
+
+@dataclass
+class EdgeFaults(Struct):
+    """A round's fault masks and draws over the draw shape [N, D, Ld]
+    (Ld = the out lanes, or 1 for `edge_atomic_rpc` programs): the
+    deliver mask, the latency rounds (None for constant latency), and
+    with duplication the duplicate mask and its latency (None for
+    constant latency)."""
+    deliver: torch.Tensor
+    lat: object = None
+    dup: object = None
+    dup_lat: object = None
+
+
+_FAULT_STATS = ("lost", "dropped_partition", "dropped_down", "duplicated")
+
+
+def _blocked_edges(cfg: NetConfig, nb, net: NetState):
+    """(blocked, stalled) [N, D]: partitioned edges (component labels and
+    the directional block matrix) and, with stall, edges into a killed or
+    paused destination, which count as blocked."""
+    N = cfg.n_nodes
+    safe = nb.clamp(0, N - 1).long()
+    comp = net.component
+    blocked = comp[:N, None] != comp[safe]
+    if cfg.partition_groups > 1:
+        bg = net.block_groups.long()
+        blocked = blocked | net.block_matrix[bg[:N, None], bg[safe]]
+    blocked = blocked & (nb >= 0)
+    if cfg.enable_stall:
+        stalled = (net.down | net.paused)[safe] & (nb >= 0) & ~blocked
+    else:
+        stalled = torch.zeros_like(blocked)
+    return blocked | stalled, stalled
+
+
+def edge_faults_plain(cfg: NetConfig, nb, net: NetState, valid, keys,
+                      atomic: bool):
+    """The JAX round's edge fault block (`sim.py:545-610`): partitions,
+    stalled destinations, the loss roll (keys[3]), latency draws
+    (keys[4]) and, with duplication, the duplicate roll (keys[5]) and
+    its latency (keys[6]). Returns (EdgeFaults, the four counters
+    lost / dropped_partition / dropped_down / duplicated advanced)."""
+    N, D, L = valid.shape
+    dshape = (N, D, 1 if atomic else L)
+    n = N * D * dshape[2]
+    blocked, stalled = _blocked_edges(cfg, nb, net)
+    lat_spec = (None if cfg.latency_dist == "constant" else
+                ("latency", cfg.latency_dist, cfg.latency_mean_rounds,
+                 net.latency_scale))
+    dup_on = cfg.enable_duplication
+    lost, lat, dup, dup_lat = (
+        None if d is None else d.reshape(dshape) for d in prng.draws(
+            keys[3:], n, [("mask", net.p_loss), lat_spec]
+            + ([("mask", net.p_dup), lat_spec] if dup_on else [None, None])))
+    deliver = ~blocked[:, :, None] & ~lost
+    out = EdgeFaults(deliver=deliver, lat=lat)
+    st = net.stats
+    counts = [valid & ~blocked[:, :, None] & lost,
+              valid & (blocked & ~stalled)[:, :, None],
+              valid & stalled[:, :, None]]
+    if dup_on:
+        out.dup = deliver & dup
+        out.dup_lat = dup_lat
+        counts.append(valid & out.dup)
+    new = {f: getattr(st, f) + c.sum(dtype=I32)
+           for f, c in zip(_FAULT_STATS, counts)}
+    return out, st.replace(**new)
+
+
+def edge_faults(cfg: NetConfig, nb, net: NetState, valid, keys,
+                atomic: bool = False):
+    """A round's edge fault masks, draws and counters (see
+    `edge_faults_plain`); the kernel is K8 `edge_faults` in
+    `csrc/faults.cu`. `keys` is the round's split [5 or 7, 2]."""
+    if not K.use_kernel(valid):
+        return edge_faults_plain(cfg, nb, net, valid, keys, atomic)
+    N, D, L = valid.shape
+    dev = valid.device
+    Ld = 1 if atomic else L
+    dshape = (N, D, Ld)
+    random_lat = cfg.latency_dist != "constant"
+    dup_on = cfg.enable_duplication
+    grudge = cfg.partition_groups > 1
+    stall = cfg.enable_stall
+    if valid.dtype != torch.bool or tuple(nb.shape) != (N, D):
+        raise ValueError("edge_faults: valid [N, D, L] bool, neighbors "
+                         "[N, D]")
+    if keys.shape[0] != (7 if dup_on else 5):
+        raise ValueError(f"edge_faults: {keys.shape[0]} round keys")
+
+    def new(dtype):
+        return torch.empty(dshape, dtype=dtype, device=dev)
+    out = EdgeFaults(deliver=new(torch.bool),
+                     lat=new(I32) if random_lat else None,
+                     dup=new(torch.bool) if dup_on else None,
+                     dup_lat=new(I32) if dup_on and random_lat else None)
+    st = net.stats
+    o_stats = {f: torch.empty((), dtype=I32, device=dev)
+               for f in _FAULT_STATS}
+    acc = torch.empty(4, dtype=I32, device=dev)
+    K.EDGE_FAULTS.launch(
+        [nb.contiguous(), net.component,
+         net.block_groups if grudge else None,
+         net.block_matrix if grudge else None,
+         net.down if stall else None, net.paused if stall else None,
+         valid.contiguous(), keys[3], keys[4],
+         keys[5] if dup_on else None, keys[6] if dup_on else None,
+         net.p_loss, net.p_dup, net.latency_scale]
+        + [getattr(st, f) for f in _FAULT_STATS]
+        + [acc, out.deliver, out.lat, out.dup, out.dup_lat]
+        + [o_stats[f] for f in _FAULT_STATS],
+        [N, D, L, Ld, cfg.partition_groups, prng.DISTS[cfg.latency_dist],
+         prng.f32_bits(cfg.latency_mean_rounds)], dev)
+    return out, st.replace(**o_stats)
+
+
 def _round_edge(program, cfg: NetConfig, sim: SimState, inject: Msgs):
     N, Kc = cfg.n_nodes, program.inbox_cap
     ecfg = program.edge_cfg
-    net, inject_sent = T._send(cfg, sim.net, inject)
+    # the round's keys: key', k1 (pool sends), k2 (the program), k4 (loss),
+    # k5 (latency)[, k6 (duplication), k7 (its latency)]
+    keys = prng.split(sim.key, 7 if cfg.enable_duplication else 5)
+    net, inject_sent = T._send(cfg, sim.net, inject, keys[1])
     net, client_inbox, pool_client_msgs = T._deliver(cfg, net)
     ch, edge_in = static.edge_read(ecfg, sim.channels, program.neighbors,
                                    program.rev, net.round)
+    ctx = {"round": net.round, "key": keys[2]}
+    if cfg.enable_stall:
+        # killed and paused nodes keep their state and send nothing
+        ctx["stall"] = sim.net.down | sim.net.paused
     nodes, edge_out, client_out = program.edge_step(
-        sim.nodes, edge_in, client_inbox, {"round": net.round})
+        sim.nodes, edge_in, client_inbox, ctx)
 
     # client replies bypass the pool (clients have zero latency,
     # net.clj:177-186): valid rows are compacted into the client buffer
@@ -163,42 +290,45 @@ def _round_edge(program, cfg: NetConfig, sim: SimState, inject: Msgs):
                    else tree_map(lambda a, b: torch.cat([a, b]),
                                  pool_client_msgs, replies))
 
-    # edge faults: component partitions block edges (net.clj:233); loss
-    # and the other faults are later slices
-    nb = program.neighbors
-    comp = net.component
-    blocked = ((comp[:N, None] != comp[nb.clamp(0, N - 1).long()])
-               & (nb >= 0))
+    # edge faults (net.clj:213, 233): partitions, stalled destinations,
+    # loss, latency and duplication draws, one kernel (K8)
+    if ecfg.uniform_arrival and cfg.latency_dist != "constant":
+        raise ValueError(
+            "uniform_arrival requires constant latency draws (program "
+            "opts and NetConfig disagree about the latency distribution)")
     shape = edge_out.valid.shape
-    deliver_mask = (~blocked)[:, :, None].expand(shape)
-    lat = T.draw_latency_rounds(cfg, net.latency_scale, shape)
-    ch = static.edge_write(ecfg, ch, edge_out, net.round, lat, deliver_mask)
+    faults, fstats = edge_faults(cfg, program.neighbors, net,
+                                 edge_out.valid, keys,
+                                 program.edge_atomic_rpc)
+    lat = faults.lat
+    if lat is None:
+        lat = T.draw_latency_rounds(cfg, None, net.latency_scale, shape)
+    ch = static.edge_write(ecfg, ch, edge_out, net.round, lat,
+                           faults.deliver)
+    if cfg.enable_duplication:
+        # a delivered message is written again under its own latency
+        # draw; constant draws are equal, so the copy goes one round past
+        # the original's floored arrival
+        lat_dup = faults.dup_lat
+        if lat_dup is None:
+            lat_dup = torch.clamp(lat, min=1) + 1
+        ch = static.edge_write(ecfg, ch, edge_out, net.round, lat_dup,
+                               faults.dup)
 
     n_sent = edge_out.valid.sum(dtype=I32)
     n_recv = edge_in.valid.sum(dtype=I32)
-    st = net.stats
-    net = net.replace(stats=st.replace(
-        sent_all=st.sent_all + n_sent,
-        sent_servers=st.sent_servers + n_sent,
-        recv_all=st.recv_all + n_recv,
-        recv_servers=st.recv_servers + n_recv,
-        dropped_partition=st.dropped_partition
-        + (edge_out.valid & blocked[:, :, None]).sum(dtype=I32),
-        sent_by_type=T.count_by_type(st.sent_by_type, edge_out.type,
+    net = net.replace(stats=fstats.replace(
+        sent_all=fstats.sent_all + n_sent,
+        sent_servers=fstats.sent_servers + n_sent,
+        recv_all=fstats.recv_all + n_recv,
+        recv_servers=fstats.recv_servers + n_recv,
+        sent_by_type=T.count_by_type(fstats.sent_by_type, edge_out.type,
                                      edge_out.valid)))
     net = T.advance(net)
-    return (SimState(net=net, nodes=nodes, key=sim.key, channels=ch,
+    return (SimState(net=net, nodes=nodes, key=keys[0], channels=ch,
                      durable=program.durable_view(nodes)),
             client_msgs,
             (inject_sent, replies, client_inbox, edge_out, edge_in))
-
-
-def _check_no_draws(net: NetState) -> None:
-    """Loss and duplication draw random numbers, which the PRNG slice
-    ports. One host read per call, not per round."""
-    if float(net.p_loss) != 0.0 or float(net.p_dup) != 0.0:
-        raise NotImplementedError(
-            "p_loss / p_dup > 0 need the PRNG slice")
 
 
 def make_round_fn(program, cfg: NetConfig, device="cuda"):
@@ -208,7 +338,6 @@ def make_round_fn(program, cfg: NetConfig, device="cuda"):
     _check_program(program, cfg, dev)
 
     def round_fn(sim: SimState, inject: Msgs):
-        _check_no_draws(sim.net)
         return _round(program, cfg, sim, inject)
     return round_fn
 
@@ -224,7 +353,6 @@ def make_run_fn(program, cfg: NetConfig, collect_client_msgs: bool = False,
     _check_program(program, cfg, dev)
 
     def run_fn(sim: SimState, plan: Msgs):
-        _check_no_draws(sim.net)
         outs = []
         for r in range(plan.valid.shape[0]):
             sim, client_msgs, _ = _round(program, cfg, sim,
@@ -370,9 +498,11 @@ def make_scan_fn(program, cfg: NetConfig, reply_cap: int = 256,
     the exit flag K5 keeps (`fetch(tensor) -> int`, `int` by default).
     A chunk that ran past the exit round is rolled back: the state
     cloned at its start (the channels, the one part a round updates in
-    place) is restored, the log rows it appended are emptied, and
-    exactly the rounds up to the exit round are replayed. Rounds draw
-    no random numbers in this slice, so the replay is the same rounds.
+    place) is restored with the rest of that state, the key and the
+    fault masks and scalars among it (the nemesis changes those only
+    between dispatches), the log rows it appended are emptied, and
+    exactly the rounds up to the exit round are replayed: from the same
+    key they draw the same numbers.
     The host reads at most ceil(k / chunk) flags a dispatch;
     `scan_fn.host_syncs` counts them."""
     dev = resolve_device(device)
@@ -385,12 +515,8 @@ def make_scan_fn(program, cfg: NetConfig, reply_cap: int = 256,
     CC = max(cfg.n_clients, 1)
     chunk = max(1, int(chunk))
     read = fetch or (lambda t: int(t))
-    checked = []
 
     def scan_fn(sim: SimState, inject: Msgs, k_max, stop_on_reply=True):
-        if not checked:     # one host read per scan fn, not per dispatch
-            _check_no_draws(sim.net)
-            checked.append(True)
         k_max = int(k_max)
         stop = bool(stop_on_reply)
         if cap is not None:
@@ -424,6 +550,8 @@ def make_scan_fn(program, cfg: NetConfig, reply_cap: int = 256,
         k, cur, cm = 0, sim, None
         while True:
             n = min(chunk, last - k)
+            # every other leaf is replaced, not updated, by a round: the
+            # snapshot holds the chunk's start key and fault state
             snap = cur.replace(channels=tree_map(lambda t: t.clone(),
                                                  cur.channels))
             rn_snap = None if st["log"] is None else st["log"][3]

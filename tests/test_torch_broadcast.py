@@ -1,7 +1,8 @@
 """The port's broadcast node program (`maelstrom_tpu_torch/nodes/
-broadcast.py`, kernel K3 edge_step) against the JAX package's, on random
-states and inboxes in every mode. Tolerance: exact, on every state leaf,
-every edge-out lane and the client replies."""
+broadcast.py`, kernel K3 edge_step, with and without the stall mask)
+against the JAX package's, on random states and inboxes in every mode.
+Tolerance: exact, on every state leaf, every edge-out lane and the client
+replies."""
 
 from __future__ import annotations
 
@@ -148,9 +149,52 @@ def test_fresh_state_and_payload_match_jax():
 
 
 def test_other_programs_and_random_latency_are_refused():
+    """Other programs are still refused; randomized latency, refused
+    until the fault slice, now sizes the channels as the JAX package
+    does (the spill write and its doubled lanes on 4,096 nodes or fewer,
+    the ring's slack and slow! headroom, two cells for duplicates)."""
     with pytest.raises(ValueError, match="raft lin-kv"):
         p_get_program("lin-kv", {}, ["n0"], device="cpu")
-    with pytest.raises(NotImplementedError, match="PRNG"):
-        p_get_program("broadcast", {"latency": {"mean": 5,
-                                                "dist": "uniform"}},
-                      ["n0", "n1"], device="cpu")
+    for n, opts in ((5, {"latency": {"mean": 5, "dist": "uniform"}}),
+                    (25, {"latency": {"mean": 3, "dist": "exponential"},
+                          "nemesis": {"duplicate", "kill"}}),
+                    (9, {"latency": {"mean": 3, "dist": "exponential"},
+                         "naive_broadcast": True, "max_latency_scale": 2}),
+                    (4100, {"latency": {"mean": 5, "dist": "uniform"},
+                            "max_values": 8}),
+                    (16, {"latency": {"mean": 10}, "nemesis": ["duplicate"]})):
+        nodes = [f"n{i}" for i in range(n)]
+        j = j_get_program("broadcast", opts, nodes)
+        p = p_get_program("broadcast", opts, nodes, device="cpu")
+        assert p.edge_cfg == type(p.edge_cfg)(**vars(j.edge_cfg))
+        assert (p.lanes, p.retry_rounds) == (j.lanes, j.retry_rounds)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_edge_step_with_stall_matches_jax(mode):
+    """A stalled node (killed or paused) keeps its state and sends
+    nothing: the JAX round's `_freeze_nodes` and output masks after its
+    step, against the port's step given ctx["stall"]."""
+    from maelstrom_tpu.sim import _freeze_nodes
+    jprog, pprog = _programs(mode, 64, 4)
+    rng = np.random.default_rng(len(mode))
+    state, edge_in, client_in = _random_step_inputs(rng, pprog)
+    stall = rng.random(N_NODES) < 0.4
+    rnd = 3 * pprog.retry_rounds
+    jstate = {k: jnp.asarray(v) for k, v in state.items()}
+    nodes, eo, co = jprog.edge_step(
+        jstate, JEdgeMsgs(**{k: jnp.asarray(v) for k, v in edge_in.items()}),
+        JMsgs(**{k: jnp.asarray(v) for k, v in client_in.items()}),
+        {"round": jnp.int32(rnd), "key": jax.random.PRNGKey(0)})
+    js = jnp.asarray(stall)
+    ref = (_freeze_nodes(jprog, js, jstate, nodes),
+           eo.replace(valid=eo.valid & ~js[:, None, None]),
+           co.replace(valid=co.valid & ~js[:, None]))
+    got = pprog.edge_step(
+        {k: torch.tensor(v) for k, v in state.items()},
+        PEdgeMsgs(**{k: torch.tensor(v) for k, v in edge_in.items()}),
+        PMsgs(**{k: torch.tensor(v) for k, v in client_in.items()}),
+        {"round": torch.tensor(rnd, dtype=torch.int32),
+         "stall": torch.tensor(stall)})
+    for r, g, what in zip(ref, got, ("state", "edge_out", "client_out")):
+        assert_trees_equal(jax_tree_to_numpy(r), as_numpy(g), path=what)

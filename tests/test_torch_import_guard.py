@@ -51,7 +51,7 @@ def test_port_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", GUARD], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 29    # every module was imported
+    assert int(res.stdout.split()[-1]) >= 30    # every module was imported
 
 
 def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
@@ -77,6 +77,11 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert not any(tmp_path.iterdir())      # refused before any store dir
-    # the CLI runs on the CPU when asked
+    # the CLI runs on the CPU when asked, faults and all
     assert cli.main(args + ["--device", "cpu", "--time-limit", "0.2",
                             "--max-values", "8"]) == 0
+    assert cli.main(args + ["--device", "cpu", "--time-limit", "0.4",
+                            "--max-values", "8", "--nemesis",
+                            "partition,kill", "--nemesis-interval", "0.1",
+                            "--latency", "2", "--latency-dist", "uniform",
+                            "--p-loss", "0.1"]) == 0

@@ -222,3 +222,146 @@ def test_quiet_probe_matches_plain(cuda, sizes, offset):
             assert bool(quiet_probe(planes)) == bool(
                 quiet_probe_plain(planes))
             p[at] = False
+
+
+# --- the fault slice: K7 threefry, K8 edge_faults, K9 edge_write_spill and
+# K3 with the stall mask ---------------------------------------------------
+
+@pytest.mark.parametrize("n", [1, 7, 4097, 70_001])
+def test_threefry_matches_plain(cuda, n):
+    from maelstrom_tpu_torch import prng
+    for seed in (0, 23, 2**31 - 1):
+        keys = {d: prng.PRNGKey(seed, d) for d in ("cpu", cuda)}
+        out = {}
+        for d, key in keys.items():
+            scale = torch.tensor(1.5, device=d)
+            p = torch.tensor(0.3, device=d)
+            out[d] = (prng.split(key, 7), prng.split(key, 3, base=n),
+                      prng.random_bits(key, (n,)), prng.uniform(key, (n,)),
+                      prng.bernoulli_below(key, (n,), p),
+                      prng.latency_rounds(key, (n,), "uniform", 5.0, scale),
+                      prng.latency_rounds(key, (n,), "exponential", 3.0,
+                                          scale),
+                      prng.randint(key, (n,), -3, 1000))
+        torch.cuda.synchronize()
+        for g, r in zip(out[cuda], out["cpu"]):
+            np.testing.assert_array_equal(g.cpu().numpy(), r.numpy())
+
+
+@pytest.mark.parametrize("dist,flags,atomic", [
+    ("constant", {}, False),
+    ("uniform", {"partition_groups": 33, "enable_stall": True}, False),
+    ("exponential", {"enable_duplication": True, "enable_stall": True},
+     False),
+    ("uniform", {"enable_duplication": True, "partition_groups": 33},
+     True),
+    ("constant", {"enable_duplication": True}, False)])
+def test_edge_faults_matches_plain(cuda, dist, flags, atomic):
+    from maelstrom_tpu_torch import prng
+    from maelstrom_tpu_torch import sim as S
+    from maelstrom_tpu_torch.net import tpu as T
+    rng = np.random.default_rng(len(dist) + len(flags))
+    nodes = [f"n{i}" for i in range(33)]
+    prog = get_program("broadcast", {"topology": "line",
+                                     "max_values": 16}, nodes, device="cpu")
+    N, D, L = prog.n_nodes, prog.D, 5
+    cfg = T.NetConfig(n_nodes=N, n_clients=2, latency_mean_rounds=4.0,
+                      latency_dist=dist, **flags)
+    valid = rng.random((N, D, L)) < 0.7
+    out = {}
+    for d in ("cpu", cuda):
+        net = T.make_net(cfg, d)
+        net = T.flaky(T.set_duplication(net, 0.4), 0.2)
+        net = T.set_latency_scale(net, 1.25)
+        net = T.partition_components(net, np.arange(N) % 2 * (N > 20))
+        if cfg.partition_groups > 1:
+            net = T.partition_grudge(net, np.arange(N, dtype=np.int32),
+                                     rng.random((N, N)) < 0.3)
+        if cfg.enable_stall:
+            net = T.set_down(T.set_paused(net, np.arange(N) % 7 == 1),
+                             np.arange(N) % 5 == 2)
+        keys = prng.split(prng.PRNGKey(5, d),
+                          7 if cfg.enable_duplication else 5)
+        out[d] = S.edge_faults(cfg, prog.neighbors.to(d), net,
+                               torch.tensor(valid, device=d), keys, atomic)
+    torch.cuda.synchronize()
+    _equal(out[cuda], out["cpu"])
+
+
+@pytest.mark.parametrize("ring,Lc,Lo,sent", [(6, 6, 3, False),
+                                             (12, 4, 3, True),
+                                             (404, 10, 5, True)])
+def test_edge_write_spill_matches_plain(cuda, ring, Lc, Lo, sent):
+    rng = np.random.default_rng(ring + Lc)
+    nodes = [f"n{i}" for i in range(30)]
+    prog = get_program("broadcast", {"topology": "grid"}, nodes,
+                       device="cpu")
+    N, D = prog.n_nodes, prog.D
+    cfg = static.EdgeConfig(n_nodes=N, degree=D, lanes=Lc, ring=ring,
+                            spill=True)
+    shape = (N, D, ring, Lc)
+    occ = rng.integers(0, Lc + 1, (N, D, ring, 1))
+    ch = {"valid": np.arange(Lc)[None, None, None, :] < occ,
+          **{f: rng.integers(-50, 50, shape, dtype=np.int32)
+             for f in ("type", "a", "b", "c")},
+          "overwrites": np.int32(2), "lat_clipped": np.int32(0)}
+    if sent:
+        ch["sent"] = rng.integers(0, 5000, shape, dtype=np.int32)
+    out = {"valid": rng.random((N, D, Lo)) < 0.7,
+           **{f: rng.integers(-999, 999, (N, D, Lo), dtype=np.int32)
+              for f in ("type", "a", "b", "c")}}
+    lat = rng.integers(0, min(ring, 8) + 2, (N, D, Lo), dtype=np.int32)
+    mask = rng.random((N, D, 1)) < 0.8
+    res = {}
+    for d in ("cpu", cuda):
+        c = static.EdgeChannels(**_tensors(ch, d))
+        res[d] = static.edge_write(
+            cfg, c, static.EdgeMsgs(**_tensors(out, d)),
+            torch.tensor(77, dtype=torch.int32, device=d),
+            torch.tensor(lat, device=d), torch.tensor(mask, device=d))
+    torch.cuda.synchronize()
+    _equal(res[cuda], res["cpu"])
+
+
+@pytest.mark.parametrize("V", [32, 1024])
+@pytest.mark.parametrize("mode", [{}, {"eager_resend": True},
+                                  {"naive_broadcast": True}])
+def test_broadcast_step_with_stall_matches_plain(cuda, V, mode):
+    rng = np.random.default_rng(V + len(mode))
+    nodes = [f"n{i}" for i in range(45)]
+    opts = {"topology": "grid", "max_values": V, **mode}
+    progs = {d: get_program("broadcast", opts, nodes, device=d)
+             for d in ("cpu", "cuda")}
+    p = progs["cpu"]
+    N, D, W, L, Kc = p.n_nodes, p.D, p.n_windows, p.edge_cfg.lanes, 4
+    state = {"seen": rng.random((N, V)) < 0.3,
+             "owed": rng.random((N, D, W)) < 0.3,
+             **{k: rng.random((N, D, V)) < 0.2
+                for k in ("pending", "inflight", "inflight_old")}}
+    edge_in = {"valid": rng.random((N, D, L)) < 0.6,
+               "type": rng.choice(np.array([14, 15, 0], np.int32),
+                                  (N, D, L)),
+               "a": rng.integers(0, min(V, W + 1), (N, D, L),
+                                 dtype=np.int32),
+               **{f: rng.integers(-2**31, 2**31, (N, D, L), dtype=np.int64
+                                  ).astype(np.int32) for f in ("b", "c")}}
+    client = {"valid": rng.random((N, Kc)) < 0.5,
+              "type": rng.choice(np.array([10, 12, 0], np.int32), (N, Kc)),
+              "a": rng.integers(0, V, (N, Kc), dtype=np.int32),
+              **{f: rng.integers(-5, 999, (N, Kc), dtype=np.int32)
+                 for f in ("src", "dest", "due", "mid", "reply_to", "b",
+                           "c")}}
+    stall = rng.random(N) < 0.4
+    before = K.launch_counts()["broadcast_step_stall"]
+    out = {}
+    for d, prog in progs.items():
+        out[d] = prog.edge_step(
+            _tensors(state, d), static.EdgeMsgs(**_tensors(edge_in, d)),
+            Msgs(**_tensors(client, d)),
+            {"round": torch.tensor(p.retry_rounds * 2, dtype=torch.int32,
+                                   device=d),
+             "stall": torch.tensor(stall, device=d)})
+    torch.cuda.synchronize()
+    assert K.launch_counts()["broadcast_step_stall"] == before + 1
+    for g, r in zip(out["cuda"], out["cpu"]):
+        _equal(g, r)

@@ -133,10 +133,10 @@ def test_free_set_rotation_matches_sorted_list():
 
 
 @pytest.mark.parametrize("extra,slice_", [
-    (["--nemesis", "partition"], "the fault slice"),
-    (["--latency-dist", "exponential"], "the PRNG slice"),
-    (["--p-loss", "0.1"], "the fault slice"),
-    (["--latency-scale", "2"], "the fault slice"),
+    (["--nemesis", "byzantine"], "the byzantine adversary"),
+    (["--nemesis", "kill,byzantine"], "the byzantine adversary"),
+    (["--nemesis-targets", "kill=n0"], "the role-partitioned programs"),
+    (["--byz-rate", "0.5"], "the byzantine adversary"),
     (["--client-retries", "3"], "retries and backoff"),
     (["--continuous"], "continuous mode"),
     (["--fleet", "4"], "mesh and fleet"),

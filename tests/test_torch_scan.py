@@ -4,9 +4,9 @@ runner's quiescence probe) against the JAX functions they replace.
 
 Both scans start from one state (built in JAX, carried across with
 `convert`) and one inject batch. Tolerance: exact, on every state leaf
-but `key` (the PRNG slice makes it live), on the last round's client
-messages, on k, on the whole reply log (rows past rn empty, as JAX
-leaves them) and on the whole journal buffer (rows past k zero)."""
+(the threefry `key` included), on the last round's client messages, on
+k, on the whole reply log (rows past rn empty, as JAX leaves them) and on
+the whole journal buffer (rows past k zero)."""
 
 from __future__ import annotations
 
@@ -119,8 +119,7 @@ def test_scan_matches_jax(n, k_max, stop, journal):
     k = int(out_j[2])
     assert out_p[2] == k
     assert 1 <= k <= max(k_max, 1)
-    assert_trees_equal(jax_tree_to_numpy(out_j[0]), as_numpy(out_p[0]),
-                       skip=("key",))
+    assert_trees_equal(jax_tree_to_numpy(out_j[0]), as_numpy(out_p[0]))
     assert_trees_equal(jax_tree_to_numpy(out_j[1]), as_numpy(out_p[1]))
     rl_j = [jax_tree_to_numpy(x) for x in out_j[3][:2]] + [
         np.asarray(out_j[3][2]), np.asarray(out_j[3][3])]
@@ -164,11 +163,47 @@ def test_scan_matches_port_round_by_round(n):
         s0 = convert.state_from_numpy(start, pprog, pcfg, device="cpu")
         s1, _cm, k, (rlog, rounds, _plog, rn) = scan(s0, inj, R, stop)
         assert k == k_want
-        assert_trees_equal(sims[k - 1], as_numpy(s1), skip=("key",))
+        assert_trees_equal(sims[k - 1], as_numpy(s1))
         got = list(zip(rounds.numpy()[:int(rn)].tolist(),
                        rlog.mid.numpy()[:int(rn)].tolist()))
         assert got == [x for x in replies if x[0] <= sims[k - 1]["net"][
             "round"]]
+
+
+@pytest.mark.parametrize("stop", [False, True])
+def test_scan_with_faults_matches_jax(stop):
+    """A scan under loss, uniform latency and paused nodes: a chunk that
+    runs past the exit round is rolled back with the key it started
+    from, so the replayed rounds draw what JAX's while_loop drew."""
+    n = 16
+    nodes = [f"n{i}" for i in range(n)]
+    opts = {"topology": "grid", "max_values": 40,
+            "latency": {"mean": 2, "dist": "uniform"}}
+    jprog = j_get_program("broadcast", opts, nodes)
+    pprog = p_get_program("broadcast", opts, nodes, device="cpu")
+    kw = dict(n_nodes=n, n_clients=C, pool_cap=64,
+              inbox_cap=jprog.inbox_cap, client_cap=12,
+              latency_mean_rounds=2.0, latency_dist="uniform",
+              enable_stall=True)
+    jcfg, pcfg = JT.NetConfig(**kw), PT.NetConfig(**kw)
+    paused = np.arange(n) % 5 == 1
+    jsim = j_make_sim(jprog, jcfg, seed=9)
+    jsim = jsim.replace(net=JT.set_paused(JT.flaky(jsim.net, 0.2), paused))
+    start = jax_tree_to_numpy(jsim)
+    inj = _inject(n, 17)
+    out_j = j_make_scan_fn(jprog, jcfg, reply_cap=RCAP)(
+        jsim, JT.Msgs(**{k: jnp.asarray(v) for k, v in inj.items()}),
+        jnp.int32(40), stop)
+    scan = p_make_scan_fn(pprog, pcfg, reply_cap=RCAP, device="cpu",
+                          chunk=4)
+    out_p = scan(convert.state_from_numpy(start, pprog, pcfg, device="cpu"),
+                 convert.msgs_from_numpy(inj, device="cpu"), 40, stop)
+    assert out_p[2] == int(out_j[2])
+    assert_trees_equal(jax_tree_to_numpy(out_j[0]), as_numpy(out_p[0]))
+    assert_trees_equal(jax_tree_to_numpy(out_j[3][0]), as_numpy(out_p[3][0]))
+    assert int(out_p[0].net.stats.lost) > 0
+    if stop:
+        assert out_p[2] % 4 and scan.replayed > 0
 
 
 def _random_cm(rng, CW, n):

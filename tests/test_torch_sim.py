@@ -1,9 +1,8 @@
 """The port's slice as a whole: `make_sim` + `make_run_fn` in both
 packages run a plan of broadcasts, then reads, for R rounds, and the
 port's bench reports the reference's message count. Tolerance: exact, on
-every `SimState` leaf but `key` (the PRNG slice makes it live), on the
-per-round reply counts, and on the collected client messages' valid
-rows."""
+every `SimState` leaf (the threefry `key` included), on the per-round
+reply counts, and on the collected client messages' valid rows."""
 
 from __future__ import annotations
 
@@ -67,7 +66,7 @@ def _run_both(jprog, pprog, jcfg, pcfg, plan, seed=3):
     jsim = j_make_sim(jprog, jcfg, seed=seed)
     psim = p_make_sim(pprog, pcfg, seed=seed, device="cpu")
     start = jax_tree_to_numpy(jsim)
-    assert_trees_equal(start, as_numpy(psim), skip=("key",))
+    assert_trees_equal(start, as_numpy(psim))
     jsim, jmsgs = j_make_run_fn(jprog, jcfg, collect_client_msgs=True)(
         jsim, JT.Msgs(**{k: jnp.asarray(v) for k, v in plan.items()}))
     # the port starts from the JAX state itself, carried across
@@ -75,8 +74,7 @@ def _run_both(jprog, pprog, jcfg, pcfg, plan, seed=3):
     psim, pmsgs = p_make_run_fn(pprog, pcfg, collect_client_msgs=True,
                                 device="cpu")(
         psim, convert.msgs_from_numpy(plan, device="cpu"))
-    assert_trees_equal(jax_tree_to_numpy(jsim), as_numpy(psim),
-                       skip=("key",))
+    assert_trees_equal(jax_tree_to_numpy(jsim), as_numpy(psim))
     assert_msgs_equal_on_valid(jmsgs, pmsgs)
     return jsim, psim, jmsgs, pmsgs
 
@@ -151,9 +149,21 @@ def test_round_fn_and_freeze():
     sim2, client_msgs, io = make_round_fn(pprog, pcfg, device="cpu")(
         sim, inject)
     assert int(sim2.net.round) == 1 and len(io) == 5
-    sim2.net.p_loss.fill_(0.5)
-    with pytest.raises(NotImplementedError, match="PRNG"):
-        make_round_fn(pprog, pcfg, device="cpu")(sim2, inject)
+    # the loss roll runs whatever p_loss is: at 0.5 the round equals the
+    # JAX package's, its key split as there
+    from maelstrom_tpu.sim import _round as j_round
+    jsim = j_make_sim(jprog, jcfg, seed=0)
+    jsim = jsim.replace(net=JT.flaky(jsim.net, 0.5))
+    psim = convert.state_from_numpy(jax_tree_to_numpy(jsim), pprog, pcfg,
+                                    device="cpu")
+    jinj = JT.Msgs(**{k: jnp.asarray(v) for k, v in
+                      as_numpy(inject).items()})
+    for _ in range(3):
+        jsim, _jm, _jio = j_round(jprog, jcfg, jsim, jinj)
+        psim, _pm, _pio = make_round_fn(pprog, pcfg, device="cpu")(
+            psim, inject)
+    assert_trees_equal(jax_tree_to_numpy(jsim), as_numpy(psim))
+    assert int(psim.net.stats.lost) > 0
     from maelstrom_tpu.sim import _freeze as j_freeze
     rng = np.random.default_rng(0)
     stall = rng.random(16) < 0.5

@@ -1,7 +1,7 @@
 """The port's edge exchange (`maelstrom_tpu_torch/net/static.py`, kernels
-K1 edge_read and K2 edge_write) against the JAX package's, on random
-channel states, outboxes, masks and latencies, with and without the
-journaled runs' `sent` plane. Tolerance: exact."""
+K1 edge_read, K2 edge_write and K9 edge_write_spill) against the JAX
+package's, on random channel states, outboxes, masks and latencies, with
+and without the journaled runs' `sent` plane. Tolerance: exact."""
 
 from __future__ import annotations
 
@@ -112,19 +112,70 @@ def test_edge_read_matches_jax(ring, uniform, topo, n, sent):
 
 
 def test_spill_and_send_round_tracking_are_refused():
-    """Spill channels are still refused (the fault slice ports them);
-    send-round tracking, refused in slice 1, now makes the JAX
-    package's zero `sent` plane (slice 2)."""
-    cfg = PS.EdgeConfig(n_nodes=4, degree=2, lanes=2, spill=True)
-    with pytest.raises(NotImplementedError, match="spill"):
-        PS.make_channels(cfg, "cpu")
-    cfg = PS.EdgeConfig(n_nodes=4, degree=2, lanes=2)
-    kw = dict(n_nodes=4, degree=2, lanes=2)
-    for track in (False, True):
-        ref = JS.make_channels(JS.EdgeConfig(**kw), track_send_round=track)
-        got = PS.make_channels(cfg, "cpu", track_send_round=track)
-        assert_trees_equal(jax_tree_to_numpy(ref), jax_tree_to_numpy(got))
-        assert (got.sent is not None) == track
+    """Nothing of the channels is refused any more: spill channels
+    (refused until the fault slice) and send-round tracking (refused in
+    slice 1) make the JAX package's zero planes."""
+    for spill in (False, True):
+        kw = dict(n_nodes=4, degree=2, lanes=2, spill=spill)
+        for track in (False, True):
+            ref = JS.make_channels(JS.EdgeConfig(**kw),
+                                   track_send_round=track)
+            got = PS.make_channels(PS.EdgeConfig(**kw), "cpu",
+                                   track_send_round=track)
+            assert_trees_equal(jax_tree_to_numpy(ref),
+                               jax_tree_to_numpy(got))
+            assert (got.sent is not None) == track
+
+
+# (ring, channel lanes, out lanes, occupancy bound): cells are filled
+# from lane 0 up, as the writer and edge_read keep them; a low bound
+# leaves room, a full one makes the write overflow its cells
+SPILL_CASES = [(6, 6, 3, 3), (12, 4, 3, 4), (5, 10, 5, 6)]
+
+
+def _spill_inputs(seed, ring, Lc, Lo, occ_max, sent):
+    rng = np.random.default_rng(seed)
+    nb, _rev = _topology("grid", 9)
+    n, D = nb.shape
+    shape = (n, D, ring, Lc)
+    occ = rng.integers(0, occ_max + 1, (n, D, ring, 1))
+    ch = {"valid": np.arange(Lc)[None, None, None, :] < occ,
+          **{f: rng.integers(-50, 50, shape, dtype=np.int32)
+             for f in ("type", "a", "b", "c")},
+          "overwrites": np.int32(3), "lat_clipped": np.int32(1)}
+    if sent:
+        ch["sent"] = rng.integers(0, 5000, shape, dtype=np.int32)
+    oshape = (n, D, Lo)
+    out = {"valid": rng.random(oshape) < 0.7,
+           **{f: rng.integers(-1000, 1000, oshape, dtype=np.int32)
+              for f in ("type", "a", "b", "c")}}
+    # few distinct latencies: lanes of one edge collide on a cell
+    lat = rng.integers(0, 4, oshape, dtype=np.int32)
+    mask = rng.random((n, D, 1)) < 0.8
+    lat[0, 0, 0] = ring + 3                     # a clipped draw
+    out["valid"][0, 0, 0] = mask[0, 0, 0] = True
+    return nb, ch, out, lat, mask, int(rng.integers(0, 50))
+
+
+@pytest.mark.parametrize("sent", [False, True], ids=["", "sent"])
+@pytest.mark.parametrize("ring,Lc,Lo,occ_max", SPILL_CASES)
+def test_edge_write_spill_matches_jax(ring, Lc, Lo, occ_max, sent):
+    nb, ch, out, lat, mask, rnd = _spill_inputs(ring * 7 + Lc, ring, Lc, Lo,
+                                                occ_max, sent)
+    n, D = nb.shape
+    kw = dict(n_nodes=n, degree=D, lanes=Lc, ring=ring, spill=True)
+    ref = JS.edge_write(
+        JS.EdgeConfig(**kw), _jax_channels(ch),
+        JS.EdgeMsgs(**{k: jnp.asarray(v) for k, v in out.items()}),
+        jnp.int32(rnd), jnp.asarray(lat), jnp.asarray(mask))
+    got = PS.edge_write(
+        PS.EdgeConfig(**kw), _torch_channels(ch),
+        PS.EdgeMsgs(**{k: torch.tensor(v) for k, v in out.items()}),
+        torch.tensor(rnd, dtype=torch.int32), torch.tensor(lat),
+        torch.tensor(mask))
+    assert_trees_equal(jax_tree_to_numpy(ref), jax_tree_to_numpy(got))
+    assert int(got.lat_clipped) > 1
+    assert (int(got.overwrites) > 3) == (occ_max == Lc)
 
 
 def test_reverse_index_matches_jax():
