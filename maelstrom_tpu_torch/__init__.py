@@ -8,9 +8,12 @@ and the CLI runner (`python -m maelstrom_tpu_torch test -w broadcast`,
 `runner.tpu_runner.run_tpu_test`), with copies of the host modules the
 runner needs; slice 3 the threefry PRNG (`prng`, bit for bit with
 `jax.random`), loss, randomized latency and the partition, kill, pause,
-duplicate and weather nemeses (`nemesis`). Hand-written CUDA kernels
+duplicate and weather nemeses (`nemesis`); slice 4 Raft serving lin-kv
+(`nodes/raft.py`, `python -m maelstrom_tpu_torch test -w lin-kv`) and the
+cluster axis (`parallel`, `bench --raft`). Hand-written CUDA kernels
 (`csrc/`, `kernels/`) carry the edge exchange, the gossip step (with its
 stall mask), the reply compaction, the scan's reply log, the quiescence
-probe, the random draws, the edge fault masks and the spill write. Entry points run on the CUDA device unless
-the caller passes `device="cpu"` (`--device cpu`), where the kernels'
-plain PyTorch versions run."""
+probe, the random draws, the edge fault masks, the spill write and the
+Raft step. Entry points run on the CUDA device unless the caller passes
+`device="cpu"` (`--device cpu`), where the kernels' plain PyTorch
+versions run."""

@@ -1,4 +1,4 @@
-"""The broadcast throughput benchmark on the port.
+"""The throughput benchmarks on the port: broadcast, and Raft clusters.
 
 The same workload as `bench.py`'s broadcast record (`_main_broadcast`): a
 grid of `n_nodes` nodes, `values` broadcast values injected one every
@@ -10,6 +10,16 @@ and reports the efficient run as the headline with the eager run under
 true: every node has seen every value.
 
     python -m maelstrom_tpu_torch.bench [--nodes N] [--values V] ...
+
+With `--raft` it runs the throughput half of `bench.py`'s
+`bench_raft_clusters` (BASELINE config 4): 10,000 independent 5-node
+Raft clusters on the cluster axis (`parallel.make_cluster_round_fn`),
+300 rounds in chunks of 100, no client traffic, and reports
+cluster-rounds a second; it exits 1 unless every cluster has exactly one
+leader. The graded half (`bench_raft_graded.py`) comes with the fleet
+slice, so the record's `graded` is null.
+
+    python -m maelstrom_tpu_torch.bench --raft [--clusters F] [--rounds R]
 """
 
 from __future__ import annotations
@@ -169,11 +179,123 @@ def profile_rounds(n_nodes: int = 100_000, values: int = 64,
                     for k, us, n in rows[:top]]}
 
 
+def _raft_setup(n: int, dev):
+    """bench.py bench_raft_clusters' program and config: Raft serving
+    lin-kv at latency 0, one client, pool 64, client_cap 4."""
+    from .parallel import make_cluster_round_fn
+    nodes = [f"n{i}" for i in range(n)]
+    program = get_program("lin-kv", {"latency": {"mean": 0}}, nodes,
+                          device=dev)
+    cfg = T.NetConfig(n_nodes=n, n_clients=1, pool_cap=64,
+                      inbox_cap=program.inbox_cap, client_cap=4)
+    return program, cfg, make_cluster_round_fn(program, cfg, device=dev)
+
+
+def run_raft_bench(clusters: int = 10_000, rounds: int = 300,
+                   chunk: int = 100, seed: int = 1, n: int = 5,
+                   device="cuda", return_state: bool = False):
+    """bench.py's raft record, measured on the port: `clusters`
+    independent n-node clusters from `make_cluster_sims(seed)`, rounds //
+    chunk chunks of `chunk` rounds with no injections, timed on the host
+    clock from the first round to the last round's completion (a short
+    warm-up run on seed 0 first). A chunk is the unit the host waits on,
+    as a scan dispatch is in the JAX bench: its rounds are queued back
+    to back, then the host waits for the card and checks the clusters'
+    round. Returns the record (and the final state with
+    `return_state`)."""
+    from .parallel import make_cluster_sims
+    dev = resolve_device(device)
+    chunk = min(int(chunk), int(rounds))
+    done = (rounds // chunk) * chunk
+    program, cfg, round_fn = _raft_setup(n, dev)
+    inject = T.Msgs.empty((clusters, 1), dev)
+
+    def run(sims, n_chunks, length):
+        """n_chunks chunks of `length` rounds, the host waiting for the
+        card at each chunk's end."""
+        start = int(sims.net.round[0])
+        for c in range(1, n_chunks + 1):
+            for _ in range(length):
+                sims = round_fn(sims, inject)[0]
+            at = int(sims.net.round[0])         # waits for the card
+            if at != start + c * length:
+                raise RuntimeError(f"chunk {c}: the clusters are at round "
+                                   f"{at}, not {start + c * length}")
+        return sims
+
+    run(make_cluster_sims(program, cfg, clusters, seed=0, device=dev), 1,
+        min(WARMUP_ROUNDS, chunk))
+    sims = make_cluster_sims(program, cfg, clusters, seed=seed, device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    sims = run(sims, rounds // chunk, chunk)
+    wall = time.perf_counter() - t0
+    roles = sims.nodes["role"]
+    one_leader = float(((roles == 2).sum(dim=1) == 1).float().mean())
+    record = {
+        "metric": (f"raft_cluster_rounds_per_sec_{clusters}_clusters"
+                   if clusters != 10_000
+                   else "raft_cluster_rounds_per_sec_10k_clusters"),
+        "value": done * clusters / wall, "unit": "cluster-rounds/sec",
+        "clusters": clusters, "nodes_per_cluster": n, "rounds": done,
+        "wall_s": wall, "ms_per_round": 1000.0 * wall / max(done, 1),
+        "clusters_with_one_leader": one_leader, "chunk": chunk,
+        "seed": seed, "graded": None,
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu")}
+    return (record, sims) if return_state else record
+
+
+def profile_raft(clusters: int = 10_000, start: int = 100,
+                 window: int = 20, seed: int = 1, n: int = 5, top: int = 12,
+                 device="cuda") -> dict:
+    """Where a raft cluster round's time goes on the card: `start` rounds
+    untraced, `window` rounds timed on the host clock, then `window`
+    more under `torch.profiler` (device busy ms a round, idle share, the
+    `top` device functions)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from .parallel import make_cluster_sims
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError("profile_raft measures the card")
+    program, cfg, round_fn = _raft_setup(n, dev)
+    inject = T.Msgs.empty((clusters, 1), dev)
+    sims = make_cluster_sims(program, cfg, clusters, seed=seed, device=dev)
+    for _ in range(start):
+        sims = round_fn(sims, inject)[0]
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(window):
+        sims = round_fn(sims, inject)[0]
+    _sync(dev)
+    wall_ms = 1e3 * (time.perf_counter() - t0) / window
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(window):
+            sims = round_fn(sims, inject)[0]
+        _sync(dev)
+    rows = sorted(((e.key, e.self_device_time_total, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows) / 1e3 / window
+    return {"clusters": clusters, "nodes_per_cluster": n,
+            "rounds": [start, start + 2 * window],
+            "wall_ms_per_round": wall_ms,
+            "device_busy_ms_per_round": busy_ms,
+            "device_calls_per_round": sum(r[2] for r in rows) / window,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "device": torch.cuda.get_device_name(dev),
+            "top": [{"name": k, "ms_per_round": us / 1e3 / window,
+                     "calls_per_round": c / window}
+                    for k, us, c in rows[:top]]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nodes", type=int, default=100_000)
     ap.add_argument("--values", type=int, default=64)
-    ap.add_argument("--rounds", type=int, default=700)
     ap.add_argument("--gossip", type=int, default=1)
     ap.add_argument("--pool", type=int, default=8192)
     ap.add_argument("--seed", type=int, default=1)
@@ -182,7 +304,27 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--profile", action="store_true",
                     help="trace a window of rounds in each mode instead")
+    ap.add_argument("--raft", action="store_true",
+                    help="the Raft clusters bench (bench.py "
+                         "bench_raft_clusters) instead of broadcast")
+    ap.add_argument("--clusters", type=int, default=10_000)
+    ap.add_argument("--chunk", type=int, default=100,
+                    help="raft: rounds the host queues before it waits "
+                         "for the card (the JAX bench's scan length); "
+                         "rounds are rounded down to a multiple of it")
+    ap.add_argument("--rounds", type=int, default=None,
+                    help="rounds (broadcast 700, raft 300)")
     a = ap.parse_args(argv)
+    if a.raft:
+        if a.profile:
+            print(json.dumps(profile_raft(a.clusters, seed=a.seed,
+                                          device=a.device)))
+            return 0
+        rec = run_raft_bench(a.clusters, a.rounds or 300, a.chunk, a.seed,
+                             device=a.device)
+        print(json.dumps(rec))
+        return 0 if rec["clusters_with_one_leader"] == 1.0 else 1
+    a.rounds = a.rounds or 700
     if a.profile:
         for eager in ([False] if a.no_eager else [True, False]):
             print(json.dumps(profile_rounds(

@@ -2,15 +2,19 @@
 
 Counterpart of the `test` subcommand of `maelstrom_tpu/cli.py`, with its
 option names and defaults. The port runs the broadcast workload on the
-built-in program (`--node tpu:broadcast`) on one card, or on the CPU
-with `--device cpu`, under loss, randomized latency and the partition,
-kill, pause, duplicate and weather nemeses. Every other option of the
-JAX CLI is recognised and refused unless it holds its default, with an
-error that names the slice of the port that brings it (`OUT_OF_SCOPE`).
+built-in program (`--node tpu:broadcast`) and the lin-kv workload on Raft
+(`--node tpu:lin-kv`, graded by the linearizability checker), on one
+card, or on the CPU with `--device cpu`, under loss, randomized latency
+and the partition, kill, pause, duplicate and weather nemeses. Every
+other option of the JAX CLI is recognised and refused unless it holds its
+default, with an error that names the slice of the port that brings it
+(`OUT_OF_SCOPE`).
 
     python -m maelstrom_tpu_torch test -w broadcast --node tpu:broadcast \\
         --node-count 25 --topology tree4 --latency 10 --nemesis partition \\
         [--device cpu]
+    python -m maelstrom_tpu_torch test -w lin-kv --node tpu:lin-kv \\
+        --node-count 5 --rate 20 --nemesis kill,pause,partition [--device cpu]
 """
 
 from __future__ import annotations
@@ -23,11 +27,19 @@ WORKLOADS = ["broadcast", "broadcast-batched", "echo", "g-set", "g-counter",
              "pn-counter", "lin-kv", "lin-mutex", "lin-tso",
              "txn-list-append", "unique-ids", "kafka", "txn-rw-register"]
 
+# the built-in program each workload the port runs is served by
+PROGRAMS = {"broadcast": "tpu:broadcast", "lin-kv": "tpu:lin-kv"}
+
 # (option, refused when, the slice of the port that brings it)
 OUT_OF_SCOPE = [
     ("--bin", lambda v: v is not None,
      "the host-process path (external node binaries)"),
-    ("--workload", lambda v: v != "broadcast", "the other node programs"),
+    ("--workload", lambda v: v in ("lin-mutex", "lin-tso"),
+     "lin-mutex and lin-tso on tpu:lin-kv"),
+    ("--workload", lambda v: v in ("txn-list-append", "txn-rw-register"),
+     "the Raft transaction programs and their Elle checkers"),
+    ("--workload", lambda v: v not in ("broadcast", "lin-kv"),
+     "the other node programs"),
     ("--nemesis", lambda v: "byzantine" in _faults(v),
      "the byzantine adversary"),
     ("--nemesis-targets", lambda v: v is not None,
@@ -85,9 +97,11 @@ def build_parser() -> argparse.ArgumentParser:
         description="The PyTorch / CUDA port of maelstrom_tpu.")
     sub = p.add_subparsers(dest="cmd", required=True)
     t = sub.add_parser("test", help="Run a single test")
-    t.add_argument("--node", help="Built-in node program: tpu:broadcast")
+    t.add_argument("--node", help="Built-in node program: tpu:broadcast "
+                                  "or tpu:lin-kv")
     t.add_argument("-w", "--workload", default="lin-kv", choices=WORKLOADS,
-                   help="What workload to run (this slice: broadcast)")
+                   help="What workload to run (the port: broadcast, "
+                        "lin-kv)")
     t.add_argument("--device", default="cuda",
                    help="cuda (the default) or cpu: the kernels' plain "
                         "PyTorch versions on the CPU")
@@ -197,10 +211,11 @@ def check_scope(args) -> None:
         if refused(value):
             raise ScopeError(f"{flag} {value!r}: maelstrom_tpu_torch does "
                              f"not run it yet; it comes with {slice_}")
-    if args.node != "tpu:broadcast":
-        raise ScopeError(f"--node {args.node!r}: this slice runs "
-                         f"--node tpu:broadcast (other programs come with "
-                         f"the other node programs)")
+    want = PROGRAMS[args.workload]
+    if args.node != want:
+        raise ScopeError(f"--node {args.node!r}: the port runs -w "
+                         f"{args.workload} on --node {want} (other programs "
+                         f"come with the other node programs)")
 
 
 def opts_from_args(args) -> dict:

@@ -2,11 +2,11 @@
 
 Counterpart of `maelstrom_tpu/core.py` for the parts the port runs:
 `DEFAULTS`, `parse_nodes`, and the built-in-program branch of
-`build_test` (the nemesis package beside the clients, the generator
-phases with the nemesis's final heal, the composed checker suite),
-without the host network and external node processes. `run` makes the store dir,
-attaches the network journal and the run log, and hands the test to
-`runner.tpu_runner.run_tpu_test`."""
+`build_test` for the broadcast and lin-kv workloads (the nemesis package
+beside the clients, the generator phases with the nemesis's final heal,
+the composed checker suite), without the host network and external node
+processes. `run` makes the store dir, attaches the network journal and
+the run log, and hands the test to `runner.tpu_runner.run_tpu_test`."""
 
 from __future__ import annotations
 
@@ -56,6 +56,20 @@ DEFAULTS = dict(
 )
 
 
+def _broadcast(opts):
+    from .workloads.broadcast import workload
+    return workload(opts)
+
+
+def _lin_kv(opts):
+    from .workloads.lin_kv import workload
+    return workload(opts)
+
+
+# the workloads the port runs, each on its built-in program
+WORKLOADS = {"broadcast": _broadcast, "lin-kv": _lin_kv}
+
+
 def parse_nodes(opts: dict) -> list[str]:
     """--node-count N overrides --nodes, generating n0..n(N-1)
     (reference `core.clj:197-204`)."""
@@ -73,12 +87,11 @@ def build_test(opts: dict) -> dict:
     if not opts.get("concurrency"):
         opts["concurrency"] = len(nodes)
     name = opts.get("name") or str(opts["workload"])
-    if opts["workload"] != "broadcast":
+    if opts["workload"] not in WORKLOADS:
         raise NotImplementedError(
             f"workload {opts['workload']!r} is ported with the other node "
             f"programs")
-    from .workloads.broadcast import workload as broadcast_workload
-    workload = broadcast_workload(opts)
+    workload = WORKLOADS[opts["workload"]](opts)
     nemesis_pkg = nem.package(set(opts["nemesis"]),
                               interval_s=opts["nemesis_interval"])
 
@@ -91,14 +104,15 @@ def build_test(opts: dict) -> dict:
     main = g.time_limit(opts["time_limit"],
                         g.nemesis_wrap(nemesis_pkg["generator"], main))
     # Final phases (reference core.clj:66-71): the nemesis heals every
-    # fault type it injected, then the recovery window and the final
-    # reads
+    # fault type it injected; workloads with a final generator then get
+    # their recovery window and final reads
     phase_list = [main]
     if nemesis_pkg["final_generator"] is not None:
         phase_list.append(g.nemesis_gen(nemesis_pkg["final_generator"]))
-    phase_list += [g.Log("Waiting for recovery..."),
-                   g.sleep(opts.get("recovery_s", 10)),
-                   g.clients(workload["final_generator"])]
+    if workload.get("final_generator") is not None:
+        phase_list += [g.Log("Waiting for recovery..."),
+                       g.sleep(opts.get("recovery_s", 10)),
+                       g.clients(workload["final_generator"])]
     main = g.phases(*phase_list)
 
     checker = Compose({

@@ -18,6 +18,13 @@
 // block whose segment holds no row of the CC slots returns at once, and
 // the others walk their segment a tile of kThreads rows at a time, ranking
 // rows with warp ballots, and stop as soon as no later row can land.
+//
+// Batched segments (the cluster axis, maelstrom_tpu/parallel/__init__.py
+// make_cluster_round_fn: the compaction under vmap): F clusters of N * K
+// rows each, every cluster compacted on its own into its own CC slots with
+// its own next_mid and n_all. Segments never cross a cluster, so block b
+// is segment b mod n_seg of cluster b / n_seg, and the two launches cover
+// all F clusters.
 #include <cstring>
 
 #include "common.cuh"
@@ -51,9 +58,12 @@ __device__ int block_sum(int x, int* red) {
 }
 
 __global__ void count_kernel(const u8* __restrict__ valid,
-                             int* __restrict__ seg_count, long long NK) {
+                             int* __restrict__ seg_count, long long NK,
+                             int n_seg) {
   __shared__ int red[kWarps];
-  const long long lo = (long long)blockIdx.x * kSeg;
+  const long long f = blockIdx.x / n_seg;
+  valid += f * NK;
+  const long long lo = (long long)(blockIdx.x % n_seg) * kSeg;
   int cnt = 0;
   for (long long i = lo + threadIdx.x; i < lo + kSeg && i < NK;
        i += kThreads)
@@ -67,10 +77,22 @@ __global__ void emit_kernel(CompactArgs A, long long NK, int K, int CC,
   __shared__ int red[kWarps];
   __shared__ int warp_base[kWarps];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int b = blockIdx.x;
+  // cluster f's rows, output slots, next_mid and n_all
+  const long long f = blockIdx.x / n_seg;
+  const int b = blockIdx.x % n_seg;
+  const long long in = f * NK, o = f * CC;
+  A.valid += in;
+  A.dest += in; A.due += in; A.reply_to += in; A.type += in;
+  A.a += in; A.b += in; A.c += in;
+  A.o_valid += o;
+  A.o_src += o; A.o_dest += o; A.o_due += o; A.o_mid += o;
+  A.o_reply_to += o; A.o_type += o; A.o_a += o; A.o_b += o; A.o_c += o;
+  A.next_mid += f;
+  A.n_all += f;
+  const int* seg_count = A.seg_count + f * n_seg;
   int before = 0, total = 0;
   for (int s = t; s < n_seg; s += kThreads) {
-    const int c = A.seg_count[s];
+    const int c = seg_count[s];
     total += c;
     if (s < b) before += c;
   }
@@ -118,24 +140,28 @@ __global__ void emit_kernel(CompactArgs A, long long NK, int K, int CC,
 
 }  // namespace
 
-// ptrs: the fields of CompactArgs in order; ints: N * K, K, CC
-// (1 <= CC <= N * K), and the length of the seg_count scratch, which must
-// hold ceil(N * K / 4096) entries
+// ptrs: the fields of CompactArgs in order (the row fields [F, N * K],
+//       next_mid and n_all [F], the outputs [F, CC])
+// ints: N * K, K, CC (1 <= CC <= N * K), the length of the seg_count
+//       scratch, which must hold F * ceil(N * K / 4096) entries, and F
 MT_API int mt_reply_compact(void* const* p, int n_ptrs, const long long* v,
                             int n_ints, void* stream) {
-  if (mt_bad_args(n_ptrs, kCompactPtrs, n_ints, 4))
+  if (mt_bad_args(n_ptrs, kCompactPtrs, n_ints, 5))
     return cudaErrorInvalidValue;
   CompactArgs args;
   memcpy(&args, p, sizeof(args));
-  const long long NK = v[0];
+  const long long NK = v[0], F = v[4];
   const int n_seg = (int)((NK + kSeg - 1) / kSeg);
-  if (NK < 1 || n_seg > v[3] || v[2] < 1 || v[2] > NK)
+  if (NK < 1 || F < 1 || F * n_seg > v[3] || v[2] < 1 || v[2] > NK
+      || F * n_seg > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  count_kernel<<<n_seg, kThreads, 0, st>>>(args.valid, args.seg_count, NK);
+  const unsigned blocks = (unsigned)(F * n_seg);
+  count_kernel<<<blocks, kThreads, 0, st>>>(args.valid, args.seg_count, NK,
+                                            n_seg);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  emit_kernel<<<n_seg, kThreads, 0, st>>>(args, NK, (int)v[1], (int)v[2],
-                                          n_seg);
+  emit_kernel<<<blocks, kThreads, 0, st>>>(args, NK, (int)v[1], (int)v[2],
+                                           n_seg);
   return cudaGetLastError();
 }

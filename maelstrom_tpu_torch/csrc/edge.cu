@@ -26,6 +26,10 @@
 // latency and the deliver mask are read through their strides: on the
 // round's path they are a broadcast scalar and an [N, D] mask, and an
 // expanded copy of them would move more bytes than the write itself.
+// On the cluster axis (F clusters' rows written in one launch) the two
+// counters are arrays of F, one a cluster of rows_per_counter node rows:
+// there each overwrite or clipped draw, rare events, is one atomicAdd on
+// its cluster's counter.
 //
 // The `sent` plane (journaled runs only): K2 writes round * LANE_STRIDE +
 // lane into each lane it writes (maelstrom_tpu/net/static.py:192-197) and
@@ -116,7 +120,8 @@ __global__ void write_kernel(u8* __restrict__ cv, int* __restrict__ ct,
                              int* __restrict__ lat_clipped,
                              int* __restrict__ cs, long long ND,
                              int D, int ring, int L, int uniform,
-                             Strides3 ls, Strides3 ms) {
+                             Strides3 ls, Strides3 ms,
+                             long long rows_per_counter) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   int ow = 0, clipped = 0;
   if (i < ND * L) {
@@ -140,6 +145,12 @@ __global__ void write_kernel(u8* __restrict__ cv, int* __restrict__ ct,
       cc[dst] = oc[i];
       if (cs) cs[dst] = *round_ptr * kLaneStride + l;
     }
+  }
+  if (rows_per_counter > 0) {  // uniform across the grid
+    const long long k = i / L / D / rows_per_counter;
+    if (ow) atomicAdd(overwrites + k, 1);
+    if (clipped) atomicAdd(lat_clipped + k, 1);
+    return;
   }
   int n_ow = __syncthreads_count(ow);
   int n_clip = __syncthreads_count(clipped);
@@ -243,14 +254,16 @@ MT_API int mt_edge_read(void* const* p, int n_ptrs, const long long* v,
 
 // ptrs: ch.valid, ch.type, ch.a, ch.b, ch.c, out.valid, out.type, out.a,
 //       out.b, out.c, latency_rounds, deliver_mask, round, ch.overwrites,
-//       ch.lat_clipped
+//       ch.lat_clipped, ch.sent or null
 // ints: N, D, ring, L, uniform_arrival, then the [N, D, L] element strides
 //       of latency_rounds and of deliver_mask (3 each; 0 on a broadcast
 //       axis, so a round's scalar latency and per-edge mask are read in
-//       place, not expanded)
+//       place, not expanded), then rows_per_counter (0: one scalar pair of
+//       counters; else counter k counts node rows k * rows_per_counter ..)
 MT_API int mt_edge_write(void* const* p, int n_ptrs, const long long* v,
                          int n_ints, void* stream) {
-  if (mt_bad_args(n_ptrs, 16, n_ints, 11)) return cudaErrorInvalidValue;
+  if (mt_bad_args(n_ptrs, 16, n_ints, 12) || v[11] < 0)
+    return cudaErrorInvalidValue;
   long long ND = v[0] * v[1];
   int D = (int)v[1], ring = (int)v[2], L = (int)v[3], uniform = (int)v[4];
   Strides3 ls = {v[5], v[6], v[7]}, ms = {v[8], v[9], v[10]};
@@ -262,7 +275,7 @@ MT_API int mt_edge_write(void* const* p, int n_ptrs, const long long* v,
       (const u8*)p[5], (const int*)p[6], (const int*)p[7], (const int*)p[8],
       (const int*)p[9], (const int*)p[10], (const u8*)p[11],
       (const int*)p[12], (int*)p[13], (int*)p[14], (int*)p[15], ND, D, ring,
-      L, uniform, ls, ms);
+      L, uniform, ls, ms, v[11]);
   return cudaGetLastError();
 }
 

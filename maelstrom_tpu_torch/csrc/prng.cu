@@ -14,7 +14,10 @@
 //              exponential (dist 2) distribution of mean
 //              float32(mean_rounds) * *scale
 // The counter of element i is the pair (i >> 32, i & 0xFFFFFFFF), as
-// jax/_src/prng.py iota_2x32_shape makes it.
+// jax/_src/prng.py iota_2x32_shape makes it. With a batch of keys [F, 2]
+// (per_key > 0: jax.random under vmap, one key a cluster) element i
+// hashes key i / per_key with counter i mod per_key, so F clusters' splits
+// or bits take one launch.
 //
 // Bound: about 80 integer operations a draw for the 20 threefry rounds
 // against 4 bytes written, so at the card's int32 rate the kernel is
@@ -32,12 +35,15 @@ constexpr int kThreads = 256;
 __global__ void threefry_kernel(const unsigned* __restrict__ key,
                                 long long n, unsigned long long base,
                                 int mode, int dist, float mean_rounds,
+                                long long per_key,
                                 const float* __restrict__ p,
                                 const float* __restrict__ scale,
                                 void* __restrict__ out) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const unsigned long long c = base + (unsigned long long)i;
+  if (per_key > 0) key += 2 * (i / per_key);
+  const unsigned long long c =
+      base + (unsigned long long)(per_key > 0 ? i % per_key : i);
   if (mode == 0) {
     unsigned x0 = (unsigned)(c >> 32), x1 = (unsigned)c;
     mt_threefry2x32(key[0], key[1], x0, x1);
@@ -62,15 +68,17 @@ __global__ void threefry_kernel(const unsigned* __restrict__ key,
 
 }  // namespace
 
-// ptrs: key (uint32[2]), out, p (mode 3, else null), scale (mode 4, else
-//       null)
-// ints: n, counter base, mode, dist, float32 bits of mean_rounds
+// ptrs: key (uint32[2], or [F, 2] with per_key > 0), out, p (mode 3,
+//       else null), scale (mode 4, else null)
+// ints: n (all elements), counter base, mode, dist, float32 bits of
+//       mean_rounds, per_key (elements a key; 0 = one key for all)
 MT_API int mt_threefry(void* const* p, int n_ptrs, const long long* v,
                        int n_ints, void* stream) {
-  if (mt_bad_args(n_ptrs, 4, n_ints, 5)) return cudaErrorInvalidValue;
+  if (mt_bad_args(n_ptrs, 4, n_ints, 6)) return cudaErrorInvalidValue;
   const long long n = v[0];
   const int mode = (int)v[2];
-  if (mode < 0 || mode > 4 || (mode == 3 && !p[2]) || (mode == 4 && !p[3]))
+  if (mode < 0 || mode > 4 || (mode == 3 && !p[2]) || (mode == 4 && !p[3])
+      || v[5] < 0)
     return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   const unsigned mbits = (unsigned)v[4];
@@ -79,6 +87,6 @@ MT_API int mt_threefry(void* const* p, int n_ptrs, const long long* v,
   threefry_kernel<<<mt_blocks(n, kThreads), kThreads, 0,
                     (cudaStream_t)stream>>>(
       (const unsigned*)p[0], n, (unsigned long long)v[1], mode, (int)v[3],
-      mean, (const float*)p[2], (const float*)p[3], p[1]);
+      mean, v[5], (const float*)p[2], (const float*)p[3], p[1]);
   return cudaGetLastError();
 }

@@ -1,8 +1,8 @@
 """Jepsen-style operation generators.
 
 A copy of `maelstrom_tpu/generators.py`, cut to the combinators the
-broadcast workload, the nemesis schedules and the test's phase
-composition use: `stagger`, `mix`, `each_thread`, `phases`,
+broadcast and lin-kv workloads, the nemesis schedules and the test's
+phase composition use: `stagger`, `mix`, `each_thread`, `phases`, `Fn`,
 `time_limit`, `sleep`, `Log`, `Seq` over a `cycle`, `Any2`, the client
 and nemesis routing wrappers, and the leaf generators behind them.
 They are pure generators, as there:
@@ -254,6 +254,23 @@ class Seq(Gen):
         if isinstance(self.head, Gen):
             return self.head.next_interesting_time(ctx)
         return math.inf
+
+
+class Fn(Gen):
+    """Calls a zero-arg function to produce each op map (the lin-kv
+    workload's `KVOpGen`; the reference's `(fn [] ...)` generators)."""
+
+    def __init__(self, f):
+        self.f = f
+
+    def op(self, ctx):
+        free = free_clients(ctx)
+        if not free:
+            return PENDING, self
+        op_map = self.f()
+        if op_map is None:
+            return None, self
+        return fill_op(op_map, ctx, free[0]), self
 
 
 class Counting(Gen):

@@ -104,9 +104,11 @@ EDGE_WRITE_SPILL = Kernel("edge_write_spill",
 BROADCAST_STEP_STALL = Kernel("broadcast_step_stall",
                               "maelstrom_tpu_torch/csrc/broadcast.cu",
                               "maelstrom_tpu/sim.py:94")
+RAFT_STEP = Kernel("raft_step", "maelstrom_tpu_torch/csrc/raft.cu",
+                   "maelstrom_tpu/nodes/raft.py:220")
 KERNELS = (EDGE_READ, EDGE_WRITE, BROADCAST_STEP, REPLY_COMPACT,
            REPLY_LOG_APPEND, QUIET_PROBE, THREEFRY, EDGE_FAULTS,
-           EDGE_WRITE_SPILL, BROADCAST_STEP_STALL)
+           EDGE_WRITE_SPILL, BROADCAST_STEP_STALL, RAFT_STEP)
 
 _state = {"lib": None, "forced_plain": False}
 

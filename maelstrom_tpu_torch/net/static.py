@@ -144,6 +144,15 @@ def _check_channels(cfg: EdgeConfig, ch: EdgeChannels):
 
 # --- edge_write -----------------------------------------------------------
 
+def _count(ch: EdgeChannels, mask):
+    """The set entries of an [N, D, L] mask, for the channels' counters:
+    one scalar, or on the cluster axis one count a cluster ([F] counters
+    over F equal blocks of node rows)."""
+    if ch.overwrites.dim() == 0:
+        return mask.sum(dtype=I32)
+    return mask.reshape(ch.overwrites.shape[0], -1).sum(dim=1, dtype=I32)
+
+
 def _arrival(cfg: EdgeConfig, latency_rounds, round_):
     """Arrival cell of every lane: (round + max(clip(lat, 0, ring-1), 1))
     % ring; under `uniform_arrival` every lane takes entry 0's."""
@@ -163,11 +172,13 @@ def edge_write_plain(cfg: EdgeConfig, ch: EdgeChannels, out: EdgeMsgs,
     the three forms of the JAX version (uniform arrival, ring <= 4,
     broadcast select) are one gather and one scatter."""
     ok = out.valid & deliver_mask
-    arr = _arrival(cfg, latency_rounds, round_).long().unsqueeze(2)
-    clipped = (ok & (latency_rounds > cfg.ring - 1)).sum(dtype=I32)
+    # a latency shared by an edge's lanes ([N, D, 1], the atomic-RPC
+    # draw) reaches every lane
+    lat = latency_rounds.expand(ok.shape)
+    arr = _arrival(cfg, lat, round_).long().unsqueeze(2)
     cell_valid = torch.gather(ch.valid, 2, arr).squeeze(2)
-    ch.overwrites += (ok & cell_valid).sum(dtype=I32)
-    ch.lat_clipped += clipped
+    ch.overwrites += _count(ch, ok & cell_valid)
+    ch.lat_clipped += _count(ch, ok & (lat > cfg.ring - 1))
     new = {f: getattr(out, f) for f in ("type", "a", "b", "c")}
     if ch.sent is not None:
         lane = torch.arange(cfg.lanes, dtype=I32, device=ok.device)
@@ -235,7 +246,7 @@ def edge_write_spill(cfg: EdgeConfig, ch: EdgeChannels, out: EdgeMsgs,
 
 
 def _launch_write(kernel, cfg, ch, out, round_, latency_rounds,
-                  deliver_mask, shape, dims):
+                  deliver_mask, shape, dims, extra=()):
     # broadcast views, read through their strides (no expanded copy)
     lat = latency_rounds.to(I32).expand(shape)
     mask = deliver_mask.to(torch.bool).expand(shape)
@@ -249,7 +260,7 @@ def _launch_write(kernel, cfg, ch, out, round_, latency_rounds,
          out.valid.contiguous(), out.type.contiguous(), out.a.contiguous(),
          out.b.contiguous(), out.c.contiguous(), lat, mask, round_,
          ch.overwrites, ch.lat_clipped, ch.sent],
-        dims + [*lat.stride(), *mask.stride()],
+        dims + [*lat.stride(), *mask.stride(), *extra],
         ch.valid.device, strided=(lat, mask))
     return ch
 
@@ -272,10 +283,18 @@ def edge_write(cfg: EdgeConfig, ch: EdgeChannels, out: EdgeMsgs,
     if not K.use_kernel(ch.valid):
         return edge_write_plain(cfg, ch, out, round_, latency_rounds,
                                 deliver_mask)
+    per_counter = 0
+    if ch.overwrites.dim() == 1:        # one counter a cluster
+        n_c = ch.overwrites.shape[0]
+        if n_c < 1 or cfg.n_nodes % n_c or tuple(
+                ch.lat_clipped.shape) != (n_c,):
+            raise ValueError(f"edge_write: {n_c} counters for "
+                             f"{cfg.n_nodes} node rows")
+        per_counter = cfg.n_nodes // n_c
     return _launch_write(K.EDGE_WRITE, cfg, ch, out, round_, latency_rounds,
                          deliver_mask, shape,
                          [cfg.n_nodes, cfg.degree, cfg.ring, cfg.lanes,
-                          int(cfg.uniform_arrival)])
+                          int(cfg.uniform_arrival)], [per_counter])
 
 
 # --- edge_read ------------------------------------------------------------

@@ -92,9 +92,17 @@ class NetStats(Struct):
 
 
 def count_by_type(counter, types, valid):
-    """Adds valid message counts into per-type-code buckets."""
-    idx = types.reshape(-1).clamp(0, TYPE_BUCKETS - 1).long()
-    return counter.index_add(0, idx, valid.reshape(-1).to(I32))
+    """Adds valid message counts into per-type-code buckets: one
+    [TYPE_BUCKETS] counter, or on the cluster axis [F, TYPE_BUCKETS]
+    counters over messages whose leading axis is the cluster's."""
+    idx = types.clamp(0, TYPE_BUCKETS - 1).long()
+    if counter.dim() == 2:
+        F = counter.shape[0]
+        idx = idx.reshape(F, -1) + TYPE_BUCKETS * torch.arange(
+            F, device=idx.device)[:, None]
+        return counter.reshape(-1).index_add(
+            0, idx.reshape(-1), valid.reshape(-1).to(I32)).reshape(F, -1)
+    return counter.index_add(0, idx.reshape(-1), valid.reshape(-1).to(I32))
 
 
 @dataclass
@@ -199,30 +207,37 @@ def draw_latency_rounds(cfg: NetConfig, key, scale, shape):
 
 
 def _scatter_drop(dst, idx, src):
-    """dst[idx[i]] = src[i] where idx[i] < len(dst); rows aimed at
-    len(dst) are dropped (JAX's `mode="drop"`). Kept targets are
-    unique."""
-    ext = torch.cat([dst, dst[:1]])
-    ext[idx] = src
-    return ext[:-1]
+    """dst[..., idx[..., i]] = src[..., i] where idx < dst.shape[-1]; rows
+    aimed at dst.shape[-1] are dropped (JAX's `mode="drop"`). Kept
+    targets are unique."""
+    ext = torch.cat([dst, dst[..., :1]], dim=-1)
+    ext.scatter_(-1, idx, src)
+    return ext[..., :-1]
+
+
+def _gather(x, idx):
+    """x[..., idx] along the last axis (a batch of pools takes one row of
+    indices a cluster)."""
+    return torch.gather(x, -1, idx.long())
 
 
 def _scatter_new(cfg: NetConfig, pool: Msgs, incoming: Msgs):
     """Scatters the valid rows of a flat batch into free pool slots,
     ranking free slots and kept messages by prefix sum. Returns
-    (pool', ok) with ok marking the rows that found a slot."""
+    (pool', ok) with ok marking the rows that found a slot. Over a batch
+    of pools [F, P] the incoming batch is [F, M], cluster by cluster."""
     P = cfg.pool_cap
     keep = incoming.valid
     free = ~pool.valid
-    n_free = free.sum(dtype=I32)
-    free_rank = torch.cumsum(free, 0, dtype=I32) - 1
-    ar = torch.arange(P, dtype=I32, device=keep.device)
+    n_free = free.sum(dim=-1, dtype=I32)
+    free_rank = torch.cumsum(free, -1, dtype=I32) - 1
+    ar = torch.arange(P, dtype=I32, device=keep.device).expand(free.shape)
     slot_by_rank = _scatter_drop(
-        torch.zeros(P, dtype=I32, device=keep.device),
+        torch.zeros(free.shape, dtype=I32, device=keep.device),
         torch.where(free, free_rank, P).long(), ar)
-    k_rank = torch.cumsum(keep, 0, dtype=I32) - 1
-    ok = keep & (k_rank < n_free)
-    slot = slot_by_rank[k_rank.clamp(0, P - 1).long()]
+    k_rank = torch.cumsum(keep, -1, dtype=I32) - 1
+    ok = keep & (k_rank < n_free[..., None])
+    slot = _gather(slot_by_rank, k_rank.clamp(0, P - 1))
     tgt = torch.where(ok, slot, P).long()
     pool = tree_map(lambda pf, nf: _scatter_drop(pf, tgt, nf),
                     pool, incoming.replace(valid=ok))
@@ -235,26 +250,42 @@ def _send(cfg: NetConfig, net: NetState, out: Msgs, key):
     = round + max(1, latency), the loss roll, free-slot scatter, and
     with duplication a second copy of kept server-to-server rows under
     an independent latency draw. `key` is split as the JAX package
-    splits it. Returns (net', sent_view)."""
-    M = out.valid.shape[0]
+    splits it. Returns (net', sent_view).
+
+    On the cluster axis (a pool [F, P], `out` [F, M], the net's scalars
+    [F]) the caller passes key=None: its configs draw nothing that
+    changes a value (constant latency, the loss probability 0, no
+    duplication; `parallel.make_cluster_round_fn` checks them), so the
+    draws, which leave no key behind, are skipped."""
+    M = out.valid.shape[-1]
     dup_on = cfg.enable_duplication
-    ks = prng.split(key, 4 if dup_on else 2)
-    # the draws: latency (k_lat), loss (k_loss)[, duplication (k_dup) and
-    # its latency (k_dlat)]
-    lat_spec = (None if cfg.latency_dist == "constant" else
-                ("latency", cfg.latency_dist, cfg.latency_mean_rounds,
-                 net.latency_scale))
-    d_lat, d_lost, d_dup, d_dlat = prng.draws(
-        ks, M, [lat_spec, ("mask", net.p_loss)]
-        + ([("mask", net.p_dup), lat_spec] if dup_on else [None, None]))
+    if key is None:
+        if dup_on or cfg.latency_dist != "constant":
+            raise ValueError("_send without a key draws nothing: constant "
+                             "latency and no duplication only")
+        d_lat = d_dup = d_dlat = None
+        d_lost = torch.zeros(out.valid.shape, dtype=torch.bool,
+                             device=out.valid.device)
+    else:
+        ks = prng.split(key, 4 if dup_on else 2)
+        # the draws: latency (k_lat), loss (k_loss)[, duplication (k_dup)
+        # and its latency (k_dlat)]
+        lat_spec = (None if cfg.latency_dist == "constant" else
+                    ("latency", cfg.latency_dist, cfg.latency_mean_rounds,
+                     net.latency_scale))
+        d_lat, d_lost, d_dup, d_dlat = prng.draws(
+            ks, M, [lat_spec, ("mask", net.p_loss)]
+            + ([("mask", net.p_dup), lat_spec] if dup_on
+               else [None, None]))
     new = out.valid
-    rank = torch.cumsum(new, 0, dtype=I32) - 1
-    mid = net.next_mid + rank
+    rank = torch.cumsum(new, -1, dtype=I32) - 1
+    mid = net.next_mid[..., None] + rank
     client = involves_client(cfg, out.src, out.dest)
     if d_lat is None:
-        d_lat = draw_latency_rounds(cfg, None, net.latency_scale, (M,))
+        d_lat = draw_latency_rounds(cfg, None, net.latency_scale[..., None],
+                                    out.valid.shape)
     lat = torch.where(client, 0, d_lat)
-    due = (net.round + torch.clamp(lat, min=1)).to(I32)
+    due = (net.round[..., None] + torch.clamp(lat, min=1)).to(I32)
     lost = new & d_lost
     keep = new & ~lost
     pool, ok = _scatter_new(cfg, net.pool,
@@ -271,13 +302,15 @@ def _send(cfg: NetConfig, net: NetState, out: Msgs, key):
         pool, dup_ok = _scatter_new(cfg, pool, out.replace(
             valid=dup, mid=mid, due=due2))
         n_dup = dup_ok.sum(dtype=I32)
-    n_new = new.sum(dtype=I32)
+    n_new = new.sum(dim=-1, dtype=I32)
     st = net.stats
     st = st.replace(
         sent_all=st.sent_all + n_new,
-        sent_servers=st.sent_servers + (new & ~client).sum(dtype=I32),
-        lost=st.lost + lost.sum(dtype=I32),
-        dropped_overflow=st.dropped_overflow + (keep & ~ok).sum(dtype=I32),
+        sent_servers=st.sent_servers + (new & ~client).sum(dim=-1,
+                                                           dtype=I32),
+        lost=st.lost + lost.sum(dim=-1, dtype=I32),
+        dropped_overflow=st.dropped_overflow + (keep & ~ok).sum(
+            dim=-1, dtype=I32),
         duplicated=(st.duplicated if n_dup is None
                     else st.duplicated + n_dup),
         sent_by_type=count_by_type(st.sent_by_type, out.type, new))
@@ -286,23 +319,30 @@ def _send(cfg: NetConfig, net: NetState, out: Msgs, key):
 
 
 def _sort_by(key, P):
-    """Permutation ordering rows by (key, row index): the unique int64
-    composite makes every sort give the one order `jnp.lexsort` gives."""
+    """Permutation ordering rows by (key, row index) along the last axis:
+    the unique int64 composite makes every sort give the one order
+    `jnp.lexsort` gives."""
     idx = torch.arange(P, dtype=torch.int64, device=key.device)
-    return torch.sort(key.to(torch.int64) * (1 << 32) + idx).indices
+    return torch.sort(key.to(torch.int64) * (1 << 32) + idx,
+                      dim=-1).indices
 
 
 def _deliver(cfg: NetConfig, net: NetState):
     """Delivers the due messages of this round (`_deliver_due` of the JAX
     package; see the module docstring for the skipped branch). Returns
-    (net', inbox Msgs [N, K], client_msgs Msgs [min(client_cap, P)])."""
+    (net', inbox Msgs [N, K], client_msgs Msgs [min(client_cap, P)]).
+    On the cluster axis (pool [F, P]) each cluster delivers on its own:
+    inbox [F, N, K], client_msgs [F, min(client_cap, P)]."""
     pool, P, N, K = net.pool, cfg.pool_cap, cfg.n_nodes, cfg.inbox_cap
     dev = pool.valid.device
-    due = pool.valid & (pool.due <= net.round)
+    lead = tuple(pool.valid.shape[:-1])
+    rnd = net.round[..., None]
+    due = pool.valid & (pool.due <= rnd)
     client_msg = involves_client(cfg, pool.src, pool.dest)
     src_i = pool.src.clamp(0, cfg.n_total - 1).long()
     dest_i = pool.dest.clamp(0, cfg.n_total - 1).long()
-    blocked = net.component[src_i] != net.component[dest_i]
+    blocked = _gather(net.component, src_i) != _gather(net.component,
+                                                       dest_i)
     if cfg.partition_groups > 1:
         # directional grudges: may src's group reach dest's group?
         bg = net.block_groups.long()
@@ -313,8 +353,8 @@ def _deliver(cfg: NetConfig, net: NetState):
         # consumed and dropped
         dest_node = pool.dest < N
         nd = pool.dest.clamp(0, N - 1).long()
-        due = due & ~(dest_node & net.paused[nd])
-        to_down = due & ~blocked & dest_node & net.down[nd]
+        due = due & ~(dest_node & _gather(net.paused, nd))
+        to_down = due & ~blocked & dest_node & _gather(net.down, nd)
     else:
         to_down = torch.zeros_like(due)
     to_client = due & ~blocked & (pool.dest >= N)
@@ -324,55 +364,60 @@ def _deliver(cfg: NetConfig, net: NetState):
     # node delivery: (dest, due-age) composite key, earlier-due first
     age_bits = 14 if N < (1 << 17) else 0
     if age_bits:
-        age = (pool.due - net.round + (1 << (age_bits - 1))).clamp(
+        age = (pool.due - rnd + (1 << (age_bits - 1))).clamp(
             0, (1 << age_bits) - 1)
         key = torch.where(to_node, (pool.dest << age_bits) | age, INT32_MAX)
     else:
         key = torch.where(to_node, pool.dest, INT32_MAX)
     order = _sort_by(key, P)
-    sdest = torch.where(to_node, pool.dest, N)[order].contiguous()
+    sdest = _gather(torch.where(to_node, pool.dest, N), order).contiguous()
     first = torch.searchsorted(sdest, sdest, side="left")
     slot = torch.arange(P, device=dev) - first
-    take = to_node[order] & (slot < K)
+    take = _gather(to_node, order) & (slot < K)
     flat_tgt = torch.where(take, sdest.long() * K + slot.clamp(0, K - 1),
                            N * K)
-    sorted_msgs = pool.at_rows(order).replace(valid=take)
+    sorted_msgs = tree_map(lambda f: _gather(f, order), pool).replace(
+        valid=take)
     inbox = tree_map(
-        lambda z, f: _scatter_drop(z.reshape(N * K), flat_tgt, f
-                                   ).reshape(N, K),
-        Msgs.empty((N, K), dev), sorted_msgs)
-    taken = torch.zeros(P, dtype=torch.bool, device=dev)
-    taken[order] = take
+        lambda z, f: _scatter_drop(z.reshape(lead + (N * K,)), flat_tgt, f
+                                   ).reshape(lead + (N, K)),
+        Msgs.empty(lead + (N, K), dev), sorted_msgs)
+    taken = torch.zeros(lead + (P,), dtype=torch.bool, device=dev).scatter(
+        -1, order, take)
 
     CC = min(cfg.client_cap, P)
     if CC > 0:
         corder = _sort_by(torch.where(to_client, pool.due, INT32_MAX),
-                          P)[:CC]
-        client_msgs = pool.at_rows(corder).replace(valid=to_client[corder])
+                          P)[..., :CC]
+        client_msgs = tree_map(lambda f: _gather(f, corder), pool).replace(
+            valid=_gather(to_client, corder))
         # with nothing due the JAX version skips delivery and returns an
         # empty batch: its invalid rows hold the empty fields, not pool
         # rows
-        any_due = due.any()
+        any_due = due.any(dim=-1, keepdim=True)
         client_msgs = client_msgs.replace(**{
             f: torch.where(any_due, getattr(client_msgs, f),
                            -1 if f == "reply_to" else 0)
             for f in Msgs.__dataclass_fields__ if f != "valid"})
-        c_taken = torch.zeros(P, dtype=torch.bool, device=dev)
-        c_taken[corder] = client_msgs.valid
+        c_taken = torch.zeros(lead + (P,), dtype=torch.bool,
+                              device=dev).scatter(-1, corder,
+                                                  client_msgs.valid)
     else:
         # count-only mode: consume client messages without materializing
-        client_msgs = Msgs.empty(0, dev)
+        client_msgs = Msgs.empty(lead + (0,), dev)
         c_taken = to_client
 
     consumed = taken | dropped | c_taken | to_down
     pool = pool.replace(valid=pool.valid & ~consumed)
     st = net.stats
+
+    def n(x):
+        return x.sum(dim=-1, dtype=I32)
     st = st.replace(
-        recv_all=st.recv_all + taken.sum(dtype=I32)
-        + c_taken.sum(dtype=I32),
-        recv_servers=st.recv_servers + (taken & ~client_msg).sum(dtype=I32),
-        dropped_partition=st.dropped_partition + dropped.sum(dtype=I32),
-        dropped_down=st.dropped_down + to_down.sum(dtype=I32))
+        recv_all=st.recv_all + n(taken) + n(c_taken),
+        recv_servers=st.recv_servers + n(taken & ~client_msg),
+        dropped_partition=st.dropped_partition + n(dropped),
+        dropped_down=st.dropped_down + n(to_down))
     return net.replace(pool=pool, stats=st), inbox, client_msgs
 
 

@@ -4,8 +4,8 @@ Counterpart of `maelstrom_tpu/nodes/__init__.py`: a node program is a
 batched state machine whose per-node state is a dict of tensors with a
 leading node axis, plus the host-boundary contract that keeps the JSON
 protocol as the compatibility surface (`request_for_op`, `encode_body`,
-`decode_body`, `completion`). This slice ports the broadcast program;
-`get_program` names the slice that brings any other.
+`decode_body`, `completion`). The port has the broadcast program and
+Raft serving lin-kv; `get_program` names the slice that brings any other.
 
 Type code 0 is reserved (invalid slot), 1 is the shared RPC error reply;
 programs define their own codes from 10 up."""
@@ -72,6 +72,10 @@ class NodeProgram:
     edge_atomic_rpc = False
     reply_payload_words = 0
     durable_keys: tuple | None = None
+    # quiet_planes(state) -> the bool planes any set byte of which means
+    # the program is busy (the runner's quiescence probe); None for a
+    # program that is never quiescent, which the runner then never probes
+    quiet_planes = None
 
     def __init__(self, opts: dict, nodes: list[str]):
         self.opts = opts
@@ -111,6 +115,12 @@ class NodeProgram:
     def completion_payload(self, op: dict, body: dict, payload,
                            intern: Intern) -> dict:
         raise NotImplementedError
+
+    def invalid_counters(self, state) -> dict:
+        """Program-state counters that invalidate the run when nonzero
+        ({name: int tensor}, summed), reported by the net-stats checker
+        beside `dropped-overflow`."""
+        return {}
 
     def durable_view(self, state):
         """The persisted subset of `state` (the same tensors, no copy);
@@ -208,8 +218,8 @@ LATER = {
     **dict.fromkeys(("echo", "unique-ids", "g-set", "g-counter",
                      "pn-counter", "kafka", "broadcast-batched"),
                     "the other node programs"),
-    **dict.fromkeys(("lin-kv", "txn-list-append", "txn-rw-register"),
-                    "raft lin-kv and the cluster axis"),
+    **dict.fromkeys(("txn-list-append", "txn-rw-register"),
+                    "the Raft transaction programs"),
     **dict.fromkeys(("compartment", "services", "lin-tso", "seq-kv",
                      "lww-kv", "ordered", "solo"),
                     "the role-partitioned programs"),
@@ -223,7 +233,7 @@ def register(cls):
 
 def get_program(name: str, opts: dict, nodes: list[str],
                 device="cuda") -> NodeProgram:
-    from . import broadcast  # noqa: F401  (registers the program)
+    from . import broadcast, raft  # noqa: F401  (register the programs)
     if name not in PROGRAMS:
         later = LATER.get(name.split(":")[0], "a later slice")
         raise ValueError(f"node program {name!r} is not ported to "

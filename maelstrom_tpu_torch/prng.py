@@ -99,18 +99,20 @@ def PRNGKey(seed: int, device="cpu") -> torch.Tensor:  # noqa: N802
 
 
 def split_plain(key, n: int, base: int = 0):
+    """[n, 2] subkeys of a key [2]; [F, n, 2] of a batch of keys [F, 2]."""
     k0, k1 = _key_words(key)
     c0, c1 = _counters(n, key.device, base)
     b0, b1 = threefry2x32(k0, k1, c0, c1)
-    return torch.stack([b0, b1], dim=1).to(torch.uint32)
+    return torch.stack([b0, b1], dim=-1).to(torch.uint32)
 
 
 def random_bits_plain(key, shape):
-    """32 random bits a position, as uint32 values held in int64."""
+    """32 random bits a position, as uint32 values held in int64: of
+    `shape` for a key [2], of (F, *shape) for a batch of keys [F, 2]."""
     k0, k1 = _key_words(key)
     c0, c1 = _counters(_numel(shape), key.device)
     b0, b1 = threefry2x32(k0, k1, c0, c1)
-    return (b0 ^ b1).reshape(shape)
+    return (b0 ^ b1).reshape(tuple(key.shape[:-1]) + tuple(shape))
 
 
 def bits_to_unit(bits):
@@ -145,10 +147,14 @@ def latency_from_unit(u, dist: str, mean):
 
 # --- wrappers: K7 on the card, the plain versions on the CPU ---------------
 
-def _check_key(key):
-    if tuple(key.shape) != (2,) or key.dtype != torch.uint32:
-        raise ValueError(f"a key is uint32[2], got {tuple(key.shape)} "
-                         f"{key.dtype}")
+def _check_key(key, batched=False):
+    """A key is uint32 [2]; where `batched`, a batch of keys [F, 2] is
+    taken too."""
+    ok = key.shape[-1:] == (2,) and key.dim() in ((1, 2) if batched
+                                                    else (1,))
+    if not ok or key.dtype != torch.uint32:
+        raise ValueError(f"a key is uint32[2] (or a batch [F, 2] where "
+                         f"taken), got {tuple(key.shape)} {key.dtype}")
 
 
 def f32_bits(x: float) -> int:
@@ -157,20 +163,26 @@ def f32_bits(x: float) -> int:
 
 def _launch(key, n, mode, out, base=0, p=None, scale=None, mean=0.0,
             dist="constant"):
+    """One K7 launch of n draws a key: over a batch of keys [F, 2] the
+    F * n elements go key by key, each key's from counter `base`."""
     dev = key.device
+    n_keys = key.shape[0] if key.dim() == 2 else 1
     K.THREEFRY.launch(
         [key.contiguous(), out, p, scale],
-        [n, base, mode, DISTS[dist], f32_bits(np.float32(mean))], dev)
+        [n * n_keys, base, mode, DISTS[dist], f32_bits(np.float32(mean)),
+         n if key.dim() == 2 else 0], dev)
     return out
 
 
 def split(key, n: int = 2, base: int = 0) -> torch.Tensor:
     """uint32 [n, 2]: the n subkeys of `key` (counters base .. base+n-1;
-    base 0 is `jax.random.split`)."""
-    _check_key(key)
+    base 0 is `jax.random.split`); [F, n, 2] for a batch of keys [F, 2]
+    (`split` under `vmap`), in one launch."""
+    _check_key(key, batched=True)
     if not K.use_kernel(key):
         return split_plain(key, n, base)
-    out = torch.empty((n, 2), dtype=torch.uint32, device=key.device)
+    out = torch.empty(tuple(key.shape[:-1]) + (n, 2), dtype=torch.uint32,
+                      device=key.device)
     return _launch(key, n, SPLIT, out, base=base)
 
 
@@ -180,12 +192,14 @@ def fold_in(key, data: int) -> torch.Tensor:
 
 
 def random_bits(key, shape) -> torch.Tensor:
-    """uint32 bits of `shape` (`jax.random.bits`)."""
-    _check_key(key)
+    """uint32 bits of `shape` (`jax.random.bits`); (F, *shape) for a
+    batch of keys [F, 2]."""
+    _check_key(key, batched=True)
     shape = tuple(shape)
     if not K.use_kernel(key):
         return random_bits_plain(key, shape).to(torch.uint32)
-    out = torch.empty(shape, dtype=torch.uint32, device=key.device)
+    out = torch.empty(tuple(key.shape[:-1]) + shape, dtype=torch.uint32,
+                      device=key.device)
     return _launch(key, _numel(shape), BITS, out)
 
 
@@ -265,10 +279,11 @@ def latency_rounds(key, shape, dist: str, mean: float, scale):
 
 def randint(key, shape, minval: int, maxval: int) -> torch.Tensor:
     """int32 in [minval, maxval) of `shape` (`jax.random.randint` with
-    the default int32 dtype and int32-range bounds)."""
+    the default int32 dtype and int32-range bounds); (F, *shape) for a
+    batch of keys [F, 2]."""
     keys = split(key, 2)
-    hi = random_bits(keys[0], shape).to(torch.int64)
-    lo = random_bits(keys[1], shape).to(torch.int64)
+    hi = random_bits(keys[..., 0, :], shape).to(torch.int64)
+    lo = random_bits(keys[..., 1, :], shape).to(torch.int64)
     span = (maxval - minval) & M32 if maxval > minval else 1
     mult = (1 << 16) % span
     mult = ((mult * mult) & M32) % span

@@ -236,6 +236,13 @@ class TpuNetStats(Checker):
         ok = (c["dropped_overflow"] == 0
               and (overwrites == 0 or tolerated)
               and (lat_clipped == 0 or clip_tolerated))
+        # program-state capacity failures (raft's log-overflow) are the
+        # same class of silent degradation as pool overflow
+        for name, arr in prog.invalid_counters(
+                self.runner.sim.nodes).items():
+            n_bad = int(arr.sum())
+            out[name] = n_bad
+            ok = ok and n_bad == 0
         # host-transfer accounting: drains must stay O(host-relevant
         # rounds), not O(simulated rounds)
         out.update(self.runner.transfer.as_dict())
@@ -257,7 +264,8 @@ class TpuRunner:
         self.ms_per_round = float(test.get("ms_per_round", 1.0))
         test.setdefault("ms_per_round", self.ms_per_round)
         self.program = get_program(spec, test, nodes, device=self.device)
-        if not getattr(self.program, "reply_payload_words", 0):
+        if self.program.needs_state_reads and not getattr(
+                self.program, "reply_payload_words", 0):
             raise NotImplementedError(
                 f"{self.program.name}: completions that read node state "
                 f"at the host come with the other node programs")
@@ -615,10 +623,13 @@ class TpuRunner:
                          "error": [err.name if err
                                    else body.get("code"),
                                    body.get("text")]}
-        else:
+        elif payload is not None:
             # state snapshotted at the reply round, on the device
             completed = program.completion_payload(
                 op, body, payload, self.intern)
+        else:
+            # a program that reads no node state at the host (raft)
+            completed = program.completion(op, body, None, self.intern)
         cctx = {"time": self._time_ns(stamp),
                 "free": self._free_rotated(free), "processes": processes}
         return self._complete(history, gen, cctx, process, completed, free)
@@ -710,7 +721,8 @@ class TpuRunner:
         completion pass."""
         return [(int(rounds[j]), int(rlog.type[j]),
                  int(rlog.a[j]), int(rlog.b[j]),
-                 int(rlog.c[j]), int(rlog.reply_to[j]), plog[j])
+                 int(rlog.c[j]), int(rlog.reply_to[j]),
+                 None if plog is None else plog[j])
                 for j in range(rn)]
 
     def _journal_round(self, io, r: int):
@@ -777,7 +789,10 @@ class TpuRunner:
         """Fused quiescence probe, one launch (K6): pool empty AND edge
         channels drained (ring cells are addressed by round % ring, so
         rings must empty before virtual time may skip) AND the node
-        program idle. One host read."""
+        program idle. One host read. A program that is never quiescent
+        (raft's timers tick) launches nothing."""
+        if self.program.quiet_planes is None:
+            return False
         sim = self.sim
         planes = [sim.net.pool.valid]
         if sim.channels is not None:

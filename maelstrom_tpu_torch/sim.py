@@ -85,47 +85,58 @@ def compact_replies_plain(flat: Msgs, K_: int, CC: int, next_mid):
     """The first CC valid rows of the flat [N * K] replies in index
     order, then the lowest-index invalid rows (the `top_k` order of the
     JAX version). src = row // K, mid = next_mid + cumsum(valid) - 1.
-    Returns (replies Msgs [min(CC, N*K)], n_all)."""
-    NK = flat.valid.shape[0]
+    Returns (replies Msgs [min(CC, N*K)], n_all). Batched over clusters,
+    fields [F, N * K] and next_mid [F] give replies [F, min(CC, N*K)]
+    and n_all [F], each cluster compacted on its own."""
+    NK = flat.valid.shape[-1]
     idx = torch.arange(NK, dtype=torch.int64, device=flat.valid.device)
-    order = torch.sort((~flat.valid).to(torch.int64) * NK + idx
-                       ).indices[:min(CC, NK)]
-    rows = flat.at_rows(order)
+    order = torch.sort((~flat.valid).to(torch.int64) * NK + idx,
+                       dim=-1).indices[..., :min(CC, NK)]
+    rows = tree_map(lambda f: torch.gather(f, -1, order), flat)
     rows = rows.replace(
         src=(order // K_).to(I32),
-        mid=next_mid + torch.cumsum(rows.valid, 0, dtype=I32) - 1)
-    return rows, flat.valid.sum(dtype=I32)
+        mid=next_mid[..., None] + torch.cumsum(rows.valid, -1, dtype=I32)
+        - 1)
+    return rows, flat.valid.sum(dim=-1, dtype=I32)
 
 
 def compact_replies(flat: Msgs, K_: int, CC: int, next_mid):
     """Client replies compacted into CC slots (see
-    `compact_replies_plain`); the kernel is `csrc/compact.cu`."""
+    `compact_replies_plain`), for one cluster or a batch; the kernel is
+    K4 in `csrc/compact.cu`."""
     if not K.use_kernel(flat.valid):
         return compact_replies_plain(flat, K_, CC, next_mid)
-    NK = flat.valid.shape[0]
+    lead = tuple(flat.valid.shape[:-1])
+    if len(lead) > 1 or tuple(next_mid.shape) != lead \
+            or next_mid.dtype != I32:
+        raise ValueError("compact_replies: fields [N * K] or [F, N * K], "
+                         "next_mid an i32 scalar or [F]")
+    F = lead[0] if lead else 1
+    NK = flat.valid.shape[-1]
     CCe = min(CC, NK)
     dev = flat.valid.device
     for name in Msgs.__dataclass_fields__:
         t = getattr(flat, name)
         want = torch.bool if name == "valid" else I32
-        if tuple(t.shape) != (NK,) or t.dtype != want:
+        if tuple(t.shape) != lead + (NK,) or t.dtype != want:
             raise ValueError(f"compact_replies {name}: {tuple(t.shape)} "
                              f"{t.dtype}")
-    if next_mid.shape != () or next_mid.dtype != I32:
-        raise ValueError("compact_replies: next_mid must be an i32 scalar")
-    out = Msgs(valid=torch.empty(CCe, dtype=torch.bool, device=dev),
-               **{f: torch.empty(CCe, dtype=I32, device=dev)
+    out = Msgs(valid=torch.empty(lead + (CCe,), dtype=torch.bool,
+                                 device=dev),
+               **{f: torch.empty(lead + (CCe,), dtype=I32, device=dev)
                   for f in Msgs.__dataclass_fields__ if f != "valid"})
-    n_all = torch.empty((), dtype=I32, device=dev)
-    # per-segment valid counts (segments of 4096 rows, csrc/compact.cu)
-    seg_count = torch.empty(-(-NK // 4096), dtype=I32, device=dev)
+    n_all = torch.empty(lead, dtype=I32, device=dev)
+    # per-segment valid counts (segments of 4096 rows a cluster,
+    # csrc/compact.cu)
+    seg_count = torch.empty(F * -(-NK // 4096), dtype=I32, device=dev)
     ins = [getattr(flat, f).contiguous() for f in
            ("valid", "dest", "due", "reply_to", "type", "a", "b", "c")]
     outs = [getattr(out, f) for f in
             ("valid", "src", "dest", "due", "mid", "reply_to", "type", "a",
              "b", "c")]
-    K.REPLY_COMPACT.launch(ins + [next_mid] + outs + [n_all, seg_count],
-                           [NK, K_, CCe, seg_count.numel()], dev)
+    K.REPLY_COMPACT.launch(
+        ins + [next_mid.contiguous()] + outs + [n_all, seg_count],
+        [NK, K_, CCe, seg_count.numel(), F], dev)
     return out, n_all
 
 
@@ -259,26 +270,77 @@ def edge_faults(cfg: NetConfig, nb, net: NetState, valid, keys,
     return out, st.replace(**o_stats)
 
 
-def _round_edge(program, cfg: NetConfig, sim: SimState, inject: Msgs):
+@dataclass(frozen=True)
+class ClusterAxis:
+    """The cluster axis of a round (`parallel.make_cluster_round_fn`): F
+    clusters whose leaves lead with [F, N], node-local work done over the
+    F * N node rows, the exchange with the channel config of F * N rows
+    and the global neighbour and reverse-slot tables."""
+    F: int
+    ecfg: object            # EdgeConfig of F * N node rows
+    neighbors: torch.Tensor  # [F * N, D] cluster f's table plus f * N
+    rev: torch.Tensor        # [F * N, D]
+
+
+def _rows(tree, axis):
+    """A tree of [F, N, ...] leaves viewed as [F * N, ...] node rows on
+    the cluster axis; one cluster's tree as it is."""
+    if axis is None:
+        return tree
+    return tree_map(lambda t: t.reshape((-1,) + tuple(t.shape[2:])), tree)
+
+
+def _unrows(tree, axis):
+    """The inverse of `_rows`."""
+    if axis is None:
+        return tree
+    return tree_map(lambda t: t.reshape((axis.F, -1) + tuple(t.shape[1:])),
+                    tree)
+
+
+def _round_edge(program, cfg: NetConfig, sim: SimState, inject: Msgs,
+                axis: ClusterAxis = None):
+    """One round of one cluster, or with `axis` of F clusters at once
+    (JAX's `vmap` of this round written out: every leaf leads with F,
+    each step is one launch for all clusters)."""
     N, Kc = cfg.n_nodes, program.inbox_cap
-    ecfg = program.edge_cfg
+    lead = () if axis is None else (axis.F,)
+    if axis is None:
+        ecfg, nb, rev = program.edge_cfg, program.neighbors, program.rev
+    else:
+        ecfg, nb, rev = axis.ecfg, axis.neighbors, axis.rev
     # the round's keys: key', k1 (pool sends), k2 (the program), k4 (loss),
-    # k5 (latency)[, k6 (duplication), k7 (its latency)]
+    # k5 (latency)[, k6 (duplication), k7 (its latency)]; on the cluster
+    # axis K7 splits all F keys at once, [F, 5, 2]
     keys = prng.split(sim.key, 7 if cfg.enable_duplication else 5)
-    net, inject_sent = T._send(cfg, sim.net, inject, keys[1])
+    # the cluster axis draws nothing that changes a value (see below): the
+    # pool send skips its loss roll
+    net, inject_sent = T._send(cfg, sim.net, inject,
+                               keys[1] if axis is None else None)
     net, client_inbox, pool_client_msgs = T._deliver(cfg, net)
-    ch, edge_in = static.edge_read(ecfg, sim.channels, program.neighbors,
-                                   program.rev, net.round)
-    ctx = {"round": net.round, "key": keys[2]}
-    if cfg.enable_stall:
-        # killed and paused nodes keep their state and send nothing
-        ctx["stall"] = sim.net.down | sim.net.paused
-    nodes, edge_out, client_out = program.edge_step(
-        sim.nodes, edge_in, client_inbox, ctx)
+    ch0 = sim.channels
+    ch = ch0.replace(**{f: _rows(getattr(ch0, f), axis)
+                        for f in ("valid", "type", "a", "b", "c")})
+    # every cluster is at one round (`parallel` checks it): the exchange
+    # reads cluster 0's on the device
+    rnd = net.round if axis is None else net.round[0]
+    ch, edge_in = static.edge_read(ecfg, ch, nb, rev, rnd)
+    if axis is None:
+        ctx = {"round": net.round, "key": keys[2]}
+        if cfg.enable_stall:
+            # killed and paused nodes keep their state and send nothing
+            ctx["stall"] = sim.net.down | sim.net.paused
+        nodes, edge_out, client_out = program.edge_step(
+            sim.nodes, edge_in, client_inbox, ctx)
+    else:
+        nodes, edge_out, client_out = program.step_rows(
+            _rows(sim.nodes, axis), edge_in, _rows(client_inbox, axis),
+            net.round, keys[:, 2].contiguous())
+        nodes = _unrows(nodes, axis)
 
     # client replies bypass the pool (clients have zero latency,
     # net.clj:177-186): valid rows are compacted into the client buffer
-    flat = tree_map(lambda f: f.reshape(N * Kc), client_out)
+    flat = tree_map(lambda f: f.reshape(lead + (N * Kc,)), client_out)
     CC = max(cfg.client_cap, 2 * cfg.n_clients, 1)
     replies, n_all = compact_replies(flat, Kc, CC, net.next_mid)
     st = net.stats
@@ -286,25 +348,36 @@ def _round_edge(program, cfg: NetConfig, sim: SimState, inject: Msgs):
         sent_all=st.sent_all + n_all, recv_all=st.recv_all + n_all,
         sent_by_type=T.count_by_type(st.sent_by_type, flat.type,
                                      flat.valid)))
-    client_msgs = (replies if pool_client_msgs.valid.shape[0] == 0
-                   else tree_map(lambda a, b: torch.cat([a, b]),
+    client_msgs = (replies if pool_client_msgs.valid.shape[-1] == 0
+                   else tree_map(lambda a, b: torch.cat([a, b], dim=-1),
                                  pool_client_msgs, replies))
 
-    # edge faults (net.clj:213, 233): partitions, stalled destinations,
-    # loss, latency and duplication draws, one kernel (K8)
-    if ecfg.uniform_arrival and cfg.latency_dist != "constant":
-        raise ValueError(
-            "uniform_arrival requires constant latency draws (program "
-            "opts and NetConfig disagree about the latency distribution)")
     shape = edge_out.valid.shape
-    faults, fstats = edge_faults(cfg, program.neighbors, net,
-                                 edge_out.valid, keys,
-                                 program.edge_atomic_rpc)
-    lat = faults.lat
-    if lat is None:
-        lat = T.draw_latency_rounds(cfg, None, net.latency_scale, shape)
-    ch = static.edge_write(ecfg, ch, edge_out, net.round, lat,
-                           faults.deliver)
+    if axis is not None:
+        # the cluster axis runs constant latency 0 with the loss
+        # probability 0, one component, no stall and no duplication
+        # (`parallel` checks it): every fault draw is value-free, so the
+        # edge fault pass (K8) is skipped; every lane is delivered at
+        # latency 0 and the fault counters do not move
+        fstats = net.stats
+        dev = edge_out.valid.device
+        lat = torch.zeros((), dtype=I32, device=dev).expand(shape)
+        deliver = torch.ones((), dtype=torch.bool, device=dev).expand(shape)
+    else:
+        # edge faults (net.clj:213, 233): partitions, stalled
+        # destinations, loss, latency and duplication draws, one kernel
+        # (K8)
+        if ecfg.uniform_arrival and cfg.latency_dist != "constant":
+            raise ValueError(
+                "uniform_arrival requires constant latency draws (program "
+                "opts and NetConfig disagree about the latency "
+                "distribution)")
+        faults, fstats = edge_faults(cfg, nb, net, edge_out.valid, keys,
+                                     program.edge_atomic_rpc)
+        lat, deliver = faults.lat, faults.deliver
+        if lat is None:
+            lat = T.draw_latency_rounds(cfg, None, net.latency_scale, shape)
+    ch = static.edge_write(ecfg, ch, edge_out, rnd, lat, deliver)
     if cfg.enable_duplication:
         # a delivered message is written again under its own latency
         # draw; constant draws are equal, so the copy goes one round past
@@ -312,11 +385,11 @@ def _round_edge(program, cfg: NetConfig, sim: SimState, inject: Msgs):
         lat_dup = faults.dup_lat
         if lat_dup is None:
             lat_dup = torch.clamp(lat, min=1) + 1
-        ch = static.edge_write(ecfg, ch, edge_out, net.round, lat_dup,
+        ch = static.edge_write(ecfg, ch, edge_out, rnd, lat_dup,
                                faults.dup)
 
-    n_sent = edge_out.valid.sum(dtype=I32)
-    n_recv = edge_in.valid.sum(dtype=I32)
+    n_sent = edge_out.valid.reshape(lead + (-1,)).sum(dim=-1, dtype=I32)
+    n_recv = edge_in.valid.reshape(lead + (-1,)).sum(dim=-1, dtype=I32)
     net = net.replace(stats=fstats.replace(
         sent_all=fstats.sent_all + n_sent,
         sent_servers=fstats.sent_servers + n_sent,
@@ -325,8 +398,11 @@ def _round_edge(program, cfg: NetConfig, sim: SimState, inject: Msgs):
         sent_by_type=T.count_by_type(fstats.sent_by_type, edge_out.type,
                                      edge_out.valid)))
     net = T.advance(net)
-    return (SimState(net=net, nodes=nodes, key=keys[0], channels=ch,
-                     durable=program.durable_view(nodes)),
+    ch = ch.replace(**{f: _unrows(getattr(ch, f), axis)
+                       for f in ("valid", "type", "a", "b", "c")})
+    edge_out, edge_in = _unrows(edge_out, axis), _unrows(edge_in, axis)
+    return (SimState(net=net, nodes=nodes, key=keys[..., 0, :].contiguous(),
+                     channels=ch, durable=program.durable_view(nodes)),
             client_msgs,
             (inject_sent, replies, client_inbox, edge_out, edge_in))
 

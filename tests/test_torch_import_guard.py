@@ -12,9 +12,11 @@ import pytest
 import torch
 
 from maelstrom_tpu_torch import cli, core
-from maelstrom_tpu_torch.bench import run_broadcast_bench
+from maelstrom_tpu_torch.bench import run_broadcast_bench, run_raft_bench
 from maelstrom_tpu_torch.net.tpu import NetConfig
 from maelstrom_tpu_torch.nodes import get_program
+from maelstrom_tpu_torch.parallel import make_cluster_round_fn, \
+    make_cluster_sims
 from maelstrom_tpu_torch.runner.tpu_runner import run_tpu_test
 from maelstrom_tpu_torch.sim import make_run_fn, make_scan_fn, make_sim
 
@@ -51,7 +53,7 @@ def test_port_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", GUARD], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 30    # every module was imported
+    assert int(res.stdout.split()[-1]) >= 34    # every module was imported
 
 
 def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
@@ -62,6 +64,9 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     opts = {"max_values": 8}
     with pytest.raises(RuntimeError, match="no CUDA device"):
         get_program("broadcast", opts, nodes)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_program("lin-kv", {}, nodes)
+    raft = get_program("lin-kv", {}, nodes, device="cpu")
     prog = get_program("broadcast", opts, nodes, device="cpu")
     cfg = NetConfig(n_nodes=4, n_clients=1)
     args = ["test", "-w", "broadcast", "--node", "tpu:broadcast",
@@ -73,7 +78,13 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
                  lambda: run_tpu_test(core.build_test({
                      "workload": "broadcast", "node": "tpu:broadcast",
                      "node_count": 4}), str(tmp_path)),
-                 lambda: cli.main(args)):
+                 lambda: make_cluster_sims(raft, cfg, 3),
+                 lambda: make_cluster_round_fn(raft, cfg),
+                 lambda: run_raft_bench(clusters=2, rounds=2),
+                 lambda: cli.main(args),
+                 lambda: cli.main(["test", "-w", "lin-kv", "--node",
+                                   "tpu:lin-kv", "--node-count", "3",
+                                   "--store", str(tmp_path)])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert not any(tmp_path.iterdir())      # refused before any store dir
@@ -85,3 +96,9 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
                             "partition,kill", "--nemesis-interval", "0.1",
                             "--latency", "2", "--latency-dist", "uniform",
                             "--p-loss", "0.1"]) == 0
+    # and lin-kv on Raft (too short a run for every op kind to complete,
+    # so the stats checker's verdict is not asked for)
+    res = core.run({"workload": "lin-kv", "node": "tpu:lin-kv",
+                    "node_count": 3, "time_limit": 0.3, "rate": 20,
+                    "device": "cpu", "store_root": str(tmp_path)})
+    assert res["workload"]["valid"] is True and res["net"]["valid"] is True

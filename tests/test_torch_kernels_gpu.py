@@ -22,6 +22,7 @@ from maelstrom_tpu_torch import kernels as K
 from maelstrom_tpu_torch.net import static
 from maelstrom_tpu_torch.net.tpu import Msgs
 from maelstrom_tpu_torch.nodes import get_program
+from maelstrom_tpu_torch.nodes import raft as RAFT
 from maelstrom_tpu_torch.runner.tpu_runner import (quiet_probe,
                                                    quiet_probe_plain)
 from maelstrom_tpu_torch.sim import (append_replies, append_replies_plain,
@@ -365,3 +366,246 @@ def test_broadcast_step_with_stall_matches_plain(cuda, V, mode):
     assert K.launch_counts()["broadcast_step_stall"] == before + 1
     for g, r in zip(out["cuda"], out["cpu"]):
         _equal(g, r)
+
+
+# --- the Raft slice: K10 raft_step, K7 on batched keys, K4 on batched
+# segments, K2's per-cluster counters ---------------------------------------
+
+def _entry_a(rng, shape, terms, keys):
+    return ((rng.integers(0, terms, shape) << 16)
+            | (rng.integers(0, keys + 3, shape) << 4)
+            | rng.integers(0, 5, shape)).astype(np.int32)
+
+
+def _entry_b(rng, shape):
+    return ((rng.integers(0, 6, shape) << 16)
+            | (rng.integers(0, 7, shape) << 8)
+            | rng.integers(0, 7, shape)).astype(np.int32)
+
+
+def random_raft_inputs(rng, prog, lead=(), rnd=40):
+    """Random state, lanes and client slots for a program's step, every
+    leaf with the leading axes `lead` (() for one cluster, (F,) for a
+    batch) and then the node axis. Values stay in the ranges a run
+    reaches (terms and indices small, logs of packed entries) with
+    out-of-range corners mixed in, so every branch of the step fires."""
+    N, D, C, E, KEYS = prog.n_nodes, prog.D, prog.cap, prog.E, prog.keys
+    L, K = prog.lanes, prog.inbox_cap
+    s = tuple(lead) + (N,)
+    T = 6
+
+    def ints(lo, hi, shape=()):
+        return rng.integers(lo, hi, s + tuple(shape)).astype(np.int32)
+    log_len = ints(0, C + 1)
+    commit = np.minimum(ints(-1, C), log_len - 1)
+    state = {
+        "role": ints(0, 3), "term": ints(0, T),
+        "voted_for": ints(-1, N), "votes": rng.random(s + (N,)) < 0.4,
+        "log_a": _entry_a(rng, s + (C,), T, KEYS),
+        "log_b": _entry_b(rng, s + (C,)),
+        "log_c": ints(0, 1000, (C,)), "log_len": log_len,
+        "commit": commit,
+        "applied": np.maximum(commit - ints(0, 6), -1).astype(np.int32),
+        "next": ints(0, C + 1, (D,)), "match": ints(-1, C, (D,)),
+        "kv": ints(0, 7, (KEYS,)),
+        "deadline": (rnd + ints(-6, 30)).astype(np.int32),
+        "leader_hint": ints(-1, D), "log_overflow": ints(0, 3)}
+
+    e = s + (D, L)
+    lane_types = np.array([[RAFT.T_RV, RAFT.T_AE, 0], [RAFT.T_RV_REPLY,
+                                                 RAFT.T_AE_REPLY, 0],
+                           [RAFT.T_PROXY, RAFT.T_PROXY, 0]], np.int32)
+    typ = np.full(e, RAFT.T_ENTRY, np.int32)
+    for j in range(3):
+        typ[..., j] = lane_types[j][rng.integers(0, 3, s + (D,))]
+    typ[..., 3:] = np.where(rng.random(s + (D, E)) < 0.9, RAFT.T_ENTRY, 0)
+    a = np.empty(e, np.int32)
+    b = np.empty(e, np.int32)
+    c = np.empty(e, np.int32)
+    term = state["term"][..., None]
+    drift = np.array([-1, 0, 0, 0, 1])       # mostly the current term
+    a[..., 0] = term + drift[rng.integers(0, 5, s + (D,))]
+    a[..., 1] = term + drift[rng.integers(0, 5, s + (D,))]
+    prev = rng.integers(-1, C + 2, s + (D,))
+    b[..., 0] = np.where(typ[..., 0] == RAFT.T_AE,
+                         ((prev + 1) << 16) | rng.integers(0, T, s + (D,)),
+                         rng.integers(-1, C + 1, s + (D,)))
+    c[..., 0] = np.where(typ[..., 0] == RAFT.T_AE,
+                         (rng.integers(-1, C, s + (D,)) + 1 << 4)
+                         | rng.integers(0, E + 2, s + (D,)),
+                         rng.integers(0, T, s + (D,)))
+    b[..., 1] = rng.integers(0, 2, s + (D,))
+    c[..., 1] = rng.integers(-2, C + 1, s + (D,))
+    a[..., 2] = (rng.integers(0, KEYS + 3, s + (D,)) << 4) | rng.integers(
+        0, 5, s + (D,))
+    b[..., 2] = _entry_b(rng, s + (D,))
+    c[..., 2] = rng.integers(0, 1000, s + (D,))
+    a[..., 3:] = _entry_a(rng, s + (D, E), T, KEYS)
+    b[..., 3:] = _entry_b(rng, s + (D, E))
+    c[..., 3:] = rng.integers(0, 1000, s + (D, E))
+    edge_in = {"valid": rng.random(e) < 0.6, "type": typ, "a": a, "b": b,
+               "c": c}
+
+    k = s + (K,)
+    client_in = {
+        "valid": rng.random(k) < 0.5,
+        "src": (N + rng.integers(0, 6, k)).astype(np.int32),
+        "dest": rng.integers(0, N, k).astype(np.int32),
+        "due": rng.integers(0, 99, k).astype(np.int32),
+        "mid": rng.integers(0, 9999, k).astype(np.int32),
+        "reply_to": np.full(k, -1, np.int32),
+        "type": np.array([RAFT.T_READ, RAFT.T_WRITE, RAFT.T_CAS, RAFT.T_TXN, 0],
+                         np.int32)[rng.integers(0, 5, k)],
+        "a": rng.integers(-1, KEYS + 2, k).astype(np.int32),
+        "b": rng.integers(0, 5, k).astype(np.int32),
+        "c": rng.integers(0, 5, k).astype(np.int32)}
+    return state, edge_in, client_in
+
+
+
+def _raft_program(n, **opts):
+    return get_program("lin-kv", {"latency": {"mean": 0}, **opts},
+                       [f"n{i}" for i in range(n)], device="cpu")
+
+
+def _raft_to(prog, device):
+    """The program's tables on `device` (the step reads the neighbours)."""
+    import copy
+    p = copy.copy(prog)
+    p.device = torch.device(device)
+    p.neighbors, p.rev = prog.neighbors.to(device), prog.rev.to(device)
+    return p
+
+
+@pytest.mark.parametrize("n,C,keys,K_,F", [(5, 256, 256, 4, 1000),
+                                          (3, 37, 16, 3, 1),
+                                          (7, 100, 40, 6, 17),
+                                          (5, 33, 8, 4, 1)])
+@pytest.mark.parametrize("stalled", [False, True], ids=["", "stall"])
+def test_raft_step_matches_plain(cuda, n, C, keys, K_, F, stalled):
+    """K10 at odd shapes: clusters of 3, 5 and 7 nodes, logs not a
+    multiple of 32 long, one cluster and many, with and without the
+    stall mask; the plain version on the CPU from the same inputs."""
+    from maelstrom_tpu_torch import prng
+    from maelstrom_tpu_torch.net.static import EdgeMsgs
+    prog = _raft_program(n, log_cap=C, kv_keys=keys, inbox_cap=K_)
+    rng = np.random.default_rng(n * C + F + stalled)
+    state, edge_in, client_in = random_raft_inputs(rng, prog, lead=(F,))
+    rnd = rng.integers(30, 60, F).astype(np.int32)
+    stall = rng.random(F * n) < 0.3 if stalled else None
+    res = {}
+    for d in ("cpu", cuda):
+        p = _raft_to(prog, d)
+        keys_d = prng.split(prng.PRNGKey(F + n, d), F)
+
+        def rows(t):
+            t = torch.tensor(t, device=d)
+            return t.reshape((F * n,) + tuple(t.shape[2:]))
+        res[d] = p.step_rows(
+            {k: rows(v) for k, v in state.items()},
+            EdgeMsgs(**{k: rows(v) for k, v in edge_in.items()}),
+            Msgs(**{k: rows(v) for k, v in client_in.items()}),
+            torch.tensor(rnd, device=d), keys_d,
+            None if stall is None else torch.tensor(stall, device=d))
+    torch.cuda.synchronize()
+    _equal(res[cuda], res["cpu"])
+
+
+@pytest.mark.parametrize("F,n", [(1, 5), (7, 3), (10_000, 5)])
+def test_threefry_batched_keys_matches_plain(cuda, F, n):
+    from maelstrom_tpu_torch import prng
+    out = {}
+    for d in ("cpu", cuda):
+        keys = prng.split(prng.PRNGKey(F, d), F)
+        out[d] = (prng.split(keys, n), prng.split(keys, 1, base=17),
+                  prng.random_bits(keys, (n,)),
+                  prng.randint(keys, (n,), 0, 24))
+    torch.cuda.synchronize()
+    for g, r in zip(out[cuda], out["cpu"]):
+        np.testing.assert_array_equal(g.cpu().numpy(), r.numpy())
+
+
+@pytest.mark.parametrize("F,NK,K_,CC,p_valid",
+                         [(10_000, 20, 4, 4, 0.1), (3, 10_000, 5, 5000, 0.4),
+                          (5, 9000, 3, 7, 0.001), (2, 4096, 4, 4096, 0.5),
+                          (1, 20, 4, 10, 0.3)])
+def test_reply_compact_batched_matches_plain(cuda, F, NK, K_, CC, p_valid):
+    """K4 with one segment a cluster (or several, past 4096 rows)."""
+    rng = np.random.default_rng(F + NK)
+    flat = {"valid": rng.random((F, NK)) < p_valid,
+            **{f: rng.integers(-9, 999, (F, NK), dtype=np.int32)
+               for f in ("src", "dest", "due", "mid", "reply_to", "type",
+                         "a", "b", "c")}}
+    nm = rng.integers(0, 1 << 20, F, dtype=np.int32)
+    res = {d: compact_replies(Msgs(**_tensors(flat, d)), K_, CC,
+                              torch.tensor(nm, device=d))
+           for d in ("cpu", cuda)}
+    torch.cuda.synchronize()
+    for g, r in zip(res[cuda], res["cpu"]):
+        _equal(g, r)
+
+
+def test_edge_write_per_cluster_counters_match_plain(cuda):
+    """K2 on F clusters' rows with [F] counters: each overwrite and
+    clipped draw lands on its cluster's counter."""
+    F, n, D, ring, L = 40, 5, 4, 3, 7
+    rng = np.random.default_rng(3)
+    cfg = static.EdgeConfig(n_nodes=F * n, degree=D, lanes=L, ring=ring)
+    shape = (F * n, D, ring, L)
+    ch = {"valid": rng.random(shape) < 0.5,
+          **{f: rng.integers(-99, 99, shape, dtype=np.int32)
+             for f in ("type", "a", "b", "c")}}
+    out = {"valid": rng.random((F * n, D, L)) < 0.6,
+           **{f: rng.integers(-99, 99, (F * n, D, L), dtype=np.int32)
+              for f in ("type", "a", "b", "c")}}
+    lat = rng.integers(0, 5, (F * n, D, 1), dtype=np.int32)
+    res = {}
+    for d in ("cpu", cuda):
+        c = static.EdgeChannels(**_tensors(ch, d),
+                                overwrites=torch.zeros(F, dtype=torch.int32,
+                                                       device=d),
+                                lat_clipped=torch.zeros(F, dtype=torch.int32,
+                                                        device=d))
+        res[d] = static.edge_write(
+            cfg, c, static.EdgeMsgs(**_tensors(out, d)),
+            torch.tensor(11, dtype=torch.int32, device=d),
+            torch.tensor(lat, device=d),
+            torch.ones((), dtype=torch.bool, device=d).expand(F * n, D, L))
+    torch.cuda.synchronize()
+    _equal(res[cuda], res["cpu"])
+    assert int(res["cpu"].overwrites.sum()) > 0
+    assert int(res["cpu"].lat_clipped.sum()) > 0
+
+
+def test_raft_cluster_round_matches_plain(cuda):
+    """The cluster round through the kernels on the card against the
+    plain versions on the CPU: 120 rounds of 50 clusters with client
+    requests through the per-cluster pools."""
+    from maelstrom_tpu_torch import parallel as PP
+    from maelstrom_tpu_torch.net import tpu as T
+    F, R = 50, 120
+    rng = np.random.default_rng(8)
+    plan = [None if r % 4 or r < 30 else {
+        "valid": np.ones((F, 1), bool),
+        "src": np.full((F, 1), 5, np.int32),
+        "dest": rng.integers(0, 5, (F, 1), dtype=np.int32),
+        "type": rng.choice(np.array([10, 12, 14], np.int32), (F, 1)),
+        "a": rng.integers(0, 4, (F, 1), dtype=np.int32),
+        "b": rng.integers(0, 5, (F, 1), dtype=np.int32),
+        "c": rng.integers(0, 5, (F, 1), dtype=np.int32),
+        "mid": np.full((F, 1), r, np.int32)} for r in range(R)]
+    res = {}
+    for d in ("cpu", cuda):
+        prog = get_program("lin-kv", {"latency": {"mean": 0}},
+                           [f"n{i}" for i in range(5)], device=d)
+        cfg = T.NetConfig(n_nodes=5, n_clients=1, pool_cap=64,
+                          inbox_cap=prog.inbox_cap, client_cap=4)
+        fn = PP.make_cluster_round_fn(prog, cfg, device=d)
+        sims = PP.make_cluster_sims(prog, cfg, F, seed=4, device=d)
+        empty = Msgs.empty((F, 1), d)
+        for rows in plan:
+            sims = fn(sims, empty if rows is None
+                      else PP.injection_msgs(rows, d))[0]
+        res[d] = sims
+    torch.cuda.synchronize()
+    _equal(res[cuda], res["cpu"])

@@ -145,7 +145,9 @@ def test_free_set_rotation_matches_sorted_list():
     (["--resume", "x"], "checkpoint and resume"),
     (["--device-checker", "on"], "device Elle"),
     (["--telemetry"], "telemetry rings"),
-    (["-w", "lin-kv"], "the other node programs"),
+    (["-w", "kafka"], "the other node programs"),
+    (["-w", "txn-list-append"], "the Raft transaction programs"),
+    (["-w", "lin-tso"], "lin-mutex and lin-tso"),
 ])
 def test_cli_refuses_options_out_of_scope(extra, slice_, tmp_path,
                                           capsys):
