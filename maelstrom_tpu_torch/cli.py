@@ -2,10 +2,12 @@
 
 Counterpart of the `test` subcommand of `maelstrom_tpu/cli.py`, with its
 option names and defaults. The port runs the broadcast workload on the
-built-in program (`--node tpu:broadcast`) and the lin-kv workload on Raft
-(`--node tpu:lin-kv`, graded by the linearizability checker), on one
-card, or on the CPU with `--device cpu`, under loss, randomized latency
-and the partition, kill, pause, duplicate and weather nemeses. Every
+built-in program (`--node tpu:broadcast`), the lin-kv workload on Raft
+(`--node tpu:lin-kv`, graded by the linearizability checker), echo and
+unique-ids on the pool-path programs and g-set, pn-counter and g-counter
+on the CRDT programs (`--node tpu:<workload>`), on one card, or on the
+CPU with `--device cpu`, under loss, randomized latency and the
+partition, kill, pause, duplicate and weather nemeses. Every
 other option of the JAX CLI is recognised and refused unless it holds its
 default, with an error that names the slice of the port that brings it
 (`OUT_OF_SCOPE`).
@@ -15,6 +17,8 @@ default, with an error that names the slice of the port that brings it
         [--device cpu]
     python -m maelstrom_tpu_torch test -w lin-kv --node tpu:lin-kv \\
         --node-count 5 --rate 20 --nemesis kill,pause,partition [--device cpu]
+    python -m maelstrom_tpu_torch test -w pn-counter --node tpu:pn-counter \\
+        --node-count 5 --nemesis partition [--device cpu]
 """
 
 from __future__ import annotations
@@ -28,7 +32,9 @@ WORKLOADS = ["broadcast", "broadcast-batched", "echo", "g-set", "g-counter",
              "txn-list-append", "unique-ids", "kafka", "txn-rw-register"]
 
 # the built-in program each workload the port runs is served by
-PROGRAMS = {"broadcast": "tpu:broadcast", "lin-kv": "tpu:lin-kv"}
+PROGRAMS = {"broadcast": "tpu:broadcast", "lin-kv": "tpu:lin-kv",
+            **{w: f"tpu:{w}" for w in ("echo", "unique-ids", "g-set",
+                                       "pn-counter", "g-counter")}}
 
 # (option, refused when, the slice of the port that brings it)
 OUT_OF_SCOPE = [
@@ -38,8 +44,7 @@ OUT_OF_SCOPE = [
      "lin-mutex and lin-tso on tpu:lin-kv"),
     ("--workload", lambda v: v in ("txn-list-append", "txn-rw-register"),
      "the Raft transaction programs and their Elle checkers"),
-    ("--workload", lambda v: v not in ("broadcast", "lin-kv"),
-     "the other node programs"),
+    ("--workload", lambda v: v not in PROGRAMS, "the other node programs"),
     ("--nemesis", lambda v: "byzantine" in _faults(v),
      "the byzantine adversary"),
     ("--nemesis-targets", lambda v: v is not None,
@@ -97,11 +102,12 @@ def build_parser() -> argparse.ArgumentParser:
         description="The PyTorch / CUDA port of maelstrom_tpu.")
     sub = p.add_subparsers(dest="cmd", required=True)
     t = sub.add_parser("test", help="Run a single test")
-    t.add_argument("--node", help="Built-in node program: tpu:broadcast "
-                                  "or tpu:lin-kv")
+    t.add_argument("--node", help="Built-in node program: tpu:<the "
+                                  "workload>, tpu:lin-kv for lin-kv")
     t.add_argument("-w", "--workload", default="lin-kv", choices=WORKLOADS,
                    help="What workload to run (the port: broadcast, "
-                        "lin-kv)")
+                        "lin-kv, echo, unique-ids, g-set, pn-counter, "
+                        "g-counter)")
     t.add_argument("--device", default="cuda",
                    help="cuda (the default) or cpu: the kernels' plain "
                         "PyTorch versions on the CPU")

@@ -2,7 +2,7 @@
 
 Counterpart of `maelstrom_tpu/core.py` for the parts the port runs:
 `DEFAULTS`, `parse_nodes`, and the built-in-program branch of
-`build_test` for the broadcast and lin-kv workloads (the nemesis package
+`build_test` for the workloads of `WORKLOADS` (the nemesis package
 beside the clients, the generator phases with the nemesis's final heal,
 the composed checker suite), without the host network and external node
 processes. `run` makes the store dir, attaches the network journal and
@@ -10,6 +10,7 @@ the run log, and hands the test to `runner.tpu_runner.run_tpu_test`."""
 
 from __future__ import annotations
 
+import importlib
 import logging
 import os
 
@@ -56,18 +57,11 @@ DEFAULTS = dict(
 )
 
 
-def _broadcast(opts):
-    from .workloads.broadcast import workload
-    return workload(opts)
-
-
-def _lin_kv(opts):
-    from .workloads.lin_kv import workload
-    return workload(opts)
-
-
-# the workloads the port runs, each on its built-in program
-WORKLOADS = {"broadcast": _broadcast, "lin-kv": _lin_kv}
+# the workloads the port runs, each on its built-in program: the module
+# of `workloads` that builds it
+WORKLOADS = {"broadcast": "broadcast", "lin-kv": "lin_kv", "echo": "echo",
+             "unique-ids": "unique_ids", "g-set": "g_set",
+             "pn-counter": "pn_counter", "g-counter": "g_counter"}
 
 
 def parse_nodes(opts: dict) -> list[str]:
@@ -91,7 +85,9 @@ def build_test(opts: dict) -> dict:
         raise NotImplementedError(
             f"workload {opts['workload']!r} is ported with the other node "
             f"programs")
-    workload = WORKLOADS[opts["workload"]](opts)
+    workload = importlib.import_module(
+        f"{__package__}.workloads.{WORKLOADS[opts['workload']]}"
+    ).workload(opts)
     nemesis_pkg = nem.package(set(opts["nemesis"]),
                               interval_s=opts["nemesis_interval"])
 

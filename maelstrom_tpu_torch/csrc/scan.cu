@@ -18,7 +18,11 @@
 //     where go fails, exit_k takes k unless an earlier round already set
 //     it. The host reads exit_k once a chunk of rounds.
 // JAX gathers a payload for all CW rows and drops the invalid ones; this
-// touches only the valid rows.
+// touches only the valid rows. The int32 form (mt_reply_log_append_i32,
+// for PnCounterProgram.reply_payload, maelstrom_tpu/nodes/pn_counter.py
+// :211-214: reply_payload_words = 1) copies the row rows[clip(src)] of an
+// [N, W] int32 plane (`seen` points at it, V = W) as the payload instead
+// of packing bits.
 //
 // Bound: CW valid bytes read once, plus (41 + 4 W + V) bytes for each
 // valid row; the main path's rounds carry few replies, so it is bound by
@@ -95,6 +99,7 @@ __global__ void count_kernel(const u8* __restrict__ valid,
   if (threadIdx.x == 0) seg_count[blockIdx.x] = cnt;
 }
 
+template <bool kRows>
 __device__ void write_row(const AppendArgs& A, const AppendInts& I,
                           long long i, long long pos) {
   A.l_valid[pos] = 1;
@@ -110,6 +115,12 @@ __device__ void write_row(const AppendArgs& A, const AppendInts& I,
   A.l_rounds[pos] = *A.round_ptr;
   if (I.W == 0) return;
   const int node = mt_clip(A.src[i], 0, I.N - 1);
+  if (kRows) {
+    const int* row = reinterpret_cast<const int*>(A.seen) +
+                     (long long)node * I.W;
+    for (int w = 0; w < I.W; ++w) A.l_plog[pos * I.W + w] = row[w];
+    return;
+  }
   const u8* row = A.seen + (long long)node * I.V;
   for (int w = 0; w < I.W; ++w) {
     unsigned word = 0u;
@@ -121,6 +132,7 @@ __device__ void write_row(const AppendArgs& A, const AppendInts& I,
   }
 }
 
+template <bool kRows>
 __global__ void append_kernel(AppendArgs A, AppendInts I) {
   __shared__ int red[kWarps];
   __shared__ int warp_base[kWarps];
@@ -152,7 +164,7 @@ __global__ void append_kernel(AppendArgs A, AppendInts I) {
     if (v) {
       const long long pos =
           rn + vr + wb + __popc(m & ((1u << lane) - 1u));
-      if (pos < I.rcap) write_row(A, I, i, pos);
+      if (pos < I.rcap) write_row<kRows>(A, I, i, pos);
     }
     vr += tile_valid;
   }
@@ -194,15 +206,9 @@ __global__ void quiet_kernel(Planes P, u8* __restrict__ quiet) {
   if (__syncthreads_or(busy) && threadIdx.x == 0) *quiet = 0;
 }
 
-}  // namespace
-
-// ptrs: the fields of AppendArgs in order
-// ints: CW, rcap (>= 1), W, N, V, k, k_max, stop, and the
-//       length of the seg_count scratch (ceil(CW / 4096) entries needed
-//       past 4096 rows)
-MT_API int mt_reply_log_append(void* const* p, int n_ptrs,
-                               const long long* v, int n_ints,
-                               void* stream) {
+template <bool kRows>
+int reply_log_append(void* const* p, int n_ptrs, const long long* v,
+                     int n_ints, void* stream) {
   if (mt_bad_args(n_ptrs, kAppendPtrs, n_ints, 9))
     return cudaErrorInvalidValue;
   AppendArgs A;
@@ -219,7 +225,8 @@ MT_API int mt_reply_log_append(void* const* p, int n_ptrs,
   I.n_seg = (int)((I.CW + kSeg - 1) / kSeg);
   if (I.CW < 1 || (I.n_seg > 1 && I.n_seg > v[8]) || I.rcap < 1 ||
       A.l_valid == nullptr ||
-      (I.W > 0 && (A.l_plog == nullptr || A.seen == nullptr)))
+      (I.W > 0 && (A.l_plog == nullptr || A.seen == nullptr)) ||
+      (kRows && I.V != I.W))
     return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (I.n_seg > 1) {
@@ -227,8 +234,27 @@ MT_API int mt_reply_log_append(void* const* p, int n_ptrs,
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  append_kernel<<<I.n_seg, kThreads, 0, st>>>(A, I);
+  append_kernel<kRows><<<I.n_seg, kThreads, 0, st>>>(A, I);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// ptrs: the fields of AppendArgs in order
+// ints: CW, rcap (>= 1), W, N, V, k, k_max, stop, and the
+//       length of the seg_count scratch (ceil(CW / 4096) entries needed
+//       past 4096 rows)
+MT_API int mt_reply_log_append(void* const* p, int n_ptrs,
+                               const long long* v, int n_ints,
+                               void* stream) {
+  return reply_log_append<false>(p, n_ptrs, v, n_ints, stream);
+}
+
+// as mt_reply_log_append, with `seen` an [N, W] int32 plane and V = W
+MT_API int mt_reply_log_append_i32(void* const* p, int n_ptrs,
+                                   const long long* v, int n_ints,
+                                   void* stream) {
+  return reply_log_append<true>(p, n_ptrs, v, n_ints, stream);
 }
 
 // ptrs: the bool planes (1 to 8), then the quiet flag (a bool the caller

@@ -1,8 +1,8 @@
 """Jepsen-style operation generators.
 
 A copy of `maelstrom_tpu/generators.py`, cut to the combinators the
-broadcast and lin-kv workloads, the nemesis schedules and the test's
-phase composition use: `stagger`, `mix`, `each_thread`, `phases`, `Fn`,
+port's workloads, the nemesis schedules and the test's phase composition
+use: `stagger`, `mix`, `each_thread`, `phases`, `Fn`, `Filter`,
 `time_limit`, `sleep`, `Log`, `Seq` over a `cycle`, `Any2`, the client
 and nemesis routing wrappers, and the leaf generators behind them.
 They are pure generators, as there:
@@ -298,6 +298,31 @@ class Repeat(Gen):
         if not free:
             return PENDING, self
         return fill_op(self.op_map, ctx, free[0]), self
+
+
+class Filter(Gen):
+    """Keeps only ops matching pred (jepsen gen/filter; used by g-counter
+    to drop negative deltas, reference `g_counter.clj:30-40`)."""
+
+    def __init__(self, pred, gen):
+        self.pred = pred
+        self.gen = to_gen(gen)
+
+    def op(self, ctx):
+        g = self.gen
+        for _ in range(10000):
+            res, g = g.op(ctx)
+            if res is None or res == PENDING:
+                return res, Filter(self.pred, g)
+            if self.pred(res):
+                return res, Filter(self.pred, g)
+        raise RuntimeError("gen/filter: no matching op in 10000 tries")
+
+    def update(self, ctx, event):
+        return Filter(self.pred, self.gen.update(ctx, event))
+
+    def next_interesting_time(self, ctx) -> float:
+        return self.gen.next_interesting_time(ctx)
 
 
 class EachThread(Gen):

@@ -61,6 +61,9 @@ class Op:
     def is_ok(self):
         return self.type == OK
 
+    def is_info(self):
+        return self.type == INFO
+
     def to_dict(self) -> dict:
         d = {"index": self.index, "type": self.type, "f": self.f,
              "value": self.value, "process": self.process, "time": self.time}

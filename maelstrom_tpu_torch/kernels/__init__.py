@@ -106,9 +106,20 @@ BROADCAST_STEP_STALL = Kernel("broadcast_step_stall",
                               "maelstrom_tpu/sim.py:94")
 RAFT_STEP = Kernel("raft_step", "maelstrom_tpu_torch/csrc/raft.cu",
                    "maelstrom_tpu/nodes/raft.py:220")
+ECHO_STEP = Kernel("echo_step", "maelstrom_tpu_torch/csrc/pool.cu",
+                   "maelstrom_tpu/nodes/echo.py:28")
+UNIQUE_IDS_STEP = Kernel("unique_ids_step", "maelstrom_tpu_torch/csrc/pool.cu",
+                         "maelstrom_tpu/nodes/unique_ids.py:30")
+PN_COUNTER_STEP = Kernel("pn_counter_step",
+                         "maelstrom_tpu_torch/csrc/pn_counter.cu",
+                         "maelstrom_tpu/nodes/pn_counter.py:87")
+REPLY_LOG_APPEND_I32 = Kernel("reply_log_append_i32",
+                              "maelstrom_tpu_torch/csrc/scan.cu",
+                              "maelstrom_tpu/nodes/pn_counter.py:211")
 KERNELS = (EDGE_READ, EDGE_WRITE, BROADCAST_STEP, REPLY_COMPACT,
            REPLY_LOG_APPEND, QUIET_PROBE, THREEFRY, EDGE_FAULTS,
-           EDGE_WRITE_SPILL, BROADCAST_STEP_STALL, RAFT_STEP)
+           EDGE_WRITE_SPILL, BROADCAST_STEP_STALL, RAFT_STEP, ECHO_STEP,
+           UNIQUE_IDS_STEP, PN_COUNTER_STEP, REPLY_LOG_APPEND_I32)
 
 _state = {"lib": None, "forced_plain": False}
 

@@ -4,8 +4,10 @@ Counterpart of `maelstrom_tpu/nodes/__init__.py`: a node program is a
 batched state machine whose per-node state is a dict of tensors with a
 leading node axis, plus the host-boundary contract that keeps the JSON
 protocol as the compatibility surface (`request_for_op`, `encode_body`,
-`decode_body`, `completion`). The port has the broadcast program and
-Raft serving lin-kv; `get_program` names the slice that brings any other.
+`decode_body`, `completion`). The port has the broadcast, g-set and
+PN-/g-counter programs on the edge channels, Raft serving lin-kv, and
+echo and unique-ids on the pool path; `get_program` names the slice that
+brings any other.
 
 Type code 0 is reserved (invalid slot), 1 is the shared RPC error reply;
 programs define their own codes from 10 up."""
@@ -17,6 +19,9 @@ import math
 from typing import Any, Callable
 
 import torch
+
+from ..net.tpu import I32
+from ..sim import _freeze
 
 T_INVALID = 0
 T_ERROR = 1     # error reply: a = error code, b = interned text
@@ -210,13 +215,71 @@ def wire_name_table(program_module) -> dict[int, str]:
     return names
 
 
+# --- the pool-path steps (K11, K12) -----------------------------------------
+
+_MSG_FIELDS = ("valid", "src", "dest", "due", "mid", "reply_to", "type",
+               "a", "b", "c")
+
+
+def freeze_step(stall, state, new, *outs):
+    """The round's freeze (the JAX package's `sim.py:94-112, 429-434`)
+    on a plain step's result: nodes (rows) where the [N] bool `stall` is
+    set keep their `state` row and send nothing on any of `outs`, the
+    node-led outboxes ([N, K] client rows, [N, D, L] edge lanes).
+    Returns (state', *outs'); `stall` None changes nothing."""
+    if stall is None:
+        return (new, *outs)
+    return (_freeze(stall, state, new),
+            *(o.replace(valid=o.valid & ~stall.reshape(
+                stall.shape + (1,) * (o.valid.dim() - 1))) for o in outs))
+
+
+def launch_pool_step(kernel, inbox, counter, stall, t_req: int,
+                     t_reply: int, mint: bool = False):
+    """Launches K11 (echo) or, with `mint`, K12 (unique-ids) of
+    `csrc/pool.cu` on an [N, K] inbox and the program's [N] int32
+    counter, with the optional [N] bool stall mask. The outbox's
+    passed-through fields are the inbox's own tensors, as in the plain
+    versions (dest = src, reply_to = mid); the kernel writes valid, type
+    (and with `mint` a and b). Returns (counter', outbox)."""
+    N, Kc = inbox.valid.shape
+    dev = inbox.valid.device
+    for f in _MSG_FIELDS:
+        t = getattr(inbox, f)
+        if tuple(t.shape) != (N, Kc) or t.dtype != (
+                torch.bool if f == "valid" else I32):
+            raise ValueError(f"{kernel.name} inbox.{f}: "
+                             f"{tuple(t.shape)} {t.dtype}")
+    if tuple(counter.shape) != (N,) or counter.dtype != I32:
+        raise ValueError(f"{kernel.name} counter: {tuple(counter.shape)} "
+                         f"{counter.dtype}")
+    if stall is not None and (tuple(stall.shape) != (N,)
+                              or stall.dtype != torch.bool):
+        raise ValueError(f"{kernel.name} stall: {tuple(stall.shape)} "
+                         f"{stall.dtype}")
+
+    def new(dtype=I32):
+        return torch.empty((N, Kc), dtype=dtype, device=dev)
+    out = inbox.replace(valid=new(torch.bool), dest=inbox.src,
+                        reply_to=inbox.mid, type=new())
+    if mint:
+        out = out.replace(a=new(), b=new())
+    counter2 = torch.empty_like(counter)
+    kernel.launch(
+        [inbox.valid.contiguous(), inbox.type.contiguous(),
+         counter.contiguous(),
+         None if stall is None else stall.contiguous(), out.valid,
+         out.type, out.a if mint else None, out.b if mint else None,
+         counter2], [N, Kc, t_req, t_reply], dev)
+    return counter2, out
+
+
 PROGRAMS: dict[str, Callable] = {}
 
 # the slice of the port that brings each of the JAX package's other
 # programs
 LATER = {
-    **dict.fromkeys(("echo", "unique-ids", "g-set", "g-counter",
-                     "pn-counter", "kafka", "broadcast-batched"),
+    **dict.fromkeys(("kafka", "broadcast-batched"),
                     "the other node programs"),
     **dict.fromkeys(("txn-list-append", "txn-rw-register"),
                     "the Raft transaction programs"),
@@ -233,7 +296,8 @@ def register(cls):
 
 def get_program(name: str, opts: dict, nodes: list[str],
                 device="cuda") -> NodeProgram:
-    from . import broadcast, raft  # noqa: F401  (register the programs)
+    from . import (broadcast, echo, gset, pn_counter,  # noqa: F401
+                   raft, unique_ids)     # (register the programs)
     if name not in PROGRAMS:
         later = LATER.get(name.split(":")[0], "a later slice")
         raise ValueError(f"node program {name!r} is not ported to "

@@ -30,11 +30,11 @@ import torch
 from .. import kernels as K
 from ..net.static import EdgeConfig, EdgeMsgs, reverse_index
 from ..net.tpu import I32
-from ..sim import _freeze, pack_words
+from ..sim import pack_words
 from ..tree import resolve_device
 from ..workloads.broadcast import TOPOLOGIES, topology_indices
 from . import (EncodeCapacityError, NodeProgram, edge_capacity, edge_timing,
-               register)
+               freeze_step, register)
 
 T_BCAST = 10      # client -> node: a = value index
 T_BCAST_OK = 11
@@ -320,14 +320,8 @@ class BroadcastProgram(NodeProgram):
         if K.use_kernel(edge_in.valid):
             return self._edge_step_kernel(state, edge_in, client_in,
                                           ctx["round"], stall)
-        out = self.edge_step_plain(state, edge_in, client_in, ctx["round"])
-        if stall is None:
-            return out
-        new, edge_out, client_out = out
-        return (_freeze(stall, state, new),
-                edge_out.replace(valid=edge_out.valid
-                                 & ~stall[:, None, None]),
-                client_out.replace(valid=client_out.valid & ~stall[:, None]))
+        return freeze_step(stall, state, *self.edge_step_plain(
+            state, edge_in, client_in, ctx["round"]))
 
     def quiet_planes(self, state):
         """The bool planes of the JAX package's `quiescent` (idle when no

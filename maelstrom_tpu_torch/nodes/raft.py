@@ -34,11 +34,10 @@ from .. import kernels as K
 from .. import prng
 from ..net.static import EdgeConfig, EdgeMsgs, reverse_index
 from ..net.tpu import I32, Msgs
-from ..sim import _freeze
 from ..tree import resolve_device
 from ..workloads.broadcast import TOPOLOGIES, topology_indices
 from . import NodeProgram, T_ERROR as T_ERR, edge_capacity, edge_timing, \
-    register
+    freeze_step, register
 
 # client RPCs
 T_READ = 10       # a = key
@@ -658,14 +657,8 @@ class RaftProgram(LinKVWire, NodeProgram):
         if K.use_kernel(edge_in.valid):
             return self._step_kernel(state, edge_in, client_in, rnd, keys,
                                      stall)
-        new, edge_out, client_out = self.edge_step_plain(
-            state, edge_in, client_in, rnd, keys)
-        if stall is None:
-            return new, edge_out, client_out
-        return (_freeze(stall, state, new),
-                edge_out.replace(valid=edge_out.valid
-                                 & ~stall[:, None, None]),
-                client_out.replace(valid=client_out.valid & ~stall[:, None]))
+        return freeze_step(stall, state, *self.edge_step_plain(
+            state, edge_in, client_in, rnd, keys))
 
     def edge_step(self, state, edge_in: EdgeMsgs, client_in, ctx):
         """One cluster: (state [N, ...], edge_in [N, D, L], client_in Msgs

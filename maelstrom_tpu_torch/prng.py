@@ -88,10 +88,10 @@ def _numel(shape) -> int:
     return int(np.prod(shape, dtype=np.int64)) if len(shape) else 1
 
 
-def PRNGKey(seed: int, device="cpu") -> torch.Tensor:  # noqa: N802
-    """The raw key of an integer seed: [seed >> 32, seed & 0xFFFFFFFF]
-    (a seed within int32, as the JAX package's seeds are, gives high
-    word 0)."""
+def PRNGKey(seed: int, device) -> torch.Tensor:  # noqa: N802
+    """The raw key of an integer seed on `device`: [seed >> 32, seed &
+    0xFFFFFFFF] (a seed within int32, as the JAX package's seeds are,
+    gives high word 0)."""
     seed = int(seed)
     hi = (seed >> 32) & M32 if not -2**31 <= seed < 2**31 else 0
     return torch.tensor([hi, seed & M32], dtype=torch.int64).to(

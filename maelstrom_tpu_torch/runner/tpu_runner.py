@@ -272,9 +272,12 @@ class TpuRunner:
         lat = test.get("latency") or {}
         mean_rounds = float(lat.get("mean", 0)) / self.ms_per_round
         n = len(nodes)
-        # edge programs route node<->node traffic over static channels;
-        # the pool only ever holds in-flight *client requests*
-        default_pool = max(8 * self.concurrency, 64)
+        if getattr(self.program, "is_edge", False):
+            # edge programs route node<->node traffic over static
+            # channels; the pool only ever holds in-flight client requests
+            default_pool = max(8 * self.concurrency, 64)
+        else:
+            default_pool = max(4096, 4 * n * self.program.outbox_cap)
         pool_cap = int(test.get("pool_cap") or default_pool)
         # fault capabilities are static config: a run without a fault
         # package pays nothing for its round-path work
@@ -672,7 +675,9 @@ class TpuRunner:
             self._scan_fn = make_scan_fn(
                 program, cfg, reply_cap=self.reply_log_cap,
                 journal_cap=self.journal_scan_cap if journaled else None,
-                device=self.device, fetch=self._fetch_flag)
+                device=self.device, fetch=self._fetch_flag,
+                first_chunk=None if getattr(program, "is_edge", False)
+                else 1)
         scan = self._scan_fn
         syncs0, replay0 = scan.host_syncs, scan.replayed
         t0 = time.perf_counter()
@@ -741,7 +746,8 @@ class TpuRunner:
             dest = np.asarray(batch.dest).reshape(-1)[valid]
             self.journal.log_batch(typ, mid, np.full(mid.shape, t_ns),
                                    src, dest, node_names=self.node_names)
-        self._journal_edges(io[3], io[4], r)
+        if len(io) >= 5:
+            self._journal_edges(io[3], io[4], r)
 
     def _journal_edges(self, edge_out, edge_in, r: int):
         """Journal rows for static edge-channel traffic. Ids are

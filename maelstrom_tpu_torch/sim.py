@@ -1,9 +1,16 @@
 """Simulation composition: network + node program = one round.
 
-Counterpart of `maelstrom_tpu/sim.py` for the edge-channel path:
+Counterpart of `maelstrom_tpu/sim.py`. Edge programs (`is_edge`) run the
+edge-channel round:
 
     inject client msgs -> deliver due msgs -> read edges -> step all nodes
     -> compact client replies -> write edges
+
+and every other program the pool-path round, the classic Maelstrom
+model, in which node replies travel through the flight pool:
+
+    inject client msgs -> deliver due msgs -> step all nodes -> send the
+    flattened outboxes
 
 `make_round_fn` gives that round for interactive use; `make_run_fn` loops
 it over a pre-scheduled injection plan on the device, with no host sync
@@ -44,10 +51,6 @@ class SimState(Struct):
 
 
 def _check_program(program, cfg: NetConfig, device) -> None:
-    if not getattr(program, "is_edge", False):
-        raise NotImplementedError(
-            f"{program.name}: only edge programs run in this slice (the "
-            f"pool-path round comes with the other node programs)")
     if program.device != device:
         raise ValueError(f"program built for {program.device}, simulation "
                          f"asked for {device}")
@@ -61,8 +64,9 @@ def make_sim(program, cfg: NetConfig, seed: int = 0, device="cuda",
     dev = resolve_device(device)
     T.check_scope(cfg)
     _check_program(program, cfg, dev)
-    channels = static.make_channels(program.edge_cfg, dev,
-                                    track_send_round=track_edge_send_round)
+    channels = (static.make_channels(
+        program.edge_cfg, dev, track_send_round=track_edge_send_round)
+        if getattr(program, "is_edge", False) else None)
     nodes = program.init_state()
     key = prng.PRNGKey(seed, dev)
     return SimState(net=T.make_net(cfg, dev), nodes=nodes, key=key,
@@ -146,10 +150,37 @@ def _round(program, cfg: NetConfig, sim: SimState, inject: Msgs):
     """One simulation round. `inject` is a flat Msgs batch of client
     requests (src = client index >= n_nodes). Returns (sim', client_msgs,
     io) as the JAX version does."""
-    if not getattr(program, "is_edge", False):
-        raise NotImplementedError(
-            f"{program.name}: the pool-path round is not ported yet")
-    return _round_edge(program, cfg, sim, inject)
+    if getattr(program, "is_edge", False):
+        return _round_edge(program, cfg, sim, inject)
+    return _round_pool(program, cfg, sim, inject)
+
+
+def _round_pool(program, cfg: NetConfig, sim: SimState, inject: Msgs):
+    """The pool-path round (the JAX package's `_round` for programs
+    without `is_edge`, `sim.py:412-460`): the client injections are sent
+    with k1, due messages delivered, every node stepped on its [N, K]
+    inbox with k2 in its ctx, and the outboxes, flattened to [N * O] with
+    src = the sending node, sent with k3. Client replies are the
+    delivery's client batch. Killed and paused nodes (`ctx["stall"]`)
+    keep their state and send nothing: the step applies the freeze.
+    io = (inject_sent, outbox_sent, inbox)."""
+    N, O = cfg.n_nodes, program.outbox_cap
+    keys = prng.split(sim.key, 4)
+    net, inject_sent = T._send(cfg, sim.net, inject, keys[1])
+    net, inbox, client_msgs = T._deliver(cfg, net)
+    ctx = {"round": net.round, "key": keys[2]}
+    if cfg.enable_stall:
+        ctx["stall"] = sim.net.down | sim.net.paused
+    nodes, outbox = program.step(sim.nodes, inbox, ctx)
+    flat = tree_map(lambda f: f.reshape((N * O,) + tuple(f.shape[2:])),
+                    outbox)
+    src = torch.arange(N, dtype=I32, device=flat.valid.device)
+    flat = flat.replace(src=src.repeat_interleave(O))
+    net, outbox_sent = T._send(cfg, net, flat, keys[3])
+    net = T.advance(net)
+    return (SimState(net=net, nodes=nodes, key=keys[0].contiguous(),
+                     durable=program.durable_view(nodes)),
+            client_msgs, (inject_sent, outbox_sent, inbox))
 
 
 # --- the edge fault block (K8) ------------------------------------------------
@@ -478,8 +509,10 @@ def append_replies_plain(log, cm: Msgs, seen, n_nodes: int, round_i,
                          k: int, k_max: int, stop: bool, exit_k):
     """The JAX package's `append_replies` and the scan's `cond`, in place:
     cm's valid rows go to rows rn, rn+1, ... of the log (rows at rcap or
-    beyond are dropped), stamped with `round_i`, with the packed words of
-    seen[clip(src)] as payload. Returns rn' = rn + every valid row. When
+    beyond are dropped), stamped with `round_i`, with the payload of
+    node clip(src): the packed words of seen[clip(src)] for a bool plane
+    [N, V], the row itself for int32 rows [N, W] (the program's
+    `reply_payload_plane`). Returns rn' = rn + every valid row. When
     go = k < k_max & ~(stop & any valid) & rn' + CW <= rcap fails and
     exit_k > k, exit_k becomes k."""
     rlog, rounds, plog, rn = log
@@ -493,8 +526,9 @@ def append_replies_plain(log, cm: Msgs, seen, n_nodes: int, round_i,
         getattr(rlog, f)[at] = getattr(cm, f)[keep]
     rounds[at] = round_i.to(I32)
     if plog is not None:
-        src = cm.src[keep].clamp(0, n_nodes - 1).long()
-        plog[at] = pack_words(seen[src], plog.shape[1])
+        rows = seen[cm.src[keep].clamp(0, n_nodes - 1).long()]
+        plog[at] = (rows if rows.dtype == I32
+                    else pack_words(rows, plog.shape[1]))
     rn2 = rn + total
     go = (k < k_max) & ~(stop & (total > 0)) & (rn2 + CW <= rcap)
     exit_k.copy_(torch.where(~go & (exit_k > k), k, exit_k))
@@ -506,8 +540,9 @@ def append_replies(log, cm: Msgs, seen, n_nodes: int, round_i, k: int,
     """Appends a round's client replies to the scan's reply log and sets
     the scan's exit flag (see `append_replies_plain`); the kernel is K5
     `reply_log_append` in `csrc/scan.cu`. `seen` is the program's [N, V]
-    bool plane whose packed words are the reply payload (None without
-    payload)."""
+    bool plane whose packed words are the reply payload, or its [N, W]
+    int32 payload rows (K5's int32 form, `reply_log_append_i32`), or
+    None without payload."""
     if not K.use_kernel(cm.valid):
         return append_replies_plain(log, cm, seen, n_nodes, round_i, k,
                                     k_max, stop, exit_k)
@@ -526,14 +561,17 @@ def append_replies(log, cm: Msgs, seen, n_nodes: int, round_i, k: int,
     rlog, rounds, plog, rn = log
     rcap = rounds.shape[0]
     W = 0 if plog is None else plog.shape[1]
+    rows_i32 = W and seen is not None and seen.dtype == I32
     if W and (seen is None or seen.dim() != 2 or seen.shape[0] != n_nodes
-              or seen.dtype != torch.bool or seen.shape[1] > W * 32):
+              or (seen.shape[1] != W if rows_i32 else
+                  seen.dtype != torch.bool or seen.shape[1] > W * 32)):
         raise ValueError("append_replies: payload needs the [N, V] bool "
-                         "plane, V <= 32 W")
+                         "plane, V <= 32 W, or [N, W] int32 rows")
     V = seen.shape[1] if W else 0
     rn_out = torch.empty((), dtype=I32, device=dev)
     seg_count = torch.empty(max(1, -(-CW // 4096)), dtype=I32, device=dev)
-    K.REPLY_LOG_APPEND.launch(
+    kernel = K.REPLY_LOG_APPEND_I32 if rows_i32 else K.REPLY_LOG_APPEND
+    kernel.launch(
         [getattr(cm, f).contiguous() for f in _LOG_FIELDS]
         + [getattr(rlog, f) for f in _LOG_FIELDS]
         + [rounds, plog, seen.contiguous() if V else None, round_i, rn,
@@ -557,7 +595,8 @@ def _reset_log_tail(log, rn_from):
 
 def make_scan_fn(program, cfg: NetConfig, reply_cap: int = 256,
                  journal_cap: int | None = None, device="cuda",
-                 chunk: int = SCAN_CHUNK, fetch=None):
+                 chunk: int = SCAN_CHUNK, fetch=None,
+                 first_chunk: int | None = None):
     """scan_fn(sim, inject, k_max, stop_on_reply=True) -> (sim', cm, k,
     (rlog, rounds, plog, rn)[, buf]): the JAX package's `make_scan_fn`
     in its non-continuous form with a reply log (the runner's only
@@ -579,7 +618,12 @@ def make_scan_fn(program, cfg: NetConfig, reply_cap: int = 256,
     between dispatches), the log rows it appended are emptied, and
     exactly the rounds up to the exit round are replayed: from the same
     key they draw the same numbers.
-    The host reads at most ceil(k / chunk) flags a dispatch;
+    With `first_chunk` (the runner's choice for pool-path programs, whose
+    dispatches at a high op rate end a round or two in), a dispatch that
+    stops on replies starts with a chunk of `first_chunk` rounds and
+    doubles it up to `chunk`, so that an early exit runs few rounds past
+    it; the host then reads at most ceil(k / chunk) + log2(chunk /
+    first_chunk) flags a dispatch, else ceil(k / chunk).
     `scan_fn.host_syncs` counts them."""
     dev = resolve_device(device)
     T.check_scope(cfg)
@@ -590,6 +634,8 @@ def make_scan_fn(program, cfg: NetConfig, reply_cap: int = 256,
     N = cfg.n_nodes
     CC = max(cfg.n_clients, 1)
     chunk = max(1, int(chunk))
+    first = chunk if first_chunk is None else min(max(1, int(first_chunk)),
+                                                  chunk)
     read = fetch or (lambda t: int(t))
 
     def scan_fn(sim: SimState, inject: Msgs, k_max, stop_on_reply=True):
@@ -624,8 +670,10 @@ def make_scan_fn(program, cfg: NetConfig, reply_cap: int = 256,
             return sim2, cm2
 
         k, cur, cm = 0, sim, None
+        size = first if stop else chunk
         while True:
-            n = min(chunk, last - k)
+            n = min(size, last - k)
+            size = min(2 * size, chunk)
             # every other leaf is replaced, not updated, by a round: the
             # snapshot holds the chunk's start key and fault state
             snap = cur.replace(channels=tree_map(lambda t: t.clone(),

@@ -53,7 +53,7 @@ def test_port_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", GUARD], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 34    # every module was imported
+    assert int(res.stdout.split()[-1]) >= 47    # every module was imported
 
 
 def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
@@ -66,6 +66,9 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
         get_program("broadcast", opts, nodes)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         get_program("lin-kv", {}, nodes)
+    for name in ("echo", "unique-ids", "g-set", "pn-counter", "g-counter"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            get_program(name, {}, nodes)
     raft = get_program("lin-kv", {}, nodes, device="cpu")
     prog = get_program("broadcast", opts, nodes, device="cpu")
     cfg = NetConfig(n_nodes=4, n_clients=1)
@@ -84,7 +87,14 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
                  lambda: cli.main(args),
                  lambda: cli.main(["test", "-w", "lin-kv", "--node",
                                    "tpu:lin-kv", "--node-count", "3",
-                                   "--store", str(tmp_path)])):
+                                   "--store", str(tmp_path)]),
+                 lambda: cli.main(["test", "-w", "echo", "--node",
+                                   "tpu:echo", "--node-count", "3",
+                                   "--store", str(tmp_path)]),
+                 lambda: core.run({"workload": "pn-counter",
+                                   "node": "tpu:pn-counter",
+                                   "node_count": 3,
+                                   "store_root": str(tmp_path)})):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert not any(tmp_path.iterdir())      # refused before any store dir
@@ -102,3 +112,13 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
                     "node_count": 3, "time_limit": 0.3, "rate": 20,
                     "device": "cpu", "store_root": str(tmp_path)})
     assert res["workload"]["valid"] is True and res["net"]["valid"] is True
+    # and the pool-path and CRDT programs
+    assert cli.main(["test", "-w", "unique-ids", "--node", "tpu:unique-ids",
+                     "--node-count", "3", "--time-limit", "0.2",
+                     "--ms-per-round", "5", "--device", "cpu", "--store",
+                     str(tmp_path)]) == 0
+    res = core.run({"workload": "pn-counter", "node": "tpu:pn-counter",
+                    "node_count": 3, "time_limit": 0.2, "recovery_s": 0.1,
+                    "ms_per_round": 5.0, "device": "cpu",
+                    "store_root": str(tmp_path)})
+    assert res["valid"] is True

@@ -6,6 +6,9 @@ two-pass boundary (4096 rows), and quiescence planes of odd lengths
 and alignments. The plain version runs on the CPU from the same numpy inputs.
 Tolerance: exact (int32 and bool).
 
+The pool-path steps (K11, K12), the PN-counter step (K13, up to 1,500
+origins and spill lanes) and K5's int32 payload form too.
+
 These tests need a CUDA device and skip without one. They import
 nothing of JAX, so they run on a machine without it:
 
@@ -461,6 +464,145 @@ def random_raft_inputs(rng, prog, lead=(), rnd=40):
         "c": rng.integers(0, 5, k).astype(np.int32)}
     return state, edge_in, client_in
 
+
+
+# --- the pool-path steps (K11, K12), the PN-counter step (K13) and K5's
+# int32 payload form -------------------------------------------------------
+
+def random_pool_inbox(rng, n, K, req, p_valid=0.6):
+    """An [n, K] inbox as numpy fields: requests of type `req` and other
+    type codes, random words in every field."""
+    shape = (n, K)
+    return {"valid": rng.random(shape) < p_valid,
+            "src": rng.integers(0, n + 4, shape, dtype=np.int32),
+            "dest": rng.integers(0, n, shape, dtype=np.int32),
+            "due": rng.integers(0, 50, shape, dtype=np.int32),
+            "mid": rng.integers(0, 1000, shape, dtype=np.int32),
+            "reply_to": rng.integers(-1, 1000, shape, dtype=np.int32),
+            "type": np.where(rng.random(shape) < 0.7, req,
+                             rng.integers(0, 20, shape)).astype(np.int32),
+            "a": rng.integers(-99, 99, shape, dtype=np.int32),
+            "b": rng.integers(-99, 99, shape, dtype=np.int32),
+            "c": rng.integers(-99, 99, shape, dtype=np.int32)}
+
+
+def random_pn_inputs(rng, prog):
+    """(state, edge_in, client_in) as numpy fields for a PN-counter step:
+    contributions up to 40 (some near the int32 limit on the own
+    origin), pending bits dense on some edges and absent or sparse on
+    others (fewer pending origins than out lanes), entry lanes with
+    origins past both ends (clipped), counts below -1 (the "no entry"
+    sentinel), and adds with extreme deltas (the int32 sums wrap)."""
+    N, D, M = prog.n_nodes, prog.D, prog.M
+    L = prog.edge_cfg.lanes
+    K = prog.inbox_cap
+    dens = rng.choice(np.array([0.0, 0.002, 0.3]), (N, D, 1))
+    pos = rng.integers(0, 40, (N, M), dtype=np.int32)
+    pos[np.arange(min(N, 3)), np.arange(min(N, 3))] = 2**31 - 3
+    state = {"pos": pos,
+             "neg": rng.integers(0, 40, (N, M), dtype=np.int32),
+             "pending": rng.random((N, D, M)) < dens,
+             "synced": rng.random((N, D, M)) < 0.5}
+    edge_in = {"valid": rng.random((N, D, L)) < 0.7,
+               "type": rng.choice(np.array([14, 14, 14, 0], np.int32),
+                                  (N, D, L)),
+               "a": rng.integers(-2, M + 2, (N, D, L), dtype=np.int32),
+               "b": rng.integers(-3, 45, (N, D, L), dtype=np.int32),
+               "c": rng.integers(-3, 45, (N, D, L), dtype=np.int32)}
+    ctype = rng.choice(np.array([10, 10, 12, 0], np.int32), (N, K))
+    ca = rng.integers(-5, 5, (N, K), dtype=np.int32)
+    ca[0, :2] = [-2**31, 2**31 - 1]
+    client_in = {"valid": rng.random((N, K)) < 0.5, "type": ctype, "a": ca}
+    for f in ("src", "dest", "due", "mid", "reply_to", "b", "c"):
+        client_in[f] = rng.integers(-5, 1000, (N, K), dtype=np.int32)
+    return state, edge_in, client_in
+
+
+def _pn_program(n, fanout, device="cpu", **opts):
+    return get_program("pn-counter", {"gossip_fanout": fanout, **opts},
+                       [f"n{i}" for i in range(n)], device=device)
+
+
+@pytest.mark.parametrize("prog", ["echo", "unique-ids"])
+@pytest.mark.parametrize("n,p_valid", [(1, 0.6), (33, 0.6), (5000, 0.5),
+                                       (100_000, 0.01)])
+@pytest.mark.parametrize("stalled", [False, True], ids=["", "stall"])
+def test_pool_steps_match_plain(cuda, prog, n, p_valid, stalled):
+    """K11 echo_step and K12 unique_ids_step, with and without the stall
+    mask, counters near the int32 limit included."""
+    rng = np.random.default_rng(n + stalled)
+    progs = {d: get_program(prog, {}, [f"n{i}" for i in range(n)],
+                            device=d) for d in ("cpu", cuda)}
+    inbox = random_pool_inbox(rng, n, 8, 10, p_valid)
+    key = "rounds" if prog == "echo" else "counter"
+    counter = rng.integers(0, 1000, n).astype(np.int32)
+    counter[:2] = 2**31 - 1
+    stall = rng.random(n) < 0.3
+    out = {}
+    for d in ("cpu", cuda):
+        ctx = {"round": torch.tensor(5, dtype=torch.int32, device=d)}
+        if stalled:
+            ctx["stall"] = torch.tensor(stall, device=d)
+        out[d] = progs[d].step({key: torch.tensor(counter, device=d)},
+                               Msgs(**_tensors(inbox, d)), ctx)
+    _equal(out[cuda], out["cpu"])
+
+
+@pytest.mark.parametrize("n,fanout,opts", [
+    (5, None, {}), (64, 3, {}), (1000, 3, {}),
+    (64, 3, {"latency": {"mean": 3, "dist": "uniform"}}),
+    (1500, 2, {"gossip_per_neighbor": 3})])
+@pytest.mark.parametrize("rnd", [40, 0])
+@pytest.mark.parametrize("stalled", [False, True], ids=["", "stall"])
+def test_pn_counter_step_matches_plain(cuda, n, fanout, opts, rnd, stalled):
+    """K13 against its plain version on every output field, invalid lanes
+    included: the total graph at 5 nodes, fanout graphs at 64 and 1,000
+    nodes, spill lanes (8 channel lanes) under uniform latency, and
+    1,500 origins (more than a block's threads); round 0 is a retry
+    round."""
+    progs = {d: _pn_program(n, fanout, device=d, **opts)
+             for d in ("cpu", cuda)}
+    rng = np.random.default_rng(n + rnd + stalled)
+    state, edge_in, client_in = random_pn_inputs(rng, progs["cpu"])
+    stall = rng.random(n) < 0.3
+    out = {}
+    for d in ("cpu", cuda):
+        ctx = {"round": torch.tensor(rnd, dtype=torch.int32, device=d)}
+        if stalled:
+            ctx["stall"] = torch.tensor(stall, device=d)
+        out[d] = progs[d].edge_step(
+            _tensors(state, d), static.EdgeMsgs(**_tensors(edge_in, d)),
+            Msgs(**_tensors(client_in, d)), ctx)
+    _equal(out[cuda], out["cpu"])
+
+
+@pytest.mark.parametrize("CW,rcap,rn0,W,p_valid",
+                         [(16, 64, 3, 1, 0.5), (4096, 8192, 0, 1, 0.3),
+                          (5000, 2048, 100, 3, 0.4)])
+def test_reply_log_append_i32_matches_plain(cuda, CW, rcap, rn0, W,
+                                            p_valid):
+    """K5's int32 form: each valid row's payload is the [N, W] int32 row
+    of its clipped source node."""
+    rng = np.random.default_rng(CW + W)
+    N = 37
+    cm = {"valid": rng.random(CW) < p_valid,
+          "src": rng.integers(-3, N + 3, CW, dtype=np.int32)}
+    for f in ("dest", "due", "mid", "reply_to", "type", "a", "b", "c"):
+        cm[f] = rng.integers(-5, 99, CW, dtype=np.int32)
+    rows = rng.integers(-2**31, 2**31, (N, W), dtype=np.int64).astype(
+        np.int32)
+    out = {}
+    for d in ("cpu", cuda):
+        log = empty_reply_log(rcap, W, d)
+        log = log[:3] + (torch.tensor(rn0, dtype=torch.int32, device=d),)
+        exit_k = torch.tensor(2**31 - 1, dtype=torch.int32, device=d)
+        rn = append_replies(log, Msgs(**_tensors(cm, d)),
+                            torch.tensor(rows, device=d), N,
+                            torch.tensor(9, dtype=torch.int32, device=d),
+                            3, 7, False, exit_k)
+        out[d] = (log[0], log[1], log[2], rn, exit_k)
+    _equal(out[cuda], out["cpu"])
+    assert K.REPLY_LOG_APPEND_I32.launches > 0
 
 
 def _raft_program(n, **opts):

@@ -91,7 +91,8 @@ def test_send_matches_jax(free_slots):
         **{k: jnp.asarray(v) for k, v in out.items()}),
         jax.random.PRNGKey(0))
     pnet2, p_sent = PT._send(_cfg(PT), pnet, PT.Msgs(
-        **{k: torch.tensor(v) for k, v in out.items()}), prng.PRNGKey(0))
+        **{k: torch.tensor(v) for k, v in out.items()}),
+        prng.PRNGKey(0, "cpu"))
     assert_trees_equal(jax_tree_to_numpy(jnet2), as_numpy(pnet2))
     assert_trees_equal(jax_tree_to_numpy(j_sent), as_numpy(p_sent))
     overflow = int(pnet2.stats.dropped_overflow)
@@ -178,7 +179,8 @@ def test_pool_faults_match_jax(case):
         **{k: jnp.asarray(v) for k, v in out.items()}),
         jax.random.PRNGKey(9))
     pnet, p_sent = PT._send(pcfg, pnet, PT.Msgs(
-        **{k: torch.tensor(v) for k, v in out.items()}), prng.PRNGKey(9))
+        **{k: torch.tensor(v) for k, v in out.items()}),
+        prng.PRNGKey(9, "cpu"))
     assert_trees_equal(jax_tree_to_numpy(jnet), as_numpy(pnet))
     assert_trees_equal(jax_tree_to_numpy(j_sent), as_numpy(p_sent))
     jnet, j_inbox, j_client = JT._deliver(jcfg, jnet)

@@ -25,7 +25,7 @@ SHAPES = [(), (7,), (64, 4, 4), (70_001,)]
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_key_split_and_fold_in_match_jax(seed):
-    jk, pk = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    jk, pk = jax.random.PRNGKey(seed), prng.PRNGKey(seed, "cpu")
     assert pk.dtype == torch.uint32
     np.testing.assert_array_equal(np.asarray(jk), pk.numpy())
     for n in (2, 4, 5, 7):
@@ -43,7 +43,7 @@ def test_key_split_and_fold_in_match_jax(seed):
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
 @pytest.mark.parametrize("seed", SEEDS[:3])
 def test_bits_uniform_randint_match_jax(seed, shape):
-    jk, pk = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    jk, pk = jax.random.PRNGKey(seed), prng.PRNGKey(seed, "cpu")
     np.testing.assert_array_equal(np.asarray(jax.random.bits(jk, shape)),
                                   prng.random_bits(pk, shape).numpy())
     np.testing.assert_array_equal(np.asarray(jax.random.uniform(jk, shape)),
@@ -65,7 +65,7 @@ def test_bits_uniform_randint_match_jax(seed, shape):
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
 @pytest.mark.parametrize("seed", SEEDS[:3])
 def test_exponential_and_latency_rounds_match_jax(seed, shape):
-    jk, pk = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    jk, pk = jax.random.PRNGKey(seed), prng.PRNGKey(seed, "cpu")
     je = np.asarray(jax.random.exponential(jk, shape)).reshape(-1)
     pe = prng.exponential(pk, shape).numpy().reshape(-1)
     ulps = np.abs(je.view(np.int32).astype(np.int64)
@@ -88,7 +88,7 @@ def test_exponential_and_latency_rounds_match_jax(seed, shape):
 def test_batched_draws_match_single_draws():
     """`prng.draws` hashes several subkeys' streams in one pass; each
     row equals the single draw from its key."""
-    keys = prng.split(prng.PRNGKey(3), 4)
+    keys = prng.split(prng.PRNGKey(3, "cpu"), 4)
     scale = torch.tensor(1.0)
     p = torch.tensor(0.25)
     specs = [("mask", p), None, ("latency", "exponential", 3.0, scale),
@@ -107,7 +107,7 @@ def test_prng_pins_match_jax():
     them."""
     import chip_smoke
     n = chip_smoke.PRNG_PIN_N
-    jk, pk = jax.random.PRNGKey(42), prng.PRNGKey(42)
+    jk, pk = jax.random.PRNGKey(42), prng.PRNGKey(42, "cpu")
     one = torch.ones((), dtype=torch.float32)
     arrays = {
         "bits": (np.asarray(jax.random.bits(jk, (n,))),

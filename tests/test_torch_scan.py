@@ -99,8 +99,9 @@ CASES = [(5, 1, False, False), (5, 1, True, True), (5, 7, False, True),
          (64, 7, True, True), (64, 64, False, True), (64, 64, True, False)]
 
 
-@pytest.mark.parametrize("n,k_max,stop,journal", CASES)
-def test_scan_matches_jax(n, k_max, stop, journal):
+def _scan_both(n, k_max, stop, journal, first_chunk=None):
+    """The scan from the same mid-run state in both packages, every
+    output held equal; returns the port's scan fn and k."""
     jprog, pprog, jcfg, pcfg = _programs(n)
     jsim = _start(n, n + k_max)
     start = jax_tree_to_numpy(jsim)
@@ -110,7 +111,7 @@ def test_scan_matches_jax(n, k_max, stop, journal):
         jnp.int32(k_max), stop)
     scan = p_make_scan_fn(pprog, pcfg, reply_cap=RCAP,
                           journal_cap=JCAP if journal else None,
-                          device="cpu", chunk=4)
+                          device="cpu", chunk=4, first_chunk=first_chunk)
     psim = convert.state_from_numpy(start, pprog, pcfg, device="cpu")
     assert psim.channels.sent is not None
     out_p = scan(psim, convert.msgs_from_numpy(inj, device="cpu"), k_max,
@@ -132,8 +133,24 @@ def test_scan_matches_jax(n, k_max, stop, journal):
         buf_p = [as_numpy(x) for x in out_p[4]]
         for i, (a, b) in enumerate(zip(buf_j, buf_p)):
             assert_trees_equal(a, b, path=f"buf[{i}]")
+    return scan, k
+
+
+@pytest.mark.parametrize("n,k_max,stop,journal", CASES)
+def test_scan_matches_jax(n, k_max, stop, journal):
+    scan, k = _scan_both(n, k_max, stop, journal)
     # the host reads the exit flag at most once a chunk of 4 rounds
     assert scan.host_syncs <= -(-k // 4)
+
+
+@pytest.mark.parametrize("n,k_max,journal", [(5, 7, False), (5, 64, True),
+                                             (64, 7, True), (64, 64, False)])
+def test_scan_growing_chunks_matches_jax(n, k_max, journal):
+    """The pool path's form: stopping on replies, chunks of 1, 2, then 4
+    rounds, the same outputs as JAX's one while_loop."""
+    scan, k = _scan_both(n, k_max, True, journal, first_chunk=1)
+    # once a chunk of 4 rounds, and after the first chunks of 1 and 2
+    assert scan.host_syncs <= -(-k // 4) + 2
 
 
 @pytest.mark.parametrize("n", sorted(SHAPES))
