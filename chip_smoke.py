@@ -34,7 +34,14 @@ and unique-ids on the CLI (`PINNED_POOL`), g-set, pn-counter and
 g-counter runs whose histories must hash to the JAX runner's
 (`PINNED_CRDT`), and the 1,000-node g-set (gossip fanout 3, 5% loss),
 pn-counter (with partitions) and g-counter runs, with a profile of the
-pn-counter round. Every phase prints one JSON line; any
+pn-counter round. Then the kafka slice: K14 kafka_step (classic and
+group mode, with and without its stall mask, up to a 50 MB log) against
+its plain version, kafka through `core.run` and the CLI on the JAX
+package's e2e configs and Gossip Glomers' challenge 5b, whose histories
+must hash to the JAX runner's (`PINNED_KAFKA`), the kafka fault sweep
+(`fuzz.fuzz_kafka`), and the broadcast fuzz, BASELINE config 5: its
+sweep at 4,096 nodes equal to the JAX package's rows (`PINNED_FUZZ`),
+then at 100,000 nodes. Every phase prints one JSON line; any
 failed check exits non-zero. The line before the last lists every kernel
 with its launches on its path, its time, its plain version's time and
 its bound; the last line is `{"ok": true, "device": {...}}`.
@@ -770,7 +777,8 @@ CLI_KERNELS = ROUND_KERNELS + ("reply_log_append", "quiet_probe")
 # README's tree4 run without its nemesis), here at the default 1024-value
 # table, and a 1024-node run (64 values, to keep its JAX reference short
 # on the CPU) whose client_cap (2048) fills the kernels' 4096-row client
-# batches
+# batches, at 5 ms a round (its 10 s recovery window, which the CLI has
+# no flag for, was 10,000 of its 11,002 rounds; `CLI_SMALL_REDUCED`)
 CLI_BASE = ["test", "-w", "broadcast", "--node", "tpu:broadcast", "--seed",
             "7", "--rate", "20"]
 CLI_SMALL = [
@@ -783,8 +791,14 @@ CLI_SMALL = [
                                        "tree4", "--latency", "10",
                                        "--time-limit", "1"]),
     ("grid1024", CLI_BASE + ["--node-count", "1024", "--topology", "grid",
-                             "--time-limit", "1", "--max-values", "64"]),
+                             "--time-limit", "1", "--max-values", "64",
+                             "--ms-per-round", "5"]),
 ]
+CLI_SMALL_REDUCED = {"grid1024": {
+    "ms_per_round": 5.0, "from": 1.0,
+    "model_change": "more than a cut in depth: a gossip hop, one round, "
+                    "takes 5 ms of virtual time (was 1 ms), so the stagger "
+                    "and the recovery window span a fifth of the rounds"}}
 # sha256 of the JAX runner's history.jsonl for each run above, on the
 # CPU (`python -m maelstrom_tpu <args> --no-audit`); re-derived by
 #   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_runner.py -m slow
@@ -795,7 +809,7 @@ PINNED_CLI = {
     "tree4-25-latency10":
         "631347a029cbc7d046645531e9c91b64d854c99726752f17eeccc12b2e1f01f3",
     "grid1024":
-        "b17b0e79bc5d4953987642fcafb199d01831370097b255b5b26919fb661755d7",
+        "b165f83d1e9b950de7e039a017f1f1e84a324f82d47f915e4a231f7b45796cf6",
 }
 
 # The port's CLI under faults on runs small enough for the JAX runner on a
@@ -803,8 +817,10 @@ PINNED_CLI = {
 # tree4 run with its partition nemesis, a 5-node grid storm (exponential
 # latency, loss and all five fault packages) and a 1024-node grid run
 # under uniform latency, loss and four fault packages (its spill write is
-# K9's main path). tests/test_torch_runner_faults.py holds the first two
-# against the JAX runner on the CPU.
+# K9's main path), at 2 ms a round (`CLI_FAULTS_SMALL_REDUCED`:
+# half the rounds of its 10 s recovery window; latency 5 ms is 3 rounds).
+# tests/test_torch_runner_faults.py holds the first two against the JAX
+# runner on the CPU.
 CLI_FAULT_BASE = CLI_BASE + ["--max-values", "64"]
 CLI_FAULTS_SMALL = [
     ("tree4-25-partition", CLI_FAULT_BASE + [
@@ -820,8 +836,14 @@ CLI_FAULTS_SMALL = [
         "--node-count", "1024", "--topology", "grid", "--latency", "5",
         "--latency-dist", "uniform", "--p-loss", "0.01", "--nemesis",
         "partition,kill,pause,duplicate", "--nemesis-interval", "1",
-        "--time-limit", "2"]),
+        "--time-limit", "2", "--ms-per-round", "2"]),
 ]
+CLI_FAULTS_SMALL_REDUCED = {"grid1024-faults": {
+    "ms_per_round": 2.0, "from": 1.0,
+    "model_change": "more than a cut in depth: the uniform 5 ms latency "
+                    "is drawn over a 2.5-round mean (was 5 rounds), and "
+                    "K9's ring follows it (244, was 404): the network "
+                    "modelled differs from the run at 1 ms a round"}}
 # sha256 of the JAX runner's history.jsonl for each run above, on the CPU
 # (`python -m maelstrom_tpu <args> --no-audit`); re-derived by
 #   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_runner_faults.py \
@@ -832,18 +854,22 @@ PINNED_FAULTS = {
     "grid5-storm":
         "f3bc0fc09c097909a5fc7b269e0d732d74abc121ac16e05df66e8c64b4072f7f",
     "grid1024-faults":
-        "640071ccc5657797ae9cf59c4ae3de01e60205d21a6675e2495f5c95dc5451d8",
+        "288fc6fca9e0e32c0146b5f12eed81420b73ca83d98a84b0d3caec156d5d636b",
 }
 
 # The slice's full-width run: the README's 100,000-node broadcast at the
-# CLI's defaults (grid, latency 0, rate 5, time limit 10 s, recovery
-# 10 s, concurrency = node count: client_cap 200,000, pool 800,000), on
-# one card. CLI_100K_TIME_LIMIT cuts its time limit (10 s -> 2 s, node
-# count kept) so the smoke, which now also runs the fault slice's
-# 100,000-node test, stays well inside its own time limit.
-CLI_100K = ["test", "-w", "broadcast", "--node", "tpu:broadcast",
-            "--node-count", "100000"]
-CLI_100K_TIME_LIMIT = 2.0
+# CLI's defaults (grid, latency 0, rate 5, concurrency = node count:
+# client_cap 200,000, pool 800,000), on one card, through `core.run`
+# (the CLI has no flag for the recovery window), cut in depth
+# (`CLI_100K_REDUCED`: node count kept) so the smoke, which also runs the
+# later slices, stays inside its own time limit: the time limit from
+# 10 s to 2 s, and the recovery window, most of the run's 12,002
+# rounds, from 10 s to 2 s (the grid's diameter is some 630 rounds of
+# gossip; a 1 s run has a single broadcast to check).
+CLI_100K = {"workload": "broadcast", "node": "tpu:broadcast",
+            "node_count": 100_000, "time_limit": 2.0, "recovery_s": 2.0}
+CLI_100K_REDUCED = {"time_limit_s": 2.0, "from": 10.0, "recovery_s": 2.0,
+                    "recovery_from": 10.0}
 
 
 def _cli_run(args, store):
@@ -894,7 +920,8 @@ def phase_cli_small():
         runs[name] = {"wall_s": wall, "final_round": tm["final-round"],
                       "rounds_executed": tm["rounds-executed"],
                       "dispatches": tm["dispatches"], "drains": tm["drains"],
-                      "history_sha256_equal": True}
+                      "history_sha256_equal": True,
+                      "reduced": CLI_SMALL_REDUCED.get(name)}
     launches = K.launch_counts()
     check(all(launches[k] > 0 for k in CLI_KERNELS),
           f"cli_small did not launch every kernel: {launches}")
@@ -902,19 +929,15 @@ def phase_cli_small():
 
 
 def phase_cli_100k(smi):
-    """The slice's main path: the 100,000-node CLI run, with every launch
-    counter set to 0 just before and read just after."""
+    """Slice 2's main path: the 100,000-node test at the CLI's defaults
+    (through `core.run`, cut in depth), with every launch counter set to
+    0 just before and read just after."""
     import shutil
     from maelstrom_tpu_torch import kernels as K
     store = os.path.join(ROOT, "store", "chip_smoke_100k")
     shutil.rmtree(store, ignore_errors=True)
-    args = list(CLI_100K)
-    reduced = None
-    if CLI_100K_TIME_LIMIT is not None:
-        args += ["--time-limit", str(CLI_100K_TIME_LIMIT)]
-        reduced = {"time_limit_s": CLI_100K_TIME_LIMIT, "from": 10.0}
     K.reset_launches()
-    rc, d, res, tm, _digest, wall = _cli_run(args, store)
+    rc, d, res, tm, _digest, wall = _core_run(CLI_100K, store)
     launches = K.launch_counts()
     _cli_checks("100k", rc, res, tm)
     check(res["workload"]["valid"] is True and res["workload"][
@@ -925,7 +948,8 @@ def phase_cli_100k(smi):
     delivered = res["net"]["all"]["recv-count"]
     host_s = (tm["poll-s"] + tm["replies-s"] + tm["journal-s"]
               + tm["check-s"] + tm["store-s"])
-    emit({"phase": "cli_100k", "args": args, "reduced": reduced,
+    emit({"phase": "cli_100k", "opts": CLI_100K,
+          "reduced": CLI_100K_REDUCED,
           "valid": res["valid"], "wall_s": wall,
           "scan_s": tm["scan-s"], "drain_s": tm["drain-s"],
           "quiet_s": tm["quiet-s"], "host_s": host_s,
@@ -1034,11 +1058,12 @@ def phase_cli_profile(faults=False):
 # The 100,000-node fault run's shapes (CLI_FAULTS_100K): grid, 1024
 # values, 4 gossip lanes + the digest lane, concurrency 100,000, uniform
 # latency (no spill past 4,096 nodes), duplication and stall compiled in;
-# and the 1024-node spill shape of the pinned grid1024-faults run (ring
-# 5 * 8 * 10 + 2 + 2 = 404, 10 channel lanes for 5 out lanes)
+# and the 1024-node spill shape of the pinned grid1024-faults run (at 2 ms
+# a round: ring ceil(5 / 2) * 8 * 10 + 2 + 2 = 244, 10 channel lanes for 5
+# out lanes)
 FAULT_SHAPE = {"nodes": 100_000, "values": 1024, "lanes": 5,
                "clients": 100_000}
-SPILL_SHAPE = {"nodes": 1024, "ring": 404, "channel_lanes": 10,
+SPILL_SHAPE = {"nodes": 1024, "ring": 244, "channel_lanes": 10,
                "out_lanes": 5}
 
 
@@ -1254,7 +1279,8 @@ def phase_cli_faults_small():
                                  ("lost", "dropped-partition",
                                   "dropped-down", "duplicated",
                                   "channel-overwrites", "latency-clipped")},
-                      "history_sha256_equal": True}
+                      "history_sha256_equal": True,
+                      "reduced": CLI_FAULTS_SMALL_REDUCED.get(name)}
     launches = K.launch_counts()
     check(launches["edge_write_spill"] > 0,
           f"cli_faults_small did not launch the spill write: {launches}")
@@ -1265,21 +1291,26 @@ def phase_cli_faults_small():
 
 # Slice 3's main path: the 100,000-node test under 1% loss, uniform
 # latency of mean 5 ms and the kill, pause and duplicate nemeses, at the
-# CLI's other defaults (grid, rate 5, recovery 10 s, 1024 values,
-# concurrency 100,000), cut in depth to a 4 s time limit and a nemesis
-# op every 1 s (from 10 s and 2 s; node count, faults and latency kept)
-# so the smoke, which also runs the Raft slice, stays inside its time
-# limit. No partition or weather at this size: the JAX package's
-# partitions are an N x N block matrix built by Python loops, and
-# weather's slow fronts need ring headroom it gives only to clusters of
-# 4,096 nodes or fewer.
-CLI_FAULTS_100K = ["test", "-w", "broadcast", "--node", "tpu:broadcast",
-                   "--node-count", "100000", "--latency", "5",
-                   "--latency-dist", "uniform", "--p-loss", "0.01",
-                   "--nemesis", "kill,pause,duplicate",
-                   "--nemesis-interval", "1", "--time-limit", "4"]
-CLI_FAULTS_100K_REDUCED = {"time_limit_s": 4.0, "from": 10.0,
-                           "nemesis_interval_s": 1.0, "interval_from": 2.0}
+# CLI's other defaults (grid, rate 5, 1024 values, concurrency 100,000),
+# through `core.run` (the CLI has no flag for the recovery window), cut
+# in depth to a 1 s time limit with a nemesis op every 0.25 s (from 10 s
+# and 2 s; the same four ops of the same decision streams) and a 3 s
+# recovery window (from 10 s; the last value was
+# stable 344 ms after its send in a 2 s run), node count, faults and
+# latency kept, so the smoke, which also runs the later slices, stays
+# inside its time limit. No partition or weather at this size: the JAX
+# package's partitions are an N x N block matrix built by Python loops,
+# and weather's slow fronts need ring headroom it gives only to clusters
+# of 4,096 nodes or fewer.
+CLI_FAULTS_100K = {"workload": "broadcast", "node": "tpu:broadcast",
+                   "node_count": 100_000,
+                   "latency": {"mean": 5, "dist": "uniform"},
+                   "p_loss": 0.01, "nemesis": {"kill", "pause", "duplicate"},
+                   "nemesis_interval": 0.25, "time_limit": 1.0,
+                   "recovery_s": 3.0}
+CLI_FAULTS_100K_REDUCED = {"time_limit_s": 1.0, "from": 10.0,
+                           "nemesis_interval_s": 0.25, "interval_from": 2.0,
+                           "recovery_s": 3.0, "recovery_from": 10.0}
 FAULT_PATH_KERNELS = ("threefry", "edge_faults", "broadcast_step_stall")
 
 
@@ -1291,7 +1322,7 @@ def phase_cli_faults_100k(smi):
     store = os.path.join(ROOT, "store", "chip_smoke_faults_100k")
     shutil.rmtree(store, ignore_errors=True)
     K.reset_launches()
-    rc, d, res, tm, _digest, wall = _cli_run(list(CLI_FAULTS_100K), store)
+    rc, d, res, tm, _digest, wall = _core_run(CLI_FAULTS_100K, store)
     launches = K.launch_counts()
     _cli_checks("faults 100k", rc, res, tm)
     w, net = res["workload"], res["net"]
@@ -1314,7 +1345,9 @@ def phase_cli_faults_100k(smi):
           f"cli faults 100k: nemesis ops {sorted(fs)}")
     host_s = (tm["poll-s"] + tm["replies-s"] + tm["journal-s"]
               + tm["check-s"] + tm["store-s"] + tm["nemesis-s"])
-    emit({"phase": "cli_faults_100k", "args": CLI_FAULTS_100K,
+    emit({"phase": "cli_faults_100k",
+          "opts": {**CLI_FAULTS_100K,
+                   "nemesis": sorted(CLI_FAULTS_100K["nemesis"])},
           "reduced": CLI_FAULTS_100K_REDUCED,
           "valid": res["valid"], "wall_s": wall,
           "scan_s": tm["scan-s"], "drain_s": tm["drain-s"],
@@ -2010,10 +2043,10 @@ OWN_KERNELS = ("step_kernel", "count_kernel", "emit_kernel", "route_kernel",
 # The pool-path programs on the CLI: echo at 5 nodes (BASELINE config 1,
 # at tests/test_tpu_e2e.py's rate 20, seed 7 and 2 s), and unique-ids at
 # Gossip Glomers' challenge-2 shape (3 nodes, rate 1000, partitions;
-# time limit cut from 30 s to 5 s, and the nemesis interval, the CLI's
-# 10 s there, scaled with it to 1.667 s, so that the cut run keeps the
-# challenge's schedule: one partition over the middle third of the
-# run, none at 10 s in a 5 s run).
+# time limit cut from 30 s to 2.5 s, and the nemesis interval, the CLI's
+# 10 s there, scaled with it to 0.834 s, so that the cut run keeps the
+# challenge's schedule: one partition over the middle third of the run,
+# none at 10 s in a short run).
 # tests/test_torch_runner_programs.py holds both against the JAX runner
 # on the CPU.
 CLI_POOL = [
@@ -2022,11 +2055,11 @@ CLI_POOL = [
     ("unique-ids3-challenge2", [
         "test", "-w", "unique-ids", "--node", "tpu:unique-ids",
         "--node-count", "3", "--rate", "1000", "--nemesis", "partition",
-        "--nemesis-interval", "1.667", "--time-limit", "5", "--seed",
+        "--nemesis-interval", "0.834", "--time-limit", "2.5", "--seed",
         "7"]),
 ]
 CLI_POOL_REDUCED = {"unique-ids3-challenge2": {
-    "time_limit_s": 5.0, "from": 30.0, "nemesis_interval_s": 1.667,
+    "time_limit_s": 2.5, "from": 30.0, "nemesis_interval_s": 0.834,
     "nemesis_interval_from": 10.0,
     "why": "the interval scaled with the time limit: one partition over "
            "the run's middle third, as in the 30 s challenge"}}
@@ -2054,7 +2087,7 @@ CLI_CRDT = [
 PINNED_POOL = {
     "echo5": "e43929688d2a0f9c44df83a5ad75afea1720f8e7c957ee4bdaae1c9ad32503b7",
     "unique-ids3-challenge2":
-        "4c199c12b2d5165b136d0cc1ef731fd9b099dbd4bd0b45cd3e61bc0500651c1d",
+        "7a5f51167084971710035103ce42330fae47935c96bb8d3941af928c340c7294",
 }
 PINNED_CRDT = {
     "g-set20-fanout3-loss":
@@ -2132,6 +2165,8 @@ def _run_line(name, run, store, pins=None):
             "rounds_bumped": tm["rounds-bumped"],
             "ms_per_executed_round": 1e3 * tm["scan-s"]
             / max(tm["rounds-executed"], 1),
+            "scan_s": tm["scan-s"], "replies_s": tm["replies-s"],
+            "check_s": tm["check-s"], "store_s": tm["store-s"],
             "dispatches": tm["dispatches"], "drains": tm["drains"],
             "history_ops": tm["history-ops"],
             "server_msgs": res["net"]["servers"]["send-count"],
@@ -2139,10 +2174,13 @@ def _run_line(name, run, store, pins=None):
             "dropped_partition": res["net"]["dropped-partition"],
             "dropped_overflow": res["net"]["dropped-overflow"],
             "latency_clipped": res["net"].get("latency-clipped"),
+            "log_overflow": res["net"].get("log-overflow"),
             "workload": {k: w[k] for k in ("lost-count", "stable-count",
                                             "final-reads", "acceptable",
                                             "acknowledged-count",
-                                            "distinct-count") if k in w},
+                                            "distinct-count", "acked-sends",
+                                            "polls", "distinct-offsets")
+                         if k in w},
             **({"history_sha256_equal": True} if pins is not None
                else {})}
 
@@ -2582,6 +2620,367 @@ def phase_crdt_profile():
                    "calls_per_round": e.count / 40} for e in top]})
 
 
+# --- kafka and the fault sweeps ---------------------------------------------
+
+# the kernels a kafka round launches (no quiescence probe: the beat
+# timer ticks forever) and those of the broadcast fuzz's run_fn rounds
+KAFKA_KERNELS = ("kafka_step", "edge_read", "edge_write", "edge_faults",
+                 "reply_compact", "reply_log_append", "threefry")
+FUZZ_KERNELS = ("broadcast_step", "edge_read", "edge_write", "edge_faults",
+                "reply_compact", "threefry")
+
+# Kafka through `core.run` and the CLI: the JAX package's kafka e2e
+# configs (tests/test_kafka.py test_kafka_tpu_e2e, and
+# tests/test_kafka_stream.py test_kafka_groups_e2e_round_synchronous and
+# test_wide_keys_kill_nemesis_regression), then Gossip Glomers'
+# challenge 5b (fly.io dist-sys 5b: --node-count 2 --concurrency 2n
+# --time-limit 20 --rate 1000) with --key-count 4, its time limit cut
+# from 20 s to 5 s (`CLI_KAFKA_REDUCED`). tests/test_torch_runner_kafka.py
+# holds each against the JAX runner on the CPU.
+KAFKA_BASE = {"workload": "kafka", "node": "tpu:kafka", "node_count": 5,
+              "journal_rows": False}
+CLI_KAFKA = [
+    ("kafka5-e2e", {**KAFKA_BASE, "rate": 20.0, "time_limit": 3.0,
+                    "seed": 7}),
+    ("kafka5-groups2", {**KAFKA_BASE, "rate": 20.0, "time_limit": 3.0,
+                        "seed": 11, "kafka_groups": 2}),
+    ("kafka5-wide8-groups2-kill", {
+        **KAFKA_BASE, "rate": 60.0, "time_limit": 4.0, "seed": 5,
+        "concurrency": 8, "key_count": 8, "kafka_groups": 2,
+        "session_timeout_ms": 400.0, "timeout_ms": 800, "recovery_s": 1.5,
+        "nemesis": {"kill"}, "nemesis_interval": 0.9}),
+    ("kafka2-challenge5b", [
+        "test", "-w", "kafka", "--node", "tpu:kafka", "--node-count", "2",
+        "--concurrency", "4", "--rate", "1000", "--time-limit", "5",
+        "--key-count", "4", "--seed", "7"]),
+]
+CLI_KAFKA_REDUCED = {"kafka2-challenge5b": {
+    "time_limit_s": 5.0, "from": 20.0,
+    "why": "at 20 s the full-prefix polls put some 30 M pairs in the "
+           "history, past what the JAX runner derives a pin for on a CPU"}}
+# sha256 of the JAX runner's history.jsonl for each run above, on the CPU;
+# re-derived by
+#   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_runner_kafka.py \
+#       -m slow
+PINNED_KAFKA = {
+    "kafka5-e2e":
+        "64c59136680defee8ca83a246b6c799508956bc9b488d0604c541d09a1ee6353",
+    "kafka5-groups2":
+        "340dbe1ffd735b840217d8171c6a90bfe631a16d9a66151dff3afa813e358bbe",
+    "kafka5-wide8-groups2-kill":
+        "57c00641d0584df266241994b388d70b466efefc0b3fd0394966c90e00dc82f0",
+    "kafka2-challenge5b":
+        "460f9604ff05a5eedf59ebbe91cff2963017be782dac802adf4b3d0df9d611e6",
+}
+
+# fuzz.fuzz_kafka's five configs at 5 nodes, cut from 6 s to 2 s with the
+# nemesis interval scaled with it (2 s -> 0.667 s: the 6 s sweep's
+# partitions and heals); the client RPC timeout stays the runner's 5 s
+FUZZ_KAFKA = {"n_nodes": 5, "seed": 0, "time_limit": 2.0,
+              "nemesis_interval": 0.667}
+FUZZ_KAFKA_REDUCED = {"time_limit_s": 2.0, "from": 6.0,
+                      "nemesis_interval_s": 0.667,
+                      "nemesis_interval_from": 2.0}
+# BASELINE config 5: fuzz --program broadcast --nodes 100000 --values 32
+FUZZ_100K = {"n_nodes": 100_000, "values": 32, "seed": 0}
+# The same sweep at 4,096 nodes, whose rows (less wall_s) must equal the
+# JAX package's fuzz.fuzz_broadcast on the CPU; re-derived by
+#   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_fuzz.py -m slow
+FUZZ_PIN_ARGS = {"n_nodes": 4096, "values": 32, "seed": 0}
+PINNED_FUZZ = [
+    {"config": "zero-latency+partition", "nodes": 4096, "values": 32,
+     "values_born": 32, "ok": True, "converged_at_round": 500,
+     "delivered": 503425, "lost": 0, "dropped_partition": 53420,
+     "dropped_overflow": 0, "channel_overwrites": 0, "latency_clipped": 0,
+     "latency_clip_tolerated": False},
+    {"config": "latency2+loss5%+partition", "nodes": 4096, "values": 32,
+     "values_born": 30, "ok": True, "converged_at_round": 600,
+     "delivered": 471034, "lost": 24736, "dropped_partition": 58982,
+     "dropped_overflow": 0, "channel_overwrites": 0, "latency_clipped": 0,
+     "latency_clip_tolerated": False},
+    {"config": "uniform-latency+partition", "nodes": 4096, "values": 32,
+     "values_born": 32, "ok": True, "converged_at_round": 600,
+     "delivered": 674418, "lost": 0, "dropped_partition": 59095,
+     "dropped_overflow": 0, "channel_overwrites": 0, "latency_clipped": 0,
+     "latency_clip_tolerated": True},
+    {"config": "exponential-latency+loss2%", "nodes": 4096, "values": 32,
+     "values_born": 32, "ok": True, "converged_at_round": 500,
+     "delivered": 682857, "lost": 14037, "dropped_partition": 0,
+     "dropped_overflow": 0, "channel_overwrites": 0, "latency_clipped": 0,
+     "latency_clip_tolerated": True},
+]
+
+
+def _kafka_program(n, device="cuda", **opts):
+    from maelstrom_tpu_torch.nodes import get_program
+    return get_program("kafka", opts, [f"n{i}" for i in range(n)],
+                       device=device)
+
+
+# name: (nodes, program opts) of K14's checks: each pinned run's shape
+# (the three 5-node runs from their own `CLI_KAFKA` options; the
+# challenge-5b run's log_cap 5,032 from rate 1000 x 5 s), the kafka
+# fuzz's shape (classic, 5 nodes, `FUZZ_KAFKA`'s time limit), and a
+# stress shape at the 15-bit length field's cap, classic and with 16
+# groups of 254 members (some 50 MB of log each)
+KAFKA_SHAPES = {
+    **{name: (run["node_count"], run) for name, run in CLI_KAFKA
+       if isinstance(run, dict)},
+    "5b": (2, {"key_count": 4, "rate": 1000.0, "time_limit": 5.0,
+               "concurrency": 4}),
+    "fuzz": (FUZZ_KAFKA["n_nodes"], {"rate": 20.0,
+                                     "time_limit": FUZZ_KAFKA["time_limit"]}),
+    "stress-classic": (64, {"key_count": 6, "log_cap": 32_766}),
+    "stress-groups": (64, {"key_count": 8, "kafka_groups": 16,
+                           "concurrency": 254, "log_cap": 24_576,
+                           "session_timeout_ms": 30.0}),
+}
+
+
+def _random_kafka_inputs(g, prog, rnd):
+    """A kafka step's inputs on the card (the gpu tests' numpy
+    `random_kafka_inputs` in torch): logs full on some keys and empty on
+    others, offers at, below and above the receiver's length from
+    several edges, stray lane types; sends to owners and not with keys
+    past both ends, packed commits, lists and polls; in group mode
+    subscribes, fetches with cursors past the log, banked commits whose
+    generation matches about half the time (the rest fenced), lists of
+    both banks, and members past the session timeout."""
+    import torch
+    from maelstrom_tpu_torch.net.static import EdgeMsgs
+    from maelstrom_tpu_torch.net.tpu import Msgs
+    N, Kk, C, D, G, M = prog.n_nodes, prog.K, prog.cap, prog.D, prog.G, \
+        prog.M
+    A = prog.inbox_cap
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device="cuda",
+                             dtype=torch.int64)
+
+    def coin(p, shape):
+        return torch.rand(shape, generator=g, device="cuda") < p
+
+    def i32(x):
+        return (torch.remainder(x + 2**31, 2**32) - 2**31).to(torch.int32)
+    log_len = ints(0, C + 1, (N, Kk))
+    log_len = torch.where(coin(0.15, (N, Kk)), C, log_len)
+    log_len = torch.where(coin(0.15, (N, Kk)), 0, log_len)
+    state = {"log": i32(ints(0, 1000, (N, Kk, C))), "log_len": i32(log_len),
+             "peer_len": i32(ints(-1, C + 2, (N, D, Kk))),
+             "committed": i32(ints(-3, 40, (N, Kk))),
+             "log_overflow": i32(ints(0, 3, (N,)))}
+    ggen = ints(0, 70_000, (N, max(G, 1)))
+    if G:
+        state["gactive"] = coin(0.5, (N, G, M))
+        state["gseen"] = i32(rnd - ints(0, 2 * prog.session_rounds + 2,
+                                        (N, G, M)))
+        state["ggen"] = i32(ggen)
+        state["gcommitted"] = i32(ints(-3, 40, (N, G, Kk)))
+    ll = log_len[:, None, :]
+    edge_in = EdgeMsgs(
+        valid=coin(0.7, (N, D, Kk)),
+        type=i32(torch.where(coin(0.85, (N, D, Kk)), 20,
+                             ints(0, 40, (N, D, Kk)))),
+        a=i32(ll + ints(-2, 4, (N, D, Kk))),
+        b=i32(ll + ints(-2, 3, (N, D, Kk))),
+        c=i32(ints(0, 1000, (N, D, Kk))))
+    types = torch.tensor([10, 12, 14, 16, 30, 32, 34, 37, 0, 99],
+                         device="cuda")
+    ty = types[ints(0, len(types), (N, A))]
+    a, b, c = (ints(-2**31, 2**31 - 1, (N, A)) for _ in range(3))
+
+    def packed():
+        return ints(0, 40, (N, A)) | (ints(0, 40, (N, A)) << 16)
+    send = ty == 10
+    a = torch.where(send, ints(-1, Kk + 1, (N, A)), a)
+    b = torch.where(send, ints(0, 1000, (N, A)), b)
+    cm = ty == 14
+    a, b, c = (torch.where(cm, packed(), w) for w in (a, b, c))
+    if G:
+        gi = ints(0, G + 1, (N, A))
+        m = ints(0, M + 1, (N, A))
+        a = torch.where((ty == 30) | (ty == 32), (gi << 10) | m, a)
+        fetch = ty == 32
+        b = torch.where(fetch, (ints(-1, Kk + 1, (N, A)) << 16)
+                        | ints(0, C + 3, (N, A)), b)
+        c = torch.where(fetch, ints(-2, 12, (N, A)), c)
+        gen = ggen.gather(1, gi.clamp(max=G - 1))
+        gen = torch.where(coin(0.6, (N, A)), gen & 0xFFFF,
+                          ints(0, 0xFFFF, (N, A)))
+        bank = ints(0, 2, (N, A))
+        gc = ty == 34
+        a = torch.where(gc, (bank << 30) | (gi.clamp(max=15) << 26)
+                        | (m.clamp(max=1023) << 16) | gen, a)
+        b, c = (torch.where(gc, packed(), w) for w in (b, c))
+        a = torch.where(ty == 37, (bank << 30) | gi, a)
+    client_in = Msgs(
+        valid=coin(0.6, (N, A)), src=i32(ints(N, 2 * N, (N, A))),
+        dest=i32(torch.arange(N, device="cuda")[:, None].expand(N, A)),
+        due=i32(ints(0, 99, (N, A))), mid=i32(ints(0, 1 << 30, (N, A))),
+        reply_to=torch.full((N, A), -1, dtype=torch.int32, device="cuda"),
+        type=i32(ty), a=i32(a), b=i32(b), c=i32(c))
+    return state, edge_in, client_in
+
+
+def kafka_kernel_checks(timed):
+    """K14 kafka_step against its plain version at `KAFKA_SHAPES`, with
+    and without the stall mask, on a beat round and an ordinary one;
+    every output field and state leaf exact, the inputs untouched. Timed
+    at the 5b and the classic stress shapes."""
+    import torch
+    from maelstrom_tpu_torch import kernels as K
+    g = torch.Generator(device="cuda")
+    g.manual_seed(14)
+    out = {}
+    err = 0
+    timing = {}
+    for shape, (n, opts) in KAFKA_SHAPES.items():
+        prog = _kafka_program(n, **opts)
+        for rnd in (64, 37):
+            state, ein, cin = _random_kafka_inputs(g, prog, rnd)
+            stall = torch.rand(n, generator=g, device="cuda") < 0.4
+            for st in (None, stall):
+                ctx = {"round": torch.tensor(rnd, dtype=torch.int32,
+                                             device="cuda")}
+                if st is not None:
+                    ctx["stall"] = st
+                before = clone(state)
+
+                def k14(ctx=ctx, state=state, ein=ein, cin=cin, prog=prog):
+                    return prog.edge_step(state, ein, cin, ctx)
+                got = k14()
+                with K.forced_plain():
+                    ref = k14()
+                torch.cuda.synchronize()
+                err = max(err, max_abs_err(got, ref),
+                          max_abs_err(state, before))
+                if st is None and rnd == 37:
+                    timing[shape] = (prog, k14, state, ein, cin)
+    check(err == 0, f"kafka_step differs from its plain version (max abs "
+          f"err {err})")
+    for shape in ("5b", "stress-classic"):
+        prog, k14, state, ein, cin = timing[shape]
+        N, D, Kk, C = prog.n_nodes, prog.D, prog.K, prog.cap
+        A = prog.inbox_cap
+        # the log copied (read and written), the other state leaves read
+        # and written (log_len, committed 8 bytes a key; peer_len; the
+        # overflow counter), the lanes in (17 bytes) and out (17), the
+        # client slots in (29 bytes) and out (37), the neighbour table
+        io = (8 * N * Kk * C + 16 * N * Kk + 8 * N * D * Kk + 8 * N
+              + 34 * N * D * Kk + 66 * N * A + 4 * N * D)
+        # the operations the function needs: a lane tests valid, type,
+        # b == len, b < a, b < C and records its peer length (6), picks
+        # the first offer (2), builds its outbound lane (want < have,
+        # beat, changed, neighbour, the entry's clip and gather: 8); a
+        # slot decodes and routes (about 40 with the packed fields)
+        ops = 16 * N * D * Kk + 40 * N * A
+        b, by = bound_of(io, ops)
+        r = {"max_abs_err": err, "bound_ms": b, "bound_by": by,
+             "bytes": io, "operations": ops, "nodes": N, "keys": Kk,
+             "log_cap": C, "degree": D}
+        if timed:
+            r["ms"] = cuda_ms(k14)
+            with K.forced_plain():
+                r["plain_ms"] = cuda_ms(k14)
+        out[f"{K.KAFKA_STEP.name}@{shape}"] = r
+    return out
+
+
+def phase_kafka_kernels(timed):
+    t0 = time.perf_counter()
+    r = kafka_kernel_checks(timed)
+    emit({"phase": "kafka_kernels", "timed": timed,
+          "seconds": time.perf_counter() - t0, "kernels": r})
+    return r
+
+
+def phase_cli_kafka(smi):
+    """Kafka through the kernels: the pinned runs, each with the launch
+    counters set to 0 just before and read just after; every history
+    must hash to the JAX runner's, every run valid with no log overflow,
+    acked sends, polls and replication traffic."""
+    import shutil
+    from maelstrom_tpu_torch import kernels as K
+    store = os.path.join(ROOT, "store", "chip_smoke_kafka")
+    shutil.rmtree(store, ignore_errors=True)
+    runs, launches = {}, {}
+    for name, run in CLI_KAFKA:
+        K.reset_launches()
+        runs[name] = _run_line(name, run, store, PINNED_KAFKA)
+        runs[name]["reduced"] = CLI_KAFKA_REDUCED.get(name)
+        launches[name] = K.launch_counts()
+        w = runs[name]["workload"]
+        check(runs[name]["log_overflow"] == 0 and w["acked-sends"] > 0
+              and w["polls"] > 0 and runs[name]["server_msgs"] > 0,
+              f"kafka {name}: {runs[name]}")
+        for k in KAFKA_KERNELS:
+            check(launches[name][k] > 0, f"kafka {name} did not launch {k}")
+    shutil.rmtree(store, ignore_errors=True)
+    emit({"phase": "cli_kafka", "runs": runs, "launches": launches,
+          "nvidia_smi": smi})
+    return {k: sum(v[k] for v in launches.values()) for k in KAFKA_KERNELS}
+
+
+def phase_fuzz_kafka(smi):
+    """fuzz.fuzz_kafka's five configs through the kernels: every one ok,
+    partitions and losses showing where the config has them."""
+    import shutil
+    from maelstrom_tpu_torch import fuzz
+    from maelstrom_tpu_torch import kernels as K
+    store = os.path.join(ROOT, "store", "chip_smoke_fuzz")
+    shutil.rmtree(store, ignore_errors=True)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    rows = fuzz.fuzz_kafka(**FUZZ_KAFKA, store_root=store,
+                           log=lambda s: print(s, file=sys.stderr))
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    for c, r in zip(fuzz.KAFKA_SWEEP, rows):
+        check(r["ok"] and r["dropped_overflow"] == 0
+              and (r["dropped_partition"] > 0 or not c["partition"])
+              and (r["lost"] > 0 or not c["p_loss"]),
+              f"fuzz kafka {c['name']}: {r}")
+    for k in KAFKA_KERNELS:
+        check(launches[k] > 0, f"the kafka fuzz did not launch {k}")
+    shutil.rmtree(store, ignore_errors=True)
+    emit({"phase": "fuzz_kafka", "reduced": FUZZ_KAFKA_REDUCED,
+          "wall_s": wall, "rows": rows, "launches": launches,
+          "nvidia_smi": smi})
+
+
+def phase_fuzz_broadcast(smi):
+    """BASELINE config 5: the broadcast fuzz at 4,096 nodes, whose rows
+    must equal the JAX package's (`PINNED_FUZZ`), then at 100,000 nodes
+    with the launch counters set to 0 just before and read just after:
+    every config converged, no overflow, the faults showing."""
+    from maelstrom_tpu_torch import fuzz
+    from maelstrom_tpu_torch import kernels as K
+
+    def sweep(args):
+        t0 = time.perf_counter()
+        rows = fuzz.fuzz_broadcast(**args,
+                                   log=lambda s: print(s, file=sys.stderr))
+        return rows, time.perf_counter() - t0
+    rows, wall4k = sweep(FUZZ_PIN_ARGS)
+    got = [{k: v for k, v in r.items() if k != "wall_s"} for r in rows]
+    check(got == PINNED_FUZZ, f"fuzz 4,096 nodes: rows {got}, the JAX "
+          f"package's {PINNED_FUZZ}")
+    K.reset_launches()
+    rows, wall = sweep(FUZZ_100K)
+    launches = K.launch_counts()
+    for c, r in zip(fuzz.DEFAULT_SWEEP, rows):
+        check(r["ok"] and r["dropped_overflow"] == 0
+              and r["values_born"] > 0
+              and (r["dropped_partition"] > 0 or not c["partition"])
+              and (r["lost"] > 0 or not c["p_loss"]),
+              f"fuzz 100,000 nodes {c['name']}: {r}")
+    for k in FUZZ_KERNELS:
+        check(launches[k] > 0, f"the 100,000-node fuzz did not launch {k}")
+    emit({"phase": "fuzz_100k", "wall_s": wall, "wall_4096_s": wall4k,
+          "rows_4096_equal_jax": True, "rows": rows, "launches": launches,
+          "nvidia_smi": smi})
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "maelstrom_tpu_torch", "csrc")):
         print("chip_smoke: run from a checkout of the repository "
@@ -2605,6 +3004,7 @@ def main() -> int:
     rchecks = phase_raft_kernels(timed=False)
     pchecks = phase_pool_kernels(timed=False)
     cchecks = phase_crdt_kernels(timed=False)
+    kchecks = phase_kafka_kernels(timed=False)
     phase_prng_pins()
     phase_cli_small()
     launches = phase_cli_100k(smi)
@@ -2618,6 +3018,9 @@ def main() -> int:
     launches.update({k: v for k, v in pool_launches.items()
                      if k in ("echo_step", "unique_ids_step")})
     launches.update(phase_cli_crdt(smi))
+    launches["kafka_step"] = phase_cli_kafka(smi)["kafka_step"]
+    phase_fuzz_kafka(smi)
+    phase_fuzz_broadcast(smi)
     # profiles and kernel times last: the profiler they are read from
     # stays out of the runs' wall-clock timing
     phase_cli_profile()
@@ -2630,11 +3033,14 @@ def main() -> int:
     cli["raft_step"] = raft["raft_step"]
     cli.update(phase_pool_kernels(timed=True))
     cli.update(phase_crdt_kernels(timed=True))
+    ktimed = phase_kafka_kernels(timed=True)
+    cli["kafka_step"] = ktimed["kafka_step@5b"]
     phase_crdt_profile()
     phase_pool_profile(pool_launches["rounds_executed"])
     emit({"phase": "profiler", **PROFILER})
     errs = {}
-    for r in (*checks.values(), fchecks, rchecks, raft, pchecks, cchecks):
+    for r in (*checks.values(), fchecks, rchecks, raft, pchecks, cchecks,
+              kchecks, ktimed):
         for name, v in r.items():
             base = {"raft_step_stall": "raft_step",
                     "threefry_batched": "threefry",

@@ -4,10 +4,13 @@ Counterpart of the `test` subcommand of `maelstrom_tpu/cli.py`, with its
 option names and defaults. The port runs the broadcast workload on the
 built-in program (`--node tpu:broadcast`), the lin-kv workload on Raft
 (`--node tpu:lin-kv`, graded by the linearizability checker), echo and
-unique-ids on the pool-path programs and g-set, pn-counter and g-counter
-on the CRDT programs (`--node tpu:<workload>`), on one card, or on the
-CPU with `--device cpu`, under loss, randomized latency and the
-partition, kill, pause, duplicate and weather nemeses. Every
+unique-ids on the pool-path programs, g-set, pn-counter and g-counter
+on the CRDT programs and kafka (classic, or consumer groups with
+`--kafka-groups`) on the replicated-log program (`--node
+tpu:<workload>`), on one card, or on the CPU with `--device cpu`, under
+loss, randomized latency and the partition, kill, pause, duplicate and
+weather nemeses. `fuzz` runs the broadcast and kafka fault sweeps
+(`fuzz.py`). Every
 other option of the JAX CLI is recognised and refused unless it holds its
 default, with an error that names the slice of the port that brings it
 (`OUT_OF_SCOPE`).
@@ -19,6 +22,9 @@ default, with an error that names the slice of the port that brings it
         --node-count 5 --rate 20 --nemesis kill,pause,partition [--device cpu]
     python -m maelstrom_tpu_torch test -w pn-counter --node tpu:pn-counter \\
         --node-count 5 --nemesis partition [--device cpu]
+    python -m maelstrom_tpu_torch test -w kafka --node tpu:kafka \\
+        --node-count 5 --rate 20 --kafka-groups 2 [--device cpu]
+    python -m maelstrom_tpu_torch fuzz --program broadcast --nodes 100000
 """
 
 from __future__ import annotations
@@ -34,14 +40,16 @@ WORKLOADS = ["broadcast", "broadcast-batched", "echo", "g-set", "g-counter",
 # the built-in program each workload the port runs is served by
 PROGRAMS = {"broadcast": "tpu:broadcast", "lin-kv": "tpu:lin-kv",
             **{w: f"tpu:{w}" for w in ("echo", "unique-ids", "g-set",
-                                       "pn-counter", "g-counter")}}
+                                       "pn-counter", "g-counter",
+                                       "kafka")}}
 
 # (option, refused when, the slice of the port that brings it)
 OUT_OF_SCOPE = [
     ("--bin", lambda v: v is not None,
      "the host-process path (external node binaries)"),
-    ("--workload", lambda v: v in ("lin-mutex", "lin-tso"),
-     "lin-mutex and lin-tso on tpu:lin-kv"),
+    ("--workload", lambda v: v == "lin-mutex", "lin-mutex on tpu:lin-kv"),
+    ("--workload", lambda v: v == "lin-tso",
+     "the role-partitioned programs"),
     ("--workload", lambda v: v in ("txn-list-append", "txn-rw-register"),
      "the Raft transaction programs and their Elle checkers"),
     ("--workload", lambda v: v not in PROGRAMS, "the other node programs"),
@@ -79,10 +87,6 @@ OUT_OF_SCOPE = [
      "the role-partitioned programs"),
     ("--leader-lease-ms", lambda v: v is not None,
      "the role-partitioned programs"),
-    ("--kafka-groups", lambda v: v is not None, "the other node programs"),
-    ("--session-timeout-ms", lambda v: v is not None,
-     "the other node programs"),
-    ("--poll-batch", lambda v: v is not None, "the other node programs"),
     ("--batch-max", lambda v: v is not None, "the other node programs"),
 ]
 
@@ -107,7 +111,7 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("-w", "--workload", default="lin-kv", choices=WORKLOADS,
                    help="What workload to run (the port: broadcast, "
                         "lin-kv, echo, unique-ids, g-set, pn-counter, "
-                        "g-counter)")
+                        "g-counter, kafka)")
     t.add_argument("--device", default="cuda",
                    help="cuda (the default) or cpu: the kernels' plain "
                         "PyTorch versions on the CPU")
@@ -203,10 +207,30 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--ballot-width", type=int)
     t.add_argument("--compartment-retry", type=int)
     t.add_argument("--leader-lease-ms", type=float)
-    t.add_argument("--kafka-groups", type=int)
-    t.add_argument("--session-timeout-ms", type=float)
-    t.add_argument("--poll-batch", type=int)
     t.add_argument("--batch-max", type=int)
+    t.add_argument("--kafka-groups", type=int,
+                   help="Kafka consumer groups: N > 0 switches polls to "
+                        "group subscriptions with cursor fetches, "
+                        "coordinator rebalancing and per-group commits")
+    t.add_argument("--session-timeout-ms", type=float,
+                   help="Consumer-group session timeout: a member silent "
+                        "this long is evicted (default 2500)")
+    t.add_argument("--poll-batch", type=int,
+                   help="Max entries a consumer-group fetch (default 8)")
+
+    f = sub.add_parser("fuzz", help="Fault-mix sweeps: broadcast set-full "
+                                    "at scale (BASELINE config 5), kafka")
+    f.add_argument("--program", choices=["broadcast", "raft", "kafka"],
+                   default="broadcast")
+    f.add_argument("--nodes", type=int, default=None,
+                   help="broadcast: node count (default 4096); kafka: "
+                        "node count (default 5)")
+    f.add_argument("--values", type=int, default=32)
+    f.add_argument("--seed", type=int, default=0)
+    f.add_argument("--device", default="cuda",
+                   help="cuda (the default) or cpu")
+    f.add_argument("--store", default="store",
+                   help="Store directory root of the kafka runs")
     return p
 
 
@@ -270,7 +294,8 @@ def opts_from_args(args) -> dict:
     # performance knobs: only forwarded when given, so the runner's own
     # defaults stay in one place
     for k in ("max_scan", "journal_scan_cap", "reply_log_cap",
-              "max_values", "timeout_ms", "nemesis_seed"):
+              "max_values", "timeout_ms", "nemesis_seed", "kafka_groups",
+              "session_timeout_ms", "poll_batch"):
         v = getattr(args, k, None)
         if v is not None:
             opts[k] = v
@@ -294,4 +319,13 @@ def main(argv=None) -> int:
               ("\nValidity unknown (;￣ー￣)" if valid == "unknown" else
                "\nAnalysis invalid! (ﾉಥ益ಥ)ﾉ ┻━┻"))
         return 0 if valid is True else (2 if valid == "unknown" else 1)
+    if args.cmd == "fuzz":
+        from .fuzz import main as fuzz_main
+        try:
+            return fuzz_main(args.nodes, args.values, args.seed,
+                             program=args.program, device=args.device,
+                             store_root=args.store)
+        except (ValueError, NotImplementedError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
     return 1

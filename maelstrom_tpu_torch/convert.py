@@ -4,8 +4,10 @@ Both packages name their state by the same dataclass fields, so a state
 travels as nested dicts of numpy arrays keyed by field name
 (`net.pool.valid`, `nodes.seen`, `channels.a`, the threefry `key`, the
 fault masks and scalars `net.down`, `net.block_matrix`, `net.p_loss`, ...,
-`channels.overwrites`; on the cluster axis every leaf leads with the
-cluster, as under JAX's `vmap`). The tests build such a dict from a JAX
+`channels.overwrites`, a program's node leaves such as kafka's `log` and
+group mode's bool `gactive` [N, G, M]; on the cluster axis every leaf
+leads with the cluster, as under JAX's `vmap`). Each leaf takes the dtype
+of the port's own fresh state. The tests build such a dict from a JAX
 `SimState`; these functions turn it into the port's `SimState` and
 back, so that both packages can start from one state and be compared
 leaf for leaf."""

@@ -61,7 +61,8 @@ DEFAULTS = dict(
 # of `workloads` that builds it
 WORKLOADS = {"broadcast": "broadcast", "lin-kv": "lin_kv", "echo": "echo",
              "unique-ids": "unique_ids", "g-set": "g_set",
-             "pn-counter": "pn_counter", "g-counter": "g_counter"}
+             "pn-counter": "pn_counter", "g-counter": "g_counter",
+             "kafka": "kafka"}
 
 
 def parse_nodes(opts: dict) -> list[str]:

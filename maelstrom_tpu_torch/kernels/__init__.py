@@ -116,10 +116,13 @@ PN_COUNTER_STEP = Kernel("pn_counter_step",
 REPLY_LOG_APPEND_I32 = Kernel("reply_log_append_i32",
                               "maelstrom_tpu_torch/csrc/scan.cu",
                               "maelstrom_tpu/nodes/pn_counter.py:211")
+KAFKA_STEP = Kernel("kafka_step", "maelstrom_tpu_torch/csrc/kafka.cu",
+                    "maelstrom_tpu/nodes/kafka.py:246")
 KERNELS = (EDGE_READ, EDGE_WRITE, BROADCAST_STEP, REPLY_COMPACT,
            REPLY_LOG_APPEND, QUIET_PROBE, THREEFRY, EDGE_FAULTS,
            EDGE_WRITE_SPILL, BROADCAST_STEP_STALL, RAFT_STEP, ECHO_STEP,
-           UNIQUE_IDS_STEP, PN_COUNTER_STEP, REPLY_LOG_APPEND_I32)
+           UNIQUE_IDS_STEP, PN_COUNTER_STEP, REPLY_LOG_APPEND_I32,
+           KAFKA_STEP)
 
 _state = {"lib": None, "forced_plain": False}
 

@@ -4,10 +4,10 @@ Counterpart of `maelstrom_tpu/nodes/__init__.py`: a node program is a
 batched state machine whose per-node state is a dict of tensors with a
 leading node axis, plus the host-boundary contract that keeps the JSON
 protocol as the compatibility surface (`request_for_op`, `encode_body`,
-`decode_body`, `completion`). The port has the broadcast, g-set and
-PN-/g-counter programs on the edge channels, Raft serving lin-kv, and
-echo and unique-ids on the pool path; `get_program` names the slice that
-brings any other.
+`decode_body`, `completion`). The port has the broadcast, g-set,
+PN-/g-counter and kafka programs on the edge channels, Raft serving
+lin-kv, and echo and unique-ids on the pool path; `get_program` names
+the slice that brings any other.
 
 Type code 0 is reserved (invalid slot), 1 is the shared RPC error reply;
 programs define their own codes from 10 up."""
@@ -126,6 +126,20 @@ class NodeProgram:
         ({name: int tensor}, summed), reported by the net-stats checker
         beside `dropped-overflow`."""
         return {}
+
+    def state_row(self, tree, node_idx: int):
+        """One node's state rows, copied out of a host copy of the state
+        tree (`runner._read_state`): every leaf indexed by the node."""
+        import numpy as np
+        return {k: np.array(v[node_idx]) for k, v in tree.items()}
+
+    def host_state(self):
+        """The host-side bookkeeping this program keeps between ops
+        (kafka: consumer-group sessions and polled offsets), or None."""
+        return None
+
+    def set_host_state(self, st):
+        """Restores what `host_state` returned (nothing for None)."""
 
     def durable_view(self, state):
         """The persisted subset of `state` (the same tensors, no copy);
@@ -279,8 +293,7 @@ PROGRAMS: dict[str, Callable] = {}
 # the slice of the port that brings each of the JAX package's other
 # programs
 LATER = {
-    **dict.fromkeys(("kafka", "broadcast-batched"),
-                    "the other node programs"),
+    "broadcast-batched": "the other node programs",
     **dict.fromkeys(("txn-list-append", "txn-rw-register"),
                     "the Raft transaction programs"),
     **dict.fromkeys(("compartment", "services", "lin-tso", "seq-kv",
@@ -296,8 +309,8 @@ def register(cls):
 
 def get_program(name: str, opts: dict, nodes: list[str],
                 device="cuda") -> NodeProgram:
-    from . import (broadcast, echo, gset, pn_counter,  # noqa: F401
-                   raft, unique_ids)     # (register the programs)
+    from . import (broadcast, echo, gset, kafka,  # noqa: F401
+                   pn_counter, raft, unique_ids)  # (register the programs)
     if name not in PROGRAMS:
         later = LATER.get(name.split(":")[0], "a later slice")
         raise ValueError(f"node program {name!r} is not ported to "

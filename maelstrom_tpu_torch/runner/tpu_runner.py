@@ -7,11 +7,14 @@ iteration polls the (pure, virtual-time) generators for client ops,
 encodes them into the injection batch, runs one scan-ahead dispatch
 (`sim.make_scan_fn`) to the next host-relevant round, decodes the client
 replies its device-resident log collected into history completions, and
-applies timeouts. Nemesis ops run at stretch boundaries: they rewrite
-the network's fault masks and scalars between dispatches
-(`TpuCombinedNemesis`). Quiescent stretches (empty flight pool, drained
-edge channels, idle node program: the fused probe K6) are fast-forwarded
-in one round-counter bump.
+applies timeouts. A program may route an op to a node of its choosing
+(`node_for_op`), and its completions may read node state at the host
+(`_read_state`: one drain of the node state, cached until the next
+dispatch, restart or fault surgery). Nemesis ops run at stretch
+boundaries: they rewrite the network's fault masks and scalars between
+dispatches (`TpuCombinedNemesis`). Quiescent stretches (empty flight
+pool, drained edge channels, idle node program: the fused probe K6) are
+fast-forwarded in one round-counter bump.
 
 Time is virtual: 1 round = `ms_per_round` milliseconds (default 1), so
 the same generators and checkers read it as the JAX package's runner
@@ -264,11 +267,17 @@ class TpuRunner:
         self.ms_per_round = float(test.get("ms_per_round", 1.0))
         test.setdefault("ms_per_round", self.ms_per_round)
         self.program = get_program(spec, test, nodes, device=self.device)
-        if self.program.needs_state_reads and not getattr(
-                self.program, "reply_payload_words", 0):
+        # scans cross whole reply-bearing stretches, so a completion that
+        # reads node state at the host reads it at the stretch's end: sound
+        # only where the reads are final (kafka's append-only logs, sliced
+        # to the reply-round lengths) or the reply carries its payload
+        if (self.program.needs_state_reads
+                and not getattr(self.program, "state_reads_final", False)
+                and not getattr(self.program, "reply_payload_words", 0)):
             raise NotImplementedError(
                 f"{self.program.name}: completions that read node state "
-                f"at the host come with the other node programs")
+                f"at the reply's own round come with the other node "
+                f"programs")
         lat = test.get("latency") or {}
         mean_rounds = float(lat.get("mean", 0)) / self.ms_per_round
         n = len(nodes)
@@ -303,6 +312,7 @@ class TpuRunner:
         self.transfer = TransferStats()
         self._scan_fn = None         # built lazily
         self._pack = None            # one packed fetch a dispatch
+        self._state_cache = None     # host copy of the node state
         self.max_scan = int(test.get("max_scan", 65536))
         self.journal_scan_cap = int(test.get("journal_scan_cap", 256))
         self.reply_log_cap = int(test.get("reply_log_cap", 256))
@@ -354,6 +364,7 @@ class TpuRunner:
         """Applies a host-side fault update `net -> net'` (grudges,
         down and paused masks, duplication, weather) between dispatches."""
         self.sim = self.sim.replace(net=fn(self.sim.net))
+        self._state_cache = None
 
     def restart_nodes(self, mask):
         """Crash-restart (stop-kill): masked nodes come back with their
@@ -365,6 +376,20 @@ class TpuRunner:
         self.sim = sim.replace(
             nodes=nodes, net=sim.net.replace(down=sim.net.down & ~m),
             durable=prog.durable_view(nodes))
+        self._state_cache = None
+
+    def _read_state(self, node_idx: int):
+        """One node's state rows at the current round, copied out of the
+        host copy of the node state (one drain, cached until the next
+        dispatch, restart or fault surgery)."""
+        return self.program.state_row(self._nodes_host(), node_idx)
+
+    def _nodes_host(self):
+        """A host copy of the whole node-state tree at the current round
+        (cached as `_read_state`'s)."""
+        if self._state_cache is None:
+            self._state_cache = self.transfer.fetch(self.sim.nodes)
+        return self._state_cache
 
     def _bump(self, k: int):
         """Fast-forward: round += k (a torch op on the round counter)."""
@@ -542,7 +567,18 @@ class TpuRunner:
                            "free": self._free_rotated(free),
                            "processes": processes}
                     continue
-                node_idx = process % N      # the worker's bound node
+                # the worker's bound node, unless the program routes
+                # the op (smart-client routing: kafka sends go to the
+                # key's owner, commits and lists to the coordinator)
+                routed = program.node_for_op(op)
+                if routed is None:
+                    node_idx = process % N
+                else:
+                    node_idx = int(routed)
+                    if not 0 <= node_idx < N:
+                        raise ValueError(
+                            f"{program.name}.node_for_op returned "
+                            f"{routed} for a {N}-node cluster")
                 body = program.request_for_op(op)
                 try:
                     t, a, b, c = program.encode_body(body, self.intern)
@@ -616,7 +652,7 @@ class TpuRunner:
         stamp, t_, a_, b_, c_, _rt, payload = rep
         if entry is None:
             return gen              # stale reply (client.clj:167-168)
-        process, op, _node_idx, _dl = entry
+        process, op, node_idx, _dl = entry
         body = program.decode_body(t_, a_, b_, c_, self.intern)
         if body.get("type") == "error":
             err = ERROR_REGISTRY.get(body.get("code"))
@@ -631,8 +667,8 @@ class TpuRunner:
             completed = program.completion_payload(
                 op, body, payload, self.intern)
         else:
-            # a program that reads no node state at the host (raft)
-            completed = program.completion(op, body, None, self.intern)
+            completed = program.completion(
+                op, body, lambda: self._read_state(node_idx), self.intern)
         cctx = {"time": self._time_ns(stamp),
                 "free": self._free_rotated(free), "processes": processes}
         return self._complete(history, gen, cctx, process, completed, free)
@@ -683,6 +719,7 @@ class TpuRunner:
         t0 = time.perf_counter()
         out = scan(self.sim, inject, k_max, stop)
         self.sim, k, rl = out[0], out[2], out[3]
+        self._state_cache = None
         buf = out[4] if journaled else ()
         # ONE fetched array a dispatch: next_mid rides the packed buffer
         tree = (buf, rl, self.sim.net.next_mid)

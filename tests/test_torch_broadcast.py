@@ -158,7 +158,7 @@ def test_other_programs_and_random_latency_are_refused():
     with pytest.raises(ValueError, match="Raft transaction programs"):
         p_get_program("txn-list-append", {}, ["n0"], device="cpu")
     with pytest.raises(ValueError, match="the other node programs"):
-        p_get_program("kafka", {}, ["n0"], device="cpu")
+        p_get_program("broadcast-batched", {}, ["n0"], device="cpu")
     for n, opts in ((5, {"latency": {"mean": 5, "dist": "uniform"}}),
                     (25, {"latency": {"mean": 3, "dist": "exponential"},
                           "nemesis": {"duplicate", "kill"}}),

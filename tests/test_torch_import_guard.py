@@ -13,6 +13,7 @@ import torch
 
 from maelstrom_tpu_torch import cli, core
 from maelstrom_tpu_torch.bench import run_broadcast_bench, run_raft_bench
+from maelstrom_tpu_torch.fuzz import fuzz_broadcast, fuzz_kafka
 from maelstrom_tpu_torch.net.tpu import NetConfig
 from maelstrom_tpu_torch.nodes import get_program
 from maelstrom_tpu_torch.parallel import make_cluster_round_fn, \
@@ -53,7 +54,7 @@ def test_port_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", GUARD], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 47    # every module was imported
+    assert int(res.stdout.split()[-1]) >= 51    # every module was imported
 
 
 def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
@@ -66,7 +67,8 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
         get_program("broadcast", opts, nodes)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         get_program("lin-kv", {}, nodes)
-    for name in ("echo", "unique-ids", "g-set", "pn-counter", "g-counter"):
+    for name in ("echo", "unique-ids", "g-set", "pn-counter", "g-counter",
+                 "kafka"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             get_program(name, {}, nodes)
     raft = get_program("lin-kv", {}, nodes, device="cpu")
@@ -94,7 +96,12 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
                  lambda: core.run({"workload": "pn-counter",
                                    "node": "tpu:pn-counter",
                                    "node_count": 3,
-                                   "store_root": str(tmp_path)})):
+                                   "store_root": str(tmp_path)}),
+                 lambda: cli.main(["test", "-w", "kafka", "--node",
+                                   "tpu:kafka", "--node-count", "3",
+                                   "--store", str(tmp_path)]),
+                 lambda: fuzz_broadcast(n_nodes=4, values=2),
+                 lambda: fuzz_kafka(n_nodes=3, store_root=str(tmp_path))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert not any(tmp_path.iterdir())      # refused before any store dir

@@ -7,7 +7,8 @@ and alignments. The plain version runs on the CPU from the same numpy inputs.
 Tolerance: exact (int32 and bool).
 
 The pool-path steps (K11, K12), the PN-counter step (K13, up to 1,500
-origins and spill lanes) and K5's int32 payload form too.
+origins and spill lanes), K5's int32 payload form and the kafka step
+(K14, classic and group mode, up to 16 groups of 254 members) too.
 
 These tests need a CUDA device and skip without one. They import
 nothing of JAX, so they run on a machine without it:
@@ -751,3 +752,132 @@ def test_raft_cluster_round_matches_plain(cuda):
         res[d] = sims
     torch.cuda.synchronize()
     _equal(res[cuda], res["cpu"])
+
+
+def random_kafka_inputs(rng, prog, rnd):
+    """(state, edge_in, client_in) as numpy fields for a kafka step:
+    logs full on some keys and empty on others, offers at, below and
+    above the receiver's length (duplicates on several edges), stray
+    lane types, committed marks below the -1 of "none"; sends with keys
+    past both ends and to other owners, packed commits and lists, and in
+    group mode subscribes, fetches with cursors past the log, banked
+    commits whose generation matches half the time (the rest fenced),
+    lists of both banks, and members whose heartbeat is past the
+    session timeout."""
+    N, Kk, C, D, G, M = prog.n_nodes, prog.K, prog.cap, prog.D, prog.G, \
+        prog.M
+    A = prog.inbox_cap
+
+    def ints(lo, hi, shape):
+        return rng.integers(lo, hi, shape, dtype=np.int64)
+    log_len = ints(0, C + 1, (N, Kk))
+    log_len[rng.random((N, Kk)) < 0.15] = C
+    log_len[rng.random((N, Kk)) < 0.15] = 0
+    state = {"log": ints(0, 1000, (N, Kk, C)), "log_len": log_len,
+             "peer_len": ints(-1, C + 2, (N, D, Kk)),
+             "committed": ints(-3, 40, (N, Kk)),
+             "log_overflow": ints(0, 3, N)}
+    if G:
+        state["gactive"] = rng.random((N, G, M)) < 0.5
+        state["gseen"] = rnd - ints(0, 2 * prog.session_rounds + 2,
+                                    (N, G, M))
+        state["ggen"] = ints(0, 70_000, (N, G))
+        state["gcommitted"] = ints(-3, 40, (N, G, Kk))
+    ll = log_len[:, None, :]
+    edge_in = {"valid": rng.random((N, D, Kk)) < 0.7,
+               "type": np.where(rng.random((N, D, Kk)) < 0.85, 20,
+                                ints(0, 40, (N, D, Kk))),
+               "a": ll + ints(-2, 4, (N, D, Kk)),
+               "b": ll + ints(-2, 3, (N, D, Kk)),
+               "c": ints(0, 1000, (N, D, Kk))}
+    types = np.array([10, 12, 14, 16, 30, 32, 34, 37, 0, 99])
+    ty = types[ints(0, len(types), (N, A))]
+    a, b, c = (ints(-2**31, 2**31 - 1, (N, A)) for _ in range(3))
+
+    def packed():
+        return ints(0, 40, (N, A)) | (ints(0, 40, (N, A)) << 16)
+    send = ty == 10
+    a = np.where(send, ints(-1, Kk + 1, (N, A)), a)
+    b = np.where(send, ints(0, 1000, (N, A)), b)
+    cm = ty == 14
+    a, b, c = (np.where(cm, packed(), w) for w in (a, b, c))
+    if G:
+        g = ints(0, G + 1, (N, A))
+        m = ints(0, M + 1, (N, A))
+        a = np.where((ty == 30) | (ty == 32), (g << 10) | m, a)
+        fetch = ty == 32
+        b = np.where(fetch, (ints(-1, Kk + 1, (N, A)) << 16)
+                     | ints(0, C + 3, (N, A)), b)
+        c = np.where(fetch, ints(-2, 12, (N, A)), c)
+        gen = state["ggen"][np.arange(N)[:, None], np.minimum(g, G - 1)]
+        gen = np.where(rng.random((N, A)) < 0.6, gen & 0xFFFF,
+                       ints(0, 0xFFFF, (N, A)))
+        bank = ints(0, 2, (N, A))
+        gc = ty == 34
+        a = np.where(gc, (bank << 30) | (np.minimum(g, 15) << 26)
+                     | (np.minimum(m, 1023) << 16) | gen, a)
+        b, c = (np.where(gc, packed(), w) for w in (b, c))
+        a = np.where(ty == 37, (bank << 30) | g, a)
+
+    def i32(x):
+        return (((np.asarray(x, np.int64) + 2**31) % 2**32)
+                - 2**31).astype(np.int32)
+    state = {k: v if v.dtype == bool else i32(v) for k, v in state.items()}
+    edge_in = {k: v if v.dtype == bool else i32(v)
+               for k, v in edge_in.items()}
+    client_in = {"valid": rng.random((N, A)) < 0.6,
+                 "src": i32(ints(N, 2 * N, (N, A))),
+                 "dest": i32(np.tile(np.arange(N)[:, None], (1, A))),
+                 "due": i32(ints(0, 99, (N, A))),
+                 "mid": i32(ints(0, 1 << 30, (N, A))),
+                 "reply_to": np.full((N, A), -1, np.int32),
+                 "type": i32(ty), "a": i32(a), "b": i32(b), "c": i32(c)}
+    return state, edge_in, client_in
+
+
+def _kafka_program(n, device="cpu", **opts):
+    return get_program("kafka", opts, [f"n{i}" for i in range(n)],
+                       device=device)
+
+
+# "fuzz-groups" is 5 nodes in 2 groups (the kafka5-groups2 run's node and
+# group counts); the kafka fuzz itself runs classic
+KAFKA_SHAPES = {
+    "5b": (2, {"key_count": 4, "rate": 1000.0, "time_limit": 5.0}),
+    "fuzz-groups": (5, {"kafka_groups": 2}),
+    "classic6": (7, {"key_count": 6, "log_cap": 50}),
+    "wide-groups": (9, {"key_count": 8, "kafka_groups": 16,
+                        "concurrency": 254, "log_cap": 40,
+                        "session_timeout_ms": 30.0}),
+    "odd-groups": (5, {"key_count": 5, "kafka_groups": 3,
+                       "concurrency": 40, "log_cap": 30,
+                       "inbox_cap": 7}),
+}
+
+
+@pytest.mark.parametrize("shape", list(KAFKA_SHAPES))
+@pytest.mark.parametrize("rnd", [64, 37, 0])
+@pytest.mark.parametrize("stalled", [False, True], ids=["", "stall"])
+def test_kafka_step_matches_plain(cuda, shape, rnd, stalled):
+    """K14 against its plain version on every output field: classic at
+    the 5b shape and with 6 keys, group mode with 2, 3 and 16 groups and
+    up to 254 members, 7 inbox slots; round 64 and 0 are beat rounds."""
+    n, opts = KAFKA_SHAPES[shape]
+    progs = {d: _kafka_program(n, device=d, **opts) for d in ("cpu", cuda)}
+    rng = np.random.default_rng(n + rnd + stalled)
+    state, edge_in, client_in = random_kafka_inputs(rng, progs["cpu"],
+                                                    rnd)
+    stall = rng.random(n) < 0.4
+    out = {}
+    for d in ("cpu", cuda):
+        ctx = {"round": torch.tensor(rnd, dtype=torch.int32, device=d)}
+        if stalled:
+            ctx["stall"] = torch.tensor(stall, device=d)
+        st = _tensors(state, d)
+        out[d] = progs[d].edge_step(
+            st, static.EdgeMsgs(**_tensors(edge_in, d)),
+            Msgs(**_tensors(client_in, d)), ctx)
+        # the step is out of place
+        _equal(st, _tensors(state, d))
+    _equal(out[cuda], out["cpu"])
+    assert K.KAFKA_STEP.launches > 0

@@ -145,9 +145,11 @@ def test_free_set_rotation_matches_sorted_list():
     (["--resume", "x"], "checkpoint and resume"),
     (["--device-checker", "on"], "device Elle"),
     (["--telemetry"], "telemetry rings"),
-    (["-w", "kafka"], "the other node programs"),
+    (["-w", "broadcast-batched"], "the other node programs"),
     (["-w", "txn-list-append"], "the Raft transaction programs"),
-    (["-w", "lin-tso"], "lin-mutex and lin-tso"),
+    pytest.param(["-w", "lin-tso"], "the role-partitioned programs",
+                 id="extra14-lin-mutex and lin-tso"),
+    (["-w", "lin-mutex"], "lin-mutex on tpu:lin-kv"),
 ])
 def test_cli_refuses_options_out_of_scope(extra, slice_, tmp_path,
                                           capsys):

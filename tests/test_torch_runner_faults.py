@@ -79,7 +79,7 @@ def test_cli_under_faults_matches_jax(name, tmp_path):
 def test_pinned_fault_cli_hashes(name, tmp_path):
     """Re-derives chip_smoke.py's PINNED_FAULTS: the sha256 of the JAX
     runner's history.jsonl for each of its cli_faults_small runs (the
-    1,024-node run takes tens of minutes on the CPU)."""
+    1,024-node run takes minutes on the CPU)."""
     import chip_smoke
     args = dict(_fault_runs())[name]
     jdir = _run(jcli.main, args + ["--no-audit"], str(tmp_path))
