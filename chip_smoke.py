@@ -41,7 +41,15 @@ package's e2e configs and Gossip Glomers' challenge 5b, whose histories
 must hash to the JAX runner's (`PINNED_KAFKA`), the kafka fault sweep
 (`fuzz.fuzz_kafka`), and the broadcast fuzz, BASELINE config 5: its
 sweep at 4,096 nodes equal to the JAX package's rows (`PINNED_FUZZ`),
-then at 100,000 nodes. Every phase prints one JSON line; any
+then at 100,000 nodes. Then the batched-broadcast slice: K15
+broadcast_batched_step (with and without its stall mask, up to a
+100,000-node grid and a 70,000-value table whose proof sums wrap)
+against its plain version, the JAX package's batched-broadcast runs and
+the ordering axis (lin-kv over the batched engine, kafka over the raft
+engine) through `core.run`, whose histories must hash to the JAX
+runner's (`PINNED_BATCHED`), and bench.py's batched-vs-eager record at
+4,096 nodes, whose rounds and message counts must equal the JAX
+package's (`PINNED_BATCHED_BENCH`). Every phase prints one JSON line; any
 failed check exits non-zero. The line before the last lists every kernel
 with its launches on its path, its time, its plain version's time and
 its bound; the last line is `{"ok": true, "device": {...}}`.
@@ -92,7 +100,14 @@ PINNED_PRNG = {
 }
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the smoke's seconds so far
+    (`at_s`)."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -108,49 +123,89 @@ def check(cond, msg: str) -> None:
 
 # --- helpers ----------------------------------------------------------------
 
-# traces taken, those taken again with what they held (`traced`), and
-# the device records found missing in traces accepted (`cuda_ms`, the
-# profile windows), reported by the `profiler` line
+# traces taken, those taken again with what they held (`traced`), the
+# device records found missing in traces accepted (`cuda_ms`, the
+# profile windows), the sentinel records missing, the timings made by
+# CUDA events (`event_ms`) and the windows kept short, reported by the
+# `profiler` line
 PROFILER = {"traces": 0, "retaken": 0, "incomplete": [], "short": 0,
-            "records_missing": 0}
+            "records_missing": 0, "sentinels_missing": 0, "event_timed": [],
+            "kept_short": []}
 SENTINEL = "spin_kernel"      # torch.cuda._sleep's kernel
+SENTINELS = 8                 # sentinel kernels before and after a window
 GUARD_S = 0.02
+SPIN_CYCLES = 100_000_000     # some 50 ms of the card's clock
 
 
-def traced(run, complete, what: str, attempts: int = 3):
+def traced(run, complete, what: str, attempts: int = 3,
+           keep_last: bool = False):
     """The device events (`key_averages` rows of device type) of `run()`
     under `torch.profiler`, from a trace that `complete(events)` accepts.
     The profiler drops device records now and then: all of a trace's or
     some, about one trace in a hundred on plain torch ops as on the
     port's kernels, with or without CUPTI torn down between traces, and
-    late in a long process one record of a trace, time and again. Each
-    trace therefore opens with a sentinel kernel, left out of the
-    events, and holds `GUARD_S` of host time before and after `run()`;
-    a trace that is empty or fails `complete` is taken again, up to
-    `attempts` traces, and then the smoke fails."""
+    late in a run of some fifteen minutes one or two records of a trace,
+    the same number each time it is taken again, whatever the host time
+    around the window (20 to 320 ms). Each trace therefore runs with the
+    allocator's cache emptied, holds `SENTINELS` sentinel kernels, left
+    out of the events, before and after `run()` and `GUARD_S` of host
+    time around it; a trace that is empty or fails `complete` is taken
+    again, up to `attempts` traces. Then the smoke fails, or with
+    `keep_last` the last trace is returned (the caller says what it
+    lacks)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     seen = []
     for _ in range(attempts):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1000)
+            for _ in range(SENTINELS):
+                torch.cuda._sleep(1000)
             torch.cuda.synchronize()
             time.sleep(GUARD_S)
             run()
             torch.cuda.synchronize()
+            for _ in range(SENTINELS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             time.sleep(GUARD_S)
         PROFILER["traces"] += 1
-        evs = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and SENTINEL not in e.key]
+        dev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        evs = [e for e in dev if SENTINEL not in e.key]
+        PROFILER["sentinels_missing"] += 2 * SENTINELS - sum(
+            e.count for e in dev if SENTINEL in e.key)
         if evs and complete(evs):
             return evs
         PROFILER["retaken"] += 1
         seen.append({e.key[:40]: e.count for e in evs})
         if len(PROFILER["incomplete"]) < 20:
-            PROFILER["incomplete"].append({"what": what, "held": seen[-1]})
+            PROFILER["incomplete"].append({
+                "what": what, "held": seen[-1],
+                "free_gb": torch.cuda.mem_get_info()[0] / 2**30})
+    if keep_last:
+        return evs
     fail(f"{what}: no complete trace in {attempts} ({seen})")
+
+
+def event_ms(fn, iters: int) -> float:
+    """Mean time of one call of `fn` on the card by CUDA events around
+    `iters` calls, queued behind a spin kernel so that the events
+    bracket the device's work and not the host's dispatch (a call that
+    waits on the device, as a plain version's host reads do, counts the
+    gaps it leaves)."""
+    import torch
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / iters
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -164,7 +219,8 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     A trace that lost at most one record of a function in twenty (c =
     the count over `iters`, rounded), or one, is kept: the function's
     time is its mean recorded duration times c; one that lost more is
-    taken again."""
+    taken again. When no trace is whole, the time is `event_ms`'s, and
+    the `profiler` line says so."""
     import torch
     for _ in range(warmup):
         fn()
@@ -177,9 +233,17 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     def per_call(e):
         return round(e.count / iters)
 
-    evs = traced(run, lambda evs: all(
-        per_call(e) >= 1 and 0 <= per_call(e) * iters - e.count
-        <= max(1, per_call(e) * iters // 20) for e in evs), "timing")
+    def whole(evs):
+        return all(per_call(e) >= 1 and 0 <= per_call(e) * iters - e.count
+                   <= max(1, per_call(e) * iters // 20) for e in evs)
+
+    evs = traced(run, whole, "timing", keep_last=True)
+    if not evs or not whole(evs):
+        ms = event_ms(fn, iters)
+        PROFILER["event_timed"].append({
+            "held": {e.key[:40]: e.count for e in evs}, "iters": iters,
+            "ms": ms})
+        return ms
     missing = sum(per_call(e) * iters - e.count for e in evs)
     PROFILER["short"] += missing > 0
     PROFILER["records_missing"] += missing
@@ -193,7 +257,9 @@ def anchored(count_launches, anchor: str):
     `anchor` kernel (a kernel its wrapper launches once a call) as often
     as `count_launches()` grew over the window, or one time less (one
     dropped record: busy time short by at most a round's share). Returns
-    (run wrapper, complete)."""
+    (run wrapper, complete, note): `note(what)`, called on the trace
+    `traced` returned with `keep_last`, records in the `profiler` line
+    how many anchor records it lacks when no trace was whole."""
     got = {}
 
     def wrap(run):
@@ -205,13 +271,20 @@ def anchored(count_launches, anchor: str):
 
     def complete(evs):
         n = got.get("launches", 0)
-        miss = n - sum(e.count for e in evs if anchor in e.key)
-        if n > 0 and 0 <= miss <= 1:
+        miss = got["miss"] = n - sum(e.count for e in evs if anchor in e.key)
+        got["whole"] = n > 0 and 0 <= miss <= 1
+        if got["whole"]:
             PROFILER["short"] += miss
             PROFILER["records_missing"] += miss
-            return True
-        return False
-    return wrap, complete
+        return got["whole"]
+
+    def note(what):
+        if not got.get("whole"):
+            PROFILER["kept_short"].append({
+                "what": what, "anchor": anchor,
+                "launches": got.get("launches", 0),
+                "anchor_missing": got.get("miss")})
+    return wrap, complete, note
 
 
 def _append_launches():
@@ -864,11 +937,12 @@ PINNED_FAULTS = {
 # (`CLI_100K_REDUCED`: node count kept) so the smoke, which also runs the
 # later slices, stays inside its own time limit: the time limit from
 # 10 s to 2 s, and the recovery window, most of the run's 12,002
-# rounds, from 10 s to 2 s (the grid's diameter is some 630 rounds of
+# rounds, from 10 s to 2 s and then to 1 s (to pay for the
+# batched-broadcast phases; the grid's diameter is some 630 rounds of
 # gossip; a 1 s run has a single broadcast to check).
 CLI_100K = {"workload": "broadcast", "node": "tpu:broadcast",
-            "node_count": 100_000, "time_limit": 2.0, "recovery_s": 2.0}
-CLI_100K_REDUCED = {"time_limit_s": 2.0, "from": 10.0, "recovery_s": 2.0,
+            "node_count": 100_000, "time_limit": 2.0, "recovery_s": 1.0}
+CLI_100K_REDUCED = {"time_limit_s": 2.0, "from": 10.0, "recovery_s": 1.0,
                     "recovery_from": 10.0}
 
 
@@ -1023,8 +1097,9 @@ def phase_cli_profile(faults=False):
     def window():
         state["sim"] = scan(state["sim"], empty, 40, False)[0]
     # K5 appends once a round: the trace holds its kernel as often
-    wrap, complete = anchored(_append_launches, "append_kernel")
-    evs = traced(wrap(window), complete, "cli profile")
+    wrap, complete, note = anchored(_append_launches, "append_kernel")
+    evs = traced(wrap(window), complete, "cli profile", keep_last=True)
+    note("cli profile")
     sim = state["sim"]
     busy_ms = sum(e.self_device_time_total for e in evs) / 1e3 / 40
     check(busy_ms > 0, "cli profile: the trace holds no device time")
@@ -1294,8 +1369,8 @@ def phase_cli_faults_small():
 # CLI's other defaults (grid, rate 5, 1024 values, concurrency 100,000),
 # through `core.run` (the CLI has no flag for the recovery window), cut
 # in depth to a 1 s time limit with a nemesis op every 0.25 s (from 10 s
-# and 2 s; the same four ops of the same decision streams) and a 3 s
-# recovery window (from 10 s; the last value was
+# and 2 s; the same four ops of the same decision streams) and a 2 s
+# recovery window (from 10 s, then 3 s; the last value was
 # stable 344 ms after its send in a 2 s run), node count, faults and
 # latency kept, so the smoke, which also runs the later slices, stays
 # inside its time limit. No partition or weather at this size: the JAX
@@ -1307,10 +1382,10 @@ CLI_FAULTS_100K = {"workload": "broadcast", "node": "tpu:broadcast",
                    "latency": {"mean": 5, "dist": "uniform"},
                    "p_loss": 0.01, "nemesis": {"kill", "pause", "duplicate"},
                    "nemesis_interval": 0.25, "time_limit": 1.0,
-                   "recovery_s": 3.0}
+                   "recovery_s": 2.0}
 CLI_FAULTS_100K_REDUCED = {"time_limit_s": 1.0, "from": 10.0,
                            "nemesis_interval_s": 0.25, "interval_from": 2.0,
-                           "recovery_s": 3.0, "recovery_from": 10.0}
+                           "recovery_s": 2.0, "recovery_from": 10.0}
 FAULT_PATH_KERNELS = ("threefry", "edge_faults", "broadcast_step_stall")
 
 
@@ -1406,7 +1481,8 @@ RAFT_PINNED_CLUSTERS = 64
 # The port's lin-kv CLI on one 5-node Raft cluster: fault-free, and under
 # exponential latency, 2% loss and the kill, pause, partition and
 # duplicate nemeses every 0.5 s (the faulted run's ring: 5 * 8 * 10 + 2
-# + 2 = 404). sha256 of the JAX runner's history.jsonl for each, on the
+# + 2 = 404; a shorter run leaves an op kind with no ok, which the stats
+# checker fails). sha256 of the JAX runner's history.jsonl for each, on the
 # CPU (`python -m maelstrom_tpu <args> --no-audit`); re-derived by
 #   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_linkv.py -m slow
 CLI_LINKV_BASE = ["test", "-w", "lin-kv", "--node", "tpu:lin-kv",
@@ -2005,12 +2081,17 @@ def phase_cli_linkv(smi):
 
 
 def phase_raft_profile():
-    """`bench.profile_raft`'s window, taken again (as `traced` does) until
-    its trace holds K10's kernel once a round, as the round launches
-    it, or one time less (`anchored`)."""
+    """`bench.profile_raft`'s window, taken again (as `traced` does, the
+    allocator's cache emptied first) until its trace holds K10's kernel
+    once a round, as the round launches it, or one time less
+    (`anchored`); when no trace is, the last is kept and the `profiler`
+    line says how many records it lacks."""
+    import torch
     from maelstrom_tpu_torch.bench import profile_raft
     window = 20
     for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
         rec = profile_raft(RAFT_BENCH["clusters"], start=100, window=window)
         PROFILER["traces"] += 1
         k10 = [round(t["calls_per_round"] * window) for t in rec["top"]
@@ -2022,7 +2103,13 @@ def phase_raft_profile():
             emit({"phase": "raft_profile", **rec})
             return
         PROFILER["retaken"] += 1
-    fail(f"raft profile: no complete trace in 3 ({rec['top']})")
+    check(len(k10) == 1 and rec["device_busy_ms_per_round"] > 0,
+          f"raft profile: no K10 in 3 traces ({rec['top']})")
+    PROFILER["kept_short"].append({"what": "raft profile",
+                                   "anchor": "raft_kernel",
+                                   "launches": window,
+                                   "anchor_missing": window - k10[0]})
+    emit({"phase": "raft_profile", **rec})
 
 
 # --- the pool-path round and the CRDT programs ----------------------------------
@@ -2046,7 +2133,8 @@ OWN_KERNELS = ("step_kernel", "count_kernel", "emit_kernel", "route_kernel",
 # time limit cut from 30 s to 2.5 s, and the nemesis interval, the CLI's
 # 10 s there, scaled with it to 0.834 s, so that the cut run keeps the
 # challenge's schedule: one partition over the middle third of the run,
-# none at 10 s in a short run).
+# none at 10 s in a short run; then the time limit alone cut to 1.25 s,
+# which leaves the partition from 0.834 s to the end of the run).
 # tests/test_torch_runner_programs.py holds both against the JAX runner
 # on the CPU.
 CLI_POOL = [
@@ -2055,14 +2143,17 @@ CLI_POOL = [
     ("unique-ids3-challenge2", [
         "test", "-w", "unique-ids", "--node", "tpu:unique-ids",
         "--node-count", "3", "--rate", "1000", "--nemesis", "partition",
-        "--nemesis-interval", "0.834", "--time-limit", "2.5", "--seed",
+        "--nemesis-interval", "0.834", "--time-limit", "1.25", "--seed",
         "7"]),
 ]
 CLI_POOL_REDUCED = {"unique-ids3-challenge2": {
-    "time_limit_s": 2.5, "from": 30.0, "nemesis_interval_s": 0.834,
+    "time_limit_s": 1.25, "from": 30.0, "nemesis_interval_s": 0.834,
     "nemesis_interval_from": 10.0,
-    "why": "the interval scaled with the time limit: one partition over "
-           "the run's middle third, as in the 30 s challenge"}}
+    "why": "the interval scaled with a 2.5 s time limit: one partition "
+           "over the run's middle third, as in the 30 s challenge; then "
+           "the time limit alone cut to 1.25 s to pay for the "
+           "batched-broadcast phases (the partition starts at 0.834 s "
+           "and lasts to the end)"}}
 # The CRDT programs through `core.run` (the JAX CLI has no flag for
 # gossip_fanout or recovery_s): tests/test_tpu_crdt.py's g-set at 20
 # nodes with gossip fanout 3 and 5% loss and its pn-counter at 5 nodes
@@ -2075,11 +2166,18 @@ CLI_CRDT = [
     ("pn-counter5-partition", {
         "workload": "pn-counter", "node": "tpu:pn-counter", "node_count": 5,
         "nemesis": {"partition"}, "nemesis_interval": 0.5, "rate": 20.0,
-        "time_limit": 3.0, "recovery_s": 2, "seed": 11}),
+        "time_limit": 1.5, "recovery_s": 1, "seed": 11}),
     ("g-counter5", {
         "workload": "g-counter", "node": "tpu:g-counter", "node_count": 5,
         "rate": 20.0, "time_limit": 2.0, "ms_per_round": 5.0, "seed": 11}),
 ]
+CLI_CRDT_REDUCED = {"pn-counter5-partition": {
+    "time_limit_s": 1.5, "from": 3.0, "recovery_s": 1.0,
+    "recovery_from": 2.0,
+    "why": "to pay for the batched-broadcast phases: the run never "
+           "quiesces, so every round of it executes; the partition "
+           "interval kept at 0.5 s, so the cut run has half the "
+           "nemesis ops"}}
 # sha256 of the JAX runner's history.jsonl for each run above, on the
 # CPU; re-derived by
 #   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_runner_programs.py \
@@ -2087,24 +2185,27 @@ CLI_CRDT = [
 PINNED_POOL = {
     "echo5": "e43929688d2a0f9c44df83a5ad75afea1720f8e7c957ee4bdaae1c9ad32503b7",
     "unique-ids3-challenge2":
-        "7a5f51167084971710035103ce42330fae47935c96bb8d3941af928c340c7294",
+        "b280d2632ff1311b2054a8e15ce9ff02f2528be4e2a1da02708e691250941bbf",
 }
 PINNED_CRDT = {
     "g-set20-fanout3-loss":
         "89d82308ee607c9d41c6756e8fe916f7304375fda348e6f66aa796583da01a8b",
     "pn-counter5-partition":
-        "df1bad89b7351a16e1a44d70ff58900391ac3dbdbba54d538248bb0d6acd881c",
+        "ab5ff8f51c79929a46310f758182731071289c91dfdcb7c428499f6065d06cf2",
     "g-counter5":
         "c8fc49ac6266d9eeb50a728cc39286c1ebe4a5428ddb99339c0401b20e635491",
 }
 # The slice's full-width runs: BASELINE config 3 (g-set, 1,000 nodes,
 # gossip fanout 3, 5% loss; the README's set-full claim), and pn-counter
 # (5% loss and partitions) and g-counter on the same graph. Cut in depth
-# (`CRDT_1000_REDUCED`): 4 s at rate 100 and a 3 s recovery window, at 5
-# ms a round as tests/test_tpu_crdt.py's fanout run, instead of the
-# CLI's 10 s, 10 s and 1 ms; node count, graph, loss and nemesis kept.
+# (`CRDT_1000_REDUCED`): 2 s at rate 100 and a 2 s recovery window (4 s
+# and 3 s before the cut that pays for the batched-broadcast phases; the
+# partition interval kept at 1 s, so half the nemesis ops), at 5 ms a
+# round as
+# tests/test_tpu_crdt.py's fanout run, instead of the CLI's 10 s, 10 s
+# and 1 ms; node count, graph, loss and nemesis kept.
 CRDT_1000_BASE = {"node_count": 1000, "gossip_fanout": 3, "rate": 100.0,
-                  "time_limit": 4.0, "recovery_s": 3, "ms_per_round": 5.0,
+                  "time_limit": 2.0, "recovery_s": 2, "ms_per_round": 5.0,
                   "seed": 11, "journal_rows": False}
 CRDT_1000 = [
     ("g-set1000-fanout3-loss", {"workload": "g-set", "node": "tpu:g-set",
@@ -2115,7 +2216,7 @@ CRDT_1000 = [
     ("g-counter1000-fanout3", {"workload": "g-counter",
                                "node": "tpu:g-counter"}),
 ]
-CRDT_1000_REDUCED = {"time_limit_s": 4.0, "from": 10.0, "recovery_s": 3.0,
+CRDT_1000_REDUCED = {"time_limit_s": 2.0, "from": 10.0, "recovery_s": 2.0,
                      "recovery_from": 10.0, "ms_per_round": 5.0,
                      "ms_per_round_from": 1.0}
 
@@ -2481,6 +2582,7 @@ def phase_cli_crdt(smi):
     for name, opts in CLI_CRDT:
         K.reset_launches()
         runs[name] = _run_line(name, opts, store, PINNED_CRDT)
+        runs[name]["reduced"] = CLI_CRDT_REDUCED.get(name)
         launches[name] = K.launch_counts()
     for name, opts in CRDT_1000:
         K.reset_launches()
@@ -2587,8 +2689,9 @@ def phase_crdt_profile():
 
     def window():
         state["sim"] = scan(state["sim"], empty, 40, False)[0]
-    wrap, complete = anchored(_append_launches, "append_kernel")
-    evs = traced(wrap(window), complete, "crdt profile")
+    wrap, complete, note = anchored(_append_launches, "append_kernel")
+    evs = traced(wrap(window), complete, "crdt profile", keep_last=True)
+    note("crdt profile")
     sim = state["sim"]
     busy_ms = sum(e.self_device_time_total for e in evs) / 1e3 / 40
     check(busy_ms > 0, "crdt profile: the trace holds no device time")
@@ -2635,7 +2738,8 @@ FUZZ_KERNELS = ("broadcast_step", "edge_read", "edge_write", "edge_faults",
 # test_wide_keys_kill_nemesis_regression), then Gossip Glomers'
 # challenge 5b (fly.io dist-sys 5b: --node-count 2 --concurrency 2n
 # --time-limit 20 --rate 1000) with --key-count 4, its time limit cut
-# from 20 s to 5 s (`CLI_KAFKA_REDUCED`). tests/test_torch_runner_kafka.py
+# from 20 s to 1.5 s (`CLI_KAFKA_REDUCED`), and the wide8 kill run from
+# 4 s to 2 s. tests/test_torch_runner_kafka.py
 # holds each against the JAX runner on the CPU.
 KAFKA_BASE = {"workload": "kafka", "node": "tpu:kafka", "node_count": 5,
               "journal_rows": False}
@@ -2645,19 +2749,27 @@ CLI_KAFKA = [
     ("kafka5-groups2", {**KAFKA_BASE, "rate": 20.0, "time_limit": 3.0,
                         "seed": 11, "kafka_groups": 2}),
     ("kafka5-wide8-groups2-kill", {
-        **KAFKA_BASE, "rate": 60.0, "time_limit": 4.0, "seed": 5,
+        **KAFKA_BASE, "rate": 60.0, "time_limit": 2.0, "seed": 5,
         "concurrency": 8, "key_count": 8, "kafka_groups": 2,
         "session_timeout_ms": 400.0, "timeout_ms": 800, "recovery_s": 1.5,
         "nemesis": {"kill"}, "nemesis_interval": 0.9}),
     ("kafka2-challenge5b", [
         "test", "-w", "kafka", "--node", "tpu:kafka", "--node-count", "2",
-        "--concurrency", "4", "--rate", "1000", "--time-limit", "5",
+        "--concurrency", "4", "--rate", "1000", "--time-limit", "1.5",
         "--key-count", "4", "--seed", "7"]),
 ]
-CLI_KAFKA_REDUCED = {"kafka2-challenge5b": {
-    "time_limit_s": 5.0, "from": 20.0,
-    "why": "at 20 s the full-prefix polls put some 30 M pairs in the "
-           "history, past what the JAX runner derives a pin for on a CPU"}}
+CLI_KAFKA_REDUCED = {
+    "kafka2-challenge5b": {
+        "time_limit_s": 1.5, "from": 20.0,
+        "why": "at 20 s the full-prefix polls put some 30 M pairs in the "
+               "history, past what the JAX runner derives a pin for on a "
+               "CPU; then cut from 5 s to 1.5 s to pay for the "
+               "batched-broadcast phases"},
+    "kafka5-wide8-groups2-kill": {
+        "time_limit_s": 2.0, "from": 4.0,
+        "why": "to pay for the batched-broadcast phases; the kill "
+               "interval kept at 0.9 s, so the cut run has half the "
+               "nemesis ops"}}
 # sha256 of the JAX runner's history.jsonl for each run above, on the CPU;
 # re-derived by
 #   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_runner_kafka.py \
@@ -2668,17 +2780,19 @@ PINNED_KAFKA = {
     "kafka5-groups2":
         "340dbe1ffd735b840217d8171c6a90bfe631a16d9a66151dff3afa813e358bbe",
     "kafka5-wide8-groups2-kill":
-        "57c00641d0584df266241994b388d70b466efefc0b3fd0394966c90e00dc82f0",
+        "b59b7a81d7ed8df9c8b3dbcdbbdbc1389aaf7d8830d33725a14a1da517ad26cd",
     "kafka2-challenge5b":
-        "460f9604ff05a5eedf59ebbe91cff2963017be782dac802adf4b3d0df9d611e6",
+        "3e6ba752d5166775defae9b3aee5d2055fd247f7d2fc07de4590691b79aefe6b",
 }
 
 # fuzz.fuzz_kafka's five configs at 5 nodes, cut from 6 s to 2 s with the
 # nemesis interval scaled with it (2 s -> 0.667 s: the 6 s sweep's
-# partitions and heals); the client RPC timeout stays the runner's 5 s
-FUZZ_KAFKA = {"n_nodes": 5, "seed": 0, "time_limit": 2.0,
+# partitions and heals), then the time limit alone to 1 s (to pay for
+# the batched-broadcast phases: one partition, from 0.667 s to the
+# end); the client RPC timeout stays the runner's 5 s
+FUZZ_KAFKA = {"n_nodes": 5, "seed": 0, "time_limit": 1.0,
               "nemesis_interval": 0.667}
-FUZZ_KAFKA_REDUCED = {"time_limit_s": 2.0, "from": 6.0,
+FUZZ_KAFKA_REDUCED = {"time_limit_s": 1.0, "from": 6.0,
                       "nemesis_interval_s": 0.667,
                       "nemesis_interval_from": 2.0}
 # BASELINE config 5: fuzz --program broadcast --nodes 100000 --values 32
@@ -2717,17 +2831,26 @@ def _kafka_program(n, device="cuda", **opts):
                        device=device)
 
 
+def _cli_flag(args, flag, cast):
+    """The value of `flag` in a CLI argument list."""
+    return cast(args[args.index(flag) + 1])
+
+
+_CLI_5B = dict(CLI_KAFKA)["kafka2-challenge5b"]
 # name: (nodes, program opts) of K14's checks: each pinned run's shape
-# (the three 5-node runs from their own `CLI_KAFKA` options; the
-# challenge-5b run's log_cap 5,032 from rate 1000 x 5 s), the kafka
-# fuzz's shape (classic, 5 nodes, `FUZZ_KAFKA`'s time limit), and a
-# stress shape at the 15-bit length field's cap, classic and with 16
-# groups of 254 members (some 50 MB of log each)
+# (the three 5-node runs from their own `CLI_KAFKA` options, and the
+# challenge-5b run from its CLI flags: log_cap from rate x time limit),
+# the kafka fuzz's shape (classic, 5 nodes, `FUZZ_KAFKA`'s time limit),
+# and a stress shape at the 15-bit length field's cap, classic and with
+# 16 groups of 254 members (some 50 MB of log each)
 KAFKA_SHAPES = {
     **{name: (run["node_count"], run) for name, run in CLI_KAFKA
        if isinstance(run, dict)},
-    "5b": (2, {"key_count": 4, "rate": 1000.0, "time_limit": 5.0,
-               "concurrency": 4}),
+    "5b": (_cli_flag(_CLI_5B, "--node-count", int), {
+        "key_count": _cli_flag(_CLI_5B, "--key-count", int),
+        "rate": _cli_flag(_CLI_5B, "--rate", float),
+        "time_limit": _cli_flag(_CLI_5B, "--time-limit", float),
+        "concurrency": _cli_flag(_CLI_5B, "--concurrency", int)}),
     "fuzz": (FUZZ_KAFKA["n_nodes"], {"rate": 20.0,
                                      "time_limit": FUZZ_KAFKA["time_limit"]}),
     "stress-classic": (64, {"key_count": 6, "log_cap": 32_766}),
@@ -2748,7 +2871,7 @@ def _random_kafka_inputs(g, prog, rnd):
     both banks, and members past the session timeout."""
     import torch
     from maelstrom_tpu_torch.net.static import EdgeMsgs
-    from maelstrom_tpu_torch.net.tpu import Msgs
+    from maelstrom_tpu_torch.net.tpu import Msgs, wrap_i32 as i32
     N, Kk, C, D, G, M = prog.n_nodes, prog.K, prog.cap, prog.D, prog.G, \
         prog.M
     A = prog.inbox_cap
@@ -2760,8 +2883,6 @@ def _random_kafka_inputs(g, prog, rnd):
     def coin(p, shape):
         return torch.rand(shape, generator=g, device="cuda") < p
 
-    def i32(x):
-        return (torch.remainder(x + 2**31, 2**32) - 2**31).to(torch.int32)
     log_len = ints(0, C + 1, (N, Kk))
     log_len = torch.where(coin(0.15, (N, Kk)), C, log_len)
     log_len = torch.where(coin(0.15, (N, Kk)), 0, log_len)
@@ -2981,6 +3102,327 @@ def phase_fuzz_broadcast(smi):
           "nvidia_smi": smi})
 
 
+# --- batched atomic broadcast and the ordering axis -------------------------
+
+# the kernels a batched-broadcast CLI round launches beside its step (K6
+# probes its quiescence; K5 snapshots the seen words the read replies
+# carry), and
+# those of the ordered runs: lin-kv over the batched engine, kafka over
+# the raft engine
+BATCHED_KERNELS = ("edge_read", "edge_write", "edge_faults",
+                   "reply_compact", "reply_log_append", "threefry",
+                   "quiet_probe")
+ORDERED_KERNELS = {"batched": ("broadcast_batched_step", "edge_read",
+                               "edge_write", "reply_log_append"),
+                   "raft": ("raft_step", "edge_read", "edge_write",
+                            "reply_log_append")}
+
+# The JAX package's batched-broadcast runs (tests/test_broadcast_batched.py
+# test_batched_broadcast_tpu_e2e, and the combined-nemesis run of
+# test_verdict_bit_equal_under_combined_nemesis), and the ordering axis
+# at tests/test_ordering.py's base options (seed 7, rate 12, 1.6 s):
+# lin-kv over the batched engine, kafka over the raft engine.
+BATCHED_BASE = {"workload": "broadcast-batched",
+                "node": "tpu:broadcast-batched", "node_count": 5,
+                "topology": "grid", "journal_rows": False}
+CLI_BATCHED = [
+    ("batched5-e2e", {**BATCHED_BASE, "rate": 20.0, "time_limit": 2.0,
+                      "seed": 7}),
+    ("batched5-nemesis", {**BATCHED_BASE, "rate": 20.0, "time_limit": 3.0,
+                          "recovery_s": 2.0, "seed": 13,
+                          "nemesis": {"kill", "partition", "duplicate"},
+                          "nemesis_interval": 0.8}),
+]
+ORDERED_BASE = {"seed": 7, "rate": 12.0, "time_limit": 1.6,
+                "journal_rows": False}
+CLI_ORDERED = [
+    ("linkv-ordered-batched", {**ORDERED_BASE, "workload": "lin-kv",
+                               "ordering": "batched"}),
+    ("kafka-ordered-raft", {**ORDERED_BASE, "workload": "kafka",
+                            "ordering": "raft"}),
+]
+# sha256 of the JAX runner's history.jsonl for each run above, on the CPU;
+# re-derived by
+#   JAX_PLATFORMS=cpu python -m pytest \
+#       tests/test_torch_runner_batched.py -m slow
+PINNED_BATCHED = {
+    "batched5-e2e":
+        "cd5a5e8df49844971191aaa35000bcc4083907efb3726e434efdd3aa065962d7",
+    "batched5-nemesis":
+        "051bf2c906aa46148cb06d9bef54aa823bf0012eb61f4af57139a43118f29bfe",
+    "linkv-ordered-batched":
+        "e7d8cac738edcf27ec9361bb57734033868b06253485c913c0fe5087a857b1a2",
+    "kafka-ordered-raft":
+        "bf7f12b0bfff1cf7c28e0c99043e46a525d49496d3db1b6e9de768d150e840da",
+}
+
+# bench.py's batched-vs-eager record at its defaults (4,096 nodes, 512
+# values, batches of 32, chunks of 64 rounds), and the JAX package's
+# rounds to converge and delivered messages and units for each side
+# (bench.bench_broadcast_batched_record on the CPU); re-derived by
+#   JAX_PLATFORMS=cpu python -m pytest \
+#       tests/test_torch_runner_batched.py -m slow -k bench
+BATCHED_BENCH = {"n_nodes": 4096, "values": 512, "batch": 32, "chunk": 64}
+PINNED_BATCHED_BENCH = {
+    "eager": {"rounds_to_convergence": 1088,
+              "messages_delivered": 15_783_768,
+              "units_delivered": 15_783_768},
+    "batched": {"rounds_to_convergence": 192,
+                "messages_delivered": 480_611,
+                "units_delivered": 7_968_522},
+}
+BENCH_PIN_KEYS = ("rounds_to_convergence", "messages_delivered",
+                  "units_delivered")
+
+
+def _batched_program(n, V, per_nb, eager=False, device="cuda", **opts):
+    from maelstrom_tpu_torch.nodes import get_program
+    return get_program("broadcast-batched",
+                       {"topology": "grid", "max_values": V,
+                        "gossip_per_neighbor": per_nb, "eager_resend": eager,
+                        "latency": {"mean": 0}, **opts},
+                       [f"n{i}" for i in range(n)], device=device)
+
+
+# name: (nodes, values, ranges an edge, eager, client batch span) of
+# K15's checks: the pinned runs' shapes (the CLI runs at V 1,024, the
+# ordered lin-kv run at V 2 x 12 x 1.6 + 256 = 294), the bench's, the
+# CLI default at 1,024 nodes, a 100,000-node stress shape, a wrap
+# shape whose batches span past id 65,536 (the proof's int32 sum wraps)
+# and a wide table past the kernel's shared-memory masks (V 280,000: the
+# masks in global scratch, more nodes than striding warps)
+BATCHED_SHAPES = {
+    "cli5": (5, 1024, 2, False, 16),
+    "ordered5": (5, 294, 2, False, 1),
+    "bench": (4096, 512, 1, True, 32),
+    "cli1024": (1024, 1024, 2, False, 16),
+    "stress100k": (100_000, 1024, 2, False, 64),
+    "wrap": (64, 70_000, 2, False, 70_000),
+    "wideV": (1089, 280_000, 2, False, 280_000),
+}
+
+
+def _random_batched_inputs(g, prog, span):
+    """A batched step's inputs on the card: pending planes of sparse,
+    half and dense runs, range lanes at and past both ends of the table
+    (some of the whole table), digests of every window and past the
+    last, stray lane types; client batches of up to `span` ids from
+    every start (some the whole table), reads and stray types."""
+    import torch
+    from maelstrom_tpu_torch.net.static import EdgeMsgs
+    from maelstrom_tpu_torch.net.tpu import Msgs, wrap_i32 as i32
+    N, D, V, W = prog.n_nodes, prog.D, prog.V, prog.n_windows
+    L = prog.edge_cfg.lanes
+    K_ = prog.inbox_cap
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device="cuda",
+                             dtype=torch.int64)
+
+    def coin(p, shape):
+        return torch.rand(shape, generator=g, device="cuda") < p
+
+    dens = torch.tensor([0.02, 0.5, 0.97], device="cuda")[
+        ints(0, 3, (N, D, 1))]
+    plane = (N, D, V)
+    state = {"seen": coin(0.3, (N, V)),
+             "pending": torch.rand(plane, generator=g, device="cuda") < dens,
+             "inflight": coin(0.2, plane), "inflight_old": coin(0.2, plane),
+             "owed": coin(0.3, (N, D, W))}
+    shape = (N, D, L)
+    typ = torch.tensor([24, 24, 15, 14, 0], device="cuda")[
+        ints(0, 5, shape)]
+    a = torch.where(typ == 15, ints(0, W + 1, shape), ints(-2, V + 3, shape))
+    b = torch.where(coin(0.1, shape), V + 5, ints(-2, max(V // 8, 4), shape))
+    b = torch.where(typ == 15, ints(-2**31, 2**31 - 1, shape), b)
+    edge_in = EdgeMsgs(valid=coin(0.6, shape), type=i32(typ), a=i32(a),
+                       b=i32(b), c=i32(ints(-2**31, 2**31 - 1, shape)))
+    cs = (N, K_)
+    ctyp = torch.tensor([20, 20, 22, 10, 0], device="cuda")[ints(0, 5, cs)]
+    ca = torch.where(coin(0.1, cs), 0, ints(-1, V + 2, cs))
+    cb = torch.where(coin(0.1, cs), span, ints(-1, span + 2, cs))
+    client_in = Msgs(
+        valid=coin(0.5, cs), src=i32(ints(N, 2 * N, cs)),
+        dest=i32(torch.arange(N, device="cuda")[:, None].expand(cs)),
+        due=i32(ints(0, 99, cs)), mid=i32(ints(0, 1 << 30, cs)),
+        reply_to=torch.full(cs, -1, dtype=torch.int32, device="cuda"),
+        type=i32(ctyp), a=i32(ca), b=i32(cb),
+        c=i32(ints(-2**31, 2**31 - 1, cs)))
+    if span >= V:
+        # every node's first slot a batch of the whole table
+        client_in.valid[:, 0] = True
+        client_in.type[:, 0] = 20
+        client_in.a[:, 0] = 0
+        client_in.b[:, 0] = V
+    return state, edge_in, client_in
+
+
+def batched_io_ops(prog, L, K_):
+    """(bytes, operations) one K15 step must move and do: seen and the
+    three [N, D, V] planes read and written, owed read and written, the
+    lanes in (17 bytes a lane) and out, the client slots in (29 bytes)
+    and out (37), the neighbour table; a value tests each client slot's
+    range (4), each arriving lane's once (4 a lane), ORs its D edges'
+    arrivals into seen (D), tests its digest bit (4) and does the retry
+    logic (8), as the plain version needs; the kernel's second test of
+    the lanes is its own cost, not the function's."""
+    N, D, V, W = prog.n_nodes, prog.D, prog.V, prog.n_windows
+    io = (2 * N * V + 6 * N * D * V + 2 * N * D * W
+          + 17 * N * D * (L + prog.lanes) + 66 * N * K_ + 4 * N * D)
+    ops = N * V * (4 * K_ + D) + N * D * V * (4 * L + 12)
+    return io, ops
+
+
+def batched_kernel_checks(timed):
+    """K15 broadcast_batched_step against its plain version at
+    `BATCHED_SHAPES`, with and without the stall mask, on a retry-tick
+    round and an ordinary one; every output field and state leaf exact,
+    the inputs untouched. Timed at the bench and stress shapes, the
+    stall form with some 40% of the nodes stalled."""
+    import torch
+    from maelstrom_tpu_torch import kernels as K
+    g = torch.Generator(device="cuda")
+    g.manual_seed(15)
+    out, timing = {}, {}
+    err = 0
+    for shape, (n, V, per_nb, eager, span) in BATCHED_SHAPES.items():
+        prog = _batched_program(n, V, per_nb, eager)
+        for rnd in (3 * prog.retry_rounds, 3 * prog.retry_rounds + 1):
+            state, ein, cin = _random_batched_inputs(g, prog, span)
+            stall = torch.rand(n, generator=g, device="cuda") < 0.4
+            for st in (None, stall):
+                ctx = {"round": torch.tensor(rnd, dtype=torch.int32,
+                                             device="cuda")}
+                if st is not None:
+                    ctx["stall"] = st
+                before = clone((state, ein, cin))
+
+                def k15(ctx=ctx, state=state, ein=ein, cin=cin, prog=prog):
+                    return prog.edge_step(state, ein, cin, ctx)
+                got = k15()
+                with K.forced_plain():
+                    ref = k15()
+                torch.cuda.synchronize()
+                e = max(max_abs_err(got, ref),
+                        max_abs_err((state, ein, cin), before))
+                check(e == 0, f"broadcast_batched_step@{shape} stall="
+                      f"{st is not None} round {rnd}: max abs err {e}")
+                err = max(err, e)
+                if shape in ("wrap", "wideV"):
+                    # the whole-table batches' proofs wrapped
+                    c = got[2]
+                    whole = (c.type == 21) & (c.b == V)
+                    check(bool(whole.any()), "wrap: no whole-table batch")
+                if rnd % prog.retry_rounds == 1:
+                    timing[shape, st is not None] = (prog, k15, ein, cin)
+    for (shape, st), (prog, k15, ein, cin) in timing.items():
+        if shape not in ("bench", "stress100k"):
+            continue
+        io, ops = batched_io_ops(prog, ein.valid.shape[2],
+                                 cin.valid.shape[1])
+        b, by = bound_of(io, ops)
+        r = {"max_abs_err": err, "bound_ms": b, "bound_by": by,
+             "bytes": io, "operations": ops, "nodes": prog.n_nodes,
+             "values": prog.V, "degree": prog.D, "ranges": prog.per_nb}
+        if timed:
+            r["ms"] = cuda_ms(k15)
+            with K.forced_plain():
+                r["plain_ms"] = cuda_ms(k15, iters=5)
+        kern = K.BROADCAST_BATCHED_STEP_STALL if st else \
+            K.BROADCAST_BATCHED_STEP
+        out[f"{kern.name}@{shape}"] = r
+    return out
+
+
+def phase_batched_kernels(timed):
+    t0 = time.perf_counter()
+    r = batched_kernel_checks(timed)
+    emit({"phase": "batched_kernels", "timed": timed,
+          "seconds": time.perf_counter() - t0,
+          "shapes": {k: dict(zip(("nodes", "values", "ranges", "eager",
+                                  "batch_span"), v))
+                     for k, v in BATCHED_SHAPES.items()},
+          "kernels": r})
+    return r
+
+
+def phase_cli_batched(smi):
+    """Batched broadcast through the kernels: the pinned runs, each with
+    the launch counters set to 0 just before and read just after; every
+    history must hash to the JAX runner's, every proof hold, no value
+    lost, and the net carry more than one client op a message."""
+    import shutil
+    from maelstrom_tpu_torch import kernels as K
+    store = os.path.join(ROOT, "store", "chip_smoke_batched")
+    shutil.rmtree(store, ignore_errors=True)
+    runs, launches = {}, {}
+    for name, run in CLI_BATCHED:
+        K.reset_launches()
+        runs[name] = _run_line(name, run, store, PINNED_BATCHED)
+        launches[name] = K.launch_counts()
+        with open(os.path.join(store, "latest", "results.json")) as f:
+            res = json.load(f)
+        w, net = res["workload"], res["net"]
+        check(w["proof-errors"] == [] and w["lost-count"] == 0
+              and net.get("units-per-msg", 0) > 1,
+              f"batched {name}: proofs {w['proof-errors']}, lost "
+              f"{w['lost-count']}, units/msg {net.get('units-per-msg')}")
+        runs[name].update({"units_per_msg": net["units-per-msg"],
+                           "sent_units": net["sent-units"],
+                           "proof_errors": 0})
+        # a run with kill or pause steps through the stall form only
+        stall = bool({"kill", "pause"} & set(run.get("nemesis", ())))
+        step = "broadcast_batched_step" + ("_stall" if stall else "")
+        for k in (step,) + BATCHED_KERNELS:
+            check(launches[name][k] > 0, f"batched {name} did not launch "
+                  f"{k}")
+    shutil.rmtree(store, ignore_errors=True)
+    emit({"phase": "cli_batched", "runs": runs, "launches": launches,
+          "nvidia_smi": smi})
+    return {k: sum(v[k] for v in launches.values())
+            for k in ("broadcast_batched_step",
+                      "broadcast_batched_step_stall")}
+
+
+def phase_cli_ordered(smi):
+    """The ordering axis through the kernels: lin-kv over the batched
+    engine and kafka over the raft engine, each valid with its history
+    hashed to the JAX runner's."""
+    import shutil
+    from maelstrom_tpu_torch import kernels as K
+    store = os.path.join(ROOT, "store", "chip_smoke_ordered")
+    shutil.rmtree(store, ignore_errors=True)
+    runs, launches = {}, {}
+    for name, run in CLI_ORDERED:
+        K.reset_launches()
+        runs[name] = _run_line(name, run, store, PINNED_BATCHED)
+        launches[name] = K.launch_counts()
+        for k in ORDERED_KERNELS[run["ordering"]]:
+            check(launches[name][k] > 0, f"ordered {name} did not launch "
+                  f"{k}")
+    shutil.rmtree(store, ignore_errors=True)
+    emit({"phase": "cli_ordered", "runs": runs, "launches": launches,
+          "nvidia_smi": smi})
+
+
+def phase_bench_batched(smi):
+    """bench.py's batched-vs-eager record at its defaults: both sides
+    converge, no overflow, and each side's rounds to converge and
+    delivered messages and units equal the JAX package's."""
+    from maelstrom_tpu_torch.bench import run_broadcast_batched_bench
+    rec = run_broadcast_batched_bench(**BATCHED_BENCH)
+    check(rec["valid"], f"bench_batched: {rec}")
+    for r in rec["protocols"]:
+        got = {k: r[k] for k in BENCH_PIN_KEYS}
+        check(got == PINNED_BATCHED_BENCH[r["protocol"]],
+              f"bench_batched {r['protocol']}: {got}, the JAX package's "
+              f"{PINNED_BATCHED_BENCH[r['protocol']]}")
+    emit({"phase": "bench_batched", **rec, "counts_equal_jax": True,
+          "nvidia_smi": smi})
+    return rec
+
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "maelstrom_tpu_torch", "csrc")):
         print("chip_smoke: run from a checkout of the repository "
@@ -3019,6 +3461,9 @@ def main() -> int:
                      if k in ("echo_step", "unique_ids_step")})
     launches.update(phase_cli_crdt(smi))
     launches["kafka_step"] = phase_cli_kafka(smi)["kafka_step"]
+    launches.update(phase_cli_batched(smi))
+    phase_cli_ordered(smi)
+    phase_bench_batched(smi)
     phase_fuzz_kafka(smi)
     phase_fuzz_broadcast(smi)
     # profiles and kernel times last: the profiler they are read from
@@ -3035,12 +3480,15 @@ def main() -> int:
     cli.update(phase_crdt_kernels(timed=True))
     ktimed = phase_kafka_kernels(timed=True)
     cli["kafka_step"] = ktimed["kafka_step@5b"]
+    btimed = phase_batched_kernels(timed=True)
+    for k in ("broadcast_batched_step", "broadcast_batched_step_stall"):
+        cli[k] = btimed[f"{k}@stress100k"]
     phase_crdt_profile()
     phase_pool_profile(pool_launches["rounds_executed"])
     emit({"phase": "profiler", **PROFILER})
     errs = {}
     for r in (*checks.values(), fchecks, rchecks, raft, pchecks, cchecks,
-              kchecks, ktimed):
+              kchecks, ktimed, btimed):
         for name, v in r.items():
             base = {"raft_step_stall": "raft_step",
                     "threefry_batched": "threefry",

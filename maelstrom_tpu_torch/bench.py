@@ -20,12 +20,21 @@ leader. The graded half (`bench_raft_graded.py`) comes with the fleet
 slice, so the record's `graded` is null.
 
     python -m maelstrom_tpu_torch.bench --raft [--clusters F] [--rounds R]
+
+With `--broadcast-batched` it runs `bench.py`'s batched-vs-eager record
+(`bench_broadcast_batched_record`): the batched atomic broadcast node
+against the eager-resend gossip node, 4,096 nodes, 512 values, batches
+of 32, chunks of 64 rounds, each side timed to its own convergence; it
+exits 1 unless both converge.
+
+    python -m maelstrom_tpu_torch.bench --broadcast-batched [--nodes N]
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
@@ -292,12 +301,143 @@ def profile_raft(clusters: int = 10_000, start: int = 100,
                     for k, us, c in rows[:top]]}
 
 
+def _batched_measure(kind, n_nodes, values, batch, chunk, max_rounds,
+                     pool, dev):
+    """One protocol of the batched-vs-eager record: the batched node
+    (`batch` values a T_BATCH injection) or the eager-resend gossip node
+    (one T_BCAST a value), both eager, one gossip lane an edge, one
+    injection a round from round 0 at Fibonacci-hash spread nodes, run
+    in chunks of `chunk` rounds to convergence (every node has seen every
+    value, read once a chunk) or `max_rounds`. A full run on seed 0,
+    then the timed run on seed 1."""
+    from .checkers.set_full import range_checksum
+    from .nodes.broadcast_batched import T_BATCH
+    V, B, N = values, batch, n_nodes
+    nodes = [f"n{i}" for i in range(N)]
+    opts = {"topology": "grid", "max_values": V, "gossip_per_neighbor": 1,
+            "latency": {"mean": 0}, "eager_resend": True}
+    if kind == "batched":
+        prog = get_program("broadcast-batched", {**opts, "batch_max": B},
+                           nodes, device=dev)
+        n_inj = (V + B - 1) // B
+        a_col = np.arange(n_inj, dtype=np.int64) * B
+        b_col = np.minimum(B, V - a_col)
+        c_col = np.array([range_checksum(int(lo), int(n))
+                          for lo, n in zip(a_col, b_col)], dtype=np.int64)
+        t_code = T_BATCH
+    else:
+        prog = get_program("broadcast", opts, nodes, device=dev)
+        n_inj = V
+        a_col = np.arange(V, dtype=np.int64)
+        b_col = c_col = np.zeros(V, dtype=np.int64)
+        t_code = T_BCAST
+    cfg = T.NetConfig(n_nodes=N, n_clients=1, pool_cap=pool,
+                      inbox_cap=prog.inbox_cap, client_cap=0,
+                      unit_words=tuple(getattr(prog, "unit_words", ())
+                                       or ()))
+    run_fn = make_run_fn(prog, cfg, device=dev)
+    rr = np.arange(max_rounds)
+    j = np.minimum(rr, n_inj - 1)
+
+    def col(x):
+        return torch.tensor(np.asarray(x, dtype=np.int64).astype(
+            np.int32)[:, None], device=dev)
+    plan = T.Msgs.empty((max_rounds, 1), dev).replace(
+        valid=torch.tensor((rr < n_inj)[:, None], device=dev),
+        src=col(np.full(max_rounds, N)),
+        dest=col((a_col[j] * 2654435761) % N),
+        type=col(np.full(max_rounds, t_code)), a=col(a_col[j]),
+        b=col(b_col[j]), c=col(c_col[j]))
+
+    def run(seed):
+        sim = make_sim(prog, cfg, seed=seed, device=dev)
+        rounds = 0
+        for i in range(max_rounds // chunk):
+            sim, _ = run_fn(sim, plan.at_rows(slice(i * chunk,
+                                                    (i + 1) * chunk)))
+            rounds += chunk
+            # the convergence probe: one scalar read a chunk, the same
+            # for both protocols inside the timed window
+            if bool(sim.nodes["seen"][:, :V].all()):
+                break
+        return sim, rounds
+
+    run(seed=0)
+    _sync(dev)
+    t0 = time.perf_counter()
+    sim, rounds = run(seed=1)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    st = T.stats_dict(sim.net)
+    units = st["recv_units"] if cfg.unit_words else st["recv_all"]
+    return {
+        "protocol": kind,
+        "rounds_to_convergence": rounds,
+        "wall_s": dt,
+        "converged": bool(sim.nodes["seen"][:, :V].all()),
+        "client_ops": V,
+        "client_ops_per_sec": V / dt,
+        "messages_delivered": int(st["recv_all"]),
+        "msgs_per_sec": st["recv_all"] / dt,
+        "units_delivered": int(units),
+        "units_per_msg": round(units / max(st["recv_all"], 1), 3),
+        "dropped_overflow": st["dropped_overflow"],
+        "ms_per_round": 1e3 * dt / max(rounds, 1),
+    }
+
+
+def run_broadcast_batched_bench(n_nodes: int = 4096, values: int = 512,
+                                batch: int = 32, chunk: int = 64,
+                                max_rounds: int = None, pool: int = 4096,
+                                device="cuda") -> dict:
+    """bench.py's `bench_broadcast_batched_record`, measured on the port:
+    the batched node against the eager-resend node at equal node count,
+    each timed to its own convergence. `speedup_client_ops` is the
+    batched side's delivered client ops a second over the eager side's;
+    a side that does not converge (or overflows the pool) makes the
+    record invalid. The JAX record's `predicted` cost-model block is not
+    ported (null)."""
+    dev = resolve_device(device)
+    max_rounds = int(max_rounds or 16 * values)
+    max_rounds = max(chunk, (max_rounds // chunk) * chunk)
+    rows = [_batched_measure(kind, n_nodes, values, batch, chunk,
+                             max_rounds, pool, dev)
+            for kind in ("eager", "batched")]
+    eager, batched = rows
+    for r in rows:
+        r["predicted"] = None
+    return {
+        "metric": "broadcast_batched_client_ops_per_sec",
+        "value": batched["client_ops_per_sec"],
+        "unit": "client-ops/sec",
+        "vs_baseline": batched["client_ops_per_sec"]
+        / max(eager["client_ops_per_sec"], 1e-9),
+        "protocols": rows,
+        "nodes": n_nodes, "values": values, "batch": batch,
+        "chunk": chunk, "max_rounds": max_rounds,
+        "speedup_client_ops": batched["client_ops_per_sec"]
+        / max(eager["client_ops_per_sec"], 1e-9),
+        "msg_reduction": round(eager["messages_delivered"]
+                               / max(batched["messages_delivered"], 1), 2),
+        "donated_carry": False,
+        "host_cpus": os.cpu_count(),
+        "devices": torch.cuda.device_count() if dev.type == "cuda" else 0,
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu"),
+        "valid": all(r["converged"] and not r["dropped_overflow"]
+                     for r in rows),
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--nodes", type=int, default=100_000)
-    ap.add_argument("--values", type=int, default=64)
+    ap.add_argument("--nodes", type=int, default=None,
+                    help="broadcast 100,000, batched 4,096")
+    ap.add_argument("--values", type=int, default=None,
+                    help="broadcast 64, batched 512")
     ap.add_argument("--gossip", type=int, default=1)
-    ap.add_argument("--pool", type=int, default=8192)
+    ap.add_argument("--pool", type=int, default=None,
+                    help="broadcast 8192, batched 4096")
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--no-eager", action="store_true",
                     help="run only the efficient protocol")
@@ -308,23 +448,41 @@ def main(argv=None) -> int:
                     help="the Raft clusters bench (bench.py "
                          "bench_raft_clusters) instead of broadcast")
     ap.add_argument("--clusters", type=int, default=10_000)
-    ap.add_argument("--chunk", type=int, default=100,
-                    help="raft: rounds the host queues before it waits "
-                         "for the card (the JAX bench's scan length); "
-                         "rounds are rounded down to a multiple of it")
+    ap.add_argument("--chunk", type=int, default=None,
+                    help="raft (100): rounds the host queues before it "
+                         "waits for the card (the JAX bench's scan "
+                         "length), rounds rounded down to a multiple of "
+                         "it; batched (64): rounds between convergence "
+                         "reads")
     ap.add_argument("--rounds", type=int, default=None,
-                    help="rounds (broadcast 700, raft 300)")
+                    help="rounds (broadcast 700, raft 300; batched: the "
+                         "horizon, default 16 x values)")
+    ap.add_argument("--broadcast-batched", action="store_true",
+                    help="the batched-vs-eager record (bench.py "
+                         "bench_broadcast_batched_record): --nodes "
+                         "default 4096, --values 512, --batch 32, "
+                         "--chunk 64, --pool 4096")
+    ap.add_argument("--batch", type=int, default=32,
+                    help="batched: values a client batch")
     a = ap.parse_args(argv)
+    if a.broadcast_batched:
+        rec = run_broadcast_batched_bench(
+            a.nodes or 4096, a.values or 512, a.batch, a.chunk or 64,
+            a.rounds, a.pool or 4096, device=a.device)
+        print(json.dumps(rec))
+        return 0 if rec["valid"] else 1
     if a.raft:
         if a.profile:
             print(json.dumps(profile_raft(a.clusters, seed=a.seed,
                                           device=a.device)))
             return 0
-        rec = run_raft_bench(a.clusters, a.rounds or 300, a.chunk, a.seed,
-                             device=a.device)
+        rec = run_raft_bench(a.clusters, a.rounds or 300, a.chunk or 100,
+                             a.seed, device=a.device)
         print(json.dumps(rec))
         return 0 if rec["clusters_with_one_leader"] == 1.0 else 1
     a.rounds = a.rounds or 700
+    a.nodes, a.values = a.nodes or 100_000, a.values or 64
+    a.pool = a.pool or 8192
     if a.profile:
         for eager in ([False] if a.no_eager else [True, False]):
             print(json.dumps(profile_rounds(

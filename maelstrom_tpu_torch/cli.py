@@ -2,12 +2,16 @@
 
 Counterpart of the `test` subcommand of `maelstrom_tpu/cli.py`, with its
 option names and defaults. The port runs the broadcast workload on the
-built-in program (`--node tpu:broadcast`), the lin-kv workload on Raft
+built-in program (`--node tpu:broadcast`), batched atomic broadcast
+(`-w broadcast-batched --node tpu:broadcast-batched`), the lin-kv
+workload on Raft
 (`--node tpu:lin-kv`, graded by the linearizability checker), echo and
 unique-ids on the pool-path programs, g-set, pn-counter and g-counter
 on the CRDT programs and kafka (classic, or consumer groups with
 `--kafka-groups`) on the replicated-log program (`--node
-tpu:<workload>`), on one card, or on the CPU with `--device cpu`, under
+tpu:<workload>`), lin-kv and kafka over the ordering axis (`--ordering
+raft|batched`, the composed `tpu:ordered`), on one card, or on the CPU
+with `--device cpu`, under
 loss, randomized latency and the partition, kill, pause, duplicate and
 weather nemeses. `fuzz` runs the broadcast and kafka fault sweeps
 (`fuzz.py`). Every
@@ -24,6 +28,9 @@ default, with an error that names the slice of the port that brings it
         --node-count 5 --nemesis partition [--device cpu]
     python -m maelstrom_tpu_torch test -w kafka --node tpu:kafka \\
         --node-count 5 --rate 20 --kafka-groups 2 [--device cpu]
+    python -m maelstrom_tpu_torch test -w broadcast-batched \\
+        --node tpu:broadcast-batched --node-count 5 --batch-max 16
+    python -m maelstrom_tpu_torch test -w lin-kv --ordering batched
     python -m maelstrom_tpu_torch fuzz --program broadcast --nodes 100000
 """
 
@@ -41,7 +48,7 @@ WORKLOADS = ["broadcast", "broadcast-batched", "echo", "g-set", "g-counter",
 PROGRAMS = {"broadcast": "tpu:broadcast", "lin-kv": "tpu:lin-kv",
             **{w: f"tpu:{w}" for w in ("echo", "unique-ids", "g-set",
                                        "pn-counter", "g-counter",
-                                       "kafka")}}
+                                       "kafka", "broadcast-batched")}}
 
 # (option, refused when, the slice of the port that brings it)
 OUT_OF_SCOPE = [
@@ -75,7 +82,8 @@ OUT_OF_SCOPE = [
     ("--device-checker", lambda v: v == "on", "device Elle"),
     ("--byz-rate", lambda v: v != 1.0, "the byzantine adversary"),
     ("--byz-attacks", lambda v: v is not None, "the byzantine adversary"),
-    ("--ordering", lambda v: v is not None, "the role-partitioned programs"),
+    ("--ordering", lambda v: v == "compartment",
+     "the role-partitioned programs"),
     ("--roles", lambda v: v is not None, "the role-partitioned programs"),
     ("--service-roles", lambda v: v is not None,
      "the role-partitioned programs"),
@@ -87,7 +95,6 @@ OUT_OF_SCOPE = [
      "the role-partitioned programs"),
     ("--leader-lease-ms", lambda v: v is not None,
      "the role-partitioned programs"),
-    ("--batch-max", lambda v: v is not None, "the other node programs"),
 ]
 
 
@@ -110,8 +117,8 @@ def build_parser() -> argparse.ArgumentParser:
                                   "workload>, tpu:lin-kv for lin-kv")
     t.add_argument("-w", "--workload", default="lin-kv", choices=WORKLOADS,
                    help="What workload to run (the port: broadcast, "
-                        "lin-kv, echo, unique-ids, g-set, pn-counter, "
-                        "g-counter, kafka)")
+                        "broadcast-batched, lin-kv, echo, unique-ids, "
+                        "g-set, pn-counter, g-counter, kafka)")
     t.add_argument("--device", default="cuda",
                    help="cuda (the default) or cpu: the kernels' plain "
                         "PyTorch versions on the CPU")
@@ -131,7 +138,8 @@ def build_parser() -> argparse.ArgumentParser:
                             "tree4", "total"],
                    help="Network topology offered to broadcast nodes")
     t.add_argument("--max-values", type=int,
-                   help="Broadcast value-table capacity (default 1024)")
+                   help="Broadcast value-table capacity (broadcast / "
+                        "broadcast-batched nodes; default 1024)")
     t.add_argument("--nemesis", default="",
                    help="Comma-separated fault packages: partition, kill, "
                         "pause, duplicate, weather")
@@ -200,14 +208,20 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--device-checker", choices=["auto", "on", "off"])
     t.add_argument("--byz-rate", type=float, default=1.0)
     t.add_argument("--byz-attacks")
-    t.add_argument("--ordering", choices=["raft", "compartment", "batched"])
+    t.add_argument("--ordering", choices=["raft", "compartment", "batched"],
+                   help="Ordering engine under the workload's applier "
+                        "(lin-kv, kafka): raft or batched; runs the "
+                        "composed program tpu:ordered")
     t.add_argument("--roles")
     t.add_argument("--service-roles")
     t.add_argument("--election-timeout-rounds", type=int)
     t.add_argument("--ballot-width", type=int)
     t.add_argument("--compartment-retry", type=int)
     t.add_argument("--leader-lease-ms", type=float)
-    t.add_argument("--batch-max", type=int)
+    t.add_argument("--batch-max", type=int,
+                   help="Batched broadcast: max client values distilled "
+                        "into one batch (broadcast-batched workload; "
+                        "default 16)")
     t.add_argument("--kafka-groups", type=int,
                    help="Kafka consumer groups: N > 0 switches polls to "
                         "group subscriptions with cursor fetches, "
@@ -241,6 +255,8 @@ def check_scope(args) -> None:
         if refused(value):
             raise ScopeError(f"{flag} {value!r}: maelstrom_tpu_torch does "
                              f"not run it yet; it comes with {slice_}")
+    if args.ordering:
+        return   # the node is the composed tpu:ordered (core.build_test)
     want = PROGRAMS[args.workload]
     if args.node != want:
         raise ScopeError(f"--node {args.node!r}: the port runs -w "
@@ -250,6 +266,8 @@ def check_scope(args) -> None:
 
 def opts_from_args(args) -> dict:
     check_scope(args)
+    if args.ordering and not args.node:
+        args.node = "tpu:ordered"
     opts = {
         "workload": args.workload,
         "bin": None,
@@ -290,12 +308,13 @@ def opts_from_args(args) -> dict:
         "no_overlap": args.no_overlap,
         "audit": False,
         "audit_trace": False,
+        "ordering": args.ordering,
     }
     # performance knobs: only forwarded when given, so the runner's own
     # defaults stay in one place
     for k in ("max_scan", "journal_scan_cap", "reply_log_cap",
               "max_values", "timeout_ms", "nemesis_seed", "kafka_groups",
-              "session_timeout_ms", "poll_batch"):
+              "session_timeout_ms", "poll_batch", "batch_max"):
         v = getattr(args, k, None)
         if v is not None:
             opts[k] = v

@@ -4,7 +4,8 @@ Counterpart of `maelstrom_tpu/core.py` for the parts the port runs:
 `DEFAULTS`, `parse_nodes`, and the built-in-program branch of
 `build_test` for the workloads of `WORKLOADS` (the nemesis package
 beside the clients, the generator phases with the nemesis's final heal,
-the composed checker suite), without the host network and external node
+the composed checker suite; `ordering` selects the composed program
+`tpu:ordered`), without the host network and external node
 processes. `run` makes the store dir, attaches the network journal and
 the run log, and hands the test to `runner.tpu_runner.run_tpu_test`."""
 
@@ -62,7 +63,7 @@ DEFAULTS = dict(
 WORKLOADS = {"broadcast": "broadcast", "lin-kv": "lin_kv", "echo": "echo",
              "unique-ids": "unique_ids", "g-set": "g_set",
              "pn-counter": "pn_counter", "g-counter": "g_counter",
-             "kafka": "kafka"}
+             "kafka": "kafka", "broadcast-batched": "broadcast_batched"}
 
 
 def parse_nodes(opts: dict) -> list[str]:
@@ -77,6 +78,20 @@ def parse_nodes(opts: dict) -> list[str]:
 
 def build_test(opts: dict) -> dict:
     opts = {**DEFAULTS, **opts}
+    if opts.get("ordering"):
+        # the ordering axis runs the composed engine x applier program; an
+        # explicit conflicting --node is a config error
+        node = opts.get("node")
+        if node and str(node) != "tpu:ordered":
+            raise ValueError(
+                f"--ordering {opts['ordering']!r} selects the composed "
+                f"program tpu:ordered; drop --node {node} (the engine "
+                f"is the ordering axis, the applier is the workload)")
+        opts["node"] = "tpu:ordered"
+        # the engine and the applier are known before any store dir
+        from .ordering import engine_program, get_applier
+        engine_program(opts)
+        get_applier(str(opts["workload"]), opts)
     nodes = parse_nodes(opts)
     opts["nodes"] = nodes
     if not opts.get("concurrency"):

@@ -4,7 +4,9 @@ A copy of `maelstrom_tpu/generators.py`, cut to the combinators the
 port's workloads, the nemesis schedules and the test's phase composition
 use: `stagger`, `mix`, `each_thread`, `phases`, `Fn`, `Filter`,
 `time_limit`, `sleep`, `Log`, `Seq` over a `cycle`, `Any2`, the client
-and nemesis routing wrappers, and the leaf generators behind them.
+and nemesis routing wrappers, and the leaf generators behind them
+(`BatchCounting` among them: the distilled batches of
+broadcast-batched).
 They are pure generators, as there:
 
   - result is an op dict   -> dispatch it (process/time filled in)
@@ -287,6 +289,58 @@ class Counting(Gen):
             return PENDING, self
         op_map = {"f": self.f, "value": self.n}
         return fill_op(op_map, ctx, free[0]), Counting(self.f, self.n + 1)
+
+
+class BatchCounting(Gen):
+    """Columnar distilled-batch assembly (doc/perf.md "batched atomic
+    broadcast"): each emission is ONE `broadcast-batch` op whose value
+    is a distilled batch — up to `batch_max` fresh sequential client
+    values plus a seeded fraction of duplicate re-submissions, deduped
+    and sorted by the batcher before the op leaves.
+
+    The assembly is numpy-columnar: the raw submission buffer is an
+    int array and distillation is one `np.unique` — no per-value Python
+    dict churn — and one generator poll (one host-loop iteration, one
+    pending-table entry, one wire message) now covers a whole batch of
+    client values instead of one. At `--fleet` scale this is the host
+    bookkeeping lever ROADMAP flags: per-cluster generator cost scales
+    with batches, not ops.
+
+    Like Stagger/MixG, successor states share the mutable RNG; draws
+    happen only on actual emission (PENDING polls are rng-neutral), so
+    the scan-ahead and per-round paths see identical op streams."""
+
+    def __init__(self, f: str = "broadcast-batch", batch_max: int = 16,
+                 dup_rate: float = 0.25, seed: int = 0,
+                 next_value: int = 0, rng=None):
+        import numpy as np
+        self.f = f
+        self.batch_max = max(1, int(batch_max))
+        self.dup_rate = float(dup_rate)
+        self.next_value = next_value
+        self.rng = rng if rng is not None else np.random.RandomState(
+            seed & 0x7FFFFFFF)
+
+    def op(self, ctx):
+        import numpy as np
+        free = free_clients(ctx)
+        if not free:
+            return PENDING, self
+        b = int(self.rng.randint(1, self.batch_max + 1))
+        fresh = np.arange(self.next_value, self.next_value + b,
+                          dtype=np.int64)
+        # seeded duplicate submissions FROM THIS batch: the raw stream a
+        # real client fleet offers is at-least-once, and distillation is
+        # what collapses it (Chop Chop's dedup half)
+        n_dup = int(self.rng.binomial(b, self.dup_rate))
+        raw = fresh if not n_dup else np.concatenate(
+            [fresh, self.rng.choice(fresh, size=n_dup)])
+        distilled = np.unique(raw)          # dedup + sort, one pass
+        op_map = {"f": self.f, "value": [int(v) for v in distilled],
+                  "raw-count": int(raw.size)}
+        nxt = BatchCounting(self.f, self.batch_max, self.dup_rate,
+                            next_value=self.next_value + b, rng=self.rng)
+        return fill_op(op_map, ctx, free[0]), nxt
 
 
 class Repeat(Gen):

@@ -118,11 +118,18 @@ REPLY_LOG_APPEND_I32 = Kernel("reply_log_append_i32",
                               "maelstrom_tpu/nodes/pn_counter.py:211")
 KAFKA_STEP = Kernel("kafka_step", "maelstrom_tpu_torch/csrc/kafka.cu",
                     "maelstrom_tpu/nodes/kafka.py:246")
+BROADCAST_BATCHED_STEP = Kernel(
+    "broadcast_batched_step", "maelstrom_tpu_torch/csrc/broadcast_batched.cu",
+    "maelstrom_tpu/nodes/broadcast_batched.py:140")
+BROADCAST_BATCHED_STEP_STALL = Kernel(
+    "broadcast_batched_step_stall",
+    "maelstrom_tpu_torch/csrc/broadcast_batched.cu",
+    "maelstrom_tpu/sim.py:94")
 KERNELS = (EDGE_READ, EDGE_WRITE, BROADCAST_STEP, REPLY_COMPACT,
            REPLY_LOG_APPEND, QUIET_PROBE, THREEFRY, EDGE_FAULTS,
            EDGE_WRITE_SPILL, BROADCAST_STEP_STALL, RAFT_STEP, ECHO_STEP,
            UNIQUE_IDS_STEP, PN_COUNTER_STEP, REPLY_LOG_APPEND_I32,
-           KAFKA_STEP)
+           KAFKA_STEP, BROADCAST_BATCHED_STEP, BROADCAST_BATCHED_STEP_STALL)
 
 _state = {"lib": None, "forced_plain": False}
 

@@ -30,6 +30,12 @@ INT32_MAX = 2**31 - 1
 TYPE_BUCKETS = 64     # wire type codes are small ints; 63 = overflow bin
 
 
+def wrap_i32(x: torch.Tensor) -> torch.Tensor:
+    """An int64 tensor as int32, wrapping modulo 2**32 as XLA's int32
+    arithmetic does (`torch.sum` of int32 gives int64)."""
+    return (torch.remainder(x + 2**31, 2**32) - 2**31).to(I32)
+
+
 @dataclass
 class Msgs(Struct):
     """A struct-of-arrays batch of messages with any common leading shape
@@ -153,7 +159,6 @@ def check_scope(cfg: NetConfig) -> None:
     later = [
         (cfg.enable_byz, "enable_byz (adversary slice)"),
         (cfg.telemetry, "telemetry (observability slice)"),
-        (bool(cfg.unit_words), "unit_words (batched-broadcast slice)"),
     ]
     for hit, what in later:
         if hit:
@@ -184,12 +189,14 @@ def involves_client(cfg: NetConfig, src, dest):
 def payload_units(cfg: NetConfig, types, words, valid):
     """Client-op units over a masked batch: 1 per valid message, except
     registered batch types (`cfg.unit_words`), which count their payload
-    word, floored at 1."""
+    word, floored at 1. The total wraps as JAX's int32 sum does (one
+    total for the whole batch: the cluster axis books no units,
+    `parallel._check_config`)."""
     u = valid.to(I32)
     for code, w in cfg.unit_words:
         u = torch.where(valid & (types == code),
                         torch.clamp(words[w], min=1), u)
-    return u.sum(dtype=I32)
+    return wrap_i32(u.to(torch.int64).sum())
 
 
 def draw_latency_rounds(cfg: NetConfig, key, scale, shape):
@@ -314,6 +321,9 @@ def _send(cfg: NetConfig, net: NetState, out: Msgs, key):
         duplicated=(st.duplicated if n_dup is None
                     else st.duplicated + n_dup),
         sent_by_type=count_by_type(st.sent_by_type, out.type, new))
+    if cfg.unit_words:
+        st = st.replace(sent_units=st.sent_units + payload_units(
+            cfg, out.type, (out.a, out.b, out.c), new))
     return net.replace(pool=pool, stats=st,
                        next_mid=net.next_mid + n_new), sent_view
 
@@ -418,6 +428,10 @@ def _deliver(cfg: NetConfig, net: NetState):
         recv_servers=st.recv_servers + n(taken & ~client_msg),
         dropped_partition=st.dropped_partition + n(dropped),
         dropped_down=st.dropped_down + n(to_down))
+    if cfg.unit_words:
+        st = st.replace(recv_units=st.recv_units + payload_units(
+            cfg, net.pool.type, (net.pool.a, net.pool.b, net.pool.c),
+            taken | c_taken))
     return net.replace(pool=pool, stats=st), inbox, client_msgs
 
 

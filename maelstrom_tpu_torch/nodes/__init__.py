@@ -4,10 +4,11 @@ Counterpart of `maelstrom_tpu/nodes/__init__.py`: a node program is a
 batched state machine whose per-node state is a dict of tensors with a
 leading node axis, plus the host-boundary contract that keeps the JSON
 protocol as the compatibility surface (`request_for_op`, `encode_body`,
-`decode_body`, `completion`). The port has the broadcast, g-set,
-PN-/g-counter and kafka programs on the edge channels, Raft serving
-lin-kv, and echo and unique-ids on the pool path; `get_program` names
-the slice that brings any other.
+`decode_body`, `completion`). The port has the broadcast, batched
+broadcast, g-set, PN-/g-counter and kafka programs on the edge channels,
+Raft serving lin-kv, echo and unique-ids on the pool path, and the
+ordering axis's composed programs (`tpu:ordered`, `ordering/`);
+`get_program` names the slice that brings any other.
 
 Type code 0 is reserved (invalid slot), 1 is the shared RPC error reply;
 programs define their own codes from 10 up."""
@@ -293,11 +294,10 @@ PROGRAMS: dict[str, Callable] = {}
 # the slice of the port that brings each of the JAX package's other
 # programs
 LATER = {
-    "broadcast-batched": "the other node programs",
     **dict.fromkeys(("txn-list-append", "txn-rw-register"),
                     "the Raft transaction programs"),
     **dict.fromkeys(("compartment", "services", "lin-tso", "seq-kv",
-                     "lww-kv", "ordered", "solo"),
+                     "lww-kv", "solo"),
                     "the role-partitioned programs"),
 }
 
@@ -309,8 +309,14 @@ def register(cls):
 
 def get_program(name: str, opts: dict, nodes: list[str],
                 device="cuda") -> NodeProgram:
-    from . import (broadcast, echo, gset, kafka,  # noqa: F401
-                   pn_counter, raft, unique_ids)  # (register the programs)
+    from . import (broadcast, broadcast_batched, echo,  # noqa: F401
+                   gset, kafka, pn_counter, raft,  # noqa: F401
+                   unique_ids)  # (register the programs)
+    if name == "ordered":
+        # the ordering axis: the engine named by opts["ordering"] composed
+        # with the applier serving opts["workload"]
+        from ..ordering import make_ordered
+        return make_ordered(opts, nodes, device=device)
     if name not in PROGRAMS:
         later = LATER.get(name.split(":")[0], "a later slice")
         raise ValueError(f"node program {name!r} is not ported to "

@@ -28,7 +28,7 @@ import torch
 
 from .. import kernels as K
 from ..net.static import EdgeConfig, EdgeMsgs, reverse_index
-from ..net.tpu import I32
+from ..net.tpu import I32, wrap_i32
 from ..tree import resolve_device
 from ..workloads.broadcast import TOPOLOGIES, topology_indices
 from .gset import gossip_topology_opts
@@ -48,12 +48,6 @@ _EDGE = ("valid", "type", "a", "b", "c")
 _CLIENT_IN = ("valid", "src", "due", "mid", "type", "a", "b", "c")
 _CLIENT_OUT = ("valid", "src", "dest", "due", "mid", "reply_to", "type",
                "a", "b", "c")
-
-
-def wrap_i32(x: torch.Tensor) -> torch.Tensor:
-    """An int64 tensor as int32, wrapping modulo 2**32 as XLA's int32
-    arithmetic does (`torch.sum` of int32 gives int64)."""
-    return (torch.remainder(x + 2**31, 2**32) - 2**31).to(I32)
 
 
 @register

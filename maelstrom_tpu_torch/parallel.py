@@ -76,7 +76,8 @@ def _check_config(program, cfg: NetConfig, mesh) -> None:
            (cfg.latency_mean_rounds != 0, "nonzero latency"),
            (cfg.partition_groups > 1, "directional partitions"),
            (cfg.enable_stall, "kill and pause"),
-           (cfg.enable_duplication, "duplication")]
+           (cfg.enable_duplication, "duplication"),
+           (bool(cfg.unit_words), "client-op unit counters")]
     for hit, what in out:
         if hit:
             raise NotImplementedError(

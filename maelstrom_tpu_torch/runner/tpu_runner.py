@@ -201,6 +201,13 @@ class TpuNetStats(Checker):
             groups["servers"]["msgs-per-op"] = (
                 groups["servers"]["msg-count"] / op_count)
         out = dict(groups)
+        if self.runner.cfg.unit_words:
+            # client-op units transported beside the raw message counts
+            out["sent-units"] = c["sent_units"]
+            out["recv-units"] = c["recv_units"]
+            if c["recv_all"]:
+                out["units-per-msg"] = round(
+                    c["recv_units"] / c["recv_all"], 3)
         out["lost"] = c["lost"]
         out["dropped-partition"] = c["dropped_partition"]
         out["dropped-overflow"] = c["dropped_overflow"]
@@ -301,7 +308,11 @@ class TpuRunner:
             ms_per_round=self.ms_per_round,
             partition_groups=n if "partition" in faults else 1,
             enable_stall=bool({"kill", "pause"} & faults),
-            enable_duplication="duplicate" in faults)
+            enable_duplication="duplicate" in faults,
+            # batch rows (broadcast-batched) carry several client ops a
+            # message: the net books units beside the message counts
+            unit_words=tuple(getattr(self.program, "unit_words", ())
+                             or ()))
         # per-message journal rows: on by default for small clusters,
         # where the per-round pull is cheap; large runs keep only the
         # on-device counters
@@ -381,7 +392,9 @@ class TpuRunner:
     def _read_state(self, node_idx: int):
         """One node's state rows at the current round, copied out of the
         host copy of the node state (one drain, cached until the next
-        dispatch, restart or fault surgery)."""
+        dispatch, restart or fault surgery). A completion's `read_state`
+        reads the replying node unless it names another (the ordering
+        engines read replicas in turn)."""
         return self.program.state_row(self._nodes_host(), node_idx)
 
     def _nodes_host(self):
@@ -668,7 +681,8 @@ class TpuRunner:
                 op, body, payload, self.intern)
         else:
             completed = program.completion(
-                op, body, lambda: self._read_state(node_idx), self.intern)
+                op, body, lambda i=node_idx: self._read_state(i),
+                self.intern)
         cctx = {"time": self._time_ns(stamp),
                 "free": self._free_rotated(free), "processes": processes}
         return self._complete(history, gen, cctx, process, completed, free)

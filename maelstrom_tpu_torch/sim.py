@@ -375,6 +375,14 @@ def _round_edge(program, cfg: NetConfig, sim: SimState, inject: Msgs,
     CC = max(cfg.client_cap, 2 * cfg.n_clients, 1)
     replies, n_all = compact_replies(flat, Kc, CC, net.next_mid)
     st = net.stats
+    if cfg.unit_words:
+        # reply units (batch acks carry their op count), booked on both
+        # sides: the zero-latency client channel sends and delivers in
+        # the same round
+        ru = T.payload_units(cfg, flat.type, (flat.a, flat.b, flat.c),
+                             flat.valid)
+        st = st.replace(sent_units=st.sent_units + ru,
+                        recv_units=st.recv_units + ru)
     net = net.replace(next_mid=net.next_mid + n_all, stats=st.replace(
         sent_all=st.sent_all + n_all, recv_all=st.recv_all + n_all,
         sent_by_type=T.count_by_type(st.sent_by_type, flat.type,
@@ -421,6 +429,13 @@ def _round_edge(program, cfg: NetConfig, sim: SimState, inject: Msgs,
 
     n_sent = edge_out.valid.reshape(lead + (-1,)).sum(dim=-1, dtype=I32)
     n_recv = edge_in.valid.reshape(lead + (-1,)).sum(dim=-1, dtype=I32)
+    if cfg.unit_words:
+        # a distilled range lane is ONE edge message carrying n client-op
+        # units (the JAX round's batch-expansion accounting)
+        fstats = fstats.replace(**{
+            f: getattr(fstats, f) + T.payload_units(
+                cfg, m.type, (m.a, m.b, m.c), m.valid)
+            for f, m in (("sent_units", edge_out), ("recv_units", edge_in))})
     net = net.replace(stats=fstats.replace(
         sent_all=fstats.sent_all + n_sent,
         sent_servers=fstats.sent_servers + n_sent,

@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from maelstrom_tpu_torch import cli, core
-from maelstrom_tpu_torch.bench import run_broadcast_bench, run_raft_bench
+from maelstrom_tpu_torch.bench import (run_broadcast_batched_bench,
+                                       run_broadcast_bench, run_raft_bench)
 from maelstrom_tpu_torch.fuzz import fuzz_broadcast, fuzz_kafka
 from maelstrom_tpu_torch.net.tpu import NetConfig
 from maelstrom_tpu_torch.nodes import get_program
@@ -54,7 +55,7 @@ def test_port_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", GUARD], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 51    # every module was imported
+    assert int(res.stdout.split()[-1]) >= 57    # every module was imported
 
 
 def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
@@ -68,9 +69,13 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         get_program("lin-kv", {}, nodes)
     for name in ("echo", "unique-ids", "g-set", "pn-counter", "g-counter",
-                 "kafka"):
+                 "kafka", "broadcast-batched"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             get_program(name, {}, nodes)
+    for engine in ("raft", "batched"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            get_program("ordered", {"workload": "lin-kv",
+                                    "ordering": engine}, nodes)
     raft = get_program("lin-kv", {}, nodes, device="cpu")
     prog = get_program("broadcast", opts, nodes, device="cpu")
     cfg = NetConfig(n_nodes=4, n_clients=1)
@@ -100,6 +105,15 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
                  lambda: cli.main(["test", "-w", "kafka", "--node",
                                    "tpu:kafka", "--node-count", "3",
                                    "--store", str(tmp_path)]),
+                 lambda: cli.main(["test", "-w", "broadcast-batched",
+                                   "--node", "tpu:broadcast-batched",
+                                   "--node-count", "3", "--store",
+                                   str(tmp_path)]),
+                 lambda: cli.main(["test", "-w", "kafka", "--ordering",
+                                   "batched", "--node-count", "3",
+                                   "--store", str(tmp_path)]),
+                 lambda: run_broadcast_batched_bench(n_nodes=4, values=8,
+                                                     batch=4, chunk=4),
                  lambda: fuzz_broadcast(n_nodes=4, values=2),
                  lambda: fuzz_kafka(n_nodes=3, store_root=str(tmp_path))):
         with pytest.raises(RuntimeError, match="no CUDA device"):

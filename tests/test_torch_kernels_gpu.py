@@ -7,8 +7,10 @@ and alignments. The plain version runs on the CPU from the same numpy inputs.
 Tolerance: exact (int32 and bool).
 
 The pool-path steps (K11, K12), the PN-counter step (K13, up to 1,500
-origins and spill lanes), K5's int32 payload form and the kafka step
-(K14, classic and group mode, up to 16 groups of 254 members) too.
+origins and spill lanes), K5's int32 payload form, the kafka step (K14,
+classic and group mode, up to 16 groups of 254 members) and the
+batched-broadcast step (K15, up to a 70,000-value table whose proof sums
+wrap, and a 300,256-value table whose masks pass shared memory) too.
 
 These tests need a CUDA device and skip without one. They import
 nothing of JAX, so they run on a machine without it:
@@ -881,3 +883,100 @@ def test_kafka_step_matches_plain(cuda, shape, rnd, stalled):
         _equal(st, _tensors(state, d))
     _equal(out[cuda], out["cpu"])
     assert K.KAFKA_STEP.launches > 0
+
+
+# --- K15: the batched-broadcast step -----------------------------------------
+
+def random_batched_inputs(rng, prog, span=16):
+    """A batched step's inputs (tests/test_torch_broadcast_batched.py's
+    generator): pending planes of sparse, half and dense runs, range
+    lanes at and past both ends, digests of every window, stray lane
+    types; client batches of up to `span` ids (every node's first slot a
+    whole-table batch when `span` >= V), reads and stray types."""
+    N, D, V, W = prog.n_nodes, prog.D, prog.V, prog.n_windows
+    L = prog.edge_cfg.lanes
+    dens = np.array([0.02, 0.5, 0.97])[rng.integers(0, 3, (N, D, 1))]
+    state = {"seen": rng.random((N, V)) < 0.3,
+             "pending": rng.random((N, D, V)) < dens,
+             "inflight": rng.random((N, D, V)) < 0.2,
+             "inflight_old": rng.random((N, D, V)) < 0.2,
+             "owed": rng.random((N, D, W)) < 0.3}
+    shape = (N, D, L)
+    typ = rng.choice(np.array([24, 24, 15, 14, 0], np.int32), shape)
+    words = [rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(
+        np.int32) for _ in range(2)]
+    a = np.where(typ == 15, rng.integers(0, W + 1, shape),
+                 rng.integers(-2, V + 3, shape)).astype(np.int32)
+    b = np.where(rng.random(shape) < 0.1, V + 5,
+                 rng.integers(-2, max(V // 8, 4), shape))
+    b = np.where(typ == 15, words[0], b).astype(np.int32)
+    edge_in = {"valid": rng.random(shape) < 0.6, "type": typ, "a": a,
+               "b": b, "c": words[1]}
+    cs = (N, prog.inbox_cap)
+    client_in = {
+        "valid": rng.random(cs) < 0.5,
+        "type": rng.choice(np.array([20, 20, 22, 10, 0], np.int32), cs),
+        "a": np.where(rng.random(cs) < 0.1, 0,
+                      rng.integers(-1, V + 2, cs)).astype(np.int32),
+        "b": np.where(rng.random(cs) < 0.1, span,
+                      rng.integers(-1, span + 2, cs)).astype(np.int32)}
+    for f in ("src", "dest", "due", "mid", "reply_to", "c"):
+        client_in[f] = rng.integers(-5, 1000, cs, dtype=np.int32)
+    if span >= V:
+        client_in["valid"][:, 0] = True
+        client_in["type"][:, 0] = 20
+        client_in["a"][:, 0] = 0
+        client_in["b"][:, 0] = V
+    return state, edge_in, client_in
+
+
+# name: (nodes, values, ranges an edge, eager, batch span, topology)
+BATCHED_SHAPES = {
+    "grid5": (5, 1024, 2, False, 16, "grid"),
+    "line7-missing-edges": (7, 100, 3, False, 8, "line"),
+    "grid1000-eager": (1000, 512, 1, True, 32, "grid"),
+    "tree4-odd-V": (50, 333, 4, False, 40, "tree4"),
+    "wrap": (6, 70_000, 2, False, 70_000, "grid"),
+    # past the kernel's shared-memory masks: they go to global scratch
+    "wideV-global-masks": (5, 300_256, 2, False, 300_256, "grid"),
+}
+
+
+@pytest.mark.parametrize("shape", list(BATCHED_SHAPES))
+@pytest.mark.parametrize("tick", [True, False], ids=["retry", ""])
+@pytest.mark.parametrize("stalled", [False, True], ids=["", "stall"])
+def test_broadcast_batched_step_matches_plain(cuda, shape, tick, stalled):
+    """K15 against its plain version on every state leaf and every edge
+    and client field, valid or not, on a retry-tick round and an
+    ordinary one; the wrap shape's whole-table batches prove a checksum
+    whose int32 id sum wraps. The inputs stay untouched."""
+    n, V, per_nb, eager, span, topo = BATCHED_SHAPES[shape]
+    progs = {d: get_program("broadcast-batched",
+                            {"topology": topo, "max_values": V,
+                             "gossip_per_neighbor": per_nb,
+                             "eager_resend": eager},
+                            [f"n{i}" for i in range(n)], device=d)
+             for d in ("cpu", cuda)}
+    rng = np.random.default_rng(n + V + tick + 2 * stalled)
+    state, edge_in, client_in = random_batched_inputs(rng, progs["cpu"],
+                                                      span)
+    rnd = 3 * progs["cpu"].retry_rounds + (0 if tick else 1)
+    stall = rng.random(n) < 0.4
+    out = {}
+    for d in ("cpu", cuda):
+        ctx = {"round": torch.tensor(rnd, dtype=torch.int32, device=d)}
+        if stalled:
+            ctx["stall"] = torch.tensor(stall, device=d)
+        st, ei = _tensors(state, d), _tensors(edge_in, d)
+        ci = _tensors(client_in, d)
+        out[d] = progs[d].edge_step(st, static.EdgeMsgs(**ei), Msgs(**ci),
+                                    ctx)
+        for got, ref in ((st, state), (ei, edge_in), (ci, client_in)):
+            _equal(got, _tensors(ref, d))
+    _equal(out[cuda], out["cpu"])
+    if span >= V:
+        co = out["cpu"][2]
+        assert bool(((co.type[:, 0] == 21) & (co.b[:, 0] == V)).all())
+    kern = K.BROADCAST_BATCHED_STEP_STALL if stalled else \
+        K.BROADCAST_BATCHED_STEP
+    assert kern.launches > 0

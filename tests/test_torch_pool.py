@@ -130,14 +130,14 @@ def test_net_helpers_match_jax():
 
 
 def test_scope_guards_raise():
-    """The adversary, telemetry and batched-broadcast parts are refused;
-    the fault paths this slice ports are not."""
-    for kw in ({"enable_byz": True}, {"telemetry": True},
-               {"unit_words": ((10, 0),)}):
+    """The adversary and telemetry parts are refused; the fault paths
+    and the batched-broadcast unit accounting the port has are not."""
+    for kw in ({"enable_byz": True}, {"telemetry": True}):
         with pytest.raises(NotImplementedError):
             PT.check_scope(PT.NetConfig(n_nodes=4, **kw))
     for kw in ({"latency_dist": "uniform"}, {"enable_duplication": True},
-               {"enable_stall": True}, {"partition_groups": 2}):
+               {"enable_stall": True}, {"partition_groups": 2},
+               {"unit_words": ((10, 0),)}):
         PT.check_scope(PT.NetConfig(n_nodes=4, **kw))
     with pytest.raises(ValueError, match="latency dist"):
         PT.check_scope(PT.NetConfig(n_nodes=4, latency_dist="pareto"))

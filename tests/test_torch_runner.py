@@ -145,8 +145,10 @@ def test_free_set_rotation_matches_sorted_list():
     (["--resume", "x"], "checkpoint and resume"),
     (["--device-checker", "on"], "device Elle"),
     (["--telemetry"], "telemetry rings"),
-    (["-w", "broadcast-batched"], "the other node programs"),
+    (["--ordering", "compartment"], "the role-partitioned programs"),
     (["-w", "txn-list-append"], "the Raft transaction programs"),
+    (["-w", "txn-list-append", "--ordering", "batched"],
+     "the Raft transaction programs"),
     pytest.param(["-w", "lin-tso"], "the role-partitioned programs",
                  id="extra14-lin-mutex and lin-tso"),
     (["-w", "lin-mutex"], "lin-mutex on tpu:lin-kv"),

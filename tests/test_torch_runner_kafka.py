@@ -17,7 +17,7 @@ Tier 1 keeps three short runs at 5 ms a round: classic, groups 2, and 8
 keys in two groups of 8 members under the kill nemesis (evictions,
 fenced commits, rebalances). The runs whose JAX history hashes
 `chip_smoke.py` pins (`PINNED_KAFKA`: the JAX package's kafka e2e
-configs and Gossip Glomers' challenge 5b, cut to 5 s) take minutes on
+configs and Gossip Glomers' challenge 5b, cut to 1.5 s) take minutes on
 the CPU and are marked slow."""
 
 from __future__ import annotations

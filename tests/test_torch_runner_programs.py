@@ -14,7 +14,7 @@ a few hundred rounds. The runs of `tests/test_tpu_e2e.py` and
 `tests/test_tpu_crdt.py` (echo at 5 nodes, g-set at 20 nodes with gossip
 fanout 3 and 5% loss, pn-counter at 5 nodes under partitions, g-counter
 at 5 nodes at 5 ms a round) and unique-ids at Gossip Glomers'
-challenge-2 shape (3 nodes, rate 1000, partitions, cut to 2.5 s) take
+challenge-2 shape (3 nodes, rate 1000, partitions, cut to 1.25 s) take
 minutes on the CPU and are marked slow: they also re-derive the history
 hashes `chip_smoke.py` pins (`PINNED_POOL`, `PINNED_CRDT`)."""
 
