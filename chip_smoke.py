@@ -49,7 +49,18 @@ the ordering axis (lin-kv over the batched engine, kafka over the raft
 engine) through `core.run`, whose histories must hash to the JAX
 runner's (`PINNED_BATCHED`), and bench.py's batched-vs-eager record at
 4,096 nodes, whose rounds and message counts must equal the JAX
-package's (`PINNED_BATCHED_BENCH`). Every phase prints one JSON line; any
+package's (`PINNED_BATCHED_BENCH`). Then the transaction slice: the
+txn-list-append runs (the Elle checker's device path on, and one whose
+1,158 ok transactions engage it under `auto`), txn-rw-register and
+lin-mutex through `core.run`, whose histories and Elle `device` blocks
+must equal the JAX runner's (`PINNED_TXN`), with K16 and K17 launched on
+the device-checker runs; bench.py's checker-throughput record at
+1,000,000 lin-kv rows and 1,000,000 Elle micro-ops (`python -m
+maelstrom_tpu_torch.bench --checkers`: edge sets equal, the screen
+deciding at least 90% of its fixtures); and K16 elle_edges and K17
+elle_screen against their plain versions on the fixture histories,
+random histories of 150 transactions and the bench's full-width set,
+with and without its realtime inputs. Every phase prints one JSON line; any
 failed check exits non-zero. The line before the last lists every kernel
 with its launches on its path, its time, its plain version's time and
 its bound; the last line is `{"ok": true, "device": {...}}`.
@@ -3423,6 +3434,309 @@ def phase_bench_batched(smi):
 
 
 
+# --- Raft transactions, lin-mutex and device Elle ----------------------------
+
+# The JAX package's e2e runs of the transaction programs, full depth:
+# tests/test_elle_device.py's device-vs-host run (seed 11, rate 25, 2 s)
+# and its partition soup (seed 23, rate 15, 4 s, a partition every 2 s),
+# both with the device checker on; tests/test_txn_rw_register.py's run
+# (3 nodes, seed 7, rate 15, 3 s); lin-mutex on the Raft lin-kv program
+# at the lin-kv runs' shape (5 nodes, seed 7, rate 15, 2 s); and a run
+# whose 1,158 ok transactions engage the device checker on its own
+# (`--device-checker auto` engages at 1,024): rate 500 over 20 clients
+# for 3 s at 5 ms a round (the rate a 5-node cluster commits at 1 ms a
+# round is some 1,000 a second for 5 clients), a dispatch a round (a
+# reply lands in nearly every round: the port's scan of 16 rounds would
+# roll back 15 of them; the history is the same at any bound).
+TXN_BASE = {"workload": "txn-list-append", "node": "tpu:txn-list-append",
+            "node_count": 5, "journal_rows": False}
+CLI_TXN = [
+    ("txn5-device-on", {**TXN_BASE, "rate": 25.0, "time_limit": 2.0,
+                        "seed": 11, "device_checker": "on"}),
+    ("txn5-partition-device-on", {
+        **TXN_BASE, "rate": 15.0, "time_limit": 4.0, "seed": 23,
+        "nemesis": {"partition"}, "nemesis_interval": 2.0,
+        "device_checker": "on"}),
+    ("rw-register3", {"workload": "txn-rw-register",
+                      "node": "tpu:txn-rw-register", "node_count": 3,
+                      "rate": 15.0, "time_limit": 3.0, "seed": 7,
+                      "journal_rows": False}),
+    ("lin-mutex5", {"workload": "lin-mutex", "node": "tpu:lin-kv",
+                    "node_count": 5, "rate": 15.0, "time_limit": 2.0,
+                    "seed": 7, "journal_rows": False}),
+    ("txn5-auto", {**TXN_BASE, "rate": 500.0, "time_limit": 3.0,
+                   "concurrency": 20, "ms_per_round": 5.0, "seed": 3,
+                   "max_scan": 1}),
+]
+# (sha256 of the JAX runner's history.jsonl, its Elle `device` block or
+# None) for each run above, on the CPU; re-derived by
+#   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_runner_txn.py \
+#       -m slow -k pinned
+PINNED_TXN = {
+    "txn5-device-on": (
+        "3fcb04951f514fb89b789b430f30f38aef5a5ac66a6fa96071a972f4623804ba",
+        {"screen": {"data": "acyclic", "realtime": "acyclic",
+                    "iters": [6, 0]},
+         "edges-on-device": True, "edge-candidates": 148}),
+    "txn5-partition-device-on": (
+        "704b5d9a8b229148e11ea8db8bc317cb342951d6b87933f352fa367b2e746584",
+        {"screen": {"data": "acyclic", "realtime": "acyclic",
+                    "iters": [16, 0]},
+         "edges-on-device": True, "edge-candidates": 128}),
+    "rw-register3": (
+        "7e3650017c5139a95210b4768a6b0c91c58f5ce41284ae9eba387577b21fbbf4",
+        None),
+    "lin-mutex5": (
+        "35bbcb38bb0147a7f232d79ad820c93035e101c80df888596be53300c94ca1b4",
+        None),
+    "txn5-auto": (
+        "cf261f7763ec6959da1d11dce3a118e3ccfb21231fcdbcecc451cfb88962de99",
+        {"screen": {"data": "acyclic", "realtime": "acyclic",
+                    "iters": [32, 4]},
+         "edges-on-device": True, "edge-candidates": 3845}),
+}
+# the kernels a transaction run launches: the Raft round's, and K16 and
+# K17 where the device checker engages
+TXN_KERNELS = ("raft_step", "edge_read", "edge_write", "reply_log_append")
+ELLE_KERNELS = ("elle_edges", "elle_screen")
+
+
+
+def _elle_inputs(txns, longest, appender, rt):
+    """device_args of one transaction set (the checker's assembly); rt
+    None: no realtime inputs."""
+    from maelstrom_tpu_torch.checkers import elle_device as ed
+    return ed.device_args(*ed.host_arrays(txns, longest, appender, repr,
+                                          rt=rt))
+
+
+def _elle_tables(txns):
+    """(longest, appender, rt) as `elle.analyze_txns` builds them."""
+    import numpy as np
+    from maelstrom_tpu_torch.checkers.elle import _hk, _hv
+    appender, longest = {}, {}
+    for t in txns:
+        for f, k, v in t["micro"]:
+            if f == "append":
+                appender[(_hk(k), _hv(v))] = t["id"]
+    for t in txns:
+        if t["ok"]:
+            for f, k, v in t["micro"]:
+                if f == "r" and isinstance(v, list) \
+                        and len(v) > len(longest.get(_hk(k), [])):
+                    longest[_hk(k)] = [_hv(x) for x in v]
+    ok = sorted((t for t in txns if t["ok"]), key=lambda t: t["ret"])
+    rets = np.array([t["ret"] for t in ok], np.float64)
+    invs = np.array([t["inv"] for t in ok], np.float64)
+    before = np.searchsorted(rets, invs, side="left") - 1
+    return longest, appender, (np.array([t["id"] for t in ok], np.int64),
+                               before)
+
+
+def elle_shapes(synthetic):
+    """name -> (edge args, screen args, Tp, have_rt) of K16 and K17's
+    checks: every fixture history, random_append_history at 150
+    transactions (seeds 0-3, every other one with 15% corrupt reads),
+    and the full-width set `bench_checkers_record` grades (`synthetic`,
+    `elle_synthetic` at 1,000,000 micro-ops: 64 keys, 3,125 versions a
+    key; Vp 262,144, Rp 1,048,576, Tp 1,048,576), data stage only as the
+    bench screens it, and again with its realtime inputs (realtime
+    cyclic by design: 32 iterations over every edge and transaction)."""
+    from maelstrom_tpu_torch.checkers.elle import _txn_ops
+    from maelstrom_tpu_torch.testing.histories import (
+        ELLE_FIXTURES, from_rows, random_append_history)
+    out = {}
+    hists = {f"fixture-{k}": from_rows(f()) for k, f in
+             ELLE_FIXTURES.items()}
+    hists.update({f"random150-{s}": random_append_history(
+        s, n_txn=150, corrupt=0.15 if s % 2 else 0.0) for s in range(4)})
+    for name, h in hists.items():
+        txns = _txn_ops(h)
+        longest, appender, rt = _elle_tables(txns)
+        out[name] = _elle_inputs(txns, longest, appender, rt)
+    txns, longest, appender, _ops = synthetic
+    out["full"] = _elle_inputs(txns, longest, appender, None)
+    out["full-rt"] = _elle_inputs(txns, longest, appender,
+                                  _elle_tables(txns)[2])
+    return out
+
+
+def elle_io(eargs, sargs, tp, verdict):
+    """(bytes, operations) of K16 and of K17 on one input: K16 reads its
+    five planes once and writes 13 bytes a candidate row (a row's gathers
+    and tests some 8 operations); K17 writes its four words and reads
+    the seven planes of the data stage once (writers, slot_key,
+    slot_idx; r_tid, r_n, wr_pos, rw_pos), the realtime stage's two
+    (ret_tid, before_idx) only where the input has realtime inputs, and
+    does what this input's iterations need: the data seed, then a pass
+    over the edges (step 2 operations an edge, violation test 1) and,
+    with realtime inputs, the rank seed and the realtime stage's passes,
+    over the edges and over the transactions (bound 2, prefix max 1,
+    violation 2, changed 1), for each iteration and for the initial
+    violation count."""
+    vp, rp = len(eargs[0]), len(eargs[2])
+    n = vp - 1 + 2 * rp
+    k16 = (4 * (2 * vp + 3 * rp) + 13 * n, 8 * n)
+    _data_ok, _full_ok, it_a, it_b = (int(x) for x in verdict)
+    rt = bool(sargs[7].max() >= 0)
+    ops = (vp + rp) + (it_a + 1) * 3 * n
+    planes = 3 * vp + 4 * rp
+    if rt:
+        ops += tp + (it_b + 1) * (3 * n + 6 * tp)
+        planes += 2 * tp
+    k17 = (4 * planes + 16, ops)
+    return k16, k17
+
+
+def elle_kernel_checks(timed, inputs):
+    """K16 elle_edges and K17 elle_screen against their plain versions on
+    the card at `inputs` (`elle_shapes`): all four edge arrays and all
+    four screen words exact, the inputs untouched. Timed at the full width (K17 on
+    the bench's data stage; the realtime stress shape beside it)."""
+    import torch
+    from maelstrom_tpu_torch import kernels as K
+    from maelstrom_tpu_torch.checkers import elle_device as ed
+    out, err, shapes = {}, 0, {}
+    steps = {"timing_s": 0.0}
+    for name, (eargs, sargs, tp, have_rt) in inputs.items():
+        on = ed.to_device(sargs, "cuda")
+        e_in = tuple(on[id(a)] for a in eargs)
+        s_in = tuple(on[id(a)] for a in sargs)
+        before = clone(s_in)
+
+        def k16(e_in=e_in):
+            return ed.elle_edges(*e_in)
+
+        def k17(s_in=s_in, tp=tp, have_rt=have_rt):
+            return ed.elle_screen(*s_in, n_txns_pad=tp, do_rt=have_rt)
+        got = (k16(), k17())
+        with K.forced_plain():
+            ref = (k16(), k17())
+        torch.cuda.synchronize()
+        e = max(max_abs_err(got, ref), max_abs_err(s_in, before))
+        check(e == 0, f"elle kernels@{name}: max abs err {e} (screen "
+              f"{got[1].tolist()} vs {ref[1].tolist()})")
+        err = max(err, e)
+        verdict = got[1].tolist()
+        shapes[name] = {"vp": len(eargs[0]), "rp": len(eargs[2]), "tp": tp,
+                        "realtime": have_rt, "screen": verdict}
+        if name.startswith("full"):
+            (b16, o16), (b17, o17) = elle_io(eargs, sargs, tp, verdict)
+            for kern, fn, by, ops in ((K.ELLE_EDGES, k16, b16, o16),
+                                      (K.ELLE_SCREEN, k17, b17, o17)):
+                if kern is K.ELLE_EDGES and name != "full":
+                    continue
+                b, bb = bound_of(by, ops)
+                r = {"bound_ms": b, "bound_by": bb, "bytes": by,
+                     "operations": ops, "screen": verdict}
+                if timed:
+                    t1 = time.perf_counter()
+                    r["ms"] = cuda_ms(fn, iters=10)
+                    with K.forced_plain():
+                        r["plain_ms"] = cuda_ms(fn, iters=3, warmup=1)
+                    steps["timing_s"] += time.perf_counter() - t1
+                out[f"{kern.name}@{name}"] = r
+    for r in out.values():
+        r["max_abs_err"] = err
+    v = shapes["full"]["screen"]
+    check(v[0] == 1 and v[2] == 0, f"full width: the data stage did not "
+          f"certify at once {shapes['full']}")
+    return out, shapes, steps
+
+
+def phase_elle_kernels(timed, inputs):
+    t0 = time.perf_counter()
+    r, shapes, steps = elle_kernel_checks(timed, inputs)
+    emit({"phase": "elle_kernels", "timed": timed,
+          "seconds": time.perf_counter() - t0, **steps, "shapes": shapes,
+          "kernels": r})
+    return r
+
+
+def phase_cli_txn(smi):
+    """The transaction programs and lin-mutex through the kernels: the
+    pinned runs, each with the launch counters set to 0 just before and
+    read just after. Every history and Elle device block must equal the
+    JAX runner's, every run be valid, and the device checker's runs
+    launch K16 and K17 (one call each)."""
+    import shutil
+    from maelstrom_tpu_torch import kernels as K
+    store = os.path.join(ROOT, "store", "chip_smoke_txn")
+    shutil.rmtree(store, ignore_errors=True)
+    runs, launches = {}, {}
+    for name, run in CLI_TXN:
+        sha, device = PINNED_TXN[name]
+        K.reset_launches()
+        runs[name] = _run_line(name, run, store, {name: sha})
+        launches[name] = K.launch_counts()
+        with open(os.path.join(store, "latest", "results.json")) as f:
+            res = json.load(f)
+        w = res["workload"]
+        check(w.get("device") == device,
+              f"txn {name}: device block {w.get('device')}, the JAX "
+              f"runner's {device}")
+        check(res["net"]["log-overflow"] == 0, f"txn {name}: log-overflow")
+        want = TXN_KERNELS + (ELLE_KERNELS if device else ())
+        for k in want:
+            check(launches[name][k] > 0, f"txn {name} did not launch {k}")
+        if device:
+            check(res["net"].get("checker-device-calls") == 1
+                  and launches[name]["elle_screen"] == 1,
+                  f"txn {name}: device calls "
+                  f"{res['net'].get('checker-device-calls')}")
+        runs[name].update({"device": w.get("device"),
+                           "checker_device_s": res["net"].get(
+                               "checker-device-s"),
+                           "ok_count": res["stats"]["ok-count"]})
+    shutil.rmtree(store, ignore_errors=True)
+    emit({"phase": "cli_txn", "runs": runs, "launches": launches,
+          "nvidia_smi": smi})
+    return {k: sum(v[k] for v in launches.values()) for k in ELLE_KERNELS}
+
+
+def phase_bench_checkers(smi):
+    """`python -m maelstrom_tpu_torch.bench --checkers` at its defaults
+    (1,000,000 lin-kv rows; 1,000,000 Elle micro-ops), in this process:
+    every verdict and edge set equal (the device block's through K16 and
+    K17 against `_edges_vectorized`), the screen deciding at least 90% of
+    its fixtures. The Elle set is built here, once; the kernels' inputs
+    (`elle_shapes`, numpy) are made from it and returned for
+    `phase_elle_kernels`, and the set is let go. While it lives, the
+    garbage collector leaves what exists alone (`gc.freeze`): its
+    passes over the set's some 3 million containers would slow every
+    host phase behind it, the register baseline first."""
+    import gc
+    from maelstrom_tpu_torch import kernels as K
+    from maelstrom_tpu_torch.bench import (bench_checkers_record,
+                                           elle_synthetic)
+    t0 = time.perf_counter()
+    synthetic = elle_synthetic(1_000_000)
+    synthetic_s = time.perf_counter() - t0
+    gc.freeze()
+    try:
+        K.reset_launches()
+        t0 = time.perf_counter()
+        rec = bench_checkers_record(synthetic=synthetic)
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        inputs = elle_shapes(synthetic)
+        inputs_s = time.perf_counter() - t0
+    finally:
+        del synthetic
+        gc.unfreeze()
+    d = rec["elle"]["device"]
+    check(rec["valid"] and d["match"] and rec["elle"]["match"]
+          and d["screen_fixtures"]["decided_fraction"] >= 0.9,
+          f"bench_checkers: {rec}")
+    launches = {k: K.launch_counts()[k] for k in ELLE_KERNELS}
+    emit({"phase": "bench_checkers", **rec, "wall_s": wall,
+          "synthetic_s": synthetic_s, "elle_inputs_s": inputs_s,
+          "build_s": d["build_s"], "screen_s": d["screen_s"],
+          "speedup": d["speedup"], "launches": launches,
+          "nvidia_smi": smi})
+    return inputs
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "maelstrom_tpu_torch", "csrc")):
         print("chip_smoke: run from a checkout of the repository "
@@ -3464,6 +3778,8 @@ def main() -> int:
     launches.update(phase_cli_batched(smi))
     phase_cli_ordered(smi)
     phase_bench_batched(smi)
+    launches.update(phase_cli_txn(smi))
+    elle_inputs = phase_bench_checkers(smi)
     phase_fuzz_kafka(smi)
     phase_fuzz_broadcast(smi)
     # profiles and kernel times last: the profiler they are read from
@@ -3483,12 +3799,15 @@ def main() -> int:
     btimed = phase_batched_kernels(timed=True)
     for k in ("broadcast_batched_step", "broadcast_batched_step_stall"):
         cli[k] = btimed[f"{k}@stress100k"]
+    etimed = phase_elle_kernels(True, elle_inputs)
+    for k in ("elle_edges", "elle_screen"):
+        cli[k] = etimed[f"{k}@full"]
     phase_crdt_profile()
     phase_pool_profile(pool_launches["rounds_executed"])
     emit({"phase": "profiler", **PROFILER})
     errs = {}
     for r in (*checks.values(), fchecks, rchecks, raft, pchecks, cchecks,
-              kchecks, ktimed, btimed):
+              kchecks, ktimed, btimed, etimed):
         for name, v in r.items():
             base = {"raft_step_stall": "raft_step",
                     "threefry_batched": "threefry",

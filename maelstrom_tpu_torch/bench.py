@@ -28,11 +28,25 @@ of 32, chunks of 64 rounds, each side timed to its own convergence; it
 exits 1 unless both converge.
 
     python -m maelstrom_tpu_torch.bench --broadcast-batched [--nodes N]
+
+With `--checkers` it runs `bench.py`'s checker-throughput record
+(`bench_checkers_record`): a 1,000,000-row lin-kv history through the
+linearizability checker (columnar screen against the sequential WGL
+path), and the Elle edge build on a 1,000,000-micro-op list-append set
+(`elle_synthetic`: 64 keys of 3,125 versions and random prefix reads),
+vectorized against the nested-loop build, with the device block: the
+same edge set built by kernel K16 and screened by K17 on the card, and
+the screen's decided fraction over 12 valid concurrent histories. It
+exits 1 unless every verdict and edge set matches and the screen
+decides at least 90% of the fixtures.
+
+    python -m maelstrom_tpu_torch.bench --checkers [--device cpu]
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import time
@@ -429,6 +443,234 @@ def run_broadcast_batched_bench(n_nodes: int = 4096, values: int = 512,
     }
 
 
+# --- the checker-throughput record ------------------------------------------
+
+def elle_synthetic(elle_ops):
+    """The checker bench's synthetic list-append transaction set:
+    per-key serial version chains plus random prefix reads, ~elle_ops
+    micro-ops total (bench.py's, txn for txn). Key count scales down with
+    tiny elle_ops so the version-construction floor (2 appends per key)
+    never eats the whole budget. Reads of one key and length share one
+    list object, a prefix of the key's values (the checkers only read
+    them): bench.py's fresh list a read holds some 1.25 billion elements
+    at 1,000,000 micro-ops, tens of GB and minutes of host time. The
+    garbage collector is paused while it builds: its passes over the
+    set's some 3 million containers took three quarters of the build.
+    Returns (txns, longest, appender, micro_ops)."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        return _synthetic_txns(elle_ops)
+    finally:
+        if was:
+            gc.enable()
+
+
+def _synthetic_txns(elle_ops):
+    ekeys = min(64, max(1, elle_ops // 10))
+    versions_per_key = max(2, elle_ops // (5 * ekeys))
+    rng = np.random.RandomState(7)
+    txns, longest, appender = [], {}, {}
+    micro_ops = 0
+    for ki in range(ekeys):
+        kk = repr(ki)
+        order = []
+        for vi in range(versions_per_key):
+            vv = repr(ki * versions_per_key + vi)
+            tid = len(txns)
+            txns.append({"id": tid, "ok": True, "inv": micro_ops,
+                         "ret": micro_ops + 1,
+                         "micro": [["append", ki,
+                                    ki * versions_per_key + vi]]})
+            appender[(kk, vv)] = tid
+            order.append(vv)
+            micro_ops += 1
+        longest[kk] = order
+    # reads fill whatever the version floor left of the budget
+    n_reads = max(0, elle_ops - micro_ops)
+    read_keys = rng.randint(0, ekeys, n_reads)
+    read_lens = rng.randint(0, versions_per_key + 1, n_reads)
+    full = [list(range(ki * versions_per_key, (ki + 1) * versions_per_key))
+            for ki in range(ekeys)]
+    seen: dict = {}
+    for ki, ln in zip(read_keys.tolist(), read_lens.tolist()):
+        tid = len(txns)
+        v = seen.get((ki, ln))
+        if v is None:
+            v = seen[ki, ln] = full[ki][:ln]
+        txns.append({"id": tid, "ok": True, "inv": micro_ops,
+                     "ret": micro_ops + 1, "micro": [["r", ki, v]]})
+        micro_ops += 1
+    return txns, longest, appender, micro_ops
+
+
+# valid concurrent histories the screen's decided fraction is taken over
+SCREEN_FIXTURES = 12
+
+
+def bench_elle_device_record(txns, longest, appender, micro_ops, py_s, ev,
+                             device="cuda") -> dict:
+    """The device edge build (K16) and cycle screen (K17) against the
+    pure-Python baseline time `py_s` (bench.py's record):
+
+      - flatten_s: the one-shot host columnarization of the read table;
+      - table_s: the per-key version-table merge + gather positions and
+        the padded device arguments (host numpy), no realtime inputs
+        (the synthetic's stale prefix reads make it realtime-cyclic by
+        design: only the data stage is meaningful);
+      - build_s: their upload and the edge construction, after a warm-up
+        call, timed to the device's end;
+      - screen_s: the upload and the data-stage cycle screen, its verdict
+        read back.
+
+    `speedup` = python_s / build_s; `speedup_total` = python_s /
+    (flatten + table + build). The edge set is held equal to the
+    vectorized build (`match`); SCREEN_FIXTURES valid concurrent
+    histories run the whole checker with the device path on, and the
+    screen must certify at least 90% of them (data and realtime)."""
+    from .checkers import elle_device as ed
+    from .checkers.elle import _fail_appends, _txn_ops, analyze_txns
+    from .testing.histories import random_append_history
+    dev = resolve_device(device)
+
+    t0 = time.perf_counter()
+    cols = ed.build_columns(txns)
+    flatten_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eargs, sargs, tp, have_rt = ed.device_args(*ed.host_arrays(
+        txns, longest, appender, repr, columns=cols))
+    table_s = time.perf_counter() - t0
+
+    def build():
+        on = ed.to_device(eargs, dev)
+        out = ed.elle_edges(*(on[id(a)] for a in eargs))
+        _sync(dev)
+        return out
+
+    def screen():
+        on = ed.to_device(sargs, dev)
+        return ed.elle_screen(*(on[id(a)] for a in sargs), n_txns_pad=tp,
+                              do_rt=have_rt).cpu()
+
+    build()         # warm-up: the library's load, the allocator
+    t0 = time.perf_counter()
+    earrs = build()
+    build_s = time.perf_counter() - t0
+    screen()
+    t0 = time.perf_counter()
+    data_ok, _full, it_a, _it_b = screen().tolist()
+    screen_s = time.perf_counter() - t0
+
+    es = ed.DeviceElle(earrs, data_ok, False, (it_a, 0), {}).edge_set()
+    total_s = flatten_s + table_s + build_s
+    rec = {
+        "flatten_s": round(flatten_s, 4),
+        "table_s": round(table_s, 4),
+        "build_s": round(build_s, 4),
+        "screen_s": round(screen_s, 4),
+        "total_s": round(total_s, 4),
+        "build_ops_per_s": round(micro_ops / max(build_s, 1e-9), 1),
+        "match": es == ev,
+        "speedup": round(py_s / max(build_s, 1e-9), 2),
+        "speedup_total": round(py_s / max(total_s, 1e-9), 2),
+        "screen_data_decided": bool(data_ok),
+        "screen_iters": int(it_a),
+    }
+    decided = 0
+    for seed in range(SCREEN_FIXTURES):
+        h = random_append_history(seed, n_txn=150)
+        rep: dict = {}
+        analyze_txns(_txn_ops(h), _fail_appends(h), device="on",
+                     report=rep, torch_device=dev)
+        if rep.get("screen", {}).get("realtime") == "acyclic":
+            decided += 1
+    rec["screen_fixtures"] = {
+        "histories": SCREEN_FIXTURES, "decided": decided,
+        "decided_fraction": round(decided / SCREEN_FIXTURES, 3),
+    }
+    return rec
+
+
+def bench_checkers_record(n_rows: int = 1_000_000, elle_ops: int = 1_000_000,
+                          device="cuda", synthetic=None) -> dict:
+    """bench.py's checker-throughput record: the analysis hot paths on
+    synthetic histories, each against its pure-Python baseline.
+
+      - register: an n_rows-row lin-kv history over 128 keys (one
+        worker, every 4th op a write) through LinearizableRegisterChecker:
+        the columnar
+        partition + vectorized screen against the sequential WGL path
+        (opts no_fast);
+      - elle: ww/wr/rw edge construction on an elle_ops-micro-op
+        list-append set, the sorted-index-array build against the
+        nested-loop build;
+      - elle.device: the same edge set built by K16 and screened by K17
+        (`bench_elle_device_record`).
+
+    Every half holds its verdicts or edge sets equal; a mismatch marks
+    the record invalid. `synthetic`, where given, is
+    `elle_synthetic(elle_ops)` built by the caller (read, not changed)."""
+    from .checkers.elle import _edges_python, _edges_vectorized
+    from .checkers.linearizable import LinearizableRegisterChecker
+    from .history import History
+
+    n_rows -= n_rows % 2
+    n_ops = n_rows // 2
+    keys = 128
+    h = History()
+    state = [None] * keys
+    for i in range(n_ops):
+        k = i % keys
+        if i % 4 == 0:
+            f, v = "write", i % 7
+            state[k] = v
+        else:
+            f, v = "read", state[k]
+        h.append_row("invoke", f, [k, v], 0, 2 * i)
+        h.append_row("ok", f, [k, v], 0, 2 * i + 1)
+
+    c = LinearizableRegisterChecker()
+    t0 = time.perf_counter()
+    fast = c.check({}, h)
+    fast_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    base = c.check({}, h, {"no_fast": True})
+    base_s = time.perf_counter() - t0
+    register = {
+        "history_rows": n_rows, "ops": n_ops, "keys": keys,
+        "valid": fast["valid"], "verdicts_match": fast == base,
+        "fast_s": round(fast_s, 4),
+        "fast_ops_per_s": round(n_ops / fast_s, 1),
+        "baseline_s": round(base_s, 4),
+        "baseline_ops_per_s": round(n_ops / base_s, 1),
+        "speedup": round(base_s / fast_s, 2),
+    }
+
+    txns, longest, appender, micro_ops = (
+        synthetic if synthetic is not None else elle_synthetic(elle_ops))
+    t0 = time.perf_counter()
+    ev = _edges_vectorized(txns, longest, appender)
+    vec_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ep = _edges_python(txns, longest, appender)
+    py_s = time.perf_counter() - t0
+    elle = {
+        "micro_ops": micro_ops, "keys": len(longest),
+        "edges": len(ev), "match": ev == ep,
+        "vectorized_s": round(vec_s, 4),
+        "vectorized_ops_per_s": round(micro_ops / vec_s, 1),
+        "python_s": round(py_s, 4),
+        "python_ops_per_s": round(micro_ops / py_s, 1),
+        "speedup": round(py_s / vec_s, 2),
+    }
+    d = elle["device"] = bench_elle_device_record(
+        txns, longest, appender, micro_ops, py_s, ev, device=device)
+    dev_ok = d["match"] and d["screen_fixtures"]["decided_fraction"] >= 0.9
+    return {"register": register, "elle": elle,
+            "valid": bool(register["verdicts_match"] and elle["match"]
+                          and register["valid"] is True and dev_ok)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nodes", type=int, default=None,
@@ -464,7 +706,15 @@ def main(argv=None) -> int:
                          "--chunk 64, --pool 4096")
     ap.add_argument("--batch", type=int, default=32,
                     help="batched: values a client batch")
+    ap.add_argument("--checkers", action="store_true",
+                    help="the checker-throughput record (bench.py "
+                         "bench_checkers_record), its Elle device block "
+                         "through K16 and K17")
     a = ap.parse_args(argv)
+    if a.checkers:
+        rec = bench_checkers_record(device=a.device)
+        print(json.dumps(rec))
+        return 0 if rec["valid"] else 1
     if a.broadcast_batched:
         rec = run_broadcast_batched_bench(
             a.nodes or 4096, a.values or 512, a.batch, a.chunk or 64,

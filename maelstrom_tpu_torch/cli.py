@@ -9,9 +9,12 @@ workload on Raft
 unique-ids on the pool-path programs, g-set, pn-counter and g-counter
 on the CRDT programs and kafka (classic, or consumer groups with
 `--kafka-groups`) on the replicated-log program (`--node
-tpu:<workload>`), lin-kv and kafka over the ordering axis (`--ordering
-raft|batched`, the composed `tpu:ordered`), on one card, or on the CPU
-with `--device cpu`, under
+tpu:<workload>`), txn-list-append (graded by Elle, its edge build and
+cycle screen on the device with `--device-checker on`) and
+txn-rw-register on the Raft transaction programs, lin-mutex on
+`tpu:lin-kv`, lin-kv, lin-mutex, kafka and txn-list-append over the
+ordering axis (`--ordering raft|batched`, the composed `tpu:ordered`),
+on one card, or on the CPU with `--device cpu`, under
 loss, randomized latency and the partition, kill, pause, duplicate and
 weather nemeses. `fuzz` runs the broadcast and kafka fault sweeps
 (`fuzz.py`). Every
@@ -31,6 +34,9 @@ default, with an error that names the slice of the port that brings it
     python -m maelstrom_tpu_torch test -w broadcast-batched \\
         --node tpu:broadcast-batched --node-count 5 --batch-max 16
     python -m maelstrom_tpu_torch test -w lin-kv --ordering batched
+    python -m maelstrom_tpu_torch test -w txn-list-append \\
+        --node tpu:txn-list-append --device-checker on
+    python -m maelstrom_tpu_torch test -w lin-mutex --node tpu:lin-kv
     python -m maelstrom_tpu_torch fuzz --program broadcast --nodes 100000
 """
 
@@ -46,19 +52,19 @@ WORKLOADS = ["broadcast", "broadcast-batched", "echo", "g-set", "g-counter",
 
 # the built-in program each workload the port runs is served by
 PROGRAMS = {"broadcast": "tpu:broadcast", "lin-kv": "tpu:lin-kv",
+            "lin-mutex": "tpu:lin-kv",
             **{w: f"tpu:{w}" for w in ("echo", "unique-ids", "g-set",
                                        "pn-counter", "g-counter",
-                                       "kafka", "broadcast-batched")}}
+                                       "kafka", "broadcast-batched",
+                                       "txn-list-append",
+                                       "txn-rw-register")}}
 
 # (option, refused when, the slice of the port that brings it)
 OUT_OF_SCOPE = [
     ("--bin", lambda v: v is not None,
      "the host-process path (external node binaries)"),
-    ("--workload", lambda v: v == "lin-mutex", "lin-mutex on tpu:lin-kv"),
     ("--workload", lambda v: v == "lin-tso",
      "the role-partitioned programs"),
-    ("--workload", lambda v: v in ("txn-list-append", "txn-rw-register"),
-     "the Raft transaction programs and their Elle checkers"),
     ("--workload", lambda v: v not in PROGRAMS, "the other node programs"),
     ("--nemesis", lambda v: "byzantine" in _faults(v),
      "the byzantine adversary"),
@@ -79,7 +85,6 @@ OUT_OF_SCOPE = [
      "telemetry rings"),
     ("--check-workers", lambda v: v is not None and v > 0,
      "the overlap pipeline"),
-    ("--device-checker", lambda v: v == "on", "device Elle"),
     ("--byz-rate", lambda v: v != 1.0, "the byzantine adversary"),
     ("--byz-attacks", lambda v: v is not None, "the byzantine adversary"),
     ("--ordering", lambda v: v == "compartment",
@@ -117,8 +122,9 @@ def build_parser() -> argparse.ArgumentParser:
                                   "workload>, tpu:lin-kv for lin-kv")
     t.add_argument("-w", "--workload", default="lin-kv", choices=WORKLOADS,
                    help="What workload to run (the port: broadcast, "
-                        "broadcast-batched, lin-kv, echo, unique-ids, "
-                        "g-set, pn-counter, g-counter, kafka)")
+                        "broadcast-batched, lin-kv, lin-mutex, echo, "
+                        "unique-ids, g-set, pn-counter, g-counter, kafka, "
+                        "txn-list-append, txn-rw-register)")
     t.add_argument("--device", default="cuda",
                    help="cuda (the default) or cpu: the kernels' plain "
                         "PyTorch versions on the CPU")
@@ -205,13 +211,18 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--sync-checkpoint", action="store_true")
     t.add_argument("--telemetry", nargs="?", const="auto", default=None)
     t.add_argument("--check-workers", type=int)
-    t.add_argument("--device-checker", choices=["auto", "on", "off"])
+    t.add_argument("--device-checker", choices=["auto", "on", "off"],
+                   help="txn-list-append: the Elle checker's edge build "
+                        "and cycle screen on the device (kernels K16, "
+                        "K17): on, off, or auto (the default: past 1,024 "
+                        "transactions)")
     t.add_argument("--byz-rate", type=float, default=1.0)
     t.add_argument("--byz-attacks")
     t.add_argument("--ordering", choices=["raft", "compartment", "batched"],
                    help="Ordering engine under the workload's applier "
-                        "(lin-kv, kafka): raft or batched; runs the "
-                        "composed program tpu:ordered")
+                        "(lin-kv, lin-mutex, kafka, txn-list-append): raft "
+                        "or batched; runs the composed program "
+                        "tpu:ordered")
     t.add_argument("--roles")
     t.add_argument("--service-roles")
     t.add_argument("--election-timeout-rounds", type=int)
@@ -314,7 +325,8 @@ def opts_from_args(args) -> dict:
     # defaults stay in one place
     for k in ("max_scan", "journal_scan_cap", "reply_log_cap",
               "max_values", "timeout_ms", "nemesis_seed", "kafka_groups",
-              "session_timeout_ms", "poll_batch", "batch_max"):
+              "session_timeout_ms", "poll_batch", "batch_max",
+              "device_checker"):
         v = getattr(args, k, None)
         if v is not None:
             opts[k] = v

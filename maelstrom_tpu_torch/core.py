@@ -63,7 +63,9 @@ DEFAULTS = dict(
 WORKLOADS = {"broadcast": "broadcast", "lin-kv": "lin_kv", "echo": "echo",
              "unique-ids": "unique_ids", "g-set": "g_set",
              "pn-counter": "pn_counter", "g-counter": "g_counter",
-             "kafka": "kafka", "broadcast-batched": "broadcast_batched"}
+             "kafka": "kafka", "broadcast-batched": "broadcast_batched",
+             "lin-mutex": "lin_mutex", "txn-list-append": "txn_list_append",
+             "txn-rw-register": "txn_rw_register"}
 
 
 def parse_nodes(opts: dict) -> list[str]:

@@ -59,6 +59,10 @@ class Procs:
             return True
         return False
 
+    def __len__(self):
+        # a full walk (lin-mutex's holder ids count the client processes)
+        return sum(1 for _ in self)
+
     def __getitem__(self, i):
         if i != 0:
             raise IndexError("a process view only answers [0]")

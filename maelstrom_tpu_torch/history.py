@@ -64,6 +64,9 @@ class Op:
     def is_info(self):
         return self.type == INFO
 
+    def is_fail(self):
+        return self.type == FAIL
+
     def to_dict(self) -> dict:
         d = {"index": self.index, "type": self.type, "f": self.f,
              "value": self.value, "process": self.process, "time": self.time}

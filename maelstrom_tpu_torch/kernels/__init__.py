@@ -125,11 +125,16 @@ BROADCAST_BATCHED_STEP_STALL = Kernel(
     "broadcast_batched_step_stall",
     "maelstrom_tpu_torch/csrc/broadcast_batched.cu",
     "maelstrom_tpu/sim.py:94")
+ELLE_EDGES = Kernel("elle_edges", "maelstrom_tpu_torch/csrc/elle.cu",
+                    "maelstrom_tpu/checkers/elle_device.py:217")
+ELLE_SCREEN = Kernel("elle_screen", "maelstrom_tpu_torch/csrc/elle.cu",
+                     "maelstrom_tpu/checkers/elle_device.py:221")
 KERNELS = (EDGE_READ, EDGE_WRITE, BROADCAST_STEP, REPLY_COMPACT,
            REPLY_LOG_APPEND, QUIET_PROBE, THREEFRY, EDGE_FAULTS,
            EDGE_WRITE_SPILL, BROADCAST_STEP_STALL, RAFT_STEP, ECHO_STEP,
            UNIQUE_IDS_STEP, PN_COUNTER_STEP, REPLY_LOG_APPEND_I32,
-           KAFKA_STEP, BROADCAST_BATCHED_STEP, BROADCAST_BATCHED_STEP_STALL)
+           KAFKA_STEP, BROADCAST_BATCHED_STEP, BROADCAST_BATCHED_STEP_STALL,
+           ELLE_EDGES, ELLE_SCREEN)
 
 _state = {"lib": None, "forced_plain": False}
 

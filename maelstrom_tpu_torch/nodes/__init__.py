@@ -6,7 +6,8 @@ leading node axis, plus the host-boundary contract that keeps the JSON
 protocol as the compatibility surface (`request_for_op`, `encode_body`,
 `decode_body`, `completion`). The port has the broadcast, batched
 broadcast, g-set, PN-/g-counter and kafka programs on the edge channels,
-Raft serving lin-kv, echo and unique-ids on the pool path, and the
+Raft serving lin-kv and the transaction programs (txn-list-append,
+txn-rw-register), echo and unique-ids on the pool path, and the
 ordering axis's composed programs (`tpu:ordered`, `ordering/`);
 `get_program` names the slice that brings any other.
 
@@ -293,13 +294,8 @@ PROGRAMS: dict[str, Callable] = {}
 
 # the slice of the port that brings each of the JAX package's other
 # programs
-LATER = {
-    **dict.fromkeys(("txn-list-append", "txn-rw-register"),
-                    "the Raft transaction programs"),
-    **dict.fromkeys(("compartment", "services", "lin-tso", "seq-kv",
-                     "lww-kv", "solo"),
-                    "the role-partitioned programs"),
-}
+LATER = dict.fromkeys(("compartment", "services", "lin-tso", "seq-kv",
+                       "lww-kv", "solo"), "the role-partitioned programs")
 
 
 def register(cls):
@@ -311,6 +307,7 @@ def get_program(name: str, opts: dict, nodes: list[str],
                 device="cuda") -> NodeProgram:
     from . import (broadcast, broadcast_batched, echo,  # noqa: F401
                    gset, kafka, pn_counter, raft,  # noqa: F401
+                   txn_list_append, txn_rw_register,  # noqa: F401
                    unique_ids)  # (register the programs)
     if name == "ordered":
         # the ordering axis: the engine named by opts["ordering"] composed

@@ -4,7 +4,7 @@ Counterpart of `maelstrom_tpu/ordering/__init__.py` ("Stream-based
 State-Machine Replication", arxiv 2106.13019): SMR split into an ordered
 stream of opaque commands (the engine, a node program that needs a
 cluster) and a deterministic applier replaying that stream (the
-service). The port has two engines and two appliers:
+service). The port has two engines and three appliers:
 
     engines  (`engines.py`, adapters over the port's node programs)
       raft       the raft log (`nodes/raft.py`, kernel K10): commands
@@ -15,14 +15,16 @@ service). The port has two engines and two appliers:
                  the sequencer, id order the stream order
 
     appliers (`appliers.py`)
-      lin-kv     read/write/cas over `services.PersistentKV`
+      lin-kv     read/write/cas over `services.PersistentKV` (lin-mutex
+                 too: its locks ride the lin-kv RPCs)
       kafka      per-key append-only logs and committed offsets
+      txn-list-append  the Raft transaction program's micro-op
+                 interpreter (`nodes/txn_list_append.apply_txn`)
 
 Selected with `--ordering raft|batched` beside the workload's `-w`; the
 generator and the checker come from the workload unchanged. The
 compartment engine (a role partition) comes with the role-partitioned
-programs, the txn-list-append applier with the Raft transaction
-programs and their Elle checkers.
+programs.
 
 How a combination runs (`engines.StreamBoundary`): every workload op
 becomes one command `[os, seq, cmd]` interned to a dense id (`seq` is
@@ -86,13 +88,9 @@ def fail_completion(op: dict, code: int, text: str = "") -> dict:
 
 
 def get_applier(workload: str, opts: dict) -> Applier:
-    from .appliers import APPLIERS, LATER
+    from .appliers import APPLIERS
     cls = APPLIERS.get(workload)
     if cls is None:
-        if workload in LATER:
-            raise ValueError(
-                f"--ordering: the {workload} applier is not ported to "
-                f"maelstrom_tpu_torch yet; it comes with {LATER[workload]}")
         raise ValueError(
             f"--ordering: no applier serves workload {workload!r}; "
             f"have {sorted(APPLIERS)}")

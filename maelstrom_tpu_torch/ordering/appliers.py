@@ -1,23 +1,25 @@
-"""The appliers: deterministic state machines extracted from the lin-kv
-and kafka paths.
+"""The appliers: deterministic state machines extracted from the lin-kv,
+kafka and txn-list-append paths.
 
-Copies of `LinKVApplier` and `KafkaApplier` from
-`maelstrom_tpu/ordering/appliers.py`. Each is a pure replay machine
-(`Applier`): the engine decides where in the stream a command sits, the
-applier what it means. The lin-kv applier is `services.PersistentKV`,
-the reference's pure state machine; the kafka applier replays the
-classic full-prefix workload (per-key append-only logs, full-observation
-polls, monotone committed offsets), the shapes `checkers/kafka.py`
-audits. Every command is replayed at one stream position with an
-at-most-once filter upstream (`engines.StreamBoundary`), so `apply`
-sees each op exactly once, in order. The txn-list-append applier comes
-with the Raft transaction programs (`LATER`)."""
+Copies of `maelstrom_tpu/ordering/appliers.py`. Each is a pure replay
+machine (`Applier`): the engine decides where in the stream a command
+sits, the applier what it means. The lin-kv applier (lin-mutex's too:
+its locks ride the lin-kv RPCs) is `services.PersistentKV`, the
+reference's pure state machine; the kafka applier replays the classic
+full-prefix workload (per-key append-only logs, full-observation polls,
+monotone committed offsets), the shapes `checkers/kafka.py` audits; the
+txn applier reuses `nodes.txn_list_append.apply_txn`, the interpreter
+the Raft transaction program replays through. Every command is replayed
+at one stream position with an at-most-once filter upstream
+(`engines.StreamBoundary`), so `apply` sees each op exactly once, in
+order."""
 
 from __future__ import annotations
 
 from types import SimpleNamespace
 
 from . import Applier, fail_completion
+from ..nodes.txn_list_append import apply_txn
 from ..services import PersistentKV
 
 # the workloads module defines the KV error codes 20/21/22 at import
@@ -124,14 +126,30 @@ class KafkaApplier(Applier):
         self._polled = dict((view or {}).get("polled") or {})
 
 
+class TxnListAppendApplier(Applier):
+    """Transactional list-append: the Raft transaction program's
+    micro-op interpreter (`apply_txn`) over a persistent dict; reads
+    observe the prefix state, appends extend it, graded by the Elle
+    checker under strict serializability."""
+
+    name = "txn-list-append"
+
+    def init_state(self):
+        return {}
+
+    def command(self, op):
+        return ["txn", op["value"]]
+
+    def apply(self, state, cmd):
+        return apply_txn(state, cmd[1])
+
+    def completed(self, op, result):
+        return {**op, "type": "ok", "value": result}
+
+
 APPLIERS = {
     "lin-kv": LinKVApplier,
+    "lin-mutex": LinKVApplier,      # lin-mutex rides the lin-kv RPCs
     "kafka": KafkaApplier,
-}
-
-# the appliers of the JAX package still to port, and the slice that
-# brings each
-LATER = {
-    "txn-list-append": "the Raft transaction programs and their Elle "
-                       "checkers",
+    "txn-list-append": TxnListAppendApplier,
 }

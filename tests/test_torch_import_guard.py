@@ -12,8 +12,11 @@ import pytest
 import torch
 
 from maelstrom_tpu_torch import cli, core
-from maelstrom_tpu_torch.bench import (run_broadcast_batched_bench,
+from maelstrom_tpu_torch.bench import (bench_checkers_record,
+                                       run_broadcast_batched_bench,
                                        run_broadcast_bench, run_raft_bench)
+from maelstrom_tpu_torch.checkers.elle import analyze
+from maelstrom_tpu_torch.testing.histories import random_append_history
 from maelstrom_tpu_torch.fuzz import fuzz_broadcast, fuzz_kafka
 from maelstrom_tpu_torch.net.tpu import NetConfig
 from maelstrom_tpu_torch.nodes import get_program
@@ -55,7 +58,7 @@ def test_port_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", GUARD], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 57    # every module was imported
+    assert int(res.stdout.split()[-1]) >= 67    # every module was imported
 
 
 def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
@@ -69,7 +72,8 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         get_program("lin-kv", {}, nodes)
     for name in ("echo", "unique-ids", "g-set", "pn-counter", "g-counter",
-                 "kafka", "broadcast-batched"):
+                 "kafka", "broadcast-batched", "txn-list-append",
+                 "txn-rw-register"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             get_program(name, {}, nodes)
     for engine in ("raft", "batched"):
@@ -114,6 +118,16 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
                                    "--store", str(tmp_path)]),
                  lambda: run_broadcast_batched_bench(n_nodes=4, values=8,
                                                      batch=4, chunk=4),
+                 lambda: cli.main(["test", "-w", "txn-list-append",
+                                   "--node", "tpu:txn-list-append",
+                                   "--node-count", "3", "--store",
+                                   str(tmp_path)]),
+                 lambda: cli.main(["test", "-w", "lin-mutex", "--node",
+                                   "tpu:lin-kv", "--node-count", "3",
+                                   "--store", str(tmp_path)]),
+                 lambda: analyze(random_append_history(1, n_txn=20),
+                                 device="on"),
+                 lambda: bench_checkers_record(n_rows=40, elle_ops=40),
                  lambda: fuzz_broadcast(n_nodes=4, values=2),
                  lambda: fuzz_kafka(n_nodes=3, store_root=str(tmp_path))):
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -10,7 +10,11 @@ The pool-path steps (K11, K12), the PN-counter step (K13, up to 1,500
 origins and spill lanes), K5's int32 payload form, the kafka step (K14,
 classic and group mode, up to 16 groups of 254 members) and the
 batched-broadcast step (K15, up to a 70,000-value table whose proof sums
-wrap, and a 300,256-value table whose masks pass shared memory) too.
+wrap, and a 300,256-value table whose masks pass shared memory) and the
+device Elle checker's edge build and cycle screen (K16, K17: positions
+past both ends of the writer table, cyclic graphs that hit the
+iteration cap and acyclic ones that converge earlier, transaction
+tables across the prefix max's block and carry-chunk boundaries) too.
 
 These tests need a CUDA device and skip without one. They import
 nothing of JAX, so they run on a machine without it:
@@ -980,3 +984,62 @@ def test_broadcast_batched_step_matches_plain(cuda, shape, tick, stalled):
     kern = K.BROADCAST_BATCHED_STEP_STALL if stalled else \
         K.BROADCAST_BATCHED_STEP
     assert kern.launches > 0
+
+
+def _elle_inputs(g, vp, rp, tp, n_txns, acyclic):
+    """Random screen inputs: a writer table of per-key spans (some
+    slots unwritten), reads at positions in and past both ends of the
+    table, a ret order over the first n_txns ids (the rest padding) and
+    each one's realtime predecessor index. `acyclic`: every edge runs
+    from a lower txn id to a higher one, and the realtime order agrees."""
+    writers = g.integers(-1, n_txns, vp)
+    slot_key = np.sort(g.integers(-1, max(vp // 8, 2), vp))
+    slot_idx = g.integers(0, 50, vp)
+    r_tid = np.where(g.random(rp) < 0.9, g.integers(0, n_txns, rp), -1)
+    wr_pos = g.integers(-2, vp + 3, rp)
+    rw_pos = g.integers(-2, vp + 3, rp)
+    r_n = g.integers(0, 60, rp)
+    if acyclic:
+        # sorted writers within a key, readers after their wr writer and
+        # before their rw writer
+        writers = np.sort(writers)
+        wr_pos = np.clip(wr_pos, -1, vp - 1)
+        rw_pos = np.clip(rw_pos, -1, vp - 1)
+        lo = np.where(wr_pos >= 0, writers[np.maximum(wr_pos, 0)], -1)
+        hi = np.where(rw_pos >= 0, writers[np.maximum(rw_pos, 0)], n_txns)
+        ok = lo < hi - 1
+        r_tid = np.where(ok, (lo + hi) // 2, -1)
+        ret = np.arange(n_txns)
+    else:
+        ret = g.permutation(n_txns)
+    ret_tid = np.full(tp, -1)
+    ret_tid[:n_txns] = ret
+    before = np.full(tp, -1)
+    pos = g.integers(-1, n_txns, n_txns)
+    before[ret] = np.minimum(pos, np.arange(n_txns) - 1) if acyclic \
+        else pos
+    return [torch.tensor(a, dtype=torch.int32) for a in
+            (writers, slot_key, slot_idx, r_tid, r_n, wr_pos, rw_pos,
+             ret_tid, before)]
+
+
+@pytest.mark.parametrize("vp,rp,tp,acyclic", [
+    (16, 16, 16, False), (256, 1024, 1024, True), (4096, 512, 2048, False),
+    (1024, 4096, 4096, True), (8192, 8192, 1 << 21, False),
+    (64, 64, (1 << 20) + 1024, True)])
+@pytest.mark.parametrize("do_rt", [True, False])
+def test_elle_kernels_match_plain(cuda, vp, rp, tp, acyclic, do_rt):
+    from maelstrom_tpu_torch.checkers import elle_device as ed
+    g = np.random.default_rng(vp * 7 + rp + tp)
+    cpu = _elle_inputs(g, vp, rp, tp, min(tp, 3 * rp), acyclic)
+    dev = [t.to(cuda) for t in cpu]
+    e_idx = (0, 1, 3, 5, 6)
+    n0, n1 = K.ELLE_EDGES.launches, K.ELLE_SCREEN.launches
+    _equal(ed.elle_edges(*(dev[i] for i in e_idx)),
+           ed.elle_edges(*(cpu[i] for i in e_idx)))
+    got = ed.elle_screen(*dev, n_txns_pad=tp, do_rt=do_rt)
+    ref = ed.elle_screen(*cpu, n_txns_pad=tp, do_rt=do_rt)
+    assert got.cpu().tolist() == ref.tolist()
+    assert (K.ELLE_EDGES.launches - n0, K.ELLE_SCREEN.launches - n1) == (1, 1)
+    for a, b in zip(dev, cpu):       # inputs untouched
+        assert torch.equal(a.cpu(), b)

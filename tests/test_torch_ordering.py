@@ -165,9 +165,8 @@ def test_capacity_and_refusals():
     with pytest.raises(ValueError, match="the role-partitioned programs"):
         make_ordered({"workload": "lin-kv", "ordering": "compartment"},
                      NODES5, device="cpu")
-    with pytest.raises(ValueError, match="the Raft transaction programs "
-                                         "and their Elle checkers"):
-        get_applier("txn-list-append", {})
+    assert get_applier("txn-list-append", {}).name == "txn-list-append"
+    assert get_applier("lin-mutex", {}).name == "lin-kv"
     with pytest.raises(ValueError, match="no applier serves"):
         get_applier("echo", {})
     with pytest.raises(ValueError, match="drop --node tpu:lin-kv"):

@@ -143,15 +143,28 @@ def test_free_set_rotation_matches_sorted_list():
     (["--mesh", "1,4"], "mesh and fleet"),
     (["--checkpoint-every", "1"], "checkpoint and resume"),
     (["--resume", "x"], "checkpoint and resume"),
-    (["--device-checker", "on"], "device Elle"),
+    # the cases that refused what now runs (--device-checker on, the
+    # transaction workloads, lin-mutex) keep their ids and check what
+    # those surfaces are still refused: device Elle streamed through
+    # the overlap pipeline, a transaction workload on a host binary or
+    # role-partitioned ordering, lin-mutex under the byzantine adversary
+    pytest.param(["-w", "txn-list-append", "--node", "tpu:txn-list-append",
+                  "--device-checker", "on", "--check-workers", "1"],
+                 "the overlap pipeline", id="extra10-device Elle"),
     (["--telemetry"], "telemetry rings"),
     (["--ordering", "compartment"], "the role-partitioned programs"),
-    (["-w", "txn-list-append"], "the Raft transaction programs"),
-    (["-w", "txn-list-append", "--ordering", "batched"],
-     "the Raft transaction programs"),
+    pytest.param(["-w", "txn-rw-register", "--bin",
+                  "demo/python/txn_rw_register.py"],
+                 "the host-process path",
+                 id="extra13-the Raft transaction programs"),
+    pytest.param(["-w", "txn-list-append", "--ordering", "compartment"],
+                 "the role-partitioned programs",
+                 id="extra14-the Raft transaction programs"),
     pytest.param(["-w", "lin-tso"], "the role-partitioned programs",
                  id="extra14-lin-mutex and lin-tso"),
-    (["-w", "lin-mutex"], "lin-mutex on tpu:lin-kv"),
+    pytest.param(["-w", "lin-mutex", "--node", "tpu:lin-kv", "--nemesis",
+                  "byzantine"], "the byzantine adversary",
+                 id="extra16-lin-mutex on tpu:lin-kv"),
 ])
 def test_cli_refuses_options_out_of_scope(extra, slice_, tmp_path,
                                           capsys):

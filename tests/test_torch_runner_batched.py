@@ -116,8 +116,12 @@ def test_ordered_raft_cli_matches_jax(tmp_path):
 @pytest.mark.parametrize("extra,message", [
     (["-w", "lin-kv", "--ordering", "compartment"],
      "the role-partitioned programs"),
-    (["-w", "txn-list-append", "--ordering", "batched"],
-     "the Raft transaction programs and their Elle checkers"),
+    # refused the txn-list-append applier before it was ported (the
+    # id kept); the JAX package has no txn-rw-register applier either
+    pytest.param(["-w", "txn-rw-register", "--ordering", "raft"],
+                 "no applier serves workload 'txn-rw-register'",
+                 id="extra1-the Raft transaction programs and their Elle "
+                    "checkers"),
     (["-w", "lin-kv", "--node", "tpu:lin-kv", "--ordering", "raft"],
      "selects the composed program tpu:ordered"),
     (["-w", "broadcast", "--ordering", "raft"],
