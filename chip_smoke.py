@@ -60,7 +60,16 @@ maelstrom_tpu_torch.bench --checkers`: edge sets equal, the screen
 deciding at least 90% of its fixtures); and K16 elle_edges and K17
 elle_screen against their plain versions on the fixture histories,
 random histories of 150 transactions and the bench's full-width set,
-with and without its realtime inputs. Every phase prints one JSON line; any
+with and without its realtime inputs. Then the stream slice: K18
+sched_inject (the continuous scan's select and fold) and K19 ring_update
+(the flight recorder's fold) against their plain versions at the stream
+runs' shapes, at 100,000 clients and at the 100,000-node CLI run's
+shape, and the continuous runs through `core.run` (streaming kafka with
+two consumer groups and lin-kv under the five-package soup, echo at 300
+ops/s), whose histories and rings must hash to the JAX runner's
+(`PINNED_STREAM`), with the ring also on the lin-kv and echo runs of
+earlier slices, whose histories keep their pins and whose rings hash to
+JAX's (`PINNED_TELEMETRY`). Every phase prints one JSON line; any
 failed check exits non-zero. The line before the last lists every kernel
 with its launches on its path, its time, its plain version's time and
 its bound; the last line is `{"ok": true, "device": {...}}`.
@@ -903,6 +912,8 @@ PINNED_CLI = {
 # under uniform latency, loss and four fault packages (its spill write is
 # K9's main path), at 2 ms a round (`CLI_FAULTS_SMALL_REDUCED`:
 # half the rounds of its 10 s recovery window; latency 5 ms is 3 rounds).
+# The storm and the 1024-node run with a 1 s client timeout (from the
+# CLI's 5 s, where stragglers held both runs; `CLI_FAULTS_SMALL_REDUCED`).
 # tests/test_torch_runner_faults.py holds the first two against the JAX
 # runner on the CPU.
 CLI_FAULT_BASE = CLI_BASE + ["--max-values", "64"]
@@ -915,19 +926,37 @@ CLI_FAULTS_SMALL = [
         "--node-count", "5", "--topology", "grid", "--seed", "23",
         "--latency", "3", "--latency-dist", "exponential", "--p-loss",
         "0.02", "--nemesis", "partition,kill,pause,duplicate,weather",
-        "--nemesis-interval", "0.5", "--time-limit", "4"]),
+        "--nemesis-interval", "0.5", "--time-limit", "4",
+        "--timeout-ms", "1000"]),
     ("grid1024-faults", CLI_FAULT_BASE + [
         "--node-count", "1024", "--topology", "grid", "--latency", "5",
         "--latency-dist", "uniform", "--p-loss", "0.01", "--nemesis",
         "partition,kill,pause,duplicate", "--nemesis-interval", "1",
-        "--time-limit", "2", "--ms-per-round", "2"]),
+        "--time-limit", "2", "--ms-per-round", "2", "--timeout-ms",
+        "1000"]),
 ]
-CLI_FAULTS_SMALL_REDUCED = {"grid1024-faults": {
+CLI_FAULTS_SMALL_REDUCED = {"grid5-storm": {
+    "timeout_ms": 1000, "from": 5000, "rounds_executed": 4805,
+    "rounds_from": 10982,
+    "why": "to pay for the stream slice: two stragglers (an op of the "
+           "main phase to a paused node, a final read) each held the run "
+           "5 s at their timeout, 10,000 of its 10,982 executed rounds "
+           "waiting; at 1 s the five packages still cycle four times and "
+           "every fault counter still shows (the time limit, 4 s, and "
+           "the 0.5 s nemesis interval kept: cutting the time limit "
+           "removes no executed round)"},
+    "grid1024-faults": {
     "ms_per_round": 2.0, "from": 1.0,
     "model_change": "more than a cut in depth: the uniform 5 ms latency "
                     "is drawn over a 2.5-round mean (was 5 rounds), and "
                     "K9's ring follows it (244, was 404): the network "
-                    "modelled differs from the run at 1 ms a round"}}
+                    "modelled differs from the run at 1 ms a round",
+    "timeout_ms": 1000, "timeout_from": 5000, "rounds_executed": 1748,
+    "rounds_from": 5748,
+    "why": "to pay for the stream slice: stragglers held the run at "
+           "their 5 s timeouts, 4,000 of its 5,748 executed rounds; the "
+           "time limit and the nemesis interval kept, every fault "
+           "counter and the spill write still show"}}
 # sha256 of the JAX runner's history.jsonl for each run above, on the CPU
 # (`python -m maelstrom_tpu <args> --no-audit`); re-derived by
 #   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_runner_faults.py \
@@ -936,9 +965,9 @@ PINNED_FAULTS = {
     "tree4-25-partition":
         "91b0b556d059abb6b895aed9a01acfcd90a5f9fd3e4beeb05f024d75563129b6",
     "grid5-storm":
-        "f3bc0fc09c097909a5fc7b269e0d732d74abc121ac16e05df66e8c64b4072f7f",
+        "4abdb44c147eda668ab41e9670e45e090c5dc53e76f89215537046c86cab99c2",
     "grid1024-faults":
-        "288fc6fca9e0e32c0146b5f12eed81420b73ca83d98a84b0d3caec156d5d636b",
+        "92c185cbf733468db432401888a504b69906f3f9a8d86f74bda21f62615b1007",
 }
 
 # The slice's full-width run: the README's 100,000-node broadcast at the
@@ -1387,16 +1416,20 @@ def phase_cli_faults_small():
 # inside its time limit. No partition or weather at this size: the JAX
 # package's partitions are an N x N block matrix built by Python loops,
 # and weather's slow fronts need ring headroom it gives only to clusters
-# of 4,096 nodes or fewer.
+# of 4,096 nodes or fewer. A 1 s client timeout (from 5 s) since the
+# stream slice: stragglers held the run at their timeouts, 10,390
+# executed rounds of a 12,699-round run.
 CLI_FAULTS_100K = {"workload": "broadcast", "node": "tpu:broadcast",
                    "node_count": 100_000,
                    "latency": {"mean": 5, "dist": "uniform"},
                    "p_loss": 0.01, "nemesis": {"kill", "pause", "duplicate"},
                    "nemesis_interval": 0.25, "time_limit": 1.0,
-                   "recovery_s": 2.0}
+                   "recovery_s": 2.0, "timeout_ms": 1000}
 CLI_FAULTS_100K_REDUCED = {"time_limit_s": 1.0, "from": 10.0,
                            "nemesis_interval_s": 0.25, "interval_from": 2.0,
-                           "recovery_s": 2.0, "recovery_from": 10.0}
+                           "recovery_s": 2.0, "recovery_from": 10.0,
+                           "timeout_ms": 1000, "timeout_from": 5000,
+                           "rounds_from": 10390}
 FAULT_PATH_KERNELS = ("threefry", "edge_faults", "broadcast_step_stall")
 
 
@@ -2049,8 +2082,13 @@ def phase_cli_linkv(smi):
     K.reset_launches()
     runs = {}
     for name, args in CLI_LINKV:
-        rc, d, res, tm, digest, wall = _cli_run(args, store)
+        tel = name in TELEMETRY_ON
+        rc, d, res, tm, digest, wall = _cli_run(
+            args + (["--telemetry"] if tel else []), store)
         _cli_checks(name, rc, res, tm)
+        if tel:
+            # the flight recorder on: the history keeps its pin
+            _telemetry_checks(name, d, res, PINNED_TELEMETRY[name])
         check(res["workload"]["valid"] is True,
               f"cli {name}: workload {res['workload']}")
         check(res["net"]["log-overflow"] == 0, f"cli {name}: log-overflow")
@@ -2080,9 +2118,9 @@ def phase_cli_linkv(smi):
                       "dispatches": tm["dispatches"], "drains": tm["drains"],
                       "history_ops": tm["history-ops"],
                       "nemesis_info_ops": sorted(fs), "faults": faults,
-                      "history_sha256_equal": True}
+                      "history_sha256_equal": True, "telemetry": tel}
     launches = K.launch_counts()
-    for k in LINKV_KERNELS:
+    for k in LINKV_KERNELS + ("ring_update",):
         check(launches[k] > 0, f"the lin-kv CLI runs did not launch {k}: "
               f"{launches}")
     shutil.rmtree(store, ignore_errors=True)
@@ -2561,9 +2599,20 @@ def phase_cli_pool(smi):
     launches = {}
     for name, args in CLI_POOL:
         K.reset_launches()
-        runs[name] = _run_line(name, args, store, PINNED_POOL)
+        tel = name in TELEMETRY_ON
+        runs[name] = _run_line(name, args + (["--telemetry"] if tel else []),
+                               store, PINNED_POOL)
         runs[name]["reduced"] = CLI_POOL_REDUCED.get(name)
         launches[name] = K.launch_counts()
+        if tel:
+            # the flight recorder on: the history keeps its pin
+            d = os.path.realpath(os.path.join(store, "latest"))
+            with open(os.path.join(d, "results.json")) as f:
+                _telemetry_checks(name, d, json.load(f),
+                                  PINNED_TELEMETRY[name])
+            check(launches[name]["ring_update"] > 0,
+                  f"{name} did not launch ring_update")
+            runs[name]["telemetry"] = True
     for k in POOL_KERNELS:
         check(sum(v[k] for v in launches.values()) > 0,
               f"the pool-path runs did not launch {k}: {launches}")
@@ -3142,8 +3191,16 @@ CLI_BATCHED = [
     ("batched5-nemesis", {**BATCHED_BASE, "rate": 20.0, "time_limit": 3.0,
                           "recovery_s": 2.0, "seed": 13,
                           "nemesis": {"kill", "partition", "duplicate"},
-                          "nemesis_interval": 0.8}),
+                          "nemesis_interval": 0.8, "timeout_ms": 1000}),
 ]
+CLI_BATCHED_REDUCED = {"batched5-nemesis": {
+    "timeout_ms": 1000, "from": 5000, "rounds_executed": 3200,
+    "rounds_from": 7204,
+    "why": "to pay for the stream slice: an op to a killed node held "
+           "the main phase 5 s at its timeout; at 1 s the time limit, "
+           "recovery and nemesis interval are kept, every fault counter "
+           "still shows (cutting the time limit to 1.5 s removed 1,576 "
+           "rounds, the timeout 4,004)"}}
 ORDERED_BASE = {"seed": 7, "rate": 12.0, "time_limit": 1.6,
                 "journal_rows": False}
 CLI_ORDERED = [
@@ -3160,7 +3217,7 @@ PINNED_BATCHED = {
     "batched5-e2e":
         "cd5a5e8df49844971191aaa35000bcc4083907efb3726e434efdd3aa065962d7",
     "batched5-nemesis":
-        "051bf2c906aa46148cb06d9bef54aa823bf0012eb61f4af57139a43118f29bfe",
+        "361f5de5b2621fcb13526e0f896e38adaa890d94cbee41b5764187e73c82d0c4",
     "linkv-ordered-batched":
         "e7d8cac738edcf27ec9361bb57734033868b06253485c913c0fe5087a857b1a2",
     "kafka-ordered-raft":
@@ -3370,6 +3427,7 @@ def phase_cli_batched(smi):
     for name, run in CLI_BATCHED:
         K.reset_launches()
         runs[name] = _run_line(name, run, store, PINNED_BATCHED)
+        runs[name]["reduced"] = CLI_BATCHED_REDUCED.get(name)
         launches[name] = K.launch_counts()
         with open(os.path.join(store, "latest", "results.json")) as f:
             res = json.load(f)
@@ -3407,6 +3465,7 @@ def phase_cli_ordered(smi):
     for name, run in CLI_ORDERED:
         K.reset_launches()
         runs[name] = _run_line(name, run, store, PINNED_BATCHED)
+        runs[name]["reduced"] = CLI_BATCHED_REDUCED.get(name)
         launches[name] = K.launch_counts()
         for k in ORDERED_KERNELS[run["ordering"]]:
             check(launches[name][k] > 0, f"ordered {name} did not launch "
@@ -3737,6 +3796,346 @@ def phase_bench_checkers(smi):
     return inputs
 
 
+# --- the stream slice: continuous mode and the flight recorder ---------------
+
+# The port's continuous runs (`--continuous`: client ops injected at their
+# offered-rate rounds inside the scan window, kernel K18) through
+# `core.run` (the CLI has no flag for the recovery window), at the JAX
+# package's own configurations: its acceptance run, streaming kafka with
+# two consumer groups under the whole five-package soup
+# (tests/test_continuous.py `_kafka_stream`), lin-kv under the soup
+# (`_run`) and echo at 300 ops/s, whose windows batch many ops a drain;
+# the kafka and echo runs with the flight recorder on (`--telemetry`,
+# kernel K19). Nothing is cut.
+SOUP = {"kill", "pause", "partition", "duplicate", "weather"}
+STREAM_BASE = {"node_count": 5, "continuous": True, "journal_rows": False,
+               "recovery_s": 1.5}
+CLI_STREAM = [
+    ("kafka5-stream-soup", {
+        **STREAM_BASE, "workload": "kafka", "node": "tpu:kafka",
+        "kafka_groups": 2, "rate": 20.0, "time_limit": 3.0,
+        "timeout_ms": 1000, "nemesis": SOUP, "nemesis_interval": 0.7,
+        "seed": 7, "telemetry": "auto"}),
+    ("linkv5-stream-soup", {
+        **STREAM_BASE, "workload": "lin-kv", "node": "tpu:lin-kv",
+        "rate": 10.0, "time_limit": 3.0, "timeout_ms": 1000,
+        "nemesis": SOUP, "nemesis_interval": 0.7, "seed": 29}),
+    ("echo-stream-300", {
+        **STREAM_BASE, "workload": "echo", "node": "tpu:echo",
+        "rate": 300.0, "time_limit": 1.0, "concurrency": 64,
+        "latency": {"mean": 10, "dist": "constant"}, "timeout_ms": 5000,
+        "seed": 3, "telemetry": "auto"}),
+]
+# sha256 of the JAX runner's history.jsonl and of its results'
+# `net.telemetry` block (json.dumps with sorted keys; None with the ring
+# off), and its verdict, for each run above, on the CPU (JAX without its
+# overlap pipeline); re-derived by
+#   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_continuous.py \
+#       -m slow
+PINNED_STREAM = {
+    "kafka5-stream-soup": {
+        "history":
+            "f1521ce589580f5c36ca402d955de88bfefda5ea39c3d6d6f11005edd7d4e6d6",
+        "telemetry":
+            "19853edf0c17f703099fd095ddd1aebe576ee3ff979114eff7148657de317fad",
+        "valid": True},
+    "linkv5-stream-soup": {
+        "history":
+            "67da4e4ed999d3d65c43590bad9c9972be8483ce5693e5a7cece0a6785449262",
+        "telemetry": None,
+        # the JAX runner's verdict: linearizable, but no read of the run
+        # succeeds, which fails its stats block
+        "valid": False},
+    "echo-stream-300": {
+        "history":
+            "08de9234f0e1b3d2e2b616683c39b9b05f4114ec38fb180edac89244d1962b90",
+        "telemetry":
+            "e1b0a7417f2a6f9ebff23ff658d967327f3ccf753321dadd6a84fe187e8e7c4d",
+        "valid": True},
+}
+# The flight recorder on two runs the smoke already drives, the edge
+# path's linkv5-faults and the pool path's echo5: their histories keep
+# their pins (PINNED_LINKV, PINNED_POOL: the ring on and off give one
+# history), and their `net.telemetry` blocks hash to the JAX runner's
+# (same derivation)
+TELEMETRY_ON = ("linkv5-faults", "echo5")
+PINNED_TELEMETRY = {
+    "linkv5-faults":
+        "5bf5b4fb26bb0f60b9ab26ff8565f1e1235cd4a965a7191516002cad4a288ad2",
+    "echo5": "666cd9aaf751345f29de4265620318f085b1c56f0560546958beb2e6362c85ad",
+}
+
+
+STREAM_KERNELS = ("sched_inject", "ring_update")
+# K18 at the stream runs' widths (5 and 64 clients) and at concurrency
+# 100,000; K19 at the stream runs' shapes and the 100,000-node CLI run's
+# (`CLI_100K`: pool 800,000, 200,000 client rows, its edge planes)
+SCHED_Q = (5, 64, 100_000)
+RING_SHAPES = {"kafka5": dict(CLI_STREAM)["kafka5-stream-soup"],
+               "echo-stream": dict(CLI_STREAM)["echo-stream-300"],
+               "cli100k": CLI_100K}
+
+
+def _stream_runner(opts):
+    """A runner (program, NetConfig, SimState with the ring) of `opts` on
+    the card: the shapes the stream kernels see on that run's path."""
+    from maelstrom_tpu_torch import core
+    from maelstrom_tpu_torch.runner.tpu_runner import TpuRunner
+    return TpuRunner(core.build_test({**opts, "device": "cuda",
+                                      "telemetry": "auto"}))
+
+
+def _ring_inputs(g, runner, p_valid):
+    """Random inputs of one ring fold at a runner's shapes: the ring, the
+    round-entry and -exit counters (some past 2^31 - 1 after the round),
+    the pool and channel planes, the send planes, the inject and reply
+    rows. Returns (ring_update's args, bytes read and written, the
+    operations: about two a row)."""
+    import torch
+    from types import SimpleNamespace
+    from maelstrom_tpu_torch import telemetry as TM
+    from maelstrom_tpu_torch.net import tpu as T
+    cfg, prog, sim = runner.cfg, runner.program, runner.sim
+    N, C = cfg.n_nodes, max(cfg.n_clients, 1)
+
+    def rb(shape, p):
+        return torch.rand(shape, generator=g, device="cuda") < p
+
+    def ri(lo, hi, shape=()):
+        return torch.randint(lo, hi, shape, generator=g, device="cuda",
+                             dtype=torch.int32)
+    ring = TM.make_ring(cfg, "cuda")
+    ring = ring.replace(**{f: ri(0, 1000, tuple(getattr(ring, f).shape))
+                           for f in TM.MetricRing.__dataclass_fields__
+                           if f != "req_round"})
+    ring = ring.replace(lat_sum=torch.tensor(2**31 - 100, dtype=torch.int32,
+                                             device="cuda"),
+                        req_round=torch.where(rb((C,), 0.3), -1,
+                                              ri(0, 5000, (C,))))
+    stats = ("sent_all", "recv_all", "lost", "dropped_partition",
+             "dropped_down", "dropped_overflow", "duplicated")
+    st0 = T.NetStats.zeros("cuda").replace(
+        **{f: ri(2**31 - 2000, 2**31 - 1) for f in stats})
+    st1 = st0.replace(**{f: getattr(st0, f) + ri(0, 4000) for f in stats})
+    net = SimpleNamespace(stats=st1, pool=SimpleNamespace(
+        valid=rb((cfg.pool_cap,), p_valid)))
+    if sim.channels is not None:
+        Kc = prog.inbox_cap
+        chan = rb(tuple(sim.channels.valid.shape), p_valid)
+        planes = (rb((N, prog.D * prog.lanes), p_valid),
+                  rb((N, Kc), p_valid / 4))
+        RP = N * Kc
+    else:
+        chan = None
+        planes = (rb((N, prog.outbox_cap), p_valid),)
+        RP = cfg.client_cap
+    reply = T.Msgs.empty(RP, "cuda").replace(valid=rb((RP,), p_valid),
+                                             dest=ri(0, N + C + 2, (RP,)))
+    inject = T.Msgs.empty(C, "cuda").replace(valid=rb((C,), p_valid),
+                                             src=ri(0, N + C + 2, (C,)))
+    rnd = torch.tensor(5000, dtype=torch.int32, device="cuda")
+    args = (cfg, ring, st0, net, chan, rnd, planes, inject, reply)
+    rows = (cfg.pool_cap + (0 if chan is None else chan.numel())
+            + sum(p.numel() for p in planes) + RP + C)
+    io = (rows + 4 * RP + 4 * C + 2 * nbytes(*[getattr(ring, f) for f in
+                                              TM.MetricRing.__dataclass_fields__])
+          + 8 * len(stats) + 4)
+    return args, io, 2 * rows + 8 * C
+
+
+def stream_kernel_checks(timed):
+    """K18 sched_inject and K19 ring_update against their plain versions
+    on the card (exact: int32 and bool), at the shapes above; K18 in its
+    per-round form and the window's last fold, K19 with its planes 5%
+    and 50% full. Timed at 5%."""
+    import torch
+    from maelstrom_tpu_torch import kernels as K
+    from maelstrom_tpu_torch import telemetry as TM
+    from maelstrom_tpu_torch.net import tpu as T
+    from maelstrom_tpu_torch.sim import sched_select, sched_select_plain
+    g = torch.Generator(device="cuda")
+    g.manual_seed(19)
+    out = {}
+    for Q in SCHED_Q:
+        valid = torch.rand(Q, generator=g, device="cuda") < 0.8
+        at = torch.randint(-1, 300, (Q,), generator=g, device="cuda",
+                           dtype=torch.int32)
+        im = torch.randint(-1, 1 << 30, (Q,), generator=g, device="cuda",
+                           dtype=torch.int32)
+        sent = T.Msgs.empty(Q, "cuda").replace(
+            valid=torch.rand(Q, generator=g, device="cuda") < 0.5,
+            mid=torch.randint(0, 1 << 30, (Q,), generator=g, device="cuda",
+                              dtype=torch.int32))
+        err = 0
+        for args in ((valid, at, im, sent, 7), (valid, at, None, None, 0),
+                     (valid, at, im, sent, None)):
+            got = sched_select(*args)
+            ref = sched_select_plain(*args)
+            torch.cuda.synchronize()
+            check((got[0] is None) == (ref[0] is None),
+                  "sched_inject: the select's form differs")
+            err = max(err, max_abs_err(got[1], ref[1]), 0 if got[0] is None
+                      else max_abs_err(got[0], ref[0]))
+        check(err == 0, f"sched_inject at Q={Q} differs from its plain "
+              f"version (max abs err {err})")
+        io = 14 * Q + 5 * Q
+        b, by = bound_of(io, 3 * Q)
+        r = {"max_abs_err": err, "bound_ms": b, "bound_by": by, "bytes": io,
+             "rows": Q}
+        if timed:
+            def step(valid=valid, at=at, im=im, sent=sent):
+                return sched_select(valid, at, im, sent, 7)
+            r["ms"] = cuda_ms(step)
+            r["plain_ms"] = cuda_ms(lambda: sched_select_plain(
+                valid, at, im, sent, 7))
+        out[f"{K.SCHED_INJECT.name}@{Q}"] = r
+    for shape, opts in RING_SHAPES.items():
+        runner = _stream_runner(opts)
+        err = 0
+        for p_valid in (0.5, 0.05):
+            args, io, ops = _ring_inputs(g, runner, p_valid)
+            got = TM.ring_update(*args)
+            ref = TM.ring_update_plain(*args)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err(got, ref))
+        check(err == 0, f"ring_update at {shape} differs from its plain "
+              f"version (max abs err {err})")
+        b, by = bound_of(io, ops)
+        r = {"max_abs_err": err, "bound_ms": b, "bound_by": by, "bytes": io,
+             "nodes": runner.cfg.n_nodes, "clients": runner.cfg.n_clients,
+             "pool": runner.cfg.pool_cap, "p_valid_timed": p_valid}
+        if timed:
+            r["ms"] = cuda_ms(lambda args=args: TM.ring_update(*args))
+            r["plain_ms"] = cuda_ms(
+                lambda args=args: TM.ring_update_plain(*args))
+        out[f"{K.RING_UPDATE.name}@{shape}"] = r
+        del runner
+    return out
+
+
+def phase_stream_kernels(timed):
+    t0 = time.perf_counter()
+    r = stream_kernel_checks(timed)
+    emit({"phase": "stream_kernels", "timed": timed,
+          "seconds": time.perf_counter() - t0, "kernels": r})
+    return r
+
+
+def _telemetry_checks(name, d, res, pin):
+    """A run with the ring on: the ring counts what NetStats counts, a
+    pool-occupancy sample every executed round, the stream's records
+    valid with their final quantiles equal to the PerfChecker's, the
+    three span names in trace.json, and the ring equal to the JAX
+    runner's (sha256 of the sorted JSON). Returns the ring."""
+    import hashlib
+    from maelstrom_tpu_torch import telemetry as TM
+    ring, net = res["net"].get("telemetry"), res["net"]
+    check(ring is not None, f"{name}: no net.telemetry block")
+    check(ring["sent"] == net["all"]["send-count"]
+          and ring["delivered"] == net["all"]["recv-count"]
+          and ring["dropped"] == (net["lost"] + net["dropped-partition"]
+                                  + net["dropped-down"]
+                                  + net["dropped-overflow"])
+          and ring["duplicated"] == net["duplicated"],
+          f"{name}: the ring {ring} disagrees with NetStats")
+    check(ring["rounds"] > 0
+          and sum(ring["pool-occupancy-hist"]) == ring["rounds"],
+          f"{name}: pool occupancy samples {ring['pool-occupancy-hist']} "
+          f"for {ring['rounds']} rounds")
+    recs = TM.read_records(os.path.join(d, "telemetry"))
+    bad = [p for r in recs for p in TM.validate_record(r)]
+    check(recs and not bad, f"{name}: telemetry.jsonl {bad[:3]}")
+    final = [r for r in recs if r["type"] == "final"][-1]
+    perf = {k: v for k, v in res["perf"]["latency-ms"].items()
+            if k != "by-f"}
+    check(final["lat_ms"] == perf and final["ring"] == ring,
+          f"{name}: final record {final['lat_ms']} vs perf {perf}")
+    with open(os.path.join(d, "telemetry", "trace.json")) as f:
+        spans = {e["name"] for e in json.load(f)["traceEvents"]}
+    check({"schedule-encode", "dispatch", "device-get"} <= spans,
+          f"{name}: spans {sorted(spans)}")
+    digest = hashlib.sha256(json.dumps(ring, sort_keys=True).encode()
+                            ).hexdigest()
+    check(digest == pin, f"{name}: net.telemetry sha256 {digest}, the JAX "
+          f"runner's {pin}")
+    return ring
+
+
+def phase_cli_stream(smi):
+    """The continuous runs through the kernels, launch counters set to 0
+    just before each and read just after: each history and ring must hash
+    to the JAX runner's, K18 launch on every run and K19 on the runs with
+    the ring on; lin-kv must see client ops invoked inside a fault
+    window, and echo's windows must batch (drains < ops / 2)."""
+    import shutil
+    from maelstrom_tpu_torch import kernels as K
+    store = os.path.join(ROOT, "store", "chip_smoke_stream")
+    shutil.rmtree(store, ignore_errors=True)
+    runs, launches = {}, {}
+    for name, opts in CLI_STREAM:
+        K.reset_launches()
+        rc, d, res, tm, digest, wall = _core_run(opts, store)
+        launches[name] = K.launch_counts()
+        pin = PINNED_STREAM[name]
+        check(digest == pin["history"], f"stream {name}: history.jsonl "
+              f"sha256 {digest}, the JAX runner's {pin['history']}")
+        # the JAX runner's verdict (lin-kv's stats block fails there too:
+        # no read of the soup run succeeds)
+        check(res["valid"] == pin["valid"]
+              and res["workload"]["valid"] is True
+              and res["net"]["valid"] is True
+              and res["net"]["dropped-overflow"] == 0,
+              f"stream {name}: valid {res['valid']}, workload "
+              f"{res['workload'].get('valid')}, net {res['net']['valid']}")
+        check(tm["drains"] < tm["final-round"] / 4,
+              f"stream {name}: {tm['drains']} drains for "
+              f"{tm['final-round']} rounds")
+        check(launches[name]["sched_inject"] > 0,
+              f"stream {name} did not launch sched_inject")
+        rec = {"wall_s": wall, "final_round": tm["final-round"],
+               "rounds_executed": tm["rounds-executed"],
+               "ms_per_executed_round": 1e3 * tm["scan-s"]
+               / max(tm["rounds-executed"], 1),
+               "dispatches": tm["dispatches"], "drains": tm["drains"],
+               "history_ops": tm["history-ops"],
+               "ops": res["stats"]["count"], "valid": res["valid"],
+               "history_sha256_equal": True}
+        if opts.get("telemetry"):
+            check(launches[name]["ring_update"] > 0,
+                  f"stream {name} did not launch ring_update")
+            ring = _telemetry_checks(name, d, res, pin["telemetry"])
+            rec["ring"] = {k: ring[k] for k in
+                           ("rounds", "sent", "dropped", "latency-count",
+                            "pool-occupancy-max")}
+            rec["telemetry_sha256_equal"] = True
+        if opts.get("nemesis"):
+            with open(os.path.join(d, "history.jsonl")) as f:
+                ops = [json.loads(line) for line in f]
+            fs = {o["f"] for o in ops if o.get("process") == "nemesis"
+                  and o["type"] == "info"}
+            starts = sorted(o["time"] for o in ops if o["type"] == "info"
+                            and str(o.get("f")).startswith("start-"))
+            stops = sorted(o["time"] for o in ops if o["type"] == "info"
+                           and str(o.get("f")).startswith("stop-"))
+            inside = [o for o in ops if o["type"] == "invoke"
+                      and o.get("process") != "nemesis"
+                      and any(a < o["time"] < b
+                              for a, b in zip(starts, stops))]
+            check({f"start-{p}" for p in SOUP} <= fs and inside,
+                  f"stream {name}: nemesis ops {sorted(fs)}, "
+                  f"{len(inside)} invokes inside a fault window")
+            rec["invokes_mid_fault"] = len(inside)
+        if name == "echo-stream-300":
+            check(rec["ops"] > 100 and tm["drains"] < rec["ops"] / 2,
+                  f"stream {name}: {tm['drains']} drains for "
+                  f"{rec['ops']} ops")
+        runs[name] = rec
+    shutil.rmtree(store, ignore_errors=True)
+    emit({"phase": "cli_stream", "runs": runs, "launches": launches,
+          "nvidia_smi": smi})
+    return {k: sum(v[k] for v in launches.values()) for k in STREAM_KERNELS}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "maelstrom_tpu_torch", "csrc")):
         print("chip_smoke: run from a checkout of the repository "
@@ -3761,6 +4160,7 @@ def main() -> int:
     pchecks = phase_pool_kernels(timed=False)
     cchecks = phase_crdt_kernels(timed=False)
     kchecks = phase_kafka_kernels(timed=False)
+    schecks = phase_stream_kernels(timed=False)
     phase_prng_pins()
     phase_cli_small()
     launches = phase_cli_100k(smi)
@@ -3779,6 +4179,7 @@ def main() -> int:
     phase_cli_ordered(smi)
     phase_bench_batched(smi)
     launches.update(phase_cli_txn(smi))
+    launches.update(phase_cli_stream(smi))
     elle_inputs = phase_bench_checkers(smi)
     phase_fuzz_kafka(smi)
     phase_fuzz_broadcast(smi)
@@ -3802,12 +4203,15 @@ def main() -> int:
     etimed = phase_elle_kernels(True, elle_inputs)
     for k in ("elle_edges", "elle_screen"):
         cli[k] = etimed[f"{k}@full"]
+    stimed = phase_stream_kernels(timed=True)
+    cli["sched_inject"] = stimed["sched_inject@100000"]
+    cli["ring_update"] = stimed["ring_update@cli100k"]
     phase_crdt_profile()
     phase_pool_profile(pool_launches["rounds_executed"])
     emit({"phase": "profiler", **PROFILER})
     errs = {}
     for r in (*checks.values(), fchecks, rchecks, raft, pchecks, cchecks,
-              kchecks, ktimed, btimed, etimed):
+              kchecks, ktimed, btimed, etimed, schecks, stimed):
         for name, v in r.items():
             base = {"raft_step_stall": "raft_step",
                     "threefry_batched": "threefry",

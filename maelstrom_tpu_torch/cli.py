@@ -16,7 +16,9 @@ txn-rw-register on the Raft transaction programs, lin-mutex on
 ordering axis (`--ordering raft|batched`, the composed `tpu:ordered`),
 on one card, or on the CPU with `--device cpu`, under
 loss, randomized latency and the partition, kill, pause, duplicate and
-weather nemeses. `fuzz` runs the broadcast and kafka fault sweeps
+weather nemeses, round-synchronous or in continuous mode
+(`--continuous`), with the flight recorder (`--telemetry [DIR]`, tailed
+by `top`). `fuzz` runs the broadcast and kafka fault sweeps
 (`fuzz.py`). Every
 other option of the JAX CLI is recognised and refused unless it holds its
 default, with an error that names the slice of the port that brings it
@@ -37,6 +39,10 @@ default, with an error that names the slice of the port that brings it
     python -m maelstrom_tpu_torch test -w txn-list-append \\
         --node tpu:txn-list-append --device-checker on
     python -m maelstrom_tpu_torch test -w lin-mutex --node tpu:lin-kv
+    python -m maelstrom_tpu_torch test -w kafka --node tpu:kafka \\
+        --node-count 5 --continuous --kafka-groups 2 \\
+        --nemesis kill,pause,partition,duplicate,weather --telemetry tel
+    python -m maelstrom_tpu_torch top tel
     python -m maelstrom_tpu_torch fuzz --program broadcast --nodes 100000
 """
 
@@ -71,8 +77,6 @@ OUT_OF_SCOPE = [
     ("--nemesis-targets", lambda v: v is not None,
      "the role-partitioned programs"),
     ("--client-retries", lambda v: v > 0, "retries and backoff"),
-    ("--continuous", bool, "continuous mode"),
-    ("--continuous-window-ms", lambda v: v is not None, "continuous mode"),
     ("--fleet", lambda v: v is not None and v > 1, "mesh and fleet"),
     ("--fleet-sweep", lambda v: v is not None, "mesh and fleet"),
     ("--mesh", lambda v: v is not None, "mesh and fleet"),
@@ -81,8 +85,6 @@ OUT_OF_SCOPE = [
      "checkpoint and resume"),
     ("--resume", lambda v: v is not None, "checkpoint and resume"),
     ("--sync-checkpoint", bool, "checkpoint and resume"),
-    ("--telemetry", lambda v: v is not None and v != "off",
-     "telemetry rings"),
     ("--check-workers", lambda v: v is not None and v > 0,
      "the overlap pipeline"),
     ("--byz-rate", lambda v: v != 1.0, "the byzantine adversary"),
@@ -196,12 +198,22 @@ def build_parser() -> argparse.ArgumentParser:
                    default="checkpoint",
                    help="Accepted for compatibility: without checkpoints "
                         "a signal ends the run")
-    # the JAX CLI's options this slice refuses unless at their default
+    # the JAX CLI's other options (`OUT_OF_SCOPE` refuses those the port
+    # does not run unless at their default)
     t.add_argument("--bin")
     t.add_argument("--nemesis-targets")
     t.add_argument("--client-retries", type=int, default=0)
-    t.add_argument("--continuous", action="store_true")
-    t.add_argument("--continuous-window-ms", type=float)
+    t.add_argument("--continuous", action="store_true",
+                   help="Continuous generator mode: client ops are "
+                        "injected at their seeded offered-rate rounds "
+                        "inside the scan window (traffic lands while "
+                        "the nemesis's faults are live) instead of one "
+                        "dispatch an op")
+    t.add_argument("--continuous-window-ms", type=float,
+                   help="Continuous-mode window in virtual ms (default "
+                        "250): windows cross replies, and the window "
+                        "bounds how long a freed worker waits for the "
+                        "generator's next poll")
     t.add_argument("--fleet", type=int)
     t.add_argument("--fleet-sweep", choices=["seed", "nemesis", "capacity"])
     t.add_argument("--mesh")
@@ -209,7 +221,17 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--checkpoint-every", type=float)
     t.add_argument("--resume")
     t.add_argument("--sync-checkpoint", action="store_true")
-    t.add_argument("--telemetry", nargs="?", const="auto", default=None)
+    t.add_argument("--telemetry", nargs="?", const="auto", default=None,
+                   metavar="DIR|off",
+                   help="Flight recorder: a metric ring folded into every "
+                        "round on the device (message flow, pool and "
+                        "channel occupancy, per-role sends, latency in "
+                        "rounds), drained on the existing fetches, with "
+                        "phase spans (trace.json) and a telemetry.jsonl "
+                        "record a window (tail it with `top`). DIR names "
+                        "the directory; bare --telemetry puts it in the "
+                        "store dir. Histories are byte-identical on or "
+                        "off")
     t.add_argument("--check-workers", type=int)
     t.add_argument("--device-checker", choices=["auto", "on", "off"],
                    help="txn-list-append: the Elle checker's edge build "
@@ -242,6 +264,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "this long is evicted (default 2500)")
     t.add_argument("--poll-batch", type=int,
                    help="Max entries a consumer-group fetch (default 8)")
+
+    tp = sub.add_parser(
+        "top", help="Tail a run's telemetry stream: the freshest window "
+                    "(round, ops, delivered rate, p50/p95/p99 latency)")
+    tp.add_argument("path", nargs="?", default="store/latest",
+                    help="telemetry dir, telemetry.jsonl file, or a store "
+                         "test dir (default: store/latest)")
+    tp.add_argument("--follow", action="store_true",
+                    help="render again every --interval seconds until "
+                         "interrupted")
+    tp.add_argument("--interval", type=float, default=1.0)
 
     f = sub.add_parser("fuzz", help="Fault-mix sweeps: broadcast set-full "
                                     "at scale (BASELINE config 5), kafka")
@@ -293,7 +326,7 @@ def opts_from_args(args) -> dict:
         "latency": {"mean": args.latency, "dist": args.latency_dist},
         "p_loss": args.p_loss,
         "latency_scale": args.latency_scale,
-        "continuous": False,
+        "continuous": args.continuous,
         "nemesis": _faults(args.nemesis),
         "nemesis_interval": args.nemesis_interval,
         "client_retries": args.client_retries,
@@ -326,10 +359,13 @@ def opts_from_args(args) -> dict:
     for k in ("max_scan", "journal_scan_cap", "reply_log_cap",
               "max_values", "timeout_ms", "nemesis_seed", "kafka_groups",
               "session_timeout_ms", "poll_batch", "batch_max",
-              "device_checker"):
+              "device_checker", "continuous_window_ms"):
         v = getattr(args, k, None)
         if v is not None:
             opts[k] = v
+    # the flight recorder: "off" is the explicit disable spelling
+    if args.telemetry and args.telemetry != "off":
+        opts["telemetry"] = args.telemetry
     return opts
 
 
@@ -350,6 +386,10 @@ def main(argv=None) -> int:
               ("\nValidity unknown (;￣ー￣)" if valid == "unknown" else
                "\nAnalysis invalid! (ﾉಥ益ಥ)ﾉ ┻━┻"))
         return 0 if valid is True else (2 if valid == "unknown" else 1)
+    if args.cmd == "top":
+        from .telemetry import top_main
+        return top_main(args.path, follow=args.follow,
+                        interval=args.interval)
     if args.cmd == "fuzz":
         from .fuzz import main as fuzz_main
         try:

@@ -6,7 +6,8 @@ use: `stagger`, `mix`, `each_thread`, `phases`, `Fn`, `Filter`,
 `time_limit`, `sleep`, `Log`, `Seq` over a `cycle`, `Any2`, the client
 and nemesis routing wrappers, and the leaf generators behind them
 (`BatchCounting` among them: the distilled batches of
-broadcast-batched).
+broadcast-batched), and the continuous mode's pre-scheduler
+(`schedule_ahead`) and its columnar encode (`sched_columns`).
 They are pure generators, as there:
 
   - result is an op dict   -> dispatch it (process/time filled in)
@@ -106,6 +107,12 @@ class FreeSet:
 
     def __len__(self):
         return len(self._members)
+
+    def copy(self) -> "FreeSet":
+        out = FreeSet(self._order)
+        for p in self._members:
+            out.add(p)
+        return out
 
     def _select(self, j: int) -> int:
         """Rank (in str order) of the j-th member, 0-based."""
@@ -687,3 +694,79 @@ def each_thread(op_map: dict):
 
 def phases(*gens):
     return Phases(*gens)
+
+
+def sched_columns(rows, r0: int, q: int, n_nodes: int) -> dict:
+    """The numpy-columnar encode of pre-scheduled injection rows: `rows`
+    is the continuous loop's list of (round, process, op, node_idx, t,
+    a, b, c) and the result the [q] columns the sched-inject scan takes:
+    `at` (window offsets from r0, -1 on padding), `valid` and the wire
+    fields src / dest / type / a / b / c."""
+    import numpy as np
+    m = len(rows)
+    if m > q:
+        raise ValueError(f"{m} scheduled rows exceed the {q}-row "
+                         f"inject batch")
+    at = np.full(q, -1, np.int32)
+    valid = np.zeros(q, bool)
+    src, dest, typ, a, b, c = (np.zeros(q, np.int32) for _ in range(6))
+    if m:
+        cols = np.asarray([(rw[0], rw[1], rw[3], rw[4], rw[5], rw[6],
+                            rw[7]) for rw in rows], np.int64).T
+        at[:m] = cols[0] - r0
+        valid[:m] = True
+        src[:m] = cols[1] + n_nodes
+        dest[:m] = cols[2]
+        typ[:m] = cols[3]
+        a[:m] = cols[4]
+        b[:m] = cols[5]
+        c[:m] = cols[6]
+    return {"at": at, "valid": valid, "src": src, "dest": dest,
+            "type": typ, "a": a, "b": b, "c": c}
+
+
+def schedule_ahead(gen, processes, free, r0: int, horizon_r: int,
+                   ns_per_round: float, dispatch_count: int):
+    """The continuous mode's pre-scheduler: polls `gen` forward through
+    virtual time (no round runs) and collects the client ops it emits,
+    each stamped with the round it is due, so that one scan can inject
+    them at their rounds inside the window [r0, horizon_r).
+
+    Time follows the generator's `next_interesting_time`: PENDING with a
+    finite next time jumps the virtual clock there (at least one round),
+    PENDING with +inf ends the window ("starved": only a completion can
+    unblock it). An emitted op reserves its worker for the rest of the
+    window. A NEMESIS op ends the window at its round (returned for
+    immediate execution when it is due at r0 before any client op).
+    Generators share mutable RNGs between successor states, so the
+    caller executes or carries everything returned.
+
+    Returns (gen', events [(round, op)] in round order, nem (round, op)
+    or None, end_r, end_kind: "horizon" | "starved" | "exhausted" |
+    "nemesis")."""
+    free = free.copy()
+    events: list = []
+    r_v = r0
+    while True:
+        ctx = {"time": int(r_v * ns_per_round),
+               "free": rotate_free(free, dispatch_count),
+               "processes": processes}
+        res, gen = gen.op(ctx)
+        if res is None:
+            return gen, events, None, horizon_r, "exhausted"
+        if res == PENDING:
+            nt = gen.next_interesting_time(ctx)
+            if nt == math.inf:
+                return gen, events, None, horizon_r, "starved"
+            nr = int(math.ceil(nt / ns_per_round))
+            if nr <= r_v:
+                nr = r_v + 1
+            if nr >= horizon_r:
+                return gen, events, None, horizon_r, "horizon"
+            r_v = nr
+            continue
+        if res["process"] == NEMESIS:
+            return gen, events, (r_v, res), max(r_v, r0), "nemesis"
+        free.discard(res["process"])
+        dispatch_count += 1
+        events.append((r_v, res))

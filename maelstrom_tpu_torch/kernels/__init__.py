@@ -129,12 +129,16 @@ ELLE_EDGES = Kernel("elle_edges", "maelstrom_tpu_torch/csrc/elle.cu",
                     "maelstrom_tpu/checkers/elle_device.py:217")
 ELLE_SCREEN = Kernel("elle_screen", "maelstrom_tpu_torch/csrc/elle.cu",
                      "maelstrom_tpu/checkers/elle_device.py:221")
+SCHED_INJECT = Kernel("sched_inject", "maelstrom_tpu_torch/csrc/stream.cu",
+                      "maelstrom_tpu/sim.py:847")
+RING_UPDATE = Kernel("ring_update", "maelstrom_tpu_torch/csrc/telemetry.cu",
+                     "maelstrom_tpu/telemetry.py:130")
 KERNELS = (EDGE_READ, EDGE_WRITE, BROADCAST_STEP, REPLY_COMPACT,
            REPLY_LOG_APPEND, QUIET_PROBE, THREEFRY, EDGE_FAULTS,
            EDGE_WRITE_SPILL, BROADCAST_STEP_STALL, RAFT_STEP, ECHO_STEP,
            UNIQUE_IDS_STEP, PN_COUNTER_STEP, REPLY_LOG_APPEND_I32,
            KAFKA_STEP, BROADCAST_BATCHED_STEP, BROADCAST_BATCHED_STEP_STALL,
-           ELLE_EDGES, ELLE_SCREEN)
+           ELLE_EDGES, ELLE_SCREEN, SCHED_INJECT, RING_UPDATE)
 
 _state = {"lib": None, "forced_plain": False}
 

@@ -156,14 +156,10 @@ def check_scope(cfg: NetConfig) -> None:
     """Refuses the parts of the network that later slices port."""
     if cfg.latency_dist not in prng.DISTS:
         raise ValueError(f"unknown latency dist {cfg.latency_dist!r}")
-    later = [
-        (cfg.enable_byz, "enable_byz (adversary slice)"),
-        (cfg.telemetry, "telemetry (observability slice)"),
-    ]
-    for hit, what in later:
-        if hit:
-            raise NotImplementedError(
-                f"maelstrom_tpu_torch does not port {what} yet")
+    if cfg.enable_byz:
+        raise NotImplementedError(
+            "maelstrom_tpu_torch does not port enable_byz (adversary "
+            "slice) yet")
 
 
 def make_net(cfg: NetConfig, device) -> NetState:

@@ -123,6 +123,11 @@ class NodeProgram:
                            intern: Intern) -> dict:
         raise NotImplementedError
 
+    def host_op(self, op: dict, read_state: Callable[[], Any],
+                intern: Intern) -> dict:
+        """Completes a HOST-routed op from device state."""
+        raise NotImplementedError
+
     def invalid_counters(self, state) -> dict:
         """Program-state counters that invalidate the run when nonzero
         ({name: int tensor}, summed), reported by the net-stats checker

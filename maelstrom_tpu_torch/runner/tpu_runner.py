@@ -20,12 +20,19 @@ Time is virtual: 1 round = `ms_per_round` milliseconds (default 1), so
 the same generators and checkers read it as the JAX package's runner
 does, and a seed fixes the history byte for byte.
 
+Continuous mode (`continuous`, `_loop_steps_continuous`) pre-schedules
+the generator's client ops onto their offered-rate rounds and injects
+them inside one scan window (the sched-inject scan, kernel K18), so
+traffic lands while the faults installed at the window's start are
+live. The flight recorder (`telemetry`) folds a metric ring into every
+round (kernel K19), drained on each dispatch's packed fetch, and writes
+phase spans and a per-window record through a `TelemetrySession`.
+
 Not ported here (their options are refused by the CLI, naming the slice
-that brings each): continuous mode, client retries and leader-redirect
-requeues, role-targeted faults, checkpoint/resume and preemption,
-telemetry rings, the overlapped analysis pipeline, meshes and fleets,
-the byzantine adversary, and the static-audit and cost blocks of the
-results."""
+that brings each): client retries and leader-redirect requeues,
+role-targeted faults, checkpoint/resume and preemption, the overlapped
+analysis pipeline, meshes and fleets, the byzantine adversary, and the
+static-audit and cost blocks of the results."""
 
 from __future__ import annotations
 
@@ -41,13 +48,14 @@ import torch
 from .. import generators as g
 from .. import kernels as K
 from .. import store
+from .. import telemetry as TM
 from ..checkers import Checker
 from ..checkers.netstats import TransferStats
 from ..errors import ERROR_REGISTRY
 from ..history import History
 from ..nemesis import NemesisDecisions, grudge_matrix
 from ..net import tpu as T
-from ..nodes import EncodeCapacityError, Intern, get_program, \
+from ..nodes import HOST, EncodeCapacityError, Intern, get_program, \
     wire_name_table
 from ..sim import make_scan_fn, make_sim
 from ..tree import leaves, resolve_device, tree_map
@@ -253,6 +261,11 @@ class TpuNetStats(Checker):
             n_bad = int(arr.sum())
             out[name] = n_bad
             ok = ok and n_bad == 0
+        # the flight recorder's ring beside the counters it refines (off
+        # by default: results keep their shape)
+        ring = self.runner._ring_dict()
+        if ring is not None:
+            out["telemetry"] = ring
         # host-transfer accounting: drains must stay O(host-relevant
         # rounds), not O(simulated rounds)
         out.update(self.runner.transfer.as_dict())
@@ -278,9 +291,21 @@ class TpuRunner:
         # reads node state at the host reads it at the stretch's end: sound
         # only where the reads are final (kafka's append-only logs, sliced
         # to the reply-round lengths) or the reply carries its payload
-        if (self.program.needs_state_reads
-                and not getattr(self.program, "state_reads_final", False)
-                and not getattr(self.program, "reply_payload_words", 0)):
+        crossing_ok = (not self.program.needs_state_reads
+                       or getattr(self.program, "state_reads_final", False)
+                       or getattr(self.program, "reply_payload_words", 0))
+        # continuous mode: client ops are pre-scheduled onto their
+        # offered-rate rounds and injected inside the scan window
+        self.continuous = bool(test.get("continuous"))
+        if self.continuous and not (crossing_ok and test.get(
+                "collect_replies", True)):
+            # the window crosses reply-bearing stretches by construction
+            raise ValueError(
+                f"--continuous: program {self.program.name!r} cannot "
+                f"cross reply-bearing stretches (needs_state_reads "
+                f"without state_reads_final or a reply payload); run it "
+                f"round-synchronous")
+        if not crossing_ok:
             raise NotImplementedError(
                 f"{self.program.name}: completions that read node state "
                 f"at the reply's own round come with the other node "
@@ -299,6 +324,12 @@ class TpuRunner:
         # package pays nothing for its round-path work
         faults = self._fault_set(test)
         self.faults = faults
+        # the flight recorder: --telemetry turns on the metric ring (a
+        # static config capability: off costs nothing); run_tpu_test
+        # attaches the session
+        self.telemetry_rings = TM.enabled(test)
+        self.telemetry = None
+        self._ring_host = None
         self.cfg = T.NetConfig(
             n_nodes=n, n_clients=self.concurrency, pool_cap=pool_cap,
             inbox_cap=self.program.inbox_cap,
@@ -312,11 +343,16 @@ class TpuRunner:
             # batch rows (broadcast-batched) carry several client ops a
             # message: the net books units beside the message counts
             unit_words=tuple(getattr(self.program, "unit_words", ())
-                             or ()))
+                             or ()),
+            telemetry=self.telemetry_rings,
+            telemetry_roles=(TM.role_bounds(self.program)
+                             if self.telemetry_rings else ()))
         # per-message journal rows: on by default for small clusters,
         # where the per-round pull is cheap; large runs keep only the
-        # on-device counters
-        self.journal_rows = bool(test.get("journal_rows", n <= 64))
+        # on-device counters. Continuous windows keep only the counters:
+        # the journaled scan is a per-round debugging aid
+        self.journal_rows = bool(test.get("journal_rows", n <= 64)) \
+            and not self.continuous
         self.journal = test.get("journal") if self.journal_rows else None
         self.sim = self._build_sim()
         # host-transfer accounting: every device->host read is booked
@@ -327,6 +363,14 @@ class TpuRunner:
         self.max_scan = int(test.get("max_scan", 65536))
         self.journal_scan_cap = int(test.get("journal_scan_cap", 256))
         self.reply_log_cap = int(test.get("reply_log_cap", 256))
+        # the continuous window's length in rounds: windows cross
+        # replies, and the stride bounds how long a freed worker waits
+        # for the generator's next poll
+        self.continuous_stride = max(1, int(
+            float(test.get("continuous_window_ms", 250.0))
+            / self.ms_per_round))
+        self._cscan_fn = None        # the continuous scan, built lazily
+        self._cpack = None           # its packed fetch
         self.intern = Intern()
         self.timeout_rounds = max(
             int(float(test.get("timeout_ms", 5000)) / self.ms_per_round), 10)
@@ -403,6 +447,32 @@ class TpuRunner:
         if self._state_cache is None:
             self._state_cache = self.transfer.fetch(self.sim.nodes)
         return self._state_cache
+
+    # --- the flight recorder ---
+
+    def _tel_span(self, name, t0, t1, args=None):
+        """One phase span, when a telemetry session is attached."""
+        if self.telemetry is not None:
+            self.telemetry.span(name, t0, t1, args=args)
+
+    def _ring_dict(self):
+        """The ring as a plain dict: the copy the last dispatch's packed
+        fetch brought (nothing runs a round after it), or None with the
+        ring off. A run that never dispatched reads the ring once."""
+        if not self.telemetry_rings:
+            return None
+        if self._ring_host is None:
+            self._ring_host = self.transfer.fetch(self.sim.telemetry)
+        return TM.ring_dict(self._ring_host,
+                            role_labels=TM.role_names(self.program))
+
+    def _tel_wave(self, history, r):
+        """One telemetry.jsonl window record (no session: nothing)."""
+        if self.telemetry is not None:
+            self.telemetry.wave(
+                history, r,
+                ring=None if self._ring_host is None else self._ring_dict(),
+                transfer=self.transfer)
 
     def _bump(self, k: int):
         """Fast-forward: round += k (a torch op on the round counter)."""
@@ -499,8 +569,10 @@ class TpuRunner:
         # host mirror of the device message-id counter (refreshed by
         # every dispatch's packed fetch)
         self._next_mid = int(self.transfer.fetch(self.sim.net.next_mid))
-        r = self._drive(self._loop_steps(gen, processes, free, sessions,
-                                         history, max_rounds))
+        loop = (self._loop_steps_continuous if self.continuous
+                else self._loop_steps)
+        r = self._drive(loop(gen, processes, free, sessions, history,
+                             max_rounds))
         if r >= max_rounds:
             log.warning("runner hit max_rounds=%d", max_rounds)
         self.final_round = r
@@ -525,6 +597,8 @@ class TpuRunner:
             kind = req[0]
             if kind == "scan":
                 resp = self._exec_scan(*req[1:])
+            elif kind == "cscan":
+                resp = self._exec_cscan(*req[1:])
             elif kind == "bump":
                 self._bump(req[1])
                 tm["rounds-bumped"] += req[1]
@@ -543,7 +617,6 @@ class TpuRunner:
         bool``, ``("bump", k) -> None`` and ``("scan", inject_rows,
         k_max, stop, r) -> (k_executed, replies)``. Returns the final
         virtual round."""
-        N = self.cfg.n_nodes
         program = self.program
         r = 0
         exhausted = False
@@ -561,6 +634,14 @@ class TpuRunner:
                 exhausted = False
                 if res == g.PENDING:
                     break
+                if res["process"] == g.NEMESIS:
+                    # fault surgery between dispatches
+                    gen = self._run_nemesis_op(gen, res, history, free,
+                                               processes, r)
+                    ctx = {"time": self._time_ns(r),
+                           "free": self._free_rotated(free),
+                           "processes": processes}
+                    continue
                 process = res["process"]
                 self._dispatches += 1
                 free.discard(process)
@@ -568,30 +649,7 @@ class TpuRunner:
                 history.append_row("invoke", op.get("f"), op.get("value"),
                                    process, ctx["time"],
                                    final=op.get("final", False))
-                if process == g.NEMESIS:
-                    # fault surgery between dispatches
-                    t_n = time.perf_counter()
-                    completed = self.nemesis.invoke(op)
-                    self.timing["nemesis-s"] += time.perf_counter() - t_n
-                    self.timing["nemesis-ops"] += 1
-                    gen = self._complete(history, gen, ctx, process,
-                                         completed, free)
-                    ctx = {"time": self._time_ns(r),
-                           "free": self._free_rotated(free),
-                           "processes": processes}
-                    continue
-                # the worker's bound node, unless the program routes
-                # the op (smart-client routing: kafka sends go to the
-                # key's owner, commits and lists to the coordinator)
-                routed = program.node_for_op(op)
-                if routed is None:
-                    node_idx = process % N
-                else:
-                    node_idx = int(routed)
-                    if not 0 <= node_idx < N:
-                        raise ValueError(
-                            f"{program.name}.node_for_op returned "
-                            f"{routed} for a {N}-node cluster")
+                node_idx = self._route(op, process)
                 body = program.request_for_op(op)
                 try:
                     t, a, b, c = program.encode_body(body, self.intern)
@@ -609,6 +667,7 @@ class TpuRunner:
                        "processes": processes}
             _poll_t1 = time.perf_counter()
             self.transfer.record_poll(_poll_t1 - _poll_t0)
+            self._tel_span("schedule-encode", _poll_t0, _poll_t1)
             self.timing["poll-s"] += _poll_t1 - _poll_t0
 
             if exhausted and not sessions and len(free) == len(processes):
@@ -654,6 +713,222 @@ class TpuRunner:
                 completed = {**op, "type": "info", "error": "net-timeout"}
                 gen = self._complete(history, gen, ctx, process, completed,
                                      free)
+            # one telemetry record a stretch, its replies folded in
+            self._tel_wave(history, r)
+            self.timing["replies-s"] += time.perf_counter() - t0
+        return r
+
+    def _route(self, op, process) -> int:
+        """The node an op goes to: the worker's bound node, unless the
+        program routes the op (smart-client routing: kafka sends go to
+        the key's owner, commits and lists to the coordinator)."""
+        N = self.cfg.n_nodes
+        routed = self.program.node_for_op(op)
+        if routed is None:
+            return process % N
+        node_idx = int(routed)
+        if not 0 <= node_idx < N:
+            raise ValueError(f"{self.program.name}.node_for_op returned "
+                             f"{routed} for a {N}-node cluster")
+        return node_idx
+
+    def _run_nemesis_op(self, gen, nop, history, free, processes, r):
+        """One nemesis op at round r: host-side fault surgery between
+        dispatches (in continuous mode a window boundary: the scan
+        cannot rewrite its own masks mid-flight)."""
+        ctx = {"time": self._time_ns(r), "free": self._free_rotated(free),
+               "processes": processes}
+        process = nop["process"]
+        self._dispatches += 1
+        free.discard(process)
+        op = {k: v for k, v in nop.items() if k != "time"}
+        history.append_row("invoke", op.get("f"), op.get("value"),
+                           process, self._time_ns(r),
+                           final=op.get("final", False))
+        t_n = time.perf_counter()
+        completed = self.nemesis.invoke(op)
+        self.timing["nemesis-s"] += time.perf_counter() - t_n
+        self.timing["nemesis-ops"] += 1
+        return self._complete(history, gen, ctx, process, completed, free)
+
+    def _encode_events(self, evs, carry_sched, carry_host, history, gen,
+                       free, processes):
+        """Encodes pre-scheduled client ops into carry_sched rows (round,
+        process, op, node_idx, t, a, b, c). Host-routed ops become window
+        boundaries; an encode-capacity failure completes as a definite
+        fail on the spot, as on the round-synchronous path."""
+        program = self.program
+        for rd, res in evs:
+            op = {k: v for k, v in res.items() if k != "time"}
+            process = res["process"]
+            node_idx = self._route(op, process)
+            body = program.request_for_op(op)
+            if body is HOST:
+                carry_host.append((rd, process, op, node_idx))
+                continue
+            try:
+                t, a, b, c = program.encode_body(body, self.intern)
+            except EncodeCapacityError as e:
+                ctx = {"time": self._time_ns(rd),
+                       "free": self._free_rotated(free),
+                       "processes": processes}
+                history.append_row("invoke", op.get("f"), op.get("value"),
+                                   process, self._time_ns(rd),
+                                   final=op.get("final", False))
+                completed = {**op, "type": "fail",
+                             "error": ["encode-error", str(e)]}
+                gen = self._complete(history, gen, ctx, process, completed,
+                                     free)
+                continue
+            carry_sched.append((rd, process, op, node_idx, t, a, b, c))
+        return gen
+
+    def _loop_steps_continuous(self, gen, processes, free, sessions,
+                               history, max_rounds):
+        """The continuous dispatch loop (the JAX runner's
+        `_loop_steps_continuous`). At each window boundary the host
+        pre-schedules the next stretch of client ops onto their rounds
+        (`generators.schedule_ahead`) and one sched-inject scan lands
+        them inside the window, while the faults installed at the
+        boundary are live. Nemesis ops and host-routed ops stay window
+        boundaries. Yields the `_loop_steps` request kinds plus
+        ``("cscan", rows, k_max, stop, r) -> (k, replies, inj_mids)``.
+
+        Scheduling reads only generator state and earlier windows'
+        (deterministic) reply timing, so a seed fixes the history byte
+        for byte. Rows a window did not reach carry with their rounds;
+        an op enters the history once the drain's `inj_mids` confirms its
+        injection."""
+        program = self.program
+        ns_pr = self.ms_per_round * 1e6
+        carry_sched: list = []
+        carry_nem = None
+        carry_host: list = []
+        r = 0
+        while r < max_rounds:
+            # boundary work due now
+            while carry_nem is not None and carry_nem[0] <= r:
+                nop = carry_nem[1]
+                carry_nem = None
+                gen = self._run_nemesis_op(gen, nop, history, free,
+                                           processes, r)
+            while carry_host and carry_host[0][0] <= r:
+                _rd, process, op, node_idx = carry_host.pop(0)
+                ctx = {"time": self._time_ns(r),
+                       "free": self._free_rotated(free),
+                       "processes": processes}
+                history.append_row("invoke", op.get("f"), op.get("value"),
+                                   process, self._time_ns(r),
+                                   final=op.get("final", False))
+                completed = program.host_op(
+                    op, lambda i=node_idx: self._read_state(i), self.intern)
+                gen = self._complete(history, gen, ctx, process, completed,
+                                     free)
+
+            def horizon():
+                h = min(r + self.max_scan, max_rounds)
+                if carry_nem is not None:
+                    h = min(h, carry_nem[0])
+                if carry_host:
+                    h = min(h, carry_host[0][0])
+                return max(h, r + 1)
+
+            # pre-schedule the window (one host poll pass): a nemesis op
+            # due now runs at once and scheduling resumes with its fault
+            # installed
+            _poll_t0 = time.perf_counter()
+            while True:
+                gen, evs, nem, _end, end_kind = g.schedule_ahead(
+                    gen, processes, free, r, horizon(), ns_pr,
+                    self._dispatches)
+                self._dispatches += len(evs)
+                for _rd, res in evs:
+                    free.discard(res["process"])
+                gen = self._encode_events(evs, carry_sched, carry_host,
+                                          history, gen, free, processes)
+                if nem is not None and nem[0] <= r:
+                    gen = self._run_nemesis_op(gen, nem[1], history, free,
+                                               processes, r)
+                    continue
+                if nem is not None:
+                    carry_nem = nem
+                break
+            exhausted = end_kind == "exhausted"
+            # stable by round: carried rows precede same-round new ones
+            carry_sched.sort(key=lambda rw: rw[0])
+            _poll_t1 = time.perf_counter()
+            self.transfer.record_poll(_poll_t1 - _poll_t0)
+            self._tel_span("schedule-encode", _poll_t0, _poll_t1)
+            self.timing["poll-s"] += _poll_t1 - _poll_t0
+
+            if exhausted and not sessions and not carry_sched \
+                    and carry_nem is None and not carry_host \
+                    and len(free) == len(processes):
+                break
+
+            # fast-forward quiescent gaps before the first due row
+            first_due = carry_sched[0][0] if carry_sched else None
+            h = horizon()
+            if not sessions and (first_due is None or first_due > r) \
+                    and (yield ("quiet",)):
+                target = h if first_due is None else min(first_due, h)
+                k = max(target - r, 1)
+                yield ("bump", k)
+                r += k
+                continue
+
+            # one window, bounded by the stride, the horizon and every
+            # timeout deadline (pending and scheduled); it crosses
+            # replies, which fold in at its close
+            k_abs = min(h, r + self.continuous_stride)
+            dl = sessions.min_deadline()
+            if dl is not None:
+                k_abs = min(k_abs, dl)
+            for rw in carry_sched:
+                k_abs = min(k_abs, rw[0] + self.timeout_rounds)
+            k_max = max(k_abs - r, 1)
+            k, replies, inj_mids = yield ("cscan", carry_sched, k_max,
+                                          False, r)
+            t0 = time.perf_counter()
+
+            injected = [(j, rw) for j, rw in enumerate(carry_sched)
+                        if rw[0] - r < k]
+            carry_sched = [rw for rw in carry_sched if rw[0] - r >= k]
+            # confirmed injections and replies in time order, completions
+            # first at equal rounds (a reply is stamped after its
+            # injection's round, so registration precedes it)
+            events = [(rw[0], 1, j, rw) for j, rw in injected]
+            events += [(int(rep[0]), 0, i, rep)
+                       for i, rep in enumerate(replies)]
+            events.sort(key=lambda e: (e[0], e[1], e[2]))
+            r += k
+            for rd, kind, seq, item in events:
+                if kind == 1:
+                    _rd0, process, op, node_idx = item[:4]
+                    mid = int(inj_mids[seq])
+                    if mid < 0:
+                        raise RuntimeError(
+                            f"continuous scan executed {k} rounds but "
+                            f"reported no mid for row {seq} at round {rd}")
+                    history.append_row("invoke", op.get("f"),
+                                       op.get("value"), process,
+                                       self._time_ns(rd),
+                                       final=op.get("final", False))
+                    sessions.register(mid, process, op, node_idx,
+                                      rd + self.timeout_rounds)
+                else:
+                    entry = sessions.absorb_results([int(item[5])])[0]
+                    gen = self._apply_reply(program, gen, history, free,
+                                            processes, item, entry)
+
+            # timeouts -> indefinite :info (client.clj:214-233)
+            ctx = {"time": self._time_ns(r), "free": self._free_rotated(free),
+                   "processes": processes}
+            for process, op, _ni in sessions.take_expired(r):
+                completed = {**op, "type": "info", "error": "net-timeout"}
+                gen = self._complete(history, gen, ctx, process, completed,
+                                     free)
+            self._tel_wave(history, r)
             self.timing["replies-s"] += time.perf_counter() - t0
         return r
 
@@ -735,26 +1010,26 @@ class TpuRunner:
         self.sim, k, rl = out[0], out[2], out[3]
         self._state_cache = None
         buf = out[4] if journaled else ()
-        # ONE fetched array a dispatch: next_mid rides the packed buffer
-        tree = (buf, rl, self.sim.net.next_mid)
+        # ONE fetched array a dispatch: next_mid and the metric ring (an
+        # empty tuple with the ring off) ride the packed buffer
+        tree = (buf, rl, self.sim.net.next_mid, self._ring_tree())
         if self._pack is None:
             self._pack = self._make_packer(tree)
         pack, unpack = self._pack
         packed = pack(tree)
         t1 = time.perf_counter()
+        self._tel_span("dispatch", t0, t1)
         flat = self.transfer.fetch(packed)
         t2 = time.perf_counter()
-        buf, (rlog, rounds, plog, rn), next_mid = unpack(flat)
+        self._tel_span("device-get", t1, t2,
+                       args={"drains": self.transfer.drains,
+                             "host-bytes": self.transfer.host_bytes})
+        buf, (rlog, rounds, plog, rn), next_mid, ring = unpack(flat)
         self._next_mid = int(next_mid)
+        if self.telemetry_rings:
+            self._ring_host = ring
         rn = int(rn)
-        # scan-s: the rounds' dispatch, their chunk-flag reads and the
-        # pack; drain-s: the packed fetch
-        tm["scan-s"] += t1 - t0
-        tm["drain-s"] += t2 - t1
-        tm["rounds-executed"] += k
-        tm["dispatches"] += 1
-        tm["scan-host-syncs"] += scan.host_syncs - syncs0
-        tm["scan-replayed-rounds"] += scan.replayed - replay0
+        self._book_scan(scan, t0, t1, t2, k, syncs0, replay0)
         if journaled:
             t3 = time.perf_counter()
             for i in range(k):
@@ -771,6 +1046,64 @@ class TpuRunner:
                     node_names=self.node_names)
             tm["journal-s"] += time.perf_counter() - t3
         return k, self._decode_replies(rlog, rounds, plog, rn)
+
+    def _ring_tree(self):
+        return self.sim.telemetry if self.telemetry_rings else ()
+
+    def _book_scan(self, scan, t0, t1, t2, k, syncs0, replay0):
+        """scan-s: the rounds' dispatch, their chunk-flag reads and the
+        pack; drain-s: the packed fetch."""
+        tm = self.timing
+        tm["scan-s"] += t1 - t0
+        tm["drain-s"] += t2 - t1
+        tm["rounds-executed"] += k
+        tm["dispatches"] += 1
+        tm["scan-host-syncs"] += scan.host_syncs - syncs0
+        tm["scan-replayed-rounds"] += scan.replayed - replay0
+
+    def _exec_cscan(self, rows, k_max, stop, r):
+        """One continuous dispatch: the scheduled rows as a [Q] inject
+        batch with their window offsets, the sched-inject scan, and ONE
+        packed fetch of the replies, the mids stamped on the rows (-1
+        for rows the window did not reach), next_mid and the ring.
+        Returns (k_executed, replies, inj_mids)."""
+        program, cfg = self.program, self.cfg
+        N, Q = cfg.n_nodes, max(self.concurrency, 1)
+        dev = self.device
+        cols = g.sched_columns(rows, r, Q, N)
+        inject = T.Msgs.empty(Q, dev)
+        if rows:
+            inject = inject.replace(**{
+                f: torch.from_numpy(cols[f]).to(dev)
+                for f in ("valid", "src", "dest", "type", "a", "b", "c")})
+        at = torch.from_numpy(cols["at"]).to(dev)
+        if self._cscan_fn is None:
+            self._cscan_fn = make_scan_fn(
+                program, cfg, reply_cap=self.reply_log_cap,
+                device=dev, fetch=self._fetch_flag, sched_inject=True)
+        scan = self._cscan_fn
+        syncs0, replay0 = scan.host_syncs, scan.replayed
+        t0 = time.perf_counter()
+        self.sim, _cm, k, rl, im = scan(self.sim, inject, at, k_max, stop)
+        self._state_cache = None
+        tree = (rl, im, self.sim.net.next_mid, self._ring_tree())
+        if self._cpack is None:
+            self._cpack = self._make_packer(tree)
+        pack, unpack = self._cpack
+        packed = pack(tree)
+        t1 = time.perf_counter()
+        self._tel_span("dispatch", t0, t1)
+        flat = self.transfer.fetch(packed)
+        t2 = time.perf_counter()
+        self._tel_span("device-get", t1, t2,
+                       args={"drains": self.transfer.drains,
+                             "host-bytes": self.transfer.host_bytes})
+        (rlog, rounds, plog, rn), im, next_mid, ring = unpack(flat)
+        self._next_mid = int(next_mid)
+        if self.telemetry_rings:
+            self._ring_host = ring
+        self._book_scan(scan, t0, t1, t2, k, syncs0, replay0)
+        return k, self._decode_replies(rlog, rounds, plog, int(rn)), im
 
     def _decode_replies(self, rlog, rounds, plog, rn: int) -> list:
         """The drained reply-log rows as plain tuples for the loop's
@@ -866,16 +1199,31 @@ def run_tpu_test(test: dict, test_dir: str) -> dict:
     t_run0 = time.perf_counter()
     runner = TpuRunner(test)
     test["store_dir"] = test_dir
+    if runner.telemetry_rings:
+        # the flight recorder's session (spans and telemetry.jsonl)
+        runner.telemetry = TM.TelemetrySession(
+            TM.resolve_dir(test.get("telemetry"), test_dir),
+            ms_per_round=runner.ms_per_round)
     # the device-counter net stats and the availability block
     from ..checkers.availability import AvailabilityChecker
     test["checker"].checkers["net"] = TpuNetStats(runner)
     test["checker"].checkers["availability"] = AvailabilityChecker(runner)
     test["nemesis"] = (True if (test.get("nemesis_pkg") or {}).get(
         "generator") is not None else None)
-    history = runner.run()
-    t_run1 = time.perf_counter()
-    test["transfer"] = runner.transfer
-    results = test["checker"].check(test, history, {})
+    try:
+        history = runner.run()
+        t_run1 = time.perf_counter()
+        if runner.telemetry is not None:
+            # the final record: cumulative quantiles over the whole
+            # history and the cumulative ring
+            runner.telemetry.flush(history, runner.final_round,
+                                   ring=runner._ring_dict())
+        test["transfer"] = runner.transfer
+        results = test["checker"].check(test, history, {})
+    finally:
+        # the trace lands even when the run fails (close is idempotent)
+        if runner.telemetry is not None:
+            runner.telemetry.close()
     net_block = results.get("net")
     if isinstance(net_block, dict) and "drains" in net_block:
         # the net block renders before the workload checker runs:

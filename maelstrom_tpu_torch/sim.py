@@ -16,7 +16,10 @@ model, in which node replies travel through the flight pool:
 it over a pre-scheduled injection plan on the device, with no host sync
 inside the loop: the benchmark path. `make_scan_fn` is the runner's
 scan-ahead: rounds until an exit condition holds, with every client
-reply appended to a device-resident log (kernel K5, `csrc/scan.cu`).
+reply appended to a device-resident log (kernel K5, `csrc/scan.cu`); its
+continuous form injects each scheduled row at its own round of the
+window (kernel K18, `csrc/stream.cu`). With `NetConfig.telemetry` every
+round ends with the flight recorder's fold (kernel K19, `telemetry.py`).
 
 A round consumes the `SimState` it is given: the edge channels are
 updated in place (see `net/static.py`). Keep only the returned state.
@@ -33,6 +36,7 @@ import torch
 
 from . import kernels as K
 from . import prng
+from . import telemetry as TM
 from .net import static
 from .net import tpu as T
 from .net.tpu import I32, INT32_MAX, Msgs, NetConfig, NetState
@@ -46,7 +50,7 @@ class SimState(Struct):
     key: torch.Tensor         # uint32[2] threefry key
     channels: object = None   # EdgeChannels
     durable: object = None    # persisted subset of node state, or None
-    telemetry: object = None  # the observability slice
+    telemetry: object = None  # telemetry.MetricRing, or None
     byz: object = None        # the adversary slice
 
 
@@ -69,8 +73,10 @@ def make_sim(program, cfg: NetConfig, seed: int = 0, device="cuda",
         if getattr(program, "is_edge", False) else None)
     nodes = program.init_state()
     key = prng.PRNGKey(seed, dev)
+    tel = TM.make_ring(cfg, dev) if cfg.telemetry else None
     return SimState(net=T.make_net(cfg, dev), nodes=nodes, key=key,
-                    channels=channels, durable=program.durable_view(nodes))
+                    channels=channels, durable=program.durable_view(nodes),
+                    telemetry=tel)
 
 
 def _freeze(stall, old, new):
@@ -178,8 +184,16 @@ def _round_pool(program, cfg: NetConfig, sim: SimState, inject: Msgs):
     flat = flat.replace(src=src.repeat_interleave(O))
     net, outbox_sent = T._send(cfg, net, flat, keys[3])
     net = T.advance(net)
+    tel = sim.telemetry
+    if cfg.telemetry and tel is not None:
+        # the flight recorder's fold (K19), after every draw: the ring
+        # never changes the simulation. A node's sends are its valid
+        # outbox rows.
+        tel = TM.ring_update(cfg, tel, sim.net.stats, net, None,
+                             sim.net.round, (flat.valid.reshape(N, O),),
+                             inject_sent, client_msgs)
     return (SimState(net=net, nodes=nodes, key=keys[0].contiguous(),
-                     durable=program.durable_view(nodes)),
+                     durable=program.durable_view(nodes), telemetry=tel),
             client_msgs, (inject_sent, outbox_sent, inbox))
 
 
@@ -447,8 +461,23 @@ def _round_edge(program, cfg: NetConfig, sim: SimState, inject: Msgs,
     ch = ch.replace(**{f: _unrows(getattr(ch, f), axis)
                        for f in ("valid", "type", "a", "b", "c")})
     edge_out, edge_in = _unrows(edge_out, axis), _unrows(edge_in, axis)
+    tel = sim.telemetry
+    if cfg.telemetry and tel is not None:
+        if axis is not None:
+            raise NotImplementedError(
+                "telemetry on the cluster axis comes with the fleets")
+        # the flight recorder's fold (K19): a node's sends are its edge
+        # sends plus its uncompacted reply rows, and the latency buckets
+        # read every valid reply row (`flat`), not the CC-capped
+        # compaction
+        tel = TM.ring_update(cfg, tel, sim.net.stats, net, ch.valid,
+                             sim.net.round,
+                             (edge_out.valid.reshape(N, -1),
+                              flat.valid.reshape(N, Kc)),
+                             inject_sent, flat)
     return (SimState(net=net, nodes=nodes, key=keys[..., 0, :].contiguous(),
-                     channels=ch, durable=program.durable_view(nodes)),
+                     channels=ch, durable=program.durable_view(nodes),
+                     telemetry=tel),
             client_msgs,
             (inject_sent, replies, client_inbox, edge_out, edge_in))
 
@@ -608,20 +637,67 @@ def _reset_log_tail(log, rn_from):
         plog.masked_fill_(tail[:, None], 0)
 
 
+# --- the continuous scan's select and fold (K18) ----------------------------
+
+def sched_select_plain(inject_valid, at, im, sent, off):
+    """The sched-inject scan's per-round step (`sim.py:847-930` of the
+    JAX package): folds the previous round's id-stamped inject view
+    `sent` (None: no fold) into `im` (None: all -1, the window's first
+    round), and selects the rows scheduled at window offset `off`
+    (None: the last fold, no select). Returns (inject valid or None,
+    im'), both fresh tensors."""
+    m = torch.full_like(at, -1) if im is None else im
+    if sent is not None:
+        m = torch.where(sent.valid, sent.mid, m)
+    return (None if off is None else inject_valid & (at == off)), m
+
+
+def sched_select(inject_valid, at, im, sent, off):
+    """The continuous scan's select and fold (see `sched_select_plain`);
+    the kernel is K18 `sched_inject` in `csrc/stream.cu`, one launch a
+    round."""
+    if not K.use_kernel(at):
+        return sched_select_plain(inject_valid, at, im, sent, off)
+    dev = at.device
+    Q = at.shape[0]
+    for name, t, want in (("inject valid", inject_valid, torch.bool),
+                          ("at", at, I32), ("im", im, I32)):
+        if t is not None and (tuple(t.shape) != (Q,) or t.dtype != want):
+            raise ValueError(f"sched_select {name}: {tuple(t.shape)} "
+                             f"{t.dtype}")
+    valid = (None if off is None else
+             torch.empty(Q, dtype=torch.bool, device=dev))
+    out_im = torch.empty(Q, dtype=I32, device=dev)
+    K.SCHED_INJECT.launch(
+        [inject_valid, at, im,
+         None if sent is None else sent.valid.contiguous(),
+         None if sent is None else sent.mid.contiguous(), valid, out_im],
+        [Q, 0 if off is None else off], dev)
+    return valid, out_im
+
+
 def make_scan_fn(program, cfg: NetConfig, reply_cap: int = 256,
                  journal_cap: int | None = None, device="cuda",
                  chunk: int = SCAN_CHUNK, fetch=None,
-                 first_chunk: int | None = None):
+                 first_chunk: int | None = None,
+                 sched_inject: bool = False):
     """scan_fn(sim, inject, k_max, stop_on_reply=True) -> (sim', cm, k,
     (rlog, rounds, plog, rn)[, buf]): the JAX package's `make_scan_fn`
-    in its non-continuous form with a reply log (the runner's only
-    form). `inject` is applied in the first round; then
+    with a reply log (the form the runner uses). `inject` is applied in
+    the first round; then
     injection-free rounds run while k < k_max, no client reply arrived
     when `stop_on_reply`, and the reply log has room for a whole round
     of replies (rcap = max(reply_cap, 2 * CW), CW the width of a round's
     client messages). k (a host int) counts the rounds executed, >= 1.
     `journal_cap` collects every round's io into [cap, ...] buffers
     (rows past k zero) and bounds k_max. Each call makes a fresh log.
+
+    With `sched_inject` (continuous mode) the scan is scan_fn(sim,
+    inject, at_rounds, k_max, stop_on_reply=True) -> (sim', cm, k, log,
+    im[, buf]): `inject` is a [Q] batch with an i32 [Q] window offset a
+    row, round k (0-based) injects exactly the rows with at_rounds == k
+    (K18), and im[j] is the mid `_send` stamped on row j, -1 for the
+    rows the window did not reach.
 
     The loop stays on the device. JAX runs it as one while_loop; here
     rounds run in chunks of `chunk`, each ending with one host read of
@@ -652,8 +728,9 @@ def make_scan_fn(program, cfg: NetConfig, reply_cap: int = 256,
     first = chunk if first_chunk is None else min(max(1, int(first_chunk)),
                                                   chunk)
     read = fetch or (lambda t: int(t))
+    sched = bool(sched_inject)
 
-    def scan_fn(sim: SimState, inject: Msgs, k_max, stop_on_reply=True):
+    def _scan(sim: SimState, inject: Msgs, at, k_max, stop_on_reply):
         k_max = int(k_max)
         stop = bool(stop_on_reply)
         if cap is not None:
@@ -661,12 +738,20 @@ def make_scan_fn(program, cfg: NetConfig, reply_cap: int = 256,
         last = max(k_max, 1)
         empty = Msgs.empty(CC, dev)
         exit_k = torch.full((), INT32_MAX, dtype=I32, device=dev)
-        st = {"log": None, "buf": None}
+        # im and the last round's stamped inject view (continuous mode)
+        st = {"log": None, "buf": None, "im": None, "sent": None}
 
         def step(cur, k):
             """Round k (1-based) from state `cur`."""
-            sim2, cm2, io = _round(program, cfg, cur,
-                                   inject if k == 1 else empty)
+            if sched:
+                valid, st["im"] = sched_select(inject.valid, at, st["im"],
+                                               st["sent"], k - 1)
+                inj = inject.replace(valid=valid)
+            else:
+                inj = inject if k == 1 else empty
+            sim2, cm2, io = _round(program, cfg, cur, inj)
+            if sched:
+                st["sent"] = io[0]
             if cap is not None:
                 if st["buf"] is None:
                     st["buf"] = tree_map(
@@ -694,6 +779,7 @@ def make_scan_fn(program, cfg: NetConfig, reply_cap: int = 256,
             snap = cur.replace(channels=tree_map(lambda t: t.clone(),
                                                  cur.channels))
             rn_snap = None if st["log"] is None else st["log"][3]
+            fold_snap = (st["im"], st["sent"])
             for j in range(n):
                 cur, cm = step(cur, k + j + 1)
             if n == 1 and k + 1 >= last:
@@ -708,6 +794,7 @@ def make_scan_fn(program, cfg: NetConfig, reply_cap: int = 256,
                 continue
             # rounds e+1 .. k+n ran past the exit: roll back and replay
             cur = snap
+            st["im"], st["sent"] = fold_snap
             if rn_snap is None:
                 rn_snap = torch.zeros((), dtype=I32, device=dev)
             _reset_log_tail(st["log"], rn_snap)
@@ -720,9 +807,21 @@ def make_scan_fn(program, cfg: NetConfig, reply_cap: int = 256,
             k = e
             break
         out = (cur, cm, k, st["log"])
+        if sched:
+            # the window's last fold: round k's stamped mids
+            out = out + (sched_select(inject.valid, at, st["im"],
+                                      st["sent"], None)[1],)
         if cap is not None:
             out = out + (st["buf"],)
         return out
+
+    if sched:
+        def scan_fn(sim: SimState, inject: Msgs, at_rounds, k_max,
+                    stop_on_reply=True):
+            return _scan(sim, inject, at_rounds, k_max, stop_on_reply)
+    else:
+        def scan_fn(sim: SimState, inject: Msgs, k_max, stop_on_reply=True):
+            return _scan(sim, inject, None, k_max, stop_on_reply)
 
     scan_fn.host_syncs = 0
     scan_fn.replayed = 0

@@ -24,6 +24,8 @@ from maelstrom_tpu_torch.parallel import make_cluster_round_fn, \
     make_cluster_sims
 from maelstrom_tpu_torch.runner.tpu_runner import run_tpu_test
 from maelstrom_tpu_torch.sim import make_run_fn, make_scan_fn, make_sim
+from maelstrom_tpu_torch.telemetry import TelemetrySession, make_ring, \
+    render_top
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
@@ -58,7 +60,7 @@ def test_port_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", GUARD], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 67    # every module was imported
+    assert int(res.stdout.split()[-1]) >= 68    # every module was imported
 
 
 def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
@@ -129,10 +131,22 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
                                  device="on"),
                  lambda: bench_checkers_record(n_rows=40, elle_ops=40),
                  lambda: fuzz_broadcast(n_nodes=4, values=2),
-                 lambda: fuzz_kafka(n_nodes=3, store_root=str(tmp_path))):
+                 lambda: fuzz_kafka(n_nodes=3, store_root=str(tmp_path)),
+                 lambda: make_scan_fn(prog, cfg, sched_inject=True),
+                 lambda: cli.main(["test", "-w", "kafka", "--node",
+                                   "tpu:kafka", "--node-count", "3",
+                                   "--continuous", "--kafka-groups", "2",
+                                   "--telemetry", str(tmp_path / "tel"),
+                                   "--store", str(tmp_path)])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert not any(tmp_path.iterdir())      # refused before any store dir
+    # the flight recorder's pieces build on the CPU when asked
+    assert make_ring(NetConfig(n_nodes=4, n_clients=2, telemetry=True),
+                     "cpu").req_round.tolist() == [-1, -1]
+    session = TelemetrySession(str(tmp_path / "tel"))
+    session.close()
+    assert "no records" in render_top([])
     # the CLI runs on the CPU when asked, faults and all
     assert cli.main(args + ["--device", "cpu", "--time-limit", "0.2",
                             "--max-values", "8"]) == 0
@@ -157,3 +171,8 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
                     "ms_per_round": 5.0, "device": "cpu",
                     "store_root": str(tmp_path)})
     assert res["valid"] is True
+    # and continuous mode with the flight recorder
+    assert cli.main(["test", "-w", "echo", "--node", "tpu:echo",
+                     "--node-count", "3", "--time-limit", "0.2",
+                     "--continuous", "--telemetry", "--device", "cpu",
+                     "--store", str(tmp_path)]) == 0

@@ -14,7 +14,11 @@ wrap, and a 300,256-value table whose masks pass shared memory) and the
 device Elle checker's edge build and cycle screen (K16, K17: positions
 past both ends of the writer table, cyclic graphs that hit the
 iteration cap and acyclic ones that converge earlier, transaction
-tables across the prefix max's block and carry-chunk boundaries) too.
+tables across the prefix max's block and carry-chunk boundaries) too,
+and the continuous scan's select and fold (K18, up to 100,000 rows) and
+the flight recorder's ring fold (K19: role slices, one or two send
+planes, 100,000 clients over an 800,000-row pool, every latency bucket
+from 1 to 2^17 rounds and a wrapping latency sum).
 
 These tests need a CUDA device and skip without one. They import
 nothing of JAX, so they run on a machine without it:
@@ -1043,3 +1047,137 @@ def test_elle_kernels_match_plain(cuda, vp, rp, tp, acyclic, do_rt):
     assert (K.ELLE_EDGES.launches - n0, K.ELLE_SCREEN.launches - n1) == (1, 1)
     for a, b in zip(dev, cpu):       # inputs untouched
         assert torch.equal(a.cpu(), b)
+
+
+# --- K18 sched_inject and K19 ring_update -------------------------------------
+
+@pytest.mark.parametrize("Q", [1, 5, 255, 256, 257, 100_000])
+@pytest.mark.parametrize("form", ["first", "fold", "last"])
+def test_sched_inject_matches_plain(cuda, Q, form):
+    """The continuous scan's select and fold: the first round (no im, no
+    stamped view), a middle round, and the window's last fold (no
+    select)."""
+    from maelstrom_tpu_torch.sim import sched_select, sched_select_plain
+    g = np.random.default_rng(Q)
+    valid = g.random(Q) < 0.8
+    at = g.integers(-1, 40, Q).astype(np.int32)
+    im = g.integers(-1, 1 << 30, Q).astype(np.int32)
+    sent = Msgs.empty(Q, "cpu").replace(
+        valid=torch.tensor(g.random(Q) < 0.5),
+        mid=torch.tensor(g.integers(0, 1 << 30, Q).astype(np.int32)))
+    args = {"first": (None, None, 0), "fold": (im, sent, 7),
+            "last": (im, sent, None)}[form]
+
+    def call(fn, dev):
+        m, s, off = args
+        return fn(torch.tensor(valid, device=dev),
+                  torch.tensor(at, device=dev),
+                  None if m is None else torch.tensor(m, device=dev),
+                  None if s is None else tree_map(lambda t: t.to(dev), s),
+                  off)
+    n0 = K.SCHED_INJECT.launches
+    got = call(sched_select, cuda)
+    ref = call(sched_select_plain, "cpu")
+    assert K.SCHED_INJECT.launches - n0 == 1
+    assert (got[0] is None) == (ref[0] is None) == (form == "last")
+    if got[0] is not None:
+        _equal(got[0], ref[0])
+    _equal(got[1], ref[1])
+
+
+def _ring_case(g, N, C, P, chan_shape, widths, RP, Q, roles, rnd=5000):
+    """Random inputs of one ring fold on the CPU (see
+    tests/test_torch_telemetry.py for the parity cases against JAX)."""
+    from types import SimpleNamespace
+    from maelstrom_tpu_torch import telemetry as TM
+    from maelstrom_tpu_torch.net.tpu import NetConfig, NetStats
+
+    def ri(lo, hi, shape=()):
+        return torch.tensor(g.integers(lo, hi, shape), dtype=torch.int32)
+    cfg = NetConfig(n_nodes=N, n_clients=C, pool_cap=P, telemetry=True,
+                    telemetry_roles=roles)
+    ring = TM.make_ring(cfg, "cpu")
+    ring = ring.replace(**{f: ri(0, 1000, tuple(getattr(ring, f).shape))
+                           for f in TM.MetricRing.__dataclass_fields__
+                           if f != "req_round"})
+    ring = ring.replace(req_round=torch.where(
+        torch.tensor(g.random(C) < 0.3), -1, ri(rnd - 300, rnd, (C,))))
+    stats = ("sent_all", "recv_all", "lost", "dropped_partition",
+             "dropped_down", "dropped_overflow", "duplicated")
+    st0 = NetStats.zeros("cpu").replace(
+        **{f: ri(2**31 - 50, 2**31 - 1) for f in stats})
+    st1 = st0.replace(**{f: getattr(st0, f) + ri(0, 100) for f in stats})
+    net = SimpleNamespace(stats=st1, pool=SimpleNamespace(
+        valid=torch.tensor(g.random(P) < 0.4)))
+    chan = (None if chan_shape is None
+            else torch.tensor(g.random(chan_shape) < 0.3))
+    planes = tuple(torch.tensor(g.random((N, w)) < 0.3) for w in widths)
+    reply = Msgs.empty(RP, "cpu").replace(
+        valid=torch.tensor(g.random(RP) < 0.5),
+        dest=ri(0, N + C + 3, (RP,)))
+    inject = Msgs.empty(Q, "cpu").replace(
+        valid=torch.tensor(g.random(Q) < 0.6), src=ri(0, N + C + 3, (Q,)))
+    return [cfg, ring, st0, net, chan, torch.tensor(rnd, dtype=torch.int32),
+            planes, inject, reply]
+
+
+def _to_cuda(args, dev):
+    """The fold's arguments on `dev` (the NetConfig as it is)."""
+    from types import SimpleNamespace
+
+    def move(a):
+        if isinstance(a, SimpleNamespace):
+            return SimpleNamespace(stats=move(a.stats), pool=SimpleNamespace(
+                valid=a.pool.valid.to(dev)))
+        return tree_map(lambda t: t.to(dev), a)
+    return [args[0]] + [move(a) for a in args[1:]]
+
+
+# (N, C, pool, channel shape or None, send plane widths, reply rows,
+#  inject rows, role slices)
+RING_CASES = {
+    "pool-echo5": (5, 64, 4096, None, (8,), 128, 64, ((0, 5),)),
+    "edge-linkv5": (5, 5, 64, (5, 4, 404, 1), (4, 8), 40, 5, ((0, 5),)),
+    "roles": (7, 9, 100, (7, 2, 3, 2), (5, 1), 30, 9, ((0, 2), (2, 3),
+                                                        (3, 7))),
+    "wide-100k": (100_000, 100_000, 800_000, (100_000, 4, 2, 4), (16, 4),
+                  400_000, 100_000, ((0, 100_000),)),
+    "tiny": (1, 1, 1, None, (1,), 1, 1, ((0, 1),)),
+}
+
+
+@pytest.mark.parametrize("case", list(RING_CASES))
+def test_ring_update_matches_plain(cuda, case):
+    from maelstrom_tpu_torch import telemetry as TM
+    N, C, P, ch, widths, RP, Q, roles = RING_CASES[case]
+    g = np.random.default_rng(len(case) + N)
+    cpu = _ring_case(g, N, C, P, ch, widths, RP, Q, roles)
+    n0 = K.RING_UPDATE.launches
+    got = TM.ring_update(*_to_cuda(cpu, cuda))
+    ref = TM.ring_update_plain(*cpu)
+    assert K.RING_UPDATE.launches - n0 == 1
+    _equal(got, ref)
+
+
+def test_ring_update_lat_buckets_exhaustive_and_wrap(cuda):
+    """Every latency 1..2^17 in one fold, against the plain version's
+    integer buckets, with lat_sum and lat_count wrapping past 2^31."""
+    from maelstrom_tpu_torch import telemetry as TM
+    C = 1 << 17
+    rnd = C + 9
+    g = np.random.default_rng(3)
+    cpu = _ring_case(g, 5, C, 64, None, (4,), C, 4, ((0, 5),), rnd=rnd)
+    ring = cpu[1].replace(
+        req_round=torch.tensor(rnd - np.arange(1, C + 1), dtype=torch.int32),
+        lat_sum=torch.tensor(2**31 - 7, dtype=torch.int32),
+        lat_count=torch.tensor(2**31 - 3, dtype=torch.int32),
+        lat_hist=torch.zeros(TM.LAT_BUCKETS, dtype=torch.int32))
+    cpu[1] = ring
+    cpu[8] = Msgs.empty(C, "cpu").replace(
+        valid=torch.ones(C, dtype=torch.bool),
+        dest=torch.arange(5, 5 + C, dtype=torch.int32))
+    got = TM.ring_update(*_to_cuda(cpu, cuda))
+    ref = TM.ring_update_plain(*cpu)
+    _equal(got, ref)
+    assert int(got.lat_sum) < 0 and int(got.lat_count) < 0
+    assert got.lat_hist.cpu().tolist()[:4] == [1, 1, 2, 4]

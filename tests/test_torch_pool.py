@@ -130,14 +130,16 @@ def test_net_helpers_match_jax():
 
 
 def test_scope_guards_raise():
-    """The adversary and telemetry parts are refused; the fault paths
-    and the batched-broadcast unit accounting the port has are not."""
-    for kw in ({"enable_byz": True}, {"telemetry": True}):
+    """The adversary part is refused; the fault paths, the
+    batched-broadcast unit accounting and the telemetry ring the port
+    has are not."""
+    for kw in ({"enable_byz": True},):
         with pytest.raises(NotImplementedError):
             PT.check_scope(PT.NetConfig(n_nodes=4, **kw))
     for kw in ({"latency_dist": "uniform"}, {"enable_duplication": True},
                {"enable_stall": True}, {"partition_groups": 2},
-               {"unit_words": ((10, 0),)}):
+               {"unit_words": ((10, 0),)},
+               {"telemetry": True, "telemetry_roles": ((0, 4),)}):
         PT.check_scope(PT.NetConfig(n_nodes=4, **kw))
     with pytest.raises(ValueError, match="latency dist"):
         PT.check_scope(PT.NetConfig(n_nodes=4, latency_dist="pareto"))

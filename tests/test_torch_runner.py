@@ -138,7 +138,10 @@ def test_free_set_rotation_matches_sorted_list():
     (["--nemesis-targets", "kill=n0"], "the role-partitioned programs"),
     (["--byz-rate", "0.5"], "the byzantine adversary"),
     (["--client-retries", "3"], "retries and backoff"),
-    (["--continuous"], "continuous mode"),
+    # the cases that refused what now runs (--continuous, --telemetry)
+    # keep their ids and check what stays refused beside them
+    pytest.param(["--continuous", "--fleet", "2"], "mesh and fleet",
+                 id="extra5-continuous mode"),
     (["--fleet", "4"], "mesh and fleet"),
     (["--mesh", "1,4"], "mesh and fleet"),
     (["--checkpoint-every", "1"], "checkpoint and resume"),
@@ -151,7 +154,8 @@ def test_free_set_rotation_matches_sorted_list():
     pytest.param(["-w", "txn-list-append", "--node", "tpu:txn-list-append",
                   "--device-checker", "on", "--check-workers", "1"],
                  "the overlap pipeline", id="extra10-device Elle"),
-    (["--telemetry"], "telemetry rings"),
+    pytest.param(["--telemetry", "--checkpoint-every", "1"],
+                 "checkpoint and resume", id="extra11-telemetry rings"),
     (["--ordering", "compartment"], "the role-partitioned programs"),
     pytest.param(["-w", "txn-rw-register", "--bin",
                   "demo/python/txn_rw_register.py"],
