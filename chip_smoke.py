@@ -69,8 +69,20 @@ two consumer groups and lin-kv under the five-package soup, echo at 300
 ops/s), whose histories and rings must hash to the JAX runner's
 (`PINNED_STREAM`), with the ring also on the lin-kv and echo runs of
 earlier slices, whose histories keep their pins and whose rings hash to
-JAX's (`PINNED_TELEMETRY`). Every phase prints one JSON line; any
-failed check exits non-zero. The line before the last lists every kernel
+JAX's (`PINNED_TELEMETRY`). Then the role-partition slice: K20 tso_step,
+K21 seq_kv_step and K22 lww_kv_step (with and without their stall
+masks, K22 up to 100,000 replicas x 256 keys) against their plain
+versions, the lin-tso runs on the in-cluster services (`--node
+tpu:services`: plain, under role-targeted kills, pauses and partitions
+with the ring on, and 1,022 lww-kv replicas) whose histories and ring
+must hash to the JAX runner's (`PINNED_SERVICES`), and two pinned runs
+of earlier slices again with their program wrapped as a one-role
+partition (`--node tpu:solo:<program>`), held to their existing pins.
+The runs (the CLI, the benches and the sweeps) go in four groups side
+by side, three of them in worker processes the script starts and waits
+for (`--worker`), each phase counting the launches of its own runs; the
+profiles and the kernel times come after, with the card to themselves.
+Every phase prints one JSON line; any failed check exits non-zero. The line before the last lists every kernel
 with its launches on its path, its time, its plain version's time and
 its bound; the last line is `{"ok": true, "device": {...}}`.
 
@@ -120,14 +132,24 @@ PINNED_PRNG = {
 }
 
 
-T_START = time.perf_counter()
+# the smoke's start on the monotonic clock, which every process of the
+# machine shares: a worker process (`--worker`) gets its parent's, so its
+# phases' `at_s` count from the same start
+T_START = float(os.environ.get("CHIP_SMOKE_T0") or time.perf_counter())
+WORKER = os.environ.get("CHIP_SMOKE_WORKER")
+
+# why the runs cut to pay for the role-partition slice were cut (their
+# `reduced` records)
+WHY_SERVICES = ("to pay for the role-partition slice (its cli_services "
+                "runs add 12,534 executed rounds)")
 
 
 def emit(obj) -> None:
     """One JSON line; a phase's line carries the smoke's seconds so far
     (`at_s`)."""
     if "phase" in obj:
-        obj = {**obj, "at_s": time.perf_counter() - T_START}
+        obj = {**obj, "at_s": time.perf_counter() - T_START,
+               **({"worker": int(WORKER)} if WORKER else {})}
     print(json.dumps(obj), flush=True)
 
 
@@ -876,10 +898,10 @@ CLI_BASE = ["test", "-w", "broadcast", "--node", "tpu:broadcast", "--seed",
             "7", "--rate", "20"]
 CLI_SMALL = [
     ("grid5", CLI_BASE + ["--node-count", "5", "--topology", "grid",
-                          "--time-limit", "2"]),
+                          "--time-limit", "1"]),
     ("line8-latency5", CLI_BASE + ["--node-count", "8", "--topology",
                                    "line", "--latency", "5",
-                                   "--time-limit", "2"]),
+                                   "--time-limit", "1"]),
     ("tree4-25-latency10", CLI_BASE + ["--node-count", "25", "--topology",
                                        "tree4", "--latency", "10",
                                        "--time-limit", "1"]),
@@ -887,7 +909,14 @@ CLI_SMALL = [
                              "--time-limit", "1", "--max-values", "64",
                              "--ms-per-round", "5"]),
 ]
-CLI_SMALL_REDUCED = {"grid1024": {
+CLI_SMALL_REDUCED = {
+    "grid5": {"time_limit_s": 1.0, "from": 2.0, "rounds_executed_from": 2002,
+              "why": WHY_SERVICES + ": the main phase halved, its 10 s "
+                     "recovery window (bumped, not executed) kept"},
+    "line8-latency5": {"time_limit_s": 1.0, "from": 2.0,
+                       "rounds_executed_from": 2002,
+                       "why": WHY_SERVICES + ": the main phase halved"},
+    "grid1024": {
     "ms_per_round": 5.0, "from": 1.0,
     "model_change": "more than a cut in depth: a gossip hop, one round, "
                     "takes 5 ms of virtual time (was 1 ms), so the stagger "
@@ -896,9 +925,9 @@ CLI_SMALL_REDUCED = {"grid1024": {
 # CPU (`python -m maelstrom_tpu <args> --no-audit`); re-derived by
 #   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_runner.py -m slow
 PINNED_CLI = {
-    "grid5": "4b105b08385de9acbf1fb2f8b57e09dcb8acbaf8fe5320f7627f7f0861b19234",
+    "grid5": "4d95556c47fba422610288961c70b2183304e1d264beb2b0dfb782669f48b1ad",
     "line8-latency5":
-        "2329871b340d02b4da10feb9461e24e0e8036f4cdbb4cbc1bcf4015c8f871601",
+        "c0118dbcaa402ac83871f34dcb48ee5688b1d499af4419fb0b0def4668e4e5ae",
     "tree4-25-latency10":
         "631347a029cbc7d046645531e9c91b64d854c99726752f17eeccc12b2e1f01f3",
     "grid1024":
@@ -921,7 +950,7 @@ CLI_FAULTS_SMALL = [
     ("tree4-25-partition", CLI_FAULT_BASE + [
         "--node-count", "25", "--topology", "tree4", "--latency", "10",
         "--nemesis", "partition", "--nemesis-interval", "0.5",
-        "--time-limit", "2"]),
+        "--time-limit", "1"]),
     ("grid5-storm", CLI_FAULT_BASE + [
         "--node-count", "5", "--topology", "grid", "--seed", "23",
         "--latency", "3", "--latency-dist", "exponential", "--p-loss",
@@ -935,7 +964,13 @@ CLI_FAULTS_SMALL = [
         "--time-limit", "2", "--ms-per-round", "2", "--timeout-ms",
         "1000"]),
 ]
-CLI_FAULTS_SMALL_REDUCED = {"grid5-storm": {
+CLI_FAULTS_SMALL_REDUCED = {
+    "tree4-25-partition": {
+        "time_limit_s": 1.0, "from": 2.0, "rounds_executed_from": 2258,
+        "why": WHY_SERVICES + ": the 0.5 s nemesis interval kept, so "
+               "one partition (0.5-1 s) where there were two; "
+               "dropped-partition still shows"},
+    "grid5-storm": {
     "timeout_ms": 1000, "from": 5000, "rounds_executed": 4805,
     "rounds_from": 10982,
     "why": "to pay for the stream slice: two stragglers (an op of the "
@@ -963,7 +998,7 @@ CLI_FAULTS_SMALL_REDUCED = {"grid5-storm": {
 #       -m slow
 PINNED_FAULTS = {
     "tree4-25-partition":
-        "91b0b556d059abb6b895aed9a01acfcd90a5f9fd3e4beeb05f024d75563129b6",
+        "c65e46afb14055667fa4c0c1f45a72b39ec597fd479da627337ed3007956f6ed",
     "grid5-storm":
         "4abdb44c147eda668ab41e9670e45e090c5dc53e76f89215537046c86cab99c2",
     "grid1024-faults":
@@ -1031,7 +1066,8 @@ def phase_cli_small():
         check(digest == PINNED_CLI[name],
               f"cli {name}: history.jsonl sha256 {digest}, the JAX "
               f"runner's {PINNED_CLI[name]}")
-        runs[name] = {"wall_s": wall, "final_round": tm["final-round"],
+        runs[name] = {"reduced": CLI_LINKV_REDUCED.get(name),
+                      "wall_s": wall, "final_round": tm["final-round"],
                       "rounds_executed": tm["rounds-executed"],
                       "dispatches": tm["dispatches"], "drains": tm["drains"],
                       "history_sha256_equal": True,
@@ -1525,8 +1561,10 @@ RAFT_PINNED_CLUSTERS = 64
 # The port's lin-kv CLI on one 5-node Raft cluster: fault-free, and under
 # exponential latency, 2% loss and the kill, pause, partition and
 # duplicate nemeses every 0.5 s (the faulted run's ring: 5 * 8 * 10 + 2
-# + 2 = 404; a shorter run leaves an op kind with no ok, which the stats
-# checker fails). sha256 of the JAX runner's history.jsonl for each, on the
+# + 2 = 404), cut from 2 s to 1 s (`CLI_LINKV_REDUCED`: every op kind
+# still has an ok, so the stats checker passes; its 5 s client timeouts
+# kept, where stragglers spend most of its rounds). sha256 of the JAX
+# runner's history.jsonl for each, on the
 # CPU (`python -m maelstrom_tpu <args> --no-audit`); re-derived by
 #   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_linkv.py -m slow
 CLI_LINKV_BASE = ["test", "-w", "lin-kv", "--node", "tpu:lin-kv",
@@ -1534,15 +1572,19 @@ CLI_LINKV_BASE = ["test", "-w", "lin-kv", "--node", "tpu:lin-kv",
 CLI_LINKV = [
     ("linkv5", CLI_LINKV_BASE + ["--time-limit", "1"]),
     ("linkv5-faults", CLI_LINKV_BASE + [
-        "--time-limit", "2", "--latency", "5", "--latency-dist",
+        "--time-limit", "1", "--latency", "5", "--latency-dist",
         "exponential", "--p-loss", "0.02", "--nemesis",
         "kill,pause,partition,duplicate", "--nemesis-interval", "0.5"]),
 ]
+CLI_LINKV_REDUCED = {"linkv5-faults": {
+    "time_limit_s": 1.0, "from": 2.0, "rounds_executed_from": 6260,
+    "why": WHY_SERVICES + ": the 0.5 s nemesis interval and the 5 s client "
+           "timeouts kept; every fault counter still shows"}}
 PINNED_LINKV = {
     "linkv5":
         "169dc9d20b2a6ffe58cbe79aefcb49d7593e18ebb19734acd859652e3dd85404",
     "linkv5-faults":
-        "40b6bb7eaf8f18e2fffbea8ef8c23c026ee7ef5b054ca10a1fdbcf0e868e0eaa",
+        "810f160a1cd940bd9f1996cfc8a07205fbdb837bbb4e1cf0b127bbb992edcf79",
 }
 # the kernels of the raft round on the cluster axis; the CLI path adds
 # K5 (the scan's reply log) and K8 (the edge fault pass)
@@ -2182,8 +2224,9 @@ OWN_KERNELS = ("step_kernel", "count_kernel", "emit_kernel", "route_kernel",
 # time limit cut from 30 s to 2.5 s, and the nemesis interval, the CLI's
 # 10 s there, scaled with it to 0.834 s, so that the cut run keeps the
 # challenge's schedule: one partition over the middle third of the run,
-# none at 10 s in a short run; then the time limit alone cut to 1.25 s,
-# which leaves the partition from 0.834 s to the end of the run).
+# none at 10 s in a short run; then the time limit alone cut to 1.25 s
+# and 1 s, which leaves the partition from 0.834 s to the end of the
+# run).
 # tests/test_torch_runner_programs.py holds both against the JAX runner
 # on the CPU.
 CLI_POOL = [
@@ -2192,11 +2235,14 @@ CLI_POOL = [
     ("unique-ids3-challenge2", [
         "test", "-w", "unique-ids", "--node", "tpu:unique-ids",
         "--node-count", "3", "--rate", "1000", "--nemesis", "partition",
-        "--nemesis-interval", "0.834", "--time-limit", "1.25", "--seed",
+        "--nemesis-interval", "0.834", "--time-limit", "1", "--seed",
         "7"]),
 ]
 CLI_POOL_REDUCED = {"unique-ids3-challenge2": {
-    "time_limit_s": 1.25, "from": 30.0, "nemesis_interval_s": 0.834,
+    "time_limit_s": 1.0, "from": 30.0, "cut_again_from": 1.25,
+    "rounds_executed_from": 1252, "why_again": WHY_SERVICES
+    + ": the partition now runs 0.834-1 s",
+    "nemesis_interval_s": 0.834,
     "nemesis_interval_from": 10.0,
     "why": "the interval scaled with a 2.5 s time limit: one partition "
            "over the run's middle third, as in the 30 s challenge; then "
@@ -2211,16 +2257,29 @@ CLI_CRDT = [
     ("g-set20-fanout3-loss", {
         "workload": "g-set", "node": "tpu:g-set", "node_count": 20,
         "gossip_fanout": 3, "p_loss": 0.05, "rate": 20.0, "time_limit": 2.0,
-        "recovery_s": 3, "ms_per_round": 5.0, "seed": 11}),
+        "recovery_s": 1.5, "ms_per_round": 5.0, "seed": 11}),
     ("pn-counter5-partition", {
         "workload": "pn-counter", "node": "tpu:pn-counter", "node_count": 5,
         "nemesis": {"partition"}, "nemesis_interval": 0.5, "rate": 20.0,
         "time_limit": 1.5, "recovery_s": 1, "seed": 11}),
     ("g-counter5", {
         "workload": "g-counter", "node": "tpu:g-counter", "node_count": 5,
-        "rate": 20.0, "time_limit": 2.0, "ms_per_round": 5.0, "seed": 11}),
+        "rate": 20.0, "time_limit": 2.0, "recovery_s": 1.0,
+        "ms_per_round": 5.0, "seed": 11}),
 ]
-CLI_CRDT_REDUCED = {"pn-counter5-partition": {
+CLI_CRDT_REDUCED = {
+    "g-set20-fanout3-loss": {
+        "recovery_s": 1.5, "from": 3.0, "rounds_executed_from": 2239,
+        "why": WHY_SERVICES + ": the final reads still see every "
+               "acknowledged add (lost-count 0) under the 5% loss"},
+    "g-counter5": {
+        "recovery_s": 1.0, "from": 10.0, "rounds_executed_from": 2402,
+        "why": WHY_SERVICES + ": the JAX g-counter never quiesces on "
+               "this graph (ROADMAP queue 3), so every round of its 10 s "
+               "recovery "
+               "window (the default, at 5 ms a round) executed; 1 s of "
+               "recovery still ends in a valid count"},
+    "pn-counter5-partition": {
     "time_limit_s": 1.5, "from": 3.0, "recovery_s": 1.0,
     "recovery_from": 2.0,
     "why": "to pay for the batched-broadcast phases: the run never "
@@ -2234,15 +2293,15 @@ CLI_CRDT_REDUCED = {"pn-counter5-partition": {
 PINNED_POOL = {
     "echo5": "e43929688d2a0f9c44df83a5ad75afea1720f8e7c957ee4bdaae1c9ad32503b7",
     "unique-ids3-challenge2":
-        "b280d2632ff1311b2054a8e15ce9ff02f2528be4e2a1da02708e691250941bbf",
+        "7c7a9e6aca607d2ac29ce53356e0177ee72f3e919cacc7f8133f7d1826424957",
 }
 PINNED_CRDT = {
     "g-set20-fanout3-loss":
-        "89d82308ee607c9d41c6756e8fe916f7304375fda348e6f66aa796583da01a8b",
+        "8b7ff9277d6b97702a8772e4a406ad315c334c2d8954039bdd94b04ed0fd1ee2",
     "pn-counter5-partition":
         "ab5ff8f51c79929a46310f758182731071289c91dfdcb7c428499f6065d06cf2",
     "g-counter5":
-        "c8fc49ac6266d9eeb50a728cc39286c1ebe4a5428ddb99339c0401b20e635491",
+        "1ca6a70b120a88c4d2e607bfa6afa37b88c9a0ee2d491b8aa64cf4e54dd80dc1",
 }
 # The slice's full-width runs: BASELINE config 3 (g-set, 1,000 nodes,
 # gossip fanout 3, 5% loss; the README's set-full claim), and pn-counter
@@ -2798,15 +2857,16 @@ FUZZ_KERNELS = ("broadcast_step", "edge_read", "edge_write", "edge_faults",
 # test_wide_keys_kill_nemesis_regression), then Gossip Glomers'
 # challenge 5b (fly.io dist-sys 5b: --node-count 2 --concurrency 2n
 # --time-limit 20 --rate 1000) with --key-count 4, its time limit cut
-# from 20 s to 1.5 s (`CLI_KAFKA_REDUCED`), and the wide8 kill run from
-# 4 s to 2 s. tests/test_torch_runner_kafka.py
-# holds each against the JAX runner on the CPU.
+# from 20 s to 1.5 s and then 1 s (`CLI_KAFKA_REDUCED`), the wide8 kill
+# run from 4 s to 2 s, and the two e2e runs from 3 s to 2 s.
+# tests/test_torch_runner_kafka.py holds each against the JAX runner on
+# the CPU.
 KAFKA_BASE = {"workload": "kafka", "node": "tpu:kafka", "node_count": 5,
               "journal_rows": False}
 CLI_KAFKA = [
-    ("kafka5-e2e", {**KAFKA_BASE, "rate": 20.0, "time_limit": 3.0,
+    ("kafka5-e2e", {**KAFKA_BASE, "rate": 20.0, "time_limit": 2.0,
                     "seed": 7}),
-    ("kafka5-groups2", {**KAFKA_BASE, "rate": 20.0, "time_limit": 3.0,
+    ("kafka5-groups2", {**KAFKA_BASE, "rate": 20.0, "time_limit": 2.0,
                         "seed": 11, "kafka_groups": 2}),
     ("kafka5-wide8-groups2-kill", {
         **KAFKA_BASE, "rate": 60.0, "time_limit": 2.0, "seed": 5,
@@ -2815,12 +2875,17 @@ CLI_KAFKA = [
         "nemesis": {"kill"}, "nemesis_interval": 0.9}),
     ("kafka2-challenge5b", [
         "test", "-w", "kafka", "--node", "tpu:kafka", "--node-count", "2",
-        "--concurrency", "4", "--rate", "1000", "--time-limit", "1.5",
+        "--concurrency", "4", "--rate", "1000", "--time-limit", "1",
         "--key-count", "4", "--seed", "7"]),
 ]
 CLI_KAFKA_REDUCED = {
+    "kafka5-e2e": {"time_limit_s": 2.0, "from": 3.0,
+                   "rounds_executed_from": 3000, "why": WHY_SERVICES},
+    "kafka5-groups2": {"time_limit_s": 2.0, "from": 3.0,
+                       "rounds_executed_from": 3000, "why": WHY_SERVICES},
     "kafka2-challenge5b": {
-        "time_limit_s": 1.5, "from": 20.0,
+        "time_limit_s": 1.0, "from": 20.0, "cut_again_from": 1.5,
+        "rounds_executed_from": 1501, "why_again": WHY_SERVICES,
         "why": "at 20 s the full-prefix polls put some 30 M pairs in the "
                "history, past what the JAX runner derives a pin for on a "
                "CPU; then cut from 5 s to 1.5 s to pay for the "
@@ -2836,13 +2901,13 @@ CLI_KAFKA_REDUCED = {
 #       -m slow
 PINNED_KAFKA = {
     "kafka5-e2e":
-        "64c59136680defee8ca83a246b6c799508956bc9b488d0604c541d09a1ee6353",
+        "1a7528c7de3337eb7a05a5a4e66fa63b82bbfc6c5b6e0490af8d9cc115be151a",
     "kafka5-groups2":
-        "340dbe1ffd735b840217d8171c6a90bfe631a16d9a66151dff3afa813e358bbe",
+        "1c0b278581b72a142a7fd8238b86d9fbda7ca15f4784cb1447ba13db04f74ba6",
     "kafka5-wide8-groups2-kill":
         "b59b7a81d7ed8df9c8b3dbcdbbdbc1389aaf7d8830d33725a14a1da517ad26cd",
     "kafka2-challenge5b":
-        "3e6ba752d5166775defae9b3aee5d2055fd247f7d2fc07de4590691b79aefe6b",
+        "9b7d82b022dd701b41bbbe896e4678ffc7a5891508b6c94396c486b96e68446f",
 }
 
 # fuzz.fuzz_kafka's five configs at 5 nodes, cut from 6 s to 2 s with the
@@ -3180,20 +3245,24 @@ ORDERED_KERNELS = {"batched": ("broadcast_batched_step", "edge_read",
 # The JAX package's batched-broadcast runs (tests/test_broadcast_batched.py
 # test_batched_broadcast_tpu_e2e, and the combined-nemesis run of
 # test_verdict_bit_equal_under_combined_nemesis), and the ordering axis
-# at tests/test_ordering.py's base options (seed 7, rate 12, 1.6 s):
-# lin-kv over the batched engine, kafka over the raft engine.
+# at tests/test_ordering.py's base options (seed 7, rate 12; 1.6 s there,
+# cut to 1 s, `CLI_ORDERED_REDUCED`): lin-kv over the batched engine,
+# kafka over the raft engine.
 BATCHED_BASE = {"workload": "broadcast-batched",
                 "node": "tpu:broadcast-batched", "node_count": 5,
                 "topology": "grid", "journal_rows": False}
 CLI_BATCHED = [
-    ("batched5-e2e", {**BATCHED_BASE, "rate": 20.0, "time_limit": 2.0,
+    ("batched5-e2e", {**BATCHED_BASE, "rate": 20.0, "time_limit": 1.0,
                       "seed": 7}),
     ("batched5-nemesis", {**BATCHED_BASE, "rate": 20.0, "time_limit": 3.0,
                           "recovery_s": 2.0, "seed": 13,
                           "nemesis": {"kill", "partition", "duplicate"},
                           "nemesis_interval": 0.8, "timeout_ms": 1000}),
 ]
-CLI_BATCHED_REDUCED = {"batched5-nemesis": {
+CLI_BATCHED_REDUCED = {
+    "batched5-e2e": {"time_limit_s": 1.0, "from": 2.0,
+                     "rounds_executed_from": 2002, "why": WHY_SERVICES},
+    "batched5-nemesis": {
     "timeout_ms": 1000, "from": 5000, "rounds_executed": 3200,
     "rounds_from": 7204,
     "why": "to pay for the stream slice: an op to a killed node held "
@@ -3201,8 +3270,10 @@ CLI_BATCHED_REDUCED = {"batched5-nemesis": {
            "recovery and nemesis interval are kept, every fault counter "
            "still shows (cutting the time limit to 1.5 s removed 1,576 "
            "rounds, the timeout 4,004)"}}
-ORDERED_BASE = {"seed": 7, "rate": 12.0, "time_limit": 1.6,
+ORDERED_BASE = {"seed": 7, "rate": 12.0, "time_limit": 1.0,
                 "journal_rows": False}
+CLI_ORDERED_REDUCED = {"time_limit_s": 1.0, "from": 1.6,
+                       "rounds_executed_from": 1600, "why": WHY_SERVICES}
 CLI_ORDERED = [
     ("linkv-ordered-batched", {**ORDERED_BASE, "workload": "lin-kv",
                                "ordering": "batched"}),
@@ -3215,13 +3286,13 @@ CLI_ORDERED = [
 #       tests/test_torch_runner_batched.py -m slow
 PINNED_BATCHED = {
     "batched5-e2e":
-        "cd5a5e8df49844971191aaa35000bcc4083907efb3726e434efdd3aa065962d7",
+        "8af12805afe548f062005cf576e67b1ed38217f7c3708b7682c6beded5a16ff9",
     "batched5-nemesis":
         "361f5de5b2621fcb13526e0f896e38adaa890d94cbee41b5764187e73c82d0c4",
     "linkv-ordered-batched":
-        "e7d8cac738edcf27ec9361bb57734033868b06253485c913c0fe5087a857b1a2",
+        "5dfe10fcc59aea9a1703d97bce4261ffff1f324e810c85a42207b6746c629cd2",
     "kafka-ordered-raft":
-        "bf7f12b0bfff1cf7c28e0c99043e46a525d49496d3db1b6e9de768d150e840da",
+        "d94c458b932fa7da7aab8f41515664fe62c65e955d6a13b82f41d65047ffc533",
 }
 
 # bench.py's batched-vs-eager record at its defaults (4,096 nodes, 512
@@ -3465,7 +3536,7 @@ def phase_cli_ordered(smi):
     for name, run in CLI_ORDERED:
         K.reset_launches()
         runs[name] = _run_line(name, run, store, PINNED_BATCHED)
-        runs[name]["reduced"] = CLI_BATCHED_REDUCED.get(name)
+        runs[name]["reduced"] = CLI_ORDERED_REDUCED
         launches[name] = K.launch_counts()
         for k in ORDERED_KERNELS[run["ordering"]]:
             check(launches[name][k] > 0, f"ordered {name} did not launch "
@@ -3495,11 +3566,13 @@ def phase_bench_batched(smi):
 
 # --- Raft transactions, lin-mutex and device Elle ----------------------------
 
-# The JAX package's e2e runs of the transaction programs, full depth:
-# tests/test_elle_device.py's device-vs-host run (seed 11, rate 25, 2 s)
-# and its partition soup (seed 23, rate 15, 4 s, a partition every 2 s),
-# both with the device checker on; tests/test_txn_rw_register.py's run
-# (3 nodes, seed 7, rate 15, 3 s); lin-mutex on the Raft lin-kv program
+# The JAX package's e2e runs of the transaction programs, cut in depth
+# to pay for the role-partition slice (`CLI_TXN_REDUCED`; the lengths
+# in parentheses are the JAX tests'): tests/test_elle_device.py's device-vs-host run
+# (seed 11, rate 25, 2 s) and its partition soup (seed 23, rate 15, 4 s,
+# a partition every 2 s), both with the device checker on;
+# tests/test_txn_rw_register.py's run (3 nodes, seed 7, rate 15, 3 s);
+# lin-mutex on the Raft lin-kv program
 # at the lin-kv runs' shape (5 nodes, seed 7, rate 15, 2 s); and a run
 # whose 1,158 ok transactions engage the device checker on its own
 # (`--device-checker auto` engages at 1,024): rate 500 over 20 clients
@@ -3510,43 +3583,54 @@ def phase_bench_batched(smi):
 TXN_BASE = {"workload": "txn-list-append", "node": "tpu:txn-list-append",
             "node_count": 5, "journal_rows": False}
 CLI_TXN = [
-    ("txn5-device-on", {**TXN_BASE, "rate": 25.0, "time_limit": 2.0,
+    ("txn5-device-on", {**TXN_BASE, "rate": 25.0, "time_limit": 1.0,
                         "seed": 11, "device_checker": "on"}),
     ("txn5-partition-device-on", {
-        **TXN_BASE, "rate": 15.0, "time_limit": 4.0, "seed": 23,
+        **TXN_BASE, "rate": 15.0, "time_limit": 3.0, "seed": 23,
         "nemesis": {"partition"}, "nemesis_interval": 2.0,
         "device_checker": "on"}),
     ("rw-register3", {"workload": "txn-rw-register",
                       "node": "tpu:txn-rw-register", "node_count": 3,
-                      "rate": 15.0, "time_limit": 3.0, "seed": 7,
+                      "rate": 15.0, "time_limit": 2.0, "seed": 7,
                       "journal_rows": False}),
     ("lin-mutex5", {"workload": "lin-mutex", "node": "tpu:lin-kv",
-                    "node_count": 5, "rate": 15.0, "time_limit": 2.0,
+                    "node_count": 5, "rate": 15.0, "time_limit": 1.0,
                     "seed": 7, "journal_rows": False}),
     ("txn5-auto", {**TXN_BASE, "rate": 500.0, "time_limit": 3.0,
                    "concurrency": 20, "ms_per_round": 5.0, "seed": 3,
                    "max_scan": 1}),
 ]
+CLI_TXN_REDUCED = {
+    "txn5-device-on": {"time_limit_s": 1.0, "from": 2.0,
+                       "rounds_executed_from": 2000, "why": WHY_SERVICES},
+    "txn5-partition-device-on": {
+        "time_limit_s": 3.0, "from": 4.0, "rounds_executed_from": 4000,
+        "why": WHY_SERVICES + "; the 2 s nemesis interval kept, so the "
+               "partition runs 2-3 s (dropped-partition still shows)"},
+    "rw-register3": {"time_limit_s": 2.0, "from": 3.0,
+                     "rounds_executed_from": 3000, "why": WHY_SERVICES},
+    "lin-mutex5": {"time_limit_s": 1.0, "from": 2.0,
+                   "rounds_executed_from": 2002, "why": WHY_SERVICES}}
 # (sha256 of the JAX runner's history.jsonl, its Elle `device` block or
 # None) for each run above, on the CPU; re-derived by
 #   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_runner_txn.py \
 #       -m slow -k pinned
 PINNED_TXN = {
     "txn5-device-on": (
-        "3fcb04951f514fb89b789b430f30f38aef5a5ac66a6fa96071a972f4623804ba",
+        "c26cb0b9c22aaeb65dfb1984fb492a72f6f9007c757237e79099e09d49d10e05",
         {"screen": {"data": "acyclic", "realtime": "acyclic",
-                    "iters": [6, 0]},
-         "edges-on-device": True, "edge-candidates": 148}),
+                    "iters": [7, 0]},
+         "edges-on-device": True, "edge-candidates": 66}),
     "txn5-partition-device-on": (
-        "704b5d9a8b229148e11ea8db8bc317cb342951d6b87933f352fa367b2e746584",
+        "b2eeaee047c22da1de4ee643568d3eb01085c04e6bccc325a0374c069cc45bba",
         {"screen": {"data": "acyclic", "realtime": "acyclic",
-                    "iters": [16, 0]},
-         "edges-on-device": True, "edge-candidates": 128}),
+                    "iters": [5, 0]},
+         "edges-on-device": True, "edge-candidates": 95}),
     "rw-register3": (
-        "7e3650017c5139a95210b4768a6b0c91c58f5ce41284ae9eba387577b21fbbf4",
+        "f6fe58daf375c1bfeebd6354f6f76111fe380287f2742f52e5279280aa5f57d2",
         None),
     "lin-mutex5": (
-        "35bbcb38bb0147a7f232d79ad820c93035e101c80df888596be53300c94ca1b4",
+        "dd66b5cfda2c54d374aa206f39a532d6bcfa843c6184682cbe2c4b481399665a",
         None),
     "txn5-auto": (
         "cf261f7763ec6959da1d11dce3a118e3ccfb21231fcdbcecc451cfb88962de99",
@@ -3746,7 +3830,8 @@ def phase_cli_txn(smi):
         runs[name].update({"device": w.get("device"),
                            "checker_device_s": res["net"].get(
                                "checker-device-s"),
-                           "ok_count": res["stats"]["ok-count"]})
+                           "ok_count": res["stats"]["ok-count"],
+                           "reduced": CLI_TXN_REDUCED.get(name)})
     shutil.rmtree(store, ignore_errors=True)
     emit({"phase": "cli_txn", "runs": runs, "launches": launches,
           "nvidia_smi": smi})
@@ -3806,19 +3891,20 @@ def phase_bench_checkers(smi):
 # (tests/test_continuous.py `_kafka_stream`), lin-kv under the soup
 # (`_run`) and echo at 300 ops/s, whose windows batch many ops a drain;
 # the kafka and echo runs with the flight recorder on (`--telemetry`,
-# kernel K19). Nothing is cut.
+# kernel K19). The kafka and lin-kv runs cut from 3 s to 2 s
+# (`CLI_STREAM_REDUCED`).
 SOUP = {"kill", "pause", "partition", "duplicate", "weather"}
 STREAM_BASE = {"node_count": 5, "continuous": True, "journal_rows": False,
                "recovery_s": 1.5}
 CLI_STREAM = [
     ("kafka5-stream-soup", {
         **STREAM_BASE, "workload": "kafka", "node": "tpu:kafka",
-        "kafka_groups": 2, "rate": 20.0, "time_limit": 3.0,
+        "kafka_groups": 2, "rate": 20.0, "time_limit": 2.0,
         "timeout_ms": 1000, "nemesis": SOUP, "nemesis_interval": 0.7,
         "seed": 7, "telemetry": "auto"}),
     ("linkv5-stream-soup", {
         **STREAM_BASE, "workload": "lin-kv", "node": "tpu:lin-kv",
-        "rate": 10.0, "time_limit": 3.0, "timeout_ms": 1000,
+        "rate": 10.0, "time_limit": 2.0, "timeout_ms": 1000,
         "nemesis": SOUP, "nemesis_interval": 0.7, "seed": 29}),
     ("echo-stream-300", {
         **STREAM_BASE, "workload": "echo", "node": "tpu:echo",
@@ -3826,6 +3912,13 @@ CLI_STREAM = [
         "latency": {"mean": 10, "dist": "constant"}, "timeout_ms": 5000,
         "seed": 3, "telemetry": "auto"}),
 ]
+CLI_STREAM_REDUCED = {
+    name: {"time_limit_s": 2.0, "from": 3.0, "rounds_executed_from": r,
+           "why": WHY_SERVICES + ": the 0.7 s soup interval kept, every "
+                  "package still starts and clients still invoke "
+                  "inside fault windows"}
+    for name, r in (("kafka5-stream-soup", 3680),
+                    ("linkv5-stream-soup", 3540))}
 # sha256 of the JAX runner's history.jsonl and of its results'
 # `net.telemetry` block (json.dumps with sorted keys; None with the ring
 # off), and its verdict, for each run above, on the CPU (JAX without its
@@ -3835,13 +3928,13 @@ CLI_STREAM = [
 PINNED_STREAM = {
     "kafka5-stream-soup": {
         "history":
-            "f1521ce589580f5c36ca402d955de88bfefda5ea39c3d6d6f11005edd7d4e6d6",
+            "0bd25ba3f6752e2ff9a7c4de6abd6496cdebf8614b49fc74324c5a9180df1007",
         "telemetry":
-            "19853edf0c17f703099fd095ddd1aebe576ee3ff979114eff7148657de317fad",
+            "91de0a222a7f43d001f5554d738f448013d14d0ed8ccea90f940804c70cb73ca",
         "valid": True},
     "linkv5-stream-soup": {
         "history":
-            "67da4e4ed999d3d65c43590bad9c9972be8483ce5693e5a7cece0a6785449262",
+            "cfa2272a7db5765c1391ea6c2f3dfb067c374c44ad18c0c6753dd4fa71776111",
         "telemetry": None,
         # the JAX runner's verdict: linearizable, but no read of the run
         # succeeds, which fails its stats block
@@ -3861,7 +3954,7 @@ PINNED_STREAM = {
 TELEMETRY_ON = ("linkv5-faults", "echo5")
 PINNED_TELEMETRY = {
     "linkv5-faults":
-        "5bf5b4fb26bb0f60b9ab26ff8565f1e1235cd4a965a7191516002cad4a288ad2",
+        "4ec1decb152a311882583b42c1dc12681e876ee7e7279ed5002070a654acad4e",
     "echo5": "666cd9aaf751345f29de4265620318f085b1c56f0560546958beb2e6362c85ad",
 }
 
@@ -4099,7 +4192,8 @@ def phase_cli_stream(smi):
                "dispatches": tm["dispatches"], "drains": tm["drains"],
                "history_ops": tm["history-ops"],
                "ops": res["stats"]["count"], "valid": res["valid"],
-               "history_sha256_equal": True}
+               "history_sha256_equal": True,
+               "reduced": CLI_STREAM_REDUCED.get(name)}
         if opts.get("telemetry"):
             check(launches[name]["ring_update"] > 0,
                   f"stream {name} did not launch ring_update")
@@ -4136,6 +4230,400 @@ def phase_cli_stream(smi):
     return {k: sum(v[k] for v in launches.values()) for k in STREAM_KERNELS}
 
 
+# --- the role-partition slice: the in-cluster services (K20-K22) -----------
+
+# The lin-tso workload on the role-partitioned services cluster (`--node
+# tpu:services`) through `core.run` (the CLI has no flag for recovery_s):
+# the JAX package's e2e run (tests/test_services_roles.py), the same
+# under role-targeted kills (the lww-kv replicas), pauses (the lin-tso
+# node) and partitions with the flight recorder on (a 1 s client
+# timeout: at the 5 s default stragglers wait out the paused oracle and
+# the run reaches round 6,820), and 1,022 lww-kv replicas at 200 ops/s
+# (K22 at 1,022 replicas every round). Nothing is cut.
+SERVICES_BASE = {"workload": "lin-tso", "node": "tpu:services", "seed": 7,
+                 "rate": 20.0, "time_limit": 2.0}
+CLI_SERVICES = [
+    ("tso5", dict(SERVICES_BASE)),
+    ("tso5-targeted", {
+        **SERVICES_BASE, "nemesis": {"kill", "pause", "partition"},
+        "nemesis_targets": "kill=lww-kv,pause=lin-tso",
+        "nemesis_interval": 0.5, "recovery_s": 0.5, "timeout_ms": 1000,
+        "telemetry": "auto"}),
+    ("tso1024", {**SERVICES_BASE, "rate": 200.0, "time_limit": 1.0,
+                 "service_roles": "lin-tso=1,seq-kv=1,lww-kv=1022"}),
+]
+# sha256 of the JAX runner's history.jsonl and of its results'
+# `net.telemetry` block (json.dumps with sorted keys; None with the ring
+# off) for each run above, on the CPU (JAX without its overlap
+# pipeline); re-derived by
+#   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_services.py -m slow
+PINNED_SERVICES = {
+    "tso5": {
+        "history":
+            "9ff3baebd63d57cb291c99f240472303c0d2f293b58545ad5651629f0626d49a",
+        "telemetry": None},
+    "tso5-targeted": {
+        "history":
+            "0ba2d771350a2e42d5b75c702ba9a49749a94ad41e919ee7397f5742dbe02aff",
+        "telemetry":
+            "0ee53475cf2200d3699244429934ccfbc67d045528e722e9b4b2f40dec169ddb"},
+    "tso1024": {
+        "history":
+            "c899bdf76de3a0161b0993ff2022fb83ce79d1fa06b82c08b081033d7953276a",
+        "telemetry": None},
+}
+# The partition's bit-identity on the card: pinned runs of earlier slices
+# again with their program wrapped as a one-role partition (`--node
+# tpu:solo:<program>`), each held to its existing pin: the edge path
+# under the combined nemesis (the shortest such pin, grid5-storm) and
+# the pool path (echo5)
+SOLO_RUNS = (("grid5-storm", "broadcast_step_stall"),
+             ("echo5", "echo_step"))
+SERVICES_KERNELS = ("tso_step", "seq_kv_step", "lww_kv_step")
+# (role, replicas, inbox lanes) at the CLI's shapes (the oracle and the
+# single-copy KV one node each; lww-kv at tso5's 3 replicas and tso1024's
+# 1,022) and a replicated store the card holds, 100,000 replicas x 256
+# keys (some 230 MB of kv, vts and dirty rows)
+SERVICES_SHAPES = {"tso_step@cli": ("lin-tso", 1),
+                   "seq_kv_step@cli": ("seq-kv", 1),
+                   "lww_kv_step@cli3": ("lww-kv", 3),
+                   "lww_kv_step@cli1022": ("lww-kv", 1022),
+                   "lww_kv_step@100k": ("lww-kv", 100_000)}
+
+
+def _random_services(g, n, K_, keys, G):
+    """Random inputs of a service role step on the card: every lane type,
+    keys repeated and past both ends, cas words that hit and miss,
+    merges older and newer than the stored stamp, INT32_MAX words (b + 1
+    wraps), wrapping clocks and timestamps, dirty sets below, at and
+    above G keys a replica. Returns (inbox Msgs, state dict)."""
+    import torch
+    from maelstrom_tpu_torch.net.tpu import Msgs
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device="cuda",
+                             dtype=torch.int32)
+
+    def rb(shape, p):
+        return torch.rand(shape, generator=g, device="cuda") < p
+    shape = (n, K_)
+    types = torch.tensor([10, 12, 14, 45, 40, 0, 11, 41], dtype=torch.int32,
+                         device="cuda")
+    a = torch.where(rb(shape, 0.05), keys + 3, ri(-2, 6, shape))
+    b, c = (torch.where(rb(shape, 0.04), 2**31 - 1, ri(-2, 9, shape))
+            for _ in range(2))
+    inbox = Msgs(valid=rb(shape, 0.8), src=ri(0, n + 8, shape),
+                 dest=ri(0, n, shape), due=ri(0, 50, shape),
+                 mid=ri(0, 1000, shape), reply_to=ri(-1, 1000, shape),
+                 type=types[ri(0, len(types), shape).long()], a=a, b=b, c=c)
+    dens = torch.tensor([0.0, 0.01, G / keys, 0.3], device="cuda")[
+        ri(0, 4, (n, 1)).long()]
+    dirty = torch.rand((n, keys), generator=g, device="cuda") < dens
+    dirty[0] = False
+    dirty[0, :G] = True
+    clock = ri(0, 12, (n,))
+    clock[n // 2] = 2**31 - 1
+    ts = ri(0, 100, (n,))
+    ts[0] = 2**31 - 3
+    return inbox, {"kv": ri(0, 9, (n, keys)), "vts": ri(-1, 12, (n, keys)),
+                   "clock": clock, "dirty": dirty, "ts": ts}
+
+
+def services_kernel_checks(timed):
+    """K20 tso_step, K21 seq_kv_step and K22 lww_kv_step, with and
+    without the stall mask, against their plain versions on the same
+    inputs on the card (exact: int32 and bool) at `SERVICES_SHAPES`, the
+    inputs unchanged after the launch; timed without the mask."""
+    import torch
+    from maelstrom_tpu_torch import kernels as K
+    from maelstrom_tpu_torch.nodes import services as S
+    g = torch.Generator(device="cuda")
+    g.manual_seed(20)
+    keys, G, K_ = 256, 8, 8
+    state_keys = {"lin-tso": ("ts",), "seq-kv": ("kv",),
+                  "lww-kv": ("kv", "vts", "clock", "dirty")}
+    out = {}
+    for name, (role, n) in SERVICES_SHAPES.items():
+        nodes = [f"n{i}" for i in range(n)]
+        opts = {"kv_keys": keys, "gossip_keys": G}
+        prog = {"lin-tso": S.TSORole, "seq-kv": S.SeqKVRole}.get(
+            role, lambda o, nd: S.LWWKVRole(o, nd, base=2))(opts, nodes)
+        inbox, full = _random_services(g, n, K_, keys, G)
+        state = {k: full[k] for k in state_keys[role]}
+        before = clone(state), clone(inbox)
+        stall = torch.rand(n, generator=g, device="cuda") < 0.3
+        err = 0
+        for ctx in ({}, {"stall": stall}):
+            def step(ctx=ctx):
+                return prog.step(state, inbox, ctx)
+            got = step()
+            with K.forced_plain():
+                ref = step()
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err(got, ref))
+        check(max_abs_err(before, (state, inbox)) == 0,
+              f"{name}: the kernel updated an input")
+        check(err == 0, f"{name} differs from its plain version (max abs "
+              f"err {err})")
+        L = prog.outbox_cap if role == "lww-kv" and n > 1 else K_
+        # read: valid and type (K20) or valid, type, src, mid, a, b, c;
+        # written: valid, type, a, b, c (K20) or every outbox field; the
+        # state rows read and written
+        lane_in, lane_out = (5, 17) if role == "lin-tso" else (25, 37)
+        st_bytes = 2 * nbytes(*state.values())
+        io = n * K_ * lane_in + n * L * lane_out + st_bytes + n
+        # a few dozen int32 operations a lane, a dozen a key of the
+        # gossip's prefix count
+        ops = n * K_ * 30 + (n * keys * 12 if L > K_ else 0)
+        b, by = bound_of(io, ops)
+        r = {"max_abs_err": err, "bound_ms": b, "bound_by": by,
+             "bytes": io, "replicas": n, "lanes": L, "keys": keys}
+        if timed:
+            def timed_step():
+                return prog.step(state, inbox, {})
+            r["ms"] = cuda_ms(timed_step)
+            with K.forced_plain():
+                r["plain_ms"] = cuda_ms(timed_step)
+        out[name] = r
+        del prog, inbox, full, state, before
+    return out
+
+
+def phase_services_kernels(timed):
+    t0 = time.perf_counter()
+    r = services_kernel_checks(timed)
+    emit({"phase": "services_kernels", "timed": timed,
+          "seconds": time.perf_counter() - t0, "kernels": r})
+    return r
+
+
+def phase_cli_services(smi):
+    """The lin-tso runs through the kernels, launch counters set to 0
+    just before each and read just after: each history (and ring) must
+    hash to the JAX runner's, every run valid and monotonic with no
+    duplicate timestamp, K20-K22 launched every executed round; the
+    targeted run's kills on lww-kv nodes only and its pauses on n0
+    only. Then the one-role partition on two pinned runs of earlier
+    slices, held to their existing pins."""
+    import shutil
+    from maelstrom_tpu_torch import kernels as K
+    store = os.path.join(ROOT, "store", "chip_smoke_services")
+    shutil.rmtree(store, ignore_errors=True)
+    runs, launches = {}, {}
+    for name, opts in CLI_SERVICES:
+        K.reset_launches()
+        rc, d, res, tm, digest, wall = _core_run(opts, store)
+        launches[name] = K.launch_counts()
+        pin = PINNED_SERVICES[name]
+        check(rc == 0 and res["valid"] is True
+              and res["net"]["dropped-overflow"] == 0,
+              f"services {name}: exit {rc}, valid {res.get('valid')}, "
+              f"overflow {res['net']['dropped-overflow']}")
+        # host reads scale with the run's ops (tso1024 dispatches at each
+        # of its 200 ops a second), not its rounds
+        check(tm["drains"] < max(tm["final-round"] / 4,
+                                 2 * tm["history-ops"]),
+              f"services {name}: {tm['drains']} host drains for "
+              f"{tm['final-round']} rounds and {tm['history-ops']} ops")
+        w = res["workload"]
+        check(w["valid"] is True and w["monotonic"] is True
+              and "duplicate-ts" not in w,
+              f"services {name}: workload {w}")
+        check(digest == pin["history"], f"services {name}: history.jsonl "
+              f"sha256 {digest}, the JAX runner's {pin['history']}")
+        n_launch = [launches[name][k] for k in SERVICES_KERNELS]
+        check(min(n_launch) >= tm["rounds-executed"] > 0
+              and len(set(n_launch)) == 1,
+              f"services {name}: launches {n_launch} for "
+              f"{tm['rounds-executed']} executed rounds")
+        rec = {"wall_s": wall, "final_round": tm["final-round"],
+               "rounds_executed": tm["rounds-executed"],
+               "ms_per_executed_round": 1e3 * tm["scan-s"]
+               / max(tm["rounds-executed"], 1),
+               "dispatches": tm["dispatches"], "drains": tm["drains"],
+               "history_ops": tm["history-ops"],
+               "granted": w["granted-count"],
+               "history_sha256_equal": True}
+        if name == "tso5":
+            check(w["granted-count"] > 10,
+                  f"services {name}: {w['granted-count']} granted")
+        if opts.get("telemetry"):
+            ring = _telemetry_checks(name, d, res, pin["telemetry"])
+            check(set(ring["role-sent"]) == {"lin-tso", "seq-kv", "lww-kv"},
+                  f"services {name}: role-sent {ring['role-sent']}")
+            rec["role_sent"] = ring["role-sent"]
+            rec["telemetry_sha256_equal"] = True
+        if opts.get("nemesis_targets"):
+            with open(os.path.join(d, "history.jsonl")) as f:
+                vals = [o["value"] for o in map(json.loads, f)
+                        if o.get("process") == "nemesis"
+                        and o["type"] == "info"]
+            killed = [v for v in vals if v.startswith("killed")]
+            paused = [v for v in vals if v.startswith("paused")]
+            check(killed and paused
+                  and all("'n0'" not in v and "'n1'" not in v
+                          for v in killed)
+                  and all(v == "paused ['n0']" for v in paused),
+                  f"services {name}: kills {killed}, pauses {paused}")
+            rec["nemesis"] = {"killed": killed, "paused": paused}
+        runs[name] = rec
+    pins = {**PINNED_FAULTS, **PINNED_POOL}
+    args_of = dict(CLI_FAULTS_SMALL + CLI_POOL)
+    for name, kernel in SOLO_RUNS:
+        args = list(args_of[name])
+        i = args.index("--node") + 1
+        args[i] = "tpu:solo:" + args[i][len("tpu:"):]
+        K.reset_launches()
+        rc, _d, res, tm, digest, wall = _cli_run(args, store)
+        counts = K.launch_counts()
+        _cli_checks(f"solo {name}", rc, res, tm)
+        check(digest == pins[name], f"solo {name}: history.jsonl sha256 "
+              f"{digest}, the unwrapped run's pin {pins[name]}")
+        check(counts[kernel] > 0, f"solo {name} did not launch {kernel}")
+        runs[f"solo:{name}"] = {
+            "wall_s": wall, "rounds_executed": tm["rounds-executed"],
+            "history_sha256_equal": True, kernel: counts[kernel]}
+    shutil.rmtree(store, ignore_errors=True)
+    emit({"phase": "cli_services", "runs": runs, "launches": {
+        k: {kk: v[kk] for kk in SERVICES_KERNELS}
+        for k, v in launches.items()}, "nvidia_smi": smi})
+    return {k: sum(v[k] for v in launches.values())
+            for k in SERVICES_KERNELS}
+
+
+# --- the runs, side by side ---------------------------------------------------
+
+# The phases that drive the main path through the CLI, the runners, the
+# benches and the sweeps. Their time is the host's: a run keeps about one
+# CPU core busy and leaves the card idle most of the time. So they run in
+# groups side by side, each group in a process of its own
+# (`chip_smoke.py --worker I`, started by this script), the last group in
+# this process. Every phase sets the launch counters to 0 just before its
+# runs and reads them just after, in the process that drives them, and
+# returns what it read. The groups hold about equal host time (NVIDIA H100
+# 80GB HBM3, 700 W: their phases one after another took 199 s, 184 s,
+# 202 s and 189 s; side by side, 273-299 s). The profiles and the kernel
+# times come after every group has ended, with the card to themselves.
+RUN_PHASES = {
+    "cli_small": lambda smi: phase_cli_small(),
+    "cli_100k": phase_cli_100k,
+    "cli_faults_small": lambda smi: phase_cli_faults_small(),
+    "cli_faults_100k": phase_cli_faults_100k,
+    "raft_bench_10k": phase_raft_bench,
+    "cli_linkv": phase_cli_linkv,
+    "cli_pool": phase_cli_pool,
+    "cli_crdt": phase_cli_crdt,
+    "cli_kafka": phase_cli_kafka,
+    "cli_batched": phase_cli_batched,
+    "cli_ordered": phase_cli_ordered,
+    "bench_batched": phase_bench_batched,
+    "cli_txn": phase_cli_txn,
+    "cli_stream": phase_cli_stream,
+    "cli_services": phase_cli_services,
+    "bench_checkers": phase_bench_checkers,
+    "fuzz_kafka": phase_fuzz_kafka,
+    "fuzz_100k": phase_fuzz_broadcast,
+}
+RUN_GROUPS = [
+    ["cli_services", "cli_small", "fuzz_kafka", "bench_batched",
+     "cli_ordered", "raft_bench_10k"],
+    ["cli_linkv", "cli_faults_small", "cli_faults_100k"],
+    ["cli_crdt", "cli_kafka", "cli_100k", "cli_batched"],
+    # this process: `bench_checkers` returns the Elle kernels' inputs
+    ["bench_checkers", "cli_stream", "cli_txn", "fuzz_100k", "cli_pool"],
+]
+WORKER_THREADS = 2            # torch's CPU threads in each process
+RESULT_TAG = "chip_smoke_worker_returns"
+
+
+def _run_group(i, smi):
+    """The phases of group i in this process; {phase: what it returned}."""
+    return {name: RUN_PHASES[name](smi) for name in RUN_GROUPS[i]}
+
+
+def _die_with_parent() -> bool:
+    """Asks Linux for SIGKILL when the smoke's process ends, however it
+    ends (PR_SET_PDEATHSIG); False if it has ended already."""
+    import ctypes
+    import signal
+    ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL)
+    return os.getppid() == int(os.environ["CHIP_SMOKE_PARENT"])
+
+
+def run_groups(smi):
+    """Starts a worker for each group but the last, runs the last here,
+    waits for every worker, prints its phase lines and returns what every
+    phase returned. A worker that fails fails the smoke; no worker
+    outlives it."""
+    import shutil
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(WORKER_THREADS)
+    out_dir = os.path.join(ROOT, "store", "chip_smoke_workers")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for i in range(len(RUN_GROUPS) - 1):
+            out = open(os.path.join(out_dir, f"{i}.out"), "w")
+            env = {**os.environ, "CHIP_SMOKE_T0": repr(T_START),
+                   "CHIP_SMOKE_WORKER": str(i),
+                   "CHIP_SMOKE_PARENT": str(os.getpid())}
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--worker",
+                 str(i), smi], stdout=out, env=env, cwd=ROOT), out))
+        ret = _run_group(len(RUN_GROUPS) - 1, smi)
+        seconds = {len(RUN_GROUPS) - 1: time.perf_counter() - t0}
+        while len(seconds) < len(RUN_GROUPS):
+            for i, (p, _out) in enumerate(procs):
+                if i not in seconds and p.poll() is not None:
+                    seconds[i] = time.perf_counter() - t0
+                    check(p.returncode == 0, f"worker {i} "
+                          f"({', '.join(RUN_GROUPS[i])}) exited "
+                          f"{p.returncode}")
+            time.sleep(0.2)
+        for i, (p, out) in enumerate(procs):
+            out.close()
+            with open(out.name) as f:
+                lines = f.read().splitlines()
+            got = None
+            for line in lines:
+                if line.startswith("{") and RESULT_TAG in line:
+                    got = json.loads(line)[RESULT_TAG]
+                else:
+                    print(line, flush=True)
+            check(got is not None, f"worker {i} returned nothing")
+            ret.update(got)
+    finally:
+        for p, out in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            out.close()
+    torch.set_num_threads(threads)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    emit({"phase": "runs_side_by_side", "groups": RUN_GROUPS,
+          "group_s": [seconds[i] for i in range(len(RUN_GROUPS))],
+          "wall_s": time.perf_counter() - t0, "nvidia_smi": smi})
+    return ret
+
+
+def worker(i: int, smi: str) -> int:
+    """`chip_smoke.py --worker I SMI`: group I's phases, their lines, then
+    one line of what they returned."""
+    if not _die_with_parent():
+        return 1
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    torch.set_num_threads(WORKER_THREADS)
+    emit({RESULT_TAG: _run_group(i, smi)})
+    return 0
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "maelstrom_tpu_torch", "csrc")):
         print("chip_smoke: run from a checkout of the repository "
@@ -4161,28 +4649,22 @@ def main() -> int:
     cchecks = phase_crdt_kernels(timed=False)
     kchecks = phase_kafka_kernels(timed=False)
     schecks = phase_stream_kernels(timed=False)
+    vchecks = phase_services_kernels(timed=False)
     phase_prng_pins()
-    phase_cli_small()
-    launches = phase_cli_100k(smi)
-    launches.update({"edge_write_spill":
-                     phase_cli_faults_small()["edge_write_spill"]})
-    flaunches = phase_cli_faults_100k(smi)
-    launches.update({k: flaunches[k] for k in FAULT_PATH_KERNELS})
-    launches["raft_step"] = phase_raft_bench(smi)["raft_step"]
-    phase_cli_linkv(smi)
-    pool_launches = phase_cli_pool(smi)
+    ret = run_groups(smi)
+    launches = dict(ret["cli_100k"])
+    launches["edge_write_spill"] = ret["cli_faults_small"]["edge_write_spill"]
+    launches.update({k: ret["cli_faults_100k"][k]
+                     for k in FAULT_PATH_KERNELS})
+    launches["raft_step"] = ret["raft_bench_10k"]["raft_step"]
+    pool_launches = ret["cli_pool"]
     launches.update({k: v for k, v in pool_launches.items()
                      if k in ("echo_step", "unique_ids_step")})
-    launches.update(phase_cli_crdt(smi))
-    launches["kafka_step"] = phase_cli_kafka(smi)["kafka_step"]
-    launches.update(phase_cli_batched(smi))
-    phase_cli_ordered(smi)
-    phase_bench_batched(smi)
-    launches.update(phase_cli_txn(smi))
-    launches.update(phase_cli_stream(smi))
-    elle_inputs = phase_bench_checkers(smi)
-    phase_fuzz_kafka(smi)
-    phase_fuzz_broadcast(smi)
+    for name in ("cli_crdt", "cli_batched", "cli_txn", "cli_stream",
+                 "cli_services"):
+        launches.update(ret[name])
+    launches["kafka_step"] = ret["cli_kafka"]["kafka_step"]
+    elle_inputs = ret["bench_checkers"]
     # profiles and kernel times last: the profiler they are read from
     # stays out of the runs' wall-clock timing
     phase_cli_profile()
@@ -4206,12 +4688,17 @@ def main() -> int:
     stimed = phase_stream_kernels(timed=True)
     cli["sched_inject"] = stimed["sched_inject@100000"]
     cli["ring_update"] = stimed["ring_update@cli100k"]
+    vtimed = phase_services_kernels(timed=True)
+    cli["tso_step"] = vtimed["tso_step@cli"]
+    cli["seq_kv_step"] = vtimed["seq_kv_step@cli"]
+    cli["lww_kv_step"] = vtimed["lww_kv_step@100k"]
     phase_crdt_profile()
     phase_pool_profile(pool_launches["rounds_executed"])
     emit({"phase": "profiler", **PROFILER})
     errs = {}
     for r in (*checks.values(), fchecks, rchecks, raft, pchecks, cchecks,
-              kchecks, ktimed, btimed, etimed, schecks, stimed):
+              kchecks, ktimed, btimed, etimed, schecks, stimed, vchecks,
+              vtimed):
         for name, v in r.items():
             base = {"raft_step_stall": "raft_step",
                     "threefry_batched": "threefry",
@@ -4236,4 +4723,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--worker":
+        sys.exit(worker(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -14,13 +14,15 @@ cycle screen on the device with `--device-checker on`) and
 txn-rw-register on the Raft transaction programs, lin-mutex on
 `tpu:lin-kv`, lin-kv, lin-mutex, kafka and txn-list-append over the
 ordering axis (`--ordering raft|batched`, the composed `tpu:ordered`),
-on one card, or on the CPU with `--device cpu`, under
-loss, randomized latency and the partition, kill, pause, duplicate and
-weather nemeses, round-synchronous or in continuous mode
-(`--continuous`), with the flight recorder (`--telemetry [DIR]`, tailed
-by `top`). `fuzz` runs the broadcast and kafka fault sweeps
-(`fuzz.py`). Every
-other option of the JAX CLI is recognised and refused unless it holds its
+lin-tso on the in-cluster services (`--node tpu:services
+[--service-roles ...]`, a role partition), any of these programs wrapped
+as a one-role partition (`--node tpu:solo:<program>`), on one card, or
+on the CPU with `--device cpu`, under loss, randomized latency and the
+partition, kill, pause, duplicate and weather nemeses (kill, pause and
+partition scoped to role groups or nodes with `--nemesis-targets`),
+round-synchronous or in continuous mode (`--continuous`), with the
+flight recorder (`--telemetry [DIR]`, tailed by `top`). `fuzz` runs
+the broadcast and kafka fault sweeps (`fuzz.py`). Every other option of the JAX CLI is recognised and refused unless it holds its
 default, with an error that names the slice of the port that brings it
 (`OUT_OF_SCOPE`).
 
@@ -43,6 +45,10 @@ default, with an error that names the slice of the port that brings it
         --node-count 5 --continuous --kafka-groups 2 \\
         --nemesis kill,pause,partition,duplicate,weather --telemetry tel
     python -m maelstrom_tpu_torch top tel
+    python -m maelstrom_tpu_torch test -w lin-tso --node tpu:services \\
+        --nemesis kill,pause,partition --nemesis-targets \\
+        kill=lww-kv,pause=lin-tso
+    python -m maelstrom_tpu_torch test -w lin-kv --node tpu:solo:lin-kv
     python -m maelstrom_tpu_torch fuzz --program broadcast --nodes 100000
 """
 
@@ -63,19 +69,16 @@ PROGRAMS = {"broadcast": "tpu:broadcast", "lin-kv": "tpu:lin-kv",
                                        "pn-counter", "g-counter",
                                        "kafka", "broadcast-batched",
                                        "txn-list-append",
-                                       "txn-rw-register")}}
+                                       "txn-rw-register")},
+            "lin-tso": "tpu:services"}
 
 # (option, refused when, the slice of the port that brings it)
 OUT_OF_SCOPE = [
     ("--bin", lambda v: v is not None,
      "the host-process path (external node binaries)"),
-    ("--workload", lambda v: v == "lin-tso",
-     "the role-partitioned programs"),
     ("--workload", lambda v: v not in PROGRAMS, "the other node programs"),
     ("--nemesis", lambda v: "byzantine" in _faults(v),
      "the byzantine adversary"),
-    ("--nemesis-targets", lambda v: v is not None,
-     "the role-partitioned programs"),
     ("--client-retries", lambda v: v > 0, "retries and backoff"),
     ("--fleet", lambda v: v is not None and v > 1, "mesh and fleet"),
     ("--fleet-sweep", lambda v: v is not None, "mesh and fleet"),
@@ -89,19 +92,13 @@ OUT_OF_SCOPE = [
      "the overlap pipeline"),
     ("--byz-rate", lambda v: v != 1.0, "the byzantine adversary"),
     ("--byz-attacks", lambda v: v is not None, "the byzantine adversary"),
-    ("--ordering", lambda v: v == "compartment",
-     "the role-partitioned programs"),
-    ("--roles", lambda v: v is not None, "the role-partitioned programs"),
-    ("--service-roles", lambda v: v is not None,
-     "the role-partitioned programs"),
+    ("--ordering", lambda v: v == "compartment", "the compartment"),
+    ("--roles", lambda v: v is not None, "the compartment"),
     ("--election-timeout-rounds", lambda v: v is not None,
-     "the role-partitioned programs"),
-    ("--ballot-width", lambda v: v is not None,
-     "the role-partitioned programs"),
-    ("--compartment-retry", lambda v: v is not None,
-     "the role-partitioned programs"),
-    ("--leader-lease-ms", lambda v: v is not None,
-     "the role-partitioned programs"),
+     "the compartment"),
+    ("--ballot-width", lambda v: v is not None, "the compartment"),
+    ("--compartment-retry", lambda v: v is not None, "the compartment"),
+    ("--leader-lease-ms", lambda v: v is not None, "the compartment"),
 ]
 
 
@@ -121,12 +118,14 @@ def build_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="cmd", required=True)
     t = sub.add_parser("test", help="Run a single test")
     t.add_argument("--node", help="Built-in node program: tpu:<the "
-                                  "workload>, tpu:lin-kv for lin-kv")
+                                  "workload>, tpu:lin-kv for lin-kv and "
+                                  "lin-mutex, tpu:services for lin-tso, "
+                                  "or tpu:solo:<that program>")
     t.add_argument("-w", "--workload", default="lin-kv", choices=WORKLOADS,
                    help="What workload to run (the port: broadcast, "
-                        "broadcast-batched, lin-kv, lin-mutex, echo, "
-                        "unique-ids, g-set, pn-counter, g-counter, kafka, "
-                        "txn-list-append, txn-rw-register)")
+                        "broadcast-batched, lin-kv, lin-mutex, lin-tso, "
+                        "echo, unique-ids, g-set, pn-counter, g-counter, "
+                        "kafka, txn-list-append, txn-rw-register)")
     t.add_argument("--device", default="cuda",
                    help="cuda (the default) or cpu: the kernels' plain "
                         "PyTorch versions on the CPU")
@@ -201,7 +200,12 @@ def build_parser() -> argparse.ArgumentParser:
     # the JAX CLI's other options (`OUT_OF_SCOPE` refuses those the port
     # does not run unless at their default)
     t.add_argument("--bin")
-    t.add_argument("--nemesis-targets")
+    t.add_argument("--nemesis-targets",
+                   help="Scope node-picking faults to groups: "
+                        "fault=group[+group],... (kill, pause, partition; "
+                        "groups come from the node family's fault groups, "
+                        "e.g. lin-tso, seq-kv, lww-kv for tpu:services, "
+                        "or are literal node names)")
     t.add_argument("--client-retries", type=int, default=0)
     t.add_argument("--continuous", action="store_true",
                    help="Continuous generator mode: client ops are "
@@ -246,7 +250,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "or batched; runs the composed program "
                         "tpu:ordered")
     t.add_argument("--roles")
-    t.add_argument("--service-roles")
+    t.add_argument("--service-roles",
+                   help="tpu:services layout, e.g. lin-tso=1,seq-kv=1,"
+                        "lww-kv=3 (the default); sizes the cluster when "
+                        "--node-count is not given")
     t.add_argument("--election-timeout-rounds", type=int)
     t.add_argument("--ballot-width", type=int)
     t.add_argument("--compartment-retry", type=int)
@@ -302,9 +309,11 @@ def check_scope(args) -> None:
     if args.ordering:
         return   # the node is the composed tpu:ordered (core.build_test)
     want = PROGRAMS[args.workload]
-    if args.node != want:
+    # tpu:solo:<program> wraps the program as a one-role partition
+    if args.node not in (want, "tpu:solo:" + want[len("tpu:"):]):
         raise ScopeError(f"--node {args.node!r}: the port runs -w "
-                         f"{args.workload} on --node {want} (other programs "
+                         f"{args.workload} on --node {want} or "
+                         f"tpu:solo:{want[len('tpu:'):]} (other programs "
                          f"come with the other node programs)")
 
 
@@ -359,7 +368,8 @@ def opts_from_args(args) -> dict:
     for k in ("max_scan", "journal_scan_cap", "reply_log_cap",
               "max_values", "timeout_ms", "nemesis_seed", "kafka_groups",
               "session_timeout_ms", "poll_batch", "batch_max",
-              "device_checker", "continuous_window_ms"):
+              "device_checker", "continuous_window_ms", "service_roles",
+              "nemesis_targets"):
         v = getattr(args, k, None)
         if v is not None:
             opts[k] = v

@@ -1,10 +1,11 @@
 """Test composition and execution: the maelstrom-test equivalent.
 
 Counterpart of `maelstrom_tpu/core.py` for the parts the port runs:
-`DEFAULTS`, `parse_nodes`, and the built-in-program branch of
-`build_test` for the workloads of `WORKLOADS` (the nemesis package
-beside the clients, the generator phases with the nemesis's final heal,
-the composed checker suite; `ordering` selects the composed program
+`DEFAULTS`, `parse_nodes` (with the node count a role partition
+derives), and the built-in-program branch of `build_test` for the
+workloads of `WORKLOADS` (the nemesis package beside the clients, the
+generator phases with the nemesis's final heal, the composed checker
+suite; `ordering` selects the composed program
 `tpu:ordered`), without the host network and external node
 processes. `run` makes the store dir, attaches the network journal and
 the run log, and hands the test to `runner.tpu_runner.run_tpu_test`."""
@@ -65,16 +66,24 @@ WORKLOADS = {"broadcast": "broadcast", "lin-kv": "lin_kv", "echo": "echo",
              "pn-counter": "pn_counter", "g-counter": "g_counter",
              "kafka": "kafka", "broadcast-batched": "broadcast_batched",
              "lin-mutex": "lin_mutex", "txn-list-append": "txn_list_append",
-             "txn-rw-register": "txn_rw_register"}
+             "txn-rw-register": "txn_rw_register", "lin-tso": "lin_tso"}
 
 
 def parse_nodes(opts: dict) -> list[str]:
     """--node-count N overrides --nodes, generating n0..n(N-1)
-    (reference `core.clj:197-204`)."""
+    (reference `core.clj:197-204`). A role-partitioned family
+    (`--node tpu:services`) derives its node count from its role spec
+    when neither is given."""
     if opts.get("node_count"):
         return [f"n{i}" for i in range(opts["node_count"])]
     if opts.get("nodes"):
         return opts["nodes"]
+    spec = str(opts.get("node") or "")
+    if spec.startswith("tpu:"):
+        from .nodes import partition_node_count
+        n = partition_node_count(spec[len("tpu:"):], opts)
+        if n:
+            return [f"n{i}" for i in range(n)]
     return ["n0", "n1", "n2", "n3", "n4"]
 
 

@@ -133,12 +133,19 @@ SCHED_INJECT = Kernel("sched_inject", "maelstrom_tpu_torch/csrc/stream.cu",
                       "maelstrom_tpu/sim.py:847")
 RING_UPDATE = Kernel("ring_update", "maelstrom_tpu_torch/csrc/telemetry.cu",
                      "maelstrom_tpu/telemetry.py:130")
+TSO_STEP = Kernel("tso_step", "maelstrom_tpu_torch/csrc/services.cu",
+                  "maelstrom_tpu/nodes/services.py:106")
+SEQ_KV_STEP = Kernel("seq_kv_step", "maelstrom_tpu_torch/csrc/services.cu",
+                     "maelstrom_tpu/nodes/services.py:138")
+LWW_KV_STEP = Kernel("lww_kv_step", "maelstrom_tpu_torch/csrc/services.cu",
+                     "maelstrom_tpu/nodes/services.py:199")
 KERNELS = (EDGE_READ, EDGE_WRITE, BROADCAST_STEP, REPLY_COMPACT,
            REPLY_LOG_APPEND, QUIET_PROBE, THREEFRY, EDGE_FAULTS,
            EDGE_WRITE_SPILL, BROADCAST_STEP_STALL, RAFT_STEP, ECHO_STEP,
            UNIQUE_IDS_STEP, PN_COUNTER_STEP, REPLY_LOG_APPEND_I32,
            KAFKA_STEP, BROADCAST_BATCHED_STEP, BROADCAST_BATCHED_STEP_STALL,
-           ELLE_EDGES, ELLE_SCREEN, SCHED_INJECT, RING_UPDATE)
+           ELLE_EDGES, ELLE_SCREEN, SCHED_INJECT, RING_UPDATE, TSO_STEP,
+           SEQ_KV_STEP, LWW_KV_STEP)
 
 _state = {"lib": None, "forced_plain": False}
 

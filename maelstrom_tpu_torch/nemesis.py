@@ -1,10 +1,11 @@
 """Fault packages: the nemesis's schedules and decisions.
 
 A copy of `maelstrom_tpu/nemesis.py` without the byzantine package (the
-adversary slice brings it), the role-targeted scoping (it comes with the
-role-partitioned programs) and the host-path executor (the port runs no
-host network): the grudge shapes, `grudge_matrix`, the seeded decision
-streams of `NemesisDecisions` and the generator schedules of `package`.
+adversary slice brings it) and the host-path executor (the port runs no
+host network): the grudge shapes, `grudge_matrix`, the role-targeted
+scoping (`parse_targets`, `resolve_targets`: `--nemesis-targets`), the
+seeded decision streams of `NemesisDecisions` and the generator
+schedules of `package`.
 The decision streams are the JAX package's, draw for draw, so a seed
 gives the same fault schedule and the same history in both packages;
 the runner applies the decisions (`runner/tpu_runner.py`
@@ -124,6 +125,92 @@ GRUDGES = [split_half, isolate_node, bridge, majorities_ring,
            one_way_halves]
 
 
+def isolate_set(nodes, cut):
+    """Role-targeted partition: the `cut` subset is severed from every
+    other node, both directions (`--nemesis-targets partition=<group>`).
+    Deterministic: no RNG draw."""
+    cs = set(cut)
+    cut = [n for n in nodes if n in cs]
+    rest = [n for n in nodes if n not in cs]
+    grudge = {d: set(cut) for d in rest}
+    grudge.update({d: set(rest) for d in cut})
+    return f"isolated {cut}", grudge
+
+
+# --- role-targeted fault scoping ------------------------------------------
+
+# faults whose decisions pick nodes and can therefore be scoped;
+# duplicate and weather are cluster-global knobs, so a target spec for
+# them is refused
+TARGETABLE_FAULTS = ("kill", "pause", "partition", "byzantine")
+
+
+def parse_targets(spec) -> dict:
+    """`--nemesis-targets kill=lww-kv,pause=lin-tso` -> {fault: [group
+    tokens]} ('+' joins several groups for one fault)."""
+    if not spec:
+        return {}
+    if isinstance(spec, dict):
+        items = {f: (list(v) if isinstance(v, (list, tuple))
+                     else str(v).split("+"))
+                 for f, v in spec.items()}
+    else:
+        items = {}
+        for part in str(spec).split(","):
+            part = part.strip()
+            if not part:
+                continue
+            f, sep, val = part.partition("=")
+            if not sep or not val.strip():
+                raise ValueError(
+                    f"--nemesis-targets: expected fault=group, got "
+                    f"{part!r}")
+            items[f.strip()] = [t.strip() for t in val.split("+")
+                                if t.strip()]
+    for f in items:
+        if f not in TARGETABLE_FAULTS:
+            raise ValueError(
+                f"--nemesis-targets: {f!r} is not a targetable fault "
+                f"(node-picking faults only: {list(TARGETABLE_FAULTS)})")
+    return items
+
+
+def resolve_targets(spec, groups: dict, nodes, dynamic=()) -> dict | None:
+    """Resolves a target spec's group tokens against the program's fault
+    groups (`fault_groups`: role names, ...) plus literal node names.
+    Returns {fault: [node names]} for `NemesisDecisions`, or None when
+    no targeting was asked for. Tokens naming a `dynamic` group (resolved
+    against live cluster state when the fault fires) stay symbolic, as
+    "@<token>"."""
+    parsed = parse_targets(spec)
+    if not parsed:
+        return None
+    node_set = set(nodes)
+    dynamic = set(dynamic or ())
+    out: dict = {}
+    for fault, tokens in parsed.items():
+        names: list = []
+        for tok in tokens:
+            if tok in dynamic:
+                members = [f"@{tok}"]
+            elif tok in groups:
+                members = groups[tok]
+            elif tok in node_set:
+                members = [tok]
+            else:
+                raise ValueError(
+                    f"--nemesis-targets: unknown group {tok!r} for "
+                    f"{fault!r}; known groups: "
+                    f"{sorted(set(groups) | dynamic)} "
+                    f"(or a literal node name)")
+            names += [n for n in members if n not in names]
+        if not names:
+            raise ValueError(f"--nemesis-targets: empty target set for "
+                             f"{fault!r}")
+        out[fault] = names
+    return out
+
+
 def grudge_matrix(nodes, grudge):
     """Converts a dest -> blocked-srcs grudge map into the directional
     block representation the network installs (`net/tpu.py
@@ -147,14 +234,42 @@ def grudge_matrix(nodes, grudge):
 class NemesisDecisions:
     """The random choices a nemesis makes: one independent RNG stream per
     fault package, keyed by (seed, fault), so the decision sequence of
-    each package does not depend on how the packages interleave."""
+    each package does not depend on how the packages interleave.
 
-    def __init__(self, nodes, seed: int = 0):
+    `targets` ({fault: [node names]}, from `resolve_targets`) scopes the
+    node-picking packages: kill and pause sample their minority of the
+    named pool, and a targeted partition isolates the pool. "@<group>"
+    entries expand at invoke time through `resolve_dynamic`, which the
+    executing runner sets."""
+
+    def __init__(self, nodes, seed: int = 0, targets: dict | None = None):
         self.nodes = list(nodes)
         self.seed = seed
         self.rngs = {f: random.Random(f"{seed}:{f}") for f in FAULTS}
+        self.targets = dict(targets or {})
+        self.resolve_dynamic = None
+
+    def _expand_pool(self, pool):
+        """Expands dynamic "@group" markers against live cluster state."""
+        if pool is None:
+            return None
+        out: list = []
+        for t in pool:
+            if isinstance(t, str) and t.startswith("@"):
+                if self.resolve_dynamic is None:
+                    raise ValueError(
+                        f"dynamic nemesis target {t!r} needs a live "
+                        f"runner to resolve it (TPU path only)")
+                out += [n for n in self.resolve_dynamic(t[1:])
+                        if n not in out]
+            elif t not in out:
+                out.append(t)
+        return out
 
     def next_grudge(self):
+        tg = self._expand_pool(self.targets.get("partition"))
+        if tg:
+            return isolate_set(self.nodes, tg)
         rng = self.rngs["partition"]
         return rng.choice(GRUDGES)(self.nodes, rng)
 
@@ -163,10 +278,12 @@ class NemesisDecisions:
         minority, so clusters of n >= 3 keep quorum through the fault
         window. Degenerate clusters (n <= 2) have no non-empty strict
         minority; there the package still targets one node, accepting a
-        transient quorum loss that heals at the stop op."""
+        transient quorum loss that heals at the stop op. With a targeted
+        pool the minority is taken of the pool."""
         rng = self.rngs[fault]
-        k = rng.randint(1, max(1, (len(self.nodes) - 1) // 2))
-        return sorted(rng.sample(self.nodes, k))
+        pool = self._expand_pool(self.targets.get(fault)) or self.nodes
+        k = rng.randint(1, max(1, (len(pool) - 1) // 2))
+        return sorted(rng.sample(pool, k))
 
     def next_kill_targets(self):
         return self._minority("kill")

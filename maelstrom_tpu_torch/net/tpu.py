@@ -182,6 +182,13 @@ def involves_client(cfg: NetConfig, src, dest):
     return (src >= cfg.n_nodes) | (dest >= cfg.n_nodes)
 
 
+def cat_lanes(*batches: Msgs) -> Msgs:
+    """Concatenates [N, L_i] Msgs batches along the lane axis (the JAX
+    package's `cat_lanes`): joins a program's per-purpose lane groups
+    into one outbox."""
+    return tree_map(lambda *fs: torch.cat(fs, dim=1), *batches)
+
+
 def payload_units(cfg: NetConfig, types, words, valid):
     """Client-op units over a masked batch: 1 per valid message, except
     registered batch types (`cfg.unit_words`), which count their payload

@@ -7,9 +7,11 @@ protocol as the compatibility surface (`request_for_op`, `encode_body`,
 `decode_body`, `completion`). The port has the broadcast, batched
 broadcast, g-set, PN-/g-counter and kafka programs on the edge channels,
 Raft serving lin-kv and the transaction programs (txn-list-append,
-txn-rw-register), echo and unique-ids on the pool path, and the
-ordering axis's composed programs (`tpu:ordered`, `ordering/`);
-`get_program` names the slice that brings any other.
+txn-rw-register), echo and unique-ids on the pool path, the
+ordering axis's composed programs (`tpu:ordered`, `ordering/`), the
+in-cluster services (`tpu:services`, a role partition) and any of them
+wrapped as a one-role partition (`tpu:solo:<program>`); `get_program`
+names the slice that brings any other.
 
 Type code 0 is reserved (invalid slot), 1 is the shared RPC error reply;
 programs define their own codes from 10 up."""
@@ -23,7 +25,6 @@ from typing import Any, Callable
 import torch
 
 from ..net.tpu import I32
-from ..sim import _freeze
 
 T_INVALID = 0
 T_ERROR = 1     # error reply: a = error code, b = interned text
@@ -250,6 +251,7 @@ def freeze_step(stall, state, new, *outs):
     Returns (state', *outs'); `stall` None changes nothing."""
     if stall is None:
         return (new, *outs)
+    from ..sim import _freeze
     return (_freeze(stall, state, new),
             *(o.replace(valid=o.valid & ~stall.reshape(
                 stall.shape + (1,) * (o.valid.dim() - 1))) for o in outs))
@@ -299,8 +301,7 @@ PROGRAMS: dict[str, Callable] = {}
 
 # the slice of the port that brings each of the JAX package's other
 # programs
-LATER = dict.fromkeys(("compartment", "services", "lin-tso", "seq-kv",
-                       "lww-kv", "solo"), "the role-partitioned programs")
+LATER = {"compartment": "the compartment"}
 
 
 def register(cls):
@@ -311,7 +312,7 @@ def register(cls):
 def get_program(name: str, opts: dict, nodes: list[str],
                 device="cuda") -> NodeProgram:
     from . import (broadcast, broadcast_batched, echo,  # noqa: F401
-                   gset, kafka, pn_counter, raft,  # noqa: F401
+                   gset, kafka, pn_counter, raft, services,  # noqa: F401
                    txn_list_append, txn_rw_register,  # noqa: F401
                    unique_ids)  # (register the programs)
     if name == "ordered":
@@ -319,9 +320,28 @@ def get_program(name: str, opts: dict, nodes: list[str],
         # with the applier serving opts["workload"]
         from ..ordering import make_ordered
         return make_ordered(opts, nodes, device=device)
+    if name.startswith("solo:"):
+        # any program wrapped as a one-role partition: pure delegation,
+        # the inner program's history bit for bit
+        from ..sim import RolePartition
+        inner = get_program(name[len("solo:"):], opts, nodes, device=device)
+        return RolePartition(opts, nodes, [("r0", inner)])
     if name not in PROGRAMS:
         later = LATER.get(name.split(":")[0], "a later slice")
         raise ValueError(f"node program {name!r} is not ported to "
                          f"maelstrom_tpu_torch yet (comes with {later}); "
                          f"have {sorted(PROGRAMS)}")
     return PROGRAMS[name](opts, nodes, device=device)
+
+
+def partition_node_count(name: str, opts: dict) -> int | None:
+    """The node count a role-partitioned family derives from its role
+    spec (`core.parse_nodes`, when neither --node-count nor --nodes is
+    given); None for the programs whose count the user picks."""
+    if name == "services":
+        from .services import roles_node_count
+        return roles_node_count(opts.get("service_roles"))
+    if name == "ordered":
+        from ..ordering import ordered_node_count
+        return ordered_node_count(opts)
+    return None

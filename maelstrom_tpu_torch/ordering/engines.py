@@ -18,8 +18,8 @@ Engine-specific surface (per adapter):
     (batched);
   - `check_capacity(n)`: the engine's command-id space bound.
 
-The compartment engine (`LATER`) is a role partition and comes with the
-role-partitioned programs."""
+The compartment engine (`LATER`) runs on the role partition
+(`sim.RolePartition`) and comes with the compartment."""
 
 from __future__ import annotations
 
@@ -283,4 +283,4 @@ ENGINE_PROGRAMS = {
 
 # the engines of the JAX package still to port, and the slice that
 # brings each
-LATER = {"compartment": "the role-partitioned programs"}
+LATER = {"compartment": "the compartment"}

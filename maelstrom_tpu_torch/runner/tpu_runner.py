@@ -28,9 +28,13 @@ live. The flight recorder (`telemetry`) folds a metric ring into every
 round (kernel K19), drained on each dispatch's packed fetch, and writes
 phase spans and a per-window record through a `TelemetrySession`.
 
+Role-targeted faults (`--nemesis-targets`) resolve against the
+program's `fault_groups` (a role partition's role ranges) and literal
+node names.
+
 Not ported here (their options are refused by the CLI, naming the slice
 that brings each): client retries and leader-redirect requeues,
-role-targeted faults, checkpoint/resume and preemption, the overlapped
+checkpoint/resume and preemption, the overlapped
 analysis pipeline, meshes and fleets, the byzantine adversary, and the
 static-audit and cost blocks of the results."""
 
@@ -53,7 +57,7 @@ from ..checkers import Checker
 from ..checkers.netstats import TransferStats
 from ..errors import ERROR_REGISTRY
 from ..history import History
-from ..nemesis import NemesisDecisions, grudge_matrix
+from ..nemesis import NemesisDecisions, grudge_matrix, resolve_targets
 from ..net import tpu as T
 from ..nodes import HOST, EncodeCapacityError, Intern, get_program, \
     wire_name_table
@@ -107,8 +111,8 @@ class TpuCombinedNemesis(NemesisDecisions):
     streams of `NemesisDecisions`, so a seed gives the JAX runner's
     fault schedule, op for op."""
 
-    def __init__(self, runner, nodes, seed=0):
-        super().__init__(nodes, seed)
+    def __init__(self, runner, nodes, seed=0, targets=None):
+        super().__init__(nodes, seed, targets=targets)
         self.runner = runner
         self.killed: list = []
         self.paused_nodes: list = []
@@ -448,6 +452,20 @@ class TpuRunner:
             self._state_cache = self.transfer.fetch(self.sim.nodes)
         return self._state_cache
 
+    def _resolve_dynamic_target(self, token: str) -> list:
+        """Expands one dynamic nemesis target group against live cluster
+        state (`NemesisDecisions._expand_pool`): "sequencer" is the
+        program's elected leader (`current_leader_host`), the one group
+        the JAX package defines."""
+        if token == "sequencer":
+            fn = getattr(self.program, "current_leader_host", None)
+            if fn is None:
+                raise ValueError(
+                    f"program {self.program.name!r} has no movable "
+                    f"sequencer to target")
+            return [self.nodes[int(fn(self._nodes_host()))]]
+        raise ValueError(f"unknown dynamic nemesis target {token!r}")
+
     # --- the flight recorder ---
 
     def _tel_span(self, name, t0, t1, args=None):
@@ -557,8 +575,18 @@ class TpuRunner:
         nem_seed = test.get("nemesis_seed")
         if nem_seed is None:
             nem_seed = test.get("seed", 0)
+        # role-targeted faults (--nemesis-targets): group tokens resolve
+        # against the program's fault groups plus literal node names;
+        # dynamic groups stay symbolic and expand when the fault fires
+        prog = self.program
+        targets = resolve_targets(
+            test.get("nemesis_targets"),
+            getattr(prog, "fault_groups", lambda: {})(), self.nodes,
+            dynamic=getattr(prog, "dynamic_fault_groups", lambda: ())())
         if (test.get("nemesis_pkg") or {}).get("generator") is not None:
-            self.nemesis = TpuCombinedNemesis(self, self.nodes, nem_seed)
+            self.nemesis = TpuCombinedNemesis(self, self.nodes, nem_seed,
+                                              targets=targets)
+            self.nemesis.resolve_dynamic = self._resolve_dynamic_target
         processes = list(range(C)) + ([g.NEMESIS] if self.nemesis else [])
         free = g.FreeSet(processes)
         for p in processes:

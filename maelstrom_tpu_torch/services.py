@@ -3,8 +3,9 @@
 A copy of `PersistentKV` from `maelstrom_tpu/services.py` (reference
 `service.clj:31-56`): an immutable read/write/cas machine with
 create_if_not_exists. The JAX package also wraps it, with LWWKV and the
-TSO, in consistency adapters as host services; those come with the
-role-partitioned programs."""
+TSO, in consistency adapters as host services, which the port does not
+run (no host network); its in-cluster services are the role programs
+of `nodes/services.py`."""
 
 from __future__ import annotations
 

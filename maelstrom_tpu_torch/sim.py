@@ -40,6 +40,7 @@ from . import telemetry as TM
 from .net import static
 from .net import tpu as T
 from .net.tpu import I32, INT32_MAX, Msgs, NetConfig, NetState
+from .nodes import NodeProgram
 from .tree import Struct, resolve_device, tree_map
 
 
@@ -87,6 +88,279 @@ def _freeze(stall, old, new):
         m = stall.reshape(stall.shape + (1,) * (n.dim() - 1))
         return torch.where(m, o, n)
     return tree_map(pick, new, old)     # in the stepped tree's key order
+
+
+# --- role-partitioned programs ---------------------------------------------
+
+class _RoleCtx(dict):
+    """A role's round ctx: the round's, with the role's key
+    `fold_in(key, role)` derived when the step first reads it (a role
+    that draws nothing costs no threefry launch, as JAX's compiler drops
+    an unused fold_in)."""
+
+    round_key = None
+    role = 0
+
+    def __missing__(self, name):
+        if name != "key":
+            raise KeyError(name)
+        self["key"] = prng.fold_in(self.round_key, self.role)
+        return self["key"]
+
+
+class RolePartition(NodeProgram):
+    """A multi-program node-state tree (the JAX package's
+    `RolePartition`, `sim.py:115-409`): contiguous node-id ranges run
+    distinct node programs inside the one round.
+
+    `step` slices the global [N, K] inbox per role, steps each role's
+    program on its own state subtree (`{role: subtree}`, leaves leading
+    with the role's node count), pads each role's outbox to the
+    partition's `outbox_cap` and concatenates them on the node axis.
+    Where the JAX package freezes killed and paused nodes after the step
+    (`freeze_select`), the port's steps freeze inside (`ctx["stall"]`),
+    so each role gets its slice of the stall mask. A single-role
+    partition passes the round's ctx through unchanged (the bit-identity
+    contract: same key, same shapes, the inner program's history); a
+    multi-role one gives role i the key `fold_in(key, i)`.
+
+    Durable views, restore and `state_row` go per role; the host
+    boundary (request, encode, decode, completion, routing) delegates to
+    the client role, the first; `fault_groups` names each role's node
+    range for `--nemesis-targets`. Edge programs (raft, broadcast) are
+    legal only as the sole role, where the partition is pure delegation.
+    Families: `--node tpu:services` (`nodes/services.py`) and `--node
+    tpu:solo:<program>` (any program as a one-role partition)."""
+
+    name = "role-partition"
+
+    def __init__(self, opts: dict, nodes: list, roles: list):
+        """`roles` is an ordered list of (name, program), each program
+        built over its contiguous slice of `nodes`; ranges are assigned
+        in order. Role programs address nodes globally (dest indices are
+        global node ids; clients are >= len(nodes))."""
+        super().__init__(opts, nodes)
+        if not roles:
+            raise ValueError("RolePartition needs at least one role")
+        if any(isinstance(p, RolePartition) for _n, p in roles):
+            raise ValueError(
+                "RolePartition roles must be leaf programs (nest roles "
+                "by listing them, not by wrapping a partition)")
+        self.roles = list(roles)
+        self._single = len(self.roles) == 1
+        self._bounds = []
+        base = 0
+        for _rname, prog in self.roles:
+            self._bounds.append((base, base + prog.n_nodes))
+            base += prog.n_nodes
+        if base != self.n_nodes:
+            raise ValueError(
+                f"role sizes sum to {base} nodes but the cluster has "
+                f"{self.n_nodes} ({[(n, p.n_nodes) for n, p in roles]})")
+        self.inbox_cap = max(p.inbox_cap for _, p in self.roles)
+        self.outbox_cap = max(p.outbox_cap for _, p in self.roles)
+        self._client_name, cp = self.roles[0]
+        self._client_prog = cp
+        self.device = cp.device
+        if any(p.device != self.device for _, p in self.roles):
+            raise ValueError("RolePartition roles must share one device")
+        self.needs_state_reads = bool(getattr(cp, "needs_state_reads",
+                                              False))
+        if self.needs_state_reads and not self._single:
+            raise ValueError(
+                "needs_state_reads programs are only supported as a "
+                "partition's single role (host state reads index the "
+                "global node axis)")
+        self.state_reads_final = bool(getattr(cp, "state_reads_final",
+                                              False))
+        self.reply_payload_words = int(
+            getattr(cp, "reply_payload_words", 0) or 0)
+        self.unit_words = tuple(getattr(cp, "unit_words", ()) or ())
+        for rname, prog in self.roles[1:]:
+            if getattr(prog, "unit_words", ()):
+                raise ValueError(
+                    f"role {rname!r}: unit_words on a non-client role "
+                    f"would collide in the shared NetConfig table")
+            if getattr(prog, "needs_state_reads", False):
+                raise ValueError(
+                    f"role {rname!r}: needs_state_reads is only "
+                    f"supported on the client role (host state reads "
+                    f"index the global node axis)")
+        self.is_edge = bool(getattr(cp, "is_edge", False))
+        if any(getattr(p, "is_edge", False) for _, p in self.roles[1:]) \
+                or (self.is_edge and not self._single):
+            raise ValueError(
+                "edge programs are only supported as a partition's "
+                "single role (pool-path roles have no static topology)")
+        if self.is_edge:
+            for attr in ("neighbors", "rev", "D", "lanes", "edge_cfg",
+                         "edge_atomic_rpc", "edge_lanes_symmetric"):
+                setattr(self, attr, getattr(cp, attr))
+        self.tolerates_channel_overwrites = any(
+            getattr(p, "tolerates_channel_overwrites", False)
+            for _, p in self.roles)
+        self.tolerates_latency_clipping = any(
+            getattr(p, "tolerates_latency_clipping", False)
+            for _, p in self.roles)
+        # the quiescence probe: a role that is never quiescent (raft,
+        # kafka) makes the partition so; the others add their planes
+        if any(p.quiet_planes is None for _, p in self.roles):
+            self.quiet_planes = None
+
+    # --- device side -----------------------------------------------------
+
+    def _role_ctx(self, ctx, i):
+        if self._single:
+            return ctx
+        lo, hi = self._bounds[i]
+        out = _RoleCtx({k: v for k, v in ctx.items() if k != "key"})
+        out.round_key, out.role = ctx["key"], i
+        if ctx.get("stall") is not None:
+            out["stall"] = ctx["stall"][lo:hi]
+        return out
+
+    @staticmethod
+    def _pad_lanes(out: Msgs, O: int) -> Msgs:
+        n, L = out.valid.shape[:2]
+        if L == O:
+            return out
+        pad = Msgs.empty((n, O - L), out.valid.device)
+        return tree_map(lambda a, b: torch.cat([a, b], dim=1), out, pad)
+
+    def init_state(self):
+        return {name: prog.init_state() for name, prog in self.roles}
+
+    def step(self, state, inbox, ctx):
+        new_state = {}
+        outs = []
+        for i, (name, prog) in enumerate(self.roles):
+            lo, hi = self._bounds[i]
+            ib = (inbox if self._single
+                  else tree_map(lambda f: f[lo:hi], inbox))
+            st, out = prog.step(state[name], ib, self._role_ctx(ctx, i))
+            new_state[name] = st
+            outs.append(self._pad_lanes(out, self.outbox_cap))
+        if self._single:
+            return new_state, outs[0]
+        return new_state, tree_map(lambda *fs: torch.cat(fs, dim=0), *outs)
+
+    def edge_step(self, state, edge_in, client_in, ctx):
+        name, prog = self.roles[0]
+        st, edge_out, client_out = prog.edge_step(state[name], edge_in,
+                                                  client_in, ctx)
+        return {name: st}, edge_out, client_out
+
+    def quiet_planes(self, state):
+        return [p for name, prog in self.roles
+                for p in prog.quiet_planes(state[name])]
+
+    def reply_payload_plane(self, state):
+        """The client role's payload plane, one row a node of the whole
+        cluster: node i reads the client role's row clip(i, 0, n - 1), as
+        the JAX package's `reply_payload` clips the node index."""
+        plane = self._client_prog.reply_payload_plane(
+            state[self._client_name])
+        if self._single:
+            return plane
+        rows = torch.arange(self.n_nodes, device=plane.device).clamp(
+            max=self._client_prog.n_nodes - 1)
+        return plane[rows]
+
+    def invalid_counters(self, state) -> dict:
+        out = {}
+        for name, prog in self.roles:
+            for k, v in prog.invalid_counters(state[name]).items():
+                out[k if self._single else f"{name}:{k}"] = v
+        return out
+
+    # --- durability (kill/restart) ---------------------------------------
+
+    def durable_view(self, state):
+        return {name: prog.durable_view(state[name])
+                for name, prog in self.roles}
+
+    def restore(self, fresh, durable, state, mask):
+        return {name: prog.restore(
+                    fresh[name],
+                    None if durable is None else durable.get(name),
+                    state[name], mask[lo:hi])
+                for (name, prog), (lo, hi) in zip(self.roles, self._bounds)}
+
+    # --- host boundary: delegated to the client role ----------------------
+
+    def request_for_op(self, op):
+        return self._client_prog.request_for_op(op)
+
+    def node_for_op(self, op):
+        local = self._client_prog.node_for_op(op)
+        if local is not None:
+            return int(local)
+        if self._single:
+            return None
+        # an unrouted op goes to the client tier, never to an internal
+        # node
+        return 0
+
+    def encode_body(self, body, intern):
+        return self._client_prog.encode_body(body, intern)
+
+    def decode_body(self, t, a, b, c, intern):
+        return self._client_prog.decode_body(t, a, b, c, intern)
+
+    def state_row(self, tree, node_idx: int):
+        """The global node id mapped into its role's subtree (the host
+        copy's leaves lead with the role's node count)."""
+        for (name, prog), (lo, hi) in zip(self.roles, self._bounds):
+            if lo <= node_idx < hi:
+                return prog.state_row(tree[name], node_idx - lo)
+        raise IndexError(f"node {node_idx} outside the partition "
+                         f"({self.n_nodes} nodes)")
+
+    def completion(self, op, body, read_state, intern):
+        return self._client_prog.completion(op, body, read_state, intern)
+
+    def completion_payload(self, op, body, payload, intern):
+        return self._client_prog.completion_payload(op, body, payload,
+                                                    intern)
+
+    def host_op(self, op, read_state, intern):
+        return self._client_prog.host_op(op, read_state, intern)
+
+    def host_state(self):
+        st = {name: prog.host_state() for name, prog in self.roles}
+        return None if all(v is None for v in st.values()) else st
+
+    def set_host_state(self, st):
+        if st is None:
+            return
+        for name, prog in self.roles:
+            prog.set_host_state(st.get(name))
+
+    # --- role-targeted faults ---------------------------------------------
+
+    def fault_groups(self) -> dict:
+        """{group: [node names]} for `--nemesis-targets`: every role's
+        node range, plus the subgroups a role program declares over its
+        own range (`fault_subgroups`)."""
+        out = {}
+        for (name, prog), (lo, hi) in zip(self.roles, self._bounds):
+            names = list(self.nodes[lo:hi])
+            out[name] = names
+            sub = getattr(prog, "fault_subgroups", None)
+            if sub is not None:
+                out.update(sub(names))
+        return out
+
+    def dynamic_fault_groups(self) -> tuple:
+        """Target groups resolved against live cluster state when the
+        fault fires (the runner's `_resolve_dynamic_target`), as the
+        role programs declare them."""
+        out: list = []
+        for _name, prog in self.roles:
+            f = getattr(prog, "dynamic_fault_groups", None)
+            if f is not None:
+                out += [t for t in f() if t not in out]
+        return tuple(out)
 
 
 # --- reply compaction (K4) -------------------------------------------------

@@ -152,16 +152,17 @@ def test_other_programs_and_random_latency_are_refused():
     """Other programs are still refused, naming the slice that brings
     each (lin-kv runs since the raft slice, echo, unique-ids and the CRDT
     programs since the pool-path slice, broadcast-batched since its own,
-    the transaction programs since theirs);
+    the transaction programs since theirs, the services since the
+    role-partition slice: the compartment stays refused);
     randomized latency, refused
     until the fault slice, now sizes the channels as the JAX package
     does (the spill write and its doubled lanes on 4,096 nodes or fewer,
     the ring's slack and slow! headroom, two cells for duplicates)."""
     assert p_get_program("txn-list-append", {}, ["n0"],
                          device="cpu").name == "txn-list-append"
-    with pytest.raises(ValueError, match="the role-partitioned programs"):
-        p_get_program("services", {}, ["n0"], device="cpu")
-    with pytest.raises(ValueError, match="the role-partitioned programs"):
+    assert p_get_program("services", {}, [f"n{i}" for i in range(5)],
+                         device="cpu").name == "services"
+    with pytest.raises(ValueError, match="the compartment"):
         p_get_program("compartment", {}, ["n0"], device="cpu")
     for n, opts in ((5, {"latency": {"mean": 5, "dist": "uniform"}}),
                     (25, {"latency": {"mean": 3, "dist": "exponential"},

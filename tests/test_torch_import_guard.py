@@ -60,7 +60,7 @@ def test_port_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", GUARD], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 68    # every module was imported
+    assert int(res.stdout.split()[-1]) >= 71    # every module was imported
 
 
 def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
@@ -75,7 +75,7 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
         get_program("lin-kv", {}, nodes)
     for name in ("echo", "unique-ids", "g-set", "pn-counter", "g-counter",
                  "kafka", "broadcast-batched", "txn-list-append",
-                 "txn-rw-register"):
+                 "txn-rw-register", "services", "solo:echo", "solo:lin-kv"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             get_program(name, {}, nodes)
     for engine in ("raft", "batched"):
@@ -137,6 +137,13 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
                                    "tpu:kafka", "--node-count", "3",
                                    "--continuous", "--kafka-groups", "2",
                                    "--telemetry", str(tmp_path / "tel"),
+                                   "--store", str(tmp_path)]),
+                 lambda: cli.main(["test", "-w", "lin-tso", "--node",
+                                   "tpu:services", "--nemesis", "kill",
+                                   "--nemesis-targets", "kill=lww-kv",
+                                   "--store", str(tmp_path)]),
+                 lambda: cli.main(["test", "-w", "lin-kv", "--node",
+                                   "tpu:solo:lin-kv", "--node-count", "3",
                                    "--store", str(tmp_path)])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -147,32 +154,52 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     session = TelemetrySession(str(tmp_path / "tel"))
     session.close()
     assert "no records" in render_top([])
-    # the CLI runs on the CPU when asked, faults and all
-    assert cli.main(args + ["--device", "cpu", "--time-limit", "0.2",
-                            "--max-values", "8"]) == 0
-    assert cli.main(args + ["--device", "cpu", "--time-limit", "0.4",
-                            "--max-values", "8", "--nemesis",
-                            "partition,kill", "--nemesis-interval", "0.1",
-                            "--latency", "2", "--latency-dist", "uniform",
-                            "--p-loss", "0.1"]) == 0
-    # and lin-kv on Raft (too short a run for every op kind to complete,
-    # so the stats checker's verdict is not asked for)
-    res = core.run({"workload": "lin-kv", "node": "tpu:lin-kv",
-                    "node_count": 3, "time_limit": 0.3, "rate": 20,
-                    "device": "cpu", "store_root": str(tmp_path)})
+
+
+BROADCAST4 = ["test", "-w", "broadcast", "--node", "tpu:broadcast",
+              "--node-count", "4", "--max-values", "8"]
+# the entry points on the CPU when asked: one case a run, each bounded in
+# rounds (a short client timeout where a kill strands an op)
+CPU_RUNS = {
+    "broadcast": BROADCAST4 + ["--time-limit", "0.2"],
+    "broadcast-faults": BROADCAST4 + [
+        "--time-limit", "0.4", "--nemesis", "partition,kill",
+        "--nemesis-interval", "0.1", "--latency", "2", "--latency-dist",
+        "uniform", "--p-loss", "0.1", "--timeout-ms", "300"],
+    # too short a run for every op kind to complete, so the stats
+    # checker's verdict is not asked for
+    "lin-kv": {"workload": "lin-kv", "node": "tpu:lin-kv", "node_count": 3,
+               "time_limit": 0.3, "rate": 20},
+    "unique-ids": ["test", "-w", "unique-ids", "--node", "tpu:unique-ids",
+                   "--node-count", "3", "--time-limit", "0.2",
+                   "--ms-per-round", "5"],
+    "pn-counter": {"workload": "pn-counter", "node": "tpu:pn-counter",
+                   "node_count": 3, "time_limit": 0.2, "recovery_s": 0.1,
+                   "ms_per_round": 5.0},
+    # continuous mode with the flight recorder
+    "echo-continuous": ["test", "-w", "echo", "--node", "tpu:echo",
+                        "--node-count", "3", "--time-limit", "0.2",
+                        "--continuous", "--telemetry"],
+    # the in-cluster services, targeted faults, a one-role partition
+    "lin-tso-targeted": ["test", "-w", "lin-tso", "--node", "tpu:services",
+                         "--time-limit", "0.2", "--ms-per-round", "5",
+                         "--nemesis", "kill,pause", "--nemesis-interval",
+                         "0.05", "--nemesis-targets",
+                         "kill=lww-kv,pause=seq-kv", "--timeout-ms", "200"],
+    "solo-echo": ["test", "-w", "echo", "--node", "tpu:solo:echo",
+                  "--node-count", "3", "--time-limit", "0.2",
+                  "--ms-per-round", "5"],
+}
+
+
+@pytest.mark.parametrize("name", list(CPU_RUNS))
+def test_entry_points_run_on_the_cpu_when_asked(name, tmp_path):
+    run = CPU_RUNS[name]
+    if isinstance(run, list):
+        assert cli.main(run + ["--device", "cpu", "--store",
+                               str(tmp_path)]) == 0
+        return
+    res = core.run({**run, "device": "cpu", "store_root": str(tmp_path)})
     assert res["workload"]["valid"] is True and res["net"]["valid"] is True
-    # and the pool-path and CRDT programs
-    assert cli.main(["test", "-w", "unique-ids", "--node", "tpu:unique-ids",
-                     "--node-count", "3", "--time-limit", "0.2",
-                     "--ms-per-round", "5", "--device", "cpu", "--store",
-                     str(tmp_path)]) == 0
-    res = core.run({"workload": "pn-counter", "node": "tpu:pn-counter",
-                    "node_count": 3, "time_limit": 0.2, "recovery_s": 0.1,
-                    "ms_per_round": 5.0, "device": "cpu",
-                    "store_root": str(tmp_path)})
-    assert res["valid"] is True
-    # and continuous mode with the flight recorder
-    assert cli.main(["test", "-w", "echo", "--node", "tpu:echo",
-                     "--node-count", "3", "--time-limit", "0.2",
-                     "--continuous", "--telemetry", "--device", "cpu",
-                     "--store", str(tmp_path)]) == 0
+    if name != "lin-kv":
+        assert res["valid"] is True

@@ -18,7 +18,11 @@ tables across the prefix max's block and carry-chunk boundaries) too,
 and the continuous scan's select and fold (K18, up to 100,000 rows) and
 the flight recorder's ring fold (K19: role slices, one or two send
 planes, 100,000 clients over an 800,000-row pool, every latency bucket
-from 1 to 2^17 rounds and a wrapping latency sum).
+from 1 to 2^17 rounds and a wrapping latency sum), and the service role
+steps (K20-K22: every lane type, repeated and out-of-range keys, cas hits
+and misses, merges older and newer than the stored stamp, INT32_MAX
+words, wrapping clocks, dirty sets below, at and above G, up to 1,022
+replicas, with and without the stall mask).
 
 These tests need a CUDA device and skip without one. They import
 nothing of JAX, so they run on a machine without it:
@@ -1181,3 +1185,97 @@ def test_ring_update_lat_buckets_exhaustive_and_wrap(cuda):
     _equal(got, ref)
     assert int(got.lat_sum) < 0 and int(got.lat_count) < 0
     assert got.lat_hist.cpu().tolist()[:4] == [1, 1, 2, 4]
+
+
+# --- the service role steps (K20, K21, K22) ----------------------------------
+
+# T_READ, T_WRITE, T_CAS, T_MERGE, T_TS and codes no role serves
+SERVICE_TYPES = np.array([10, 12, 14, 45, 40, 0, 11, 41], np.int32)
+INT32_MAX = 2**31 - 1
+
+
+def random_services_inputs(rng, n, K, keys, G=8):
+    """(inbox, state) as numpy fields for a service role step: every lane
+    type, keys repeated across lanes and past both ends (clipped), cas
+    `from` words that hit and miss the stored value+1, merges older and
+    newer than the stored stamp, words at INT32_MAX (b + 1 wraps and
+    clips to 0), clocks and timestamps that wrap, and per-replica dirty
+    sets below, at and above G keys."""
+    shape = (n, K)
+    a = rng.integers(-2, 6, shape)
+    a[rng.random(shape) < 0.05] = keys + 3
+    b = rng.integers(-2, 9, shape)
+    c = rng.integers(-2, 9, shape)
+    for w in (b, c):
+        w[rng.random(shape) < 0.04] = INT32_MAX
+    inbox = {"valid": rng.random(shape) < 0.8,
+             "src": rng.integers(0, n + 8, shape, dtype=np.int32),
+             "dest": rng.integers(0, n, shape, dtype=np.int32),
+             "due": rng.integers(0, 50, shape, dtype=np.int32),
+             "mid": rng.integers(0, 1000, shape, dtype=np.int32),
+             "reply_to": rng.integers(-1, 1000, shape, dtype=np.int32),
+             "type": rng.choice(SERVICE_TYPES, shape).astype(np.int32),
+             "a": a.astype(np.int32), "b": b.astype(np.int32),
+             "c": c.astype(np.int32)}
+    # node 0 holds every served type, valid, in its first lanes
+    k = min(K, 5)
+    inbox["type"][0, :k] = SERVICE_TYPES[[4, 0, 1, 2, 3]][:k]
+    inbox["valid"][0, :k] = True
+    dens = rng.choice(np.array([0.0, 0.01, G / keys, 0.3]), (n, 1))
+    dirty = rng.random((n, keys)) < dens
+    dirty[0] = False
+    dirty[0, rng.choice(keys, min(G, keys), replace=False)] = True
+    clock = rng.integers(0, 12, n).astype(np.int32)
+    clock[n // 2] = INT32_MAX
+    ts = rng.integers(0, 100, n).astype(np.int32)
+    ts[0] = INT32_MAX - 2
+    state = {"kv": rng.integers(0, 9, (n, keys), dtype=np.int32),
+             "vts": rng.integers(-1, 12, (n, keys), dtype=np.int32),
+             "clock": clock, "dirty": dirty, "ts": ts}
+    return inbox, state
+
+
+def _service_role(role, n, keys, G, device):
+    from maelstrom_tpu_torch.nodes import services as S
+    opts = {"kv_keys": keys, "gossip_keys": G}
+    nodes = [f"n{i}" for i in range(n)]
+    if role == "lin-tso":
+        return S.TSORole(opts, nodes, device=device)
+    if role == "seq-kv":
+        return S.SeqKVRole(opts, nodes, device=device)
+    return S.LWWKVRole(opts, nodes, base=2, device=device)
+
+
+SERVICE_STATE = {"lin-tso": ("ts",), "seq-kv": ("kv",),
+                 "lww-kv": ("kv", "vts", "clock", "dirty")}
+
+
+@pytest.mark.parametrize("role,n,K_,keys,G", [
+    ("lin-tso", 1, 8, 256, 8), ("lin-tso", 37, 40, 256, 8),
+    ("seq-kv", 1, 8, 256, 8), ("seq-kv", 3, 17, 300, 8),
+    ("lww-kv", 1, 8, 256, 8), ("lww-kv", 3, 8, 256, 8),
+    ("lww-kv", 64, 8, 256, 8), ("lww-kv", 9, 5, 700, 3),
+    ("lww-kv", 1022, 8, 256, 8)])
+@pytest.mark.parametrize("stalled", [False, True], ids=["", "stall"])
+def test_service_steps_match_plain(cuda, role, n, K_, keys, G, stalled):
+    rng = np.random.default_rng(n * 7 + K_ + int(stalled))
+    inbox, state = random_services_inputs(rng, n, K_, keys, G)
+    state = {k: state[k] for k in SERVICE_STATE[role]}
+    stall = rng.random(n) < 0.4
+    pc = _service_role(role, n, keys, G, "cpu")
+    pg = _service_role(role, n, keys, G, cuda)
+    kernel = {"lin-tso": K.TSO_STEP, "seq-kv": K.SEQ_KV_STEP,
+              "lww-kv": K.LWW_KV_STEP}[role]
+
+    def run(prog, dev):
+        ctx = {"stall": torch.tensor(stall, device=dev)} if stalled else {}
+        st = _tensors(state, dev)
+        ib = Msgs(**_tensors(inbox, dev))
+        return prog.step(st, ib, ctx), st
+
+    before = kernel.launches
+    (got, st_g), (ref, _st) = run(pg, cuda), run(pc, "cpu")
+    assert kernel.launches == before + 1
+    _equal(got, ref)
+    _equal(st_g, _tensors(state, "cpu"))    # no input updated
+    assert ref[1].valid.any() or stalled

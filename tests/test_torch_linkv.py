@@ -7,7 +7,7 @@ for byte equal, and results.json equal but for the wall-clock and
 host-transfer keys (`test_torch_runner.WALL_KEYS`) and the JAX runner's
 overlapped-analysis block, which the port does not run. The runs are
 `chip_smoke.py`'s `CLI_LINKV`, whose JAX history hashes it pins
-(`PINNED_LINKV`): the fault-free one here, the faulted one (6,260
+(`PINNED_LINKV`): the fault-free one here, the faulted one (5,295
 rounds, a few minutes on the CPU) under `slow`. The copied WGL checker
 gives the JAX checker's verdict on the recorded history and on histories
 that cannot linearize, and a log capacity too small for the run makes

@@ -162,7 +162,7 @@ def test_capacity_and_refusals():
         small.encode_body(small.request_for_op({"f": "poll"}), it)
     with pytest.raises(EncodeCapacityError, match="command table full"):
         small.encode_body(small.request_for_op({"f": "poll"}), it)
-    with pytest.raises(ValueError, match="the role-partitioned programs"):
+    with pytest.raises(ValueError, match="the compartment"):
         make_ordered({"workload": "lin-kv", "ordering": "compartment"},
                      NODES5, device="cpu")
     assert get_applier("txn-list-append", {}).name == "txn-list-append"

@@ -135,7 +135,12 @@ def test_free_set_rotation_matches_sorted_list():
 @pytest.mark.parametrize("extra,slice_", [
     (["--nemesis", "byzantine"], "the byzantine adversary"),
     (["--nemesis", "kill,byzantine"], "the byzantine adversary"),
-    (["--nemesis-targets", "kill=n0"], "the role-partitioned programs"),
+    # the cases that refused what now runs (--nemesis-targets, lin-tso,
+    # --ordering compartment's slice name) keep their ids and check what
+    # stays refused beside them: the compartment's options
+    pytest.param(["--nemesis-targets", "kill=n0", "--roles", "proxies=2"],
+                 "the compartment",
+                 id="extra2-the role-partitioned programs"),
     (["--byz-rate", "0.5"], "the byzantine adversary"),
     (["--client-retries", "3"], "retries and backoff"),
     # the cases that refused what now runs (--continuous, --telemetry)
@@ -156,15 +161,17 @@ def test_free_set_rotation_matches_sorted_list():
                  "the overlap pipeline", id="extra10-device Elle"),
     pytest.param(["--telemetry", "--checkpoint-every", "1"],
                  "checkpoint and resume", id="extra11-telemetry rings"),
-    (["--ordering", "compartment"], "the role-partitioned programs"),
+    pytest.param(["--ordering", "compartment"], "the compartment",
+                 id="extra12-the role-partitioned programs"),
     pytest.param(["-w", "txn-rw-register", "--bin",
                   "demo/python/txn_rw_register.py"],
                  "the host-process path",
                  id="extra13-the Raft transaction programs"),
     pytest.param(["-w", "txn-list-append", "--ordering", "compartment"],
-                 "the role-partitioned programs",
+                 "the compartment",
                  id="extra14-the Raft transaction programs"),
-    pytest.param(["-w", "lin-tso"], "the role-partitioned programs",
+    pytest.param(["-w", "lin-tso", "--node", "tpu:services",
+                  "--leader-lease-ms", "5"], "the compartment",
                  id="extra14-lin-mutex and lin-tso"),
     pytest.param(["-w", "lin-mutex", "--node", "tpu:lin-kv", "--nemesis",
                   "byzantine"], "the byzantine adversary",

@@ -114,8 +114,11 @@ def test_ordered_raft_cli_matches_jax(tmp_path):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["-w", "lin-kv", "--ordering", "compartment"],
-     "the role-partitioned programs"),
+    # the compartment engine's slice, named "the role-partitioned
+    # programs" until the partition landed (the id kept)
+    pytest.param(["-w", "lin-kv", "--ordering", "compartment"],
+                 "the compartment",
+                 id="extra0-the role-partitioned programs"),
     # refused the txn-list-append applier before it was ported (the
     # id kept); the JAX package has no txn-rw-register applier either
     pytest.param(["-w", "txn-rw-register", "--ordering", "raft"],

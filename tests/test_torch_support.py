@@ -8,12 +8,20 @@ equality, since every value is int32 or bool."""
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import jax
 import numpy as np
 import torch
 
 from maelstrom_tpu_torch.tree import leaves, to_numpy
+
+# torch's intra-op pool defaults to every CPU in each process: under
+# pytest-xdist, workers x CPUs threads spin against each other (six
+# workers on 8 CPUs ran a 25 s port test in 1,211 s). Each worker gets
+# its share of the CPUs.
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 
 def jax_tree_to_numpy(x):
