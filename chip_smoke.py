@@ -78,8 +78,19 @@ with the ring on, and 1,022 lww-kv replicas) whose histories and ring
 must hash to the JAX runner's (`PINNED_SERVICES`), and two pinned runs
 of earlier slices again with their program wrapped as a one-role
 partition (`--node tpu:solo:<program>`), held to their existing pins.
-The runs (the CLI, the benches and the sweeps) go in four groups side
-by side, three of them in worker processes the script starts and waits
+Then the compartment slice: K23 compartment_sequencer_step, K24
+compartment_proxy_step, K25 compartment_acceptor_step and K26
+compartment_replica_step (with and without their stall masks, at the
+CLI's and the bench's shapes and up to 4,096 acceptors x 32,256 slots)
+against their plain versions, the compartment's lin-kv runs (`--node
+tpu:compartment`: plain, under role-targeted kills and a grid-column
+partition with the ring on, the leader's shed) and kafka over the
+compartment engine, whose histories and ring must hash to the JAX
+runner's (`PINNED_COMPARTMENT`), and bench.py's proxy-scaling sweep at
+full width (`python -m maelstrom_tpu_torch.bench --compartment`), whose
+ok ops must equal the JAX runner's (`PINNED_COMPARTMENT_BENCH`).
+The runs (the CLI, the benches and the sweeps) go in five groups side
+by side, four of them in worker processes the script starts and waits
 for (`--worker`), each phase counting the launches of its own runs; the
 profiles and the kernel times come after, with the card to themselves.
 Every phase prints one JSON line; any failed check exits non-zero. The line before the last lists every kernel
@@ -4491,6 +4502,435 @@ def phase_cli_services(smi):
             for k in SERVICES_KERNELS}
 
 
+# --- the compartment slice: one sequencer (K23-K26) ---------------------------
+
+# The JAX package's compartment runs (tests/test_compartment.py): the
+# default roles (one sequencer, 2 proxies, a 2x2 grid, 2 replicas) at
+# seed 7, rate 20, 2 s; the role-targeted soup (kills on the proxies, a
+# partition cutting acceptor column 0 off, every 0.7 s for 3 s, 2 s of
+# recovery) with the ring on; the leader's backpressure shed (2 leader
+# and 2 proxy slots, 16 clients at rate 200 for 1 s); and kafka over the
+# compartment engine at the ordering axis's base options. Nothing is cut.
+COMP_BASE = {"workload": "lin-kv", "node": "tpu:compartment", "seed": 7,
+             "rate": 20.0, "time_limit": 2.0, "journal_rows": False}
+CLI_COMPARTMENT = [
+    ("comp9", dict(COMP_BASE)),
+    ("comp9-targeted", {
+        **COMP_BASE, "seed": 11, "time_limit": 3.0,
+        "nemesis": {"kill", "partition"}, "nemesis_interval": 0.7,
+        "nemesis_targets": "kill=proxies,partition=acceptor-col-0",
+        "recovery_s": 2.0, "telemetry": "auto"}),
+    ("comp9-shed", {**COMP_BASE, "rate": 200.0, "time_limit": 1.0,
+                    "leader_slots": 2, "proxy_slots": 2,
+                    "concurrency": 16}),
+    ("kafka-ordered-comp", {**ORDERED_BASE, "workload": "kafka",
+                            "ordering": "compartment"}),
+]
+# sha256 of the JAX runner's history.jsonl and of its results'
+# `net.telemetry` block (json.dumps with sorted keys; None with the ring
+# off) for each run above, on the CPU (JAX without its overlap
+# pipeline); re-derived by
+#   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_compartment.py -m slow
+PINNED_COMPARTMENT = {
+    "comp9": {
+        "history":
+            "8db3af6bbfb88f49ba990362e405a204434b02b1fe94c3be5463594c01383e67",
+        "telemetry": None},
+    "comp9-targeted": {
+        "history":
+            "4c9ccf09f28f5bb1fca63cfa910d512ddd7435804fd0a2180414d7b471452bf0",
+        "telemetry":
+            "10c47d48f6c9904f83d75b419120859d5b984bfad0a0efd8319c3857597aefe1"},
+    "comp9-shed": {
+        "history":
+            "3de5cded866056f9bbe0fdfce88ecdb914ecb83cbafc6678616d1181f616f0b4",
+        "telemetry": None},
+    "kafka-ordered-comp": {
+        "history":
+            "abf17fc1415941f39111a8aa352508a96134f1025d0c52d481d4370c51a0ac91",
+        "telemetry": None},
+}
+# bench.py's compartment sweep at full width (P = 1, 2, 4, 8 proxies,
+# rate 8,000, 2 s, 96 clients, seed 11): the JAX runner's ok ops at each
+# point on the CPU, re-derived by the same command
+PINNED_COMPARTMENT_BENCH = {1: 1671, 2: 3362, 4: 7049, 8: 11635}
+
+
+COMPARTMENT_KERNELS = ("compartment_sequencer_step", "compartment_proxy_step",
+                       "compartment_acceptor_step", "compartment_replica_step")
+# (roles, layout options, role, role nodes) of each K23-K26 check: the CLI
+# runs' shapes (comp9: QL 32, K 8, QP 8, a 336-slot log, 256 keys), the
+# bench's (QL 128, K 16, 8 proxies, a 32,256-slot log, 1,024 keys: the
+# slice's path at full width, the kernels line's shape) and a stress
+# shape the card holds: 4,096 sequencer and proxy tables, 4,096
+# acceptors x 32,256 slots (660 MB of planes) and 1,024 replicas x
+# 32,256 slots x 1,024 keys (433 MB).
+_BENCH_LAY = {"leader_slots": 128, "proxy_slots": 8,
+              "compartment_inbox": 16, "kv_keys": 1024,
+              "concurrency": 96, "rate": 8000.0, "time_limit": 2.0}
+_CLI_LAY = {"rate": 20.0, "time_limit": 2.0}
+_R9 = "proxies=2,acceptors=2x2,replicas=2"
+_R8 = "proxies=8,acceptors=2x2,replicas=2"
+COMPARTMENT_SHAPES = {
+    "compartment_sequencer_step@cli": (_R9, _CLI_LAY, "sequencers", 1),
+    "compartment_proxy_step@cli": (_R9, _CLI_LAY, "proxies", 2),
+    "compartment_acceptor_step@cli": (_R9, _CLI_LAY, "acceptors", 4),
+    "compartment_replica_step@cli": (_R9, _CLI_LAY, "replicas", 2),
+    "compartment_sequencer_step@bench": (_R8, _BENCH_LAY, "sequencers", 1),
+    "compartment_proxy_step@bench": (_R8, _BENCH_LAY, "proxies", 8),
+    "compartment_acceptor_step@bench": (_R8, _BENCH_LAY, "acceptors", 4),
+    "compartment_replica_step@bench": (_R8, _BENCH_LAY, "replicas", 2),
+    "compartment_sequencer_step@stress": (_R8, _BENCH_LAY, "sequencers",
+                                          4096),
+    "compartment_proxy_step@stress": (_R8, _BENCH_LAY, "proxies", 4096),
+    "compartment_acceptor_step@stress": (_R8, _BENCH_LAY, "acceptors",
+                                         4096),
+    "compartment_replica_step@stress": (_R8, _BENCH_LAY, "replicas", 1024),
+}
+
+
+def _compartment_role(roles, opts, role, n):
+    """The role program of a `--roles` layout over n nodes, on the card."""
+    from maelstrom_tpu_torch.nodes import compartment as C
+    lay = C.Layout({"roles": roles, **opts}, C.roles_node_count(roles))
+    cls = {"sequencers": C.SequencerRole, "proxies": C.ProxyRole,
+           "acceptors": C.GridAcceptors, "replicas": C.ReplicaRole}[role]
+    return lay, cls({}, [f"n{i}" for i in range(n)], lay)
+
+
+def _random_compartment(g, role, lay, n, rnd):
+    """Random inputs of a compartment role step on the card (the gpu
+    tests' `random_compartment_inputs`, in torch): every lane type the
+    role reads and some it does not, slots repeated, matching live rows
+    and past the log, grid and replica indices past both ends, INT32_MAX
+    words, client ids below and above the cluster, tables empty, partly
+    full and full, rows due and not due, ack sets a row short of a
+    quorum and whole, stored runs past the apply frontier, commands of
+    every op with keys past the row. Returns (inbox Msgs, state)."""
+    import torch
+    from maelstrom_tpu_torch.net.tpu import Msgs
+    K_, C = lay.K, lay.cap
+    Q = {"sequencers": lay.QL, "proxies": lay.QP}.get(role, 1)
+    shape = (n, K_)
+
+    def ri(lo, hi, shp):
+        return torch.randint(lo, hi, shp, generator=g, device="cuda",
+                             dtype=torch.int32)
+
+    def rf(shp):
+        return torch.rand(shp, generator=g, device="cuda")
+
+    def dens(shp):
+        d = torch.tensor([0.0, 0.1, 0.5, 0.9, 1.0], device="cuda")[
+            ri(0, 5, (shp[0], 1)).long()]
+        return rf(shp) < d
+
+    def pick_lane(rows):
+        return torch.gather(rows, 1, ri(0, rows.shape[1], shape).long())
+    last = rnd - ri(0, 2 * lay.retry, (n, Q))
+    last = torch.where(rf((n, Q)) < 0.2, -(1 << 20), last)
+    b, c = (torch.where(rf(shape) < 0.04, 2**31 - 1, ri(-2, 9, shape))
+            for _ in range(2))
+    inbox = dict(valid=rf(shape) < 0.85, src=ri(0, lay.n_nodes + 40, shape),
+                 dest=ri(0, n, shape), due=ri(0, 50, shape),
+                 mid=ri(0, 1000, shape), reply_to=ri(-1, 1000, shape),
+                 b=b, c=c)
+
+    def types(codes):
+        t = torch.tensor(codes, dtype=torch.int32, device="cuda")
+        return t[ri(0, len(codes), shape).long()]
+    if role == "sequencers":
+        slots = ri(0, C + 4, (n, Q))
+        inbox["type"] = types([10, 12, 14, 35, 35, 30, 0, 31])
+        a = torch.where(rf(shape) < 0.05, lay.keys + 3, ri(-2, 8, shape))
+        done = torch.where(rf(shape) < 0.5, pick_lane(slots),
+                           ri(0, C + 4, shape))
+        inbox["a"] = torch.where(inbox["type"] == 35, done, a)
+        nxt = torch.where(rf(n) < 0.3, C - ri(0, 3, (n,)), ri(0, C + 1, (n,)))
+        state = {"next_slot": nxt, "t_valid": dens((n, Q)),
+                 "t_slot": slots, "t_cmd": ri(0, 1 << 30, (n, Q)),
+                 "t_client": ri(0, 0x8000, (n, Q)),
+                 "t_mid": ri(-1, 1000, (n, Q)), "t_last": last}
+    elif role == "proxies":
+        slots = ri(0, C + 4, (n, Q))
+        inbox["type"] = types([32, 32, 34, 34, 30, 30, 0, 35])
+        slot_in = torch.where(rf(shape) < 0.6, pick_lane(slots),
+                              ri(0, C + 4, shape)) & 0x7FFF
+        inbox["a"] = torch.where(inbox["type"] == 30,
+                                 (ri(0, 0x8000, shape) << 16) | slot_in,
+                                 slot_in)
+        ackish = (inbox["type"] == 32) | (inbox["type"] == 34)
+        inbox["b"] = torch.where(ackish, ri(-1, lay.AR + 2, shape),
+                                 inbox["b"])
+        pa = torch.tensor([0.0, 0.5, 0.8, 1.0], device="cuda")[
+            ri(0, 4, (n, Q, 1)).long()]
+        state = {"p_valid": dens((n, Q)), "p_learn": rf((n, Q)) < 0.4,
+                 "p_slot": slots, "p_cmd": ri(0, 1 << 30, (n, Q)),
+                 "p_client": ri(0, 0x8000, (n, Q)),
+                 "p_mid": ri(-1, 1000, (n, Q)), "p_last": last,
+                 "p_acks": rf((n, Q, lay.AR)) < pa}
+    elif role == "acceptors":
+        inbox["type"] = types([31, 31, 31, 32, 0, 33])
+        a = ri(-2, C + 3, shape)
+        inbox["a"] = torch.where(rf(shape) < 0.3, a[:, :1], a)
+        state = {"acc_cmd": ri(0, 1 << 30, (n, C)),
+                 "acc_has": rf((n, C)) < 0.3}
+    else:
+        applied = torch.where(rf(n) < 0.2, C - 1 - ri(0, 3, (n,)),
+                              ri(-1, C, (n,)))
+        applied[0] = -1
+        slot_in = applied[:, None] + ri(-2, lay.AP + 3, shape)
+        slot_in = torch.where(rf(shape) < 0.1, C + ri(0, 3, shape),
+                              slot_in) & 0x7FFF
+        slot_in = torch.where(rf(shape) < 0.2, slot_in[:, :1], slot_in)
+        inbox["type"] = types([33, 33, 33, 34, 0, 31])
+        inbox["a"] = (ri(0, 0x8000, shape) << 16) | slot_in
+        key = torch.where(rf((n, C)) < 0.02, min(lay.keys + 1, 4095),
+                          ri(0, lay.keys, (n, C)))
+        cmd = ((key << 18) | (ri(0, 4, (n, C)) << 16)
+               | (ri(0, 10, (n, C)) << 8) | ri(0, 10, (n, C)))
+        inbox["b"] = torch.where(inbox["type"] == 33,
+                                 torch.gather(cmd, 1,
+                                              ri(0, C, shape).long()),
+                                 inbox["b"])
+        # runs of stored slots past the apply frontier
+        ar = torch.arange(C, device="cuda")[None, :]
+        run = ri(0, 2 * lay.AP, (n, 1))
+        lo = (applied[:, None] + 1).clamp(min=0)
+        has = (rf((n, C)) < 0.3) | ((ar >= lo) & (ar < lo + run))
+        state = {"r_cmd": cmd, "r_client": ri(0, 0x8000, (n, C)),
+                 "r_mid": ri(-2, 1000, (n, C)), "r_has": has,
+                 "applied": applied, "kv": ri(0, 10, (n, lay.keys))}
+    return Msgs(**inbox), state
+
+
+def _compartment_io(role, lay, n, state, out):
+    """(bytes, int32 operations) a step must move and do: the inbox
+    fields the kernel reads, the state read and written, the outbox
+    written; a few dozen operations a row and a lane, the proxies' ack
+    fold (Q x K x AR) and the in-round dedups (K x K a node)."""
+    K_ = lay.K
+    lane_in = {"sequencers": 25, "proxies": 17, "acceptors": 17,
+               "replicas": 21}[role]
+    st = 2 * nbytes(*state.values())
+    io = n * K_ * lane_in + st + nbytes(*[getattr(out, f) for f in (
+        "valid", "src", "dest", "due", "mid", "reply_to", "type", "a", "b",
+        "c")])
+    Q = {"sequencers": lay.QL, "proxies": lay.QP}.get(role, 0)
+    ops = n * (K_ * K_ + 30 * (Q + K_))
+    if role == "sequencers":
+        ops += n * Q * K_ * 3
+    elif role == "proxies":
+        ops += n * Q * K_ * 4 + n * Q * lay.AR * 6
+    else:
+        ops += n * lay.cap + n * lay.AP * (K_ + 30)
+    return io, ops
+
+
+def compartment_kernel_checks(timed):
+    """K23-K26, with and without the stall mask, against their plain
+    versions on the same inputs on the card (exact: int32 and bool) at
+    `COMPARTMENT_SHAPES`, the inputs unchanged after the launch, at
+    rounds 0, 37 and 2^20 (rows due and not); timed without the mask."""
+    import torch
+    from maelstrom_tpu_torch import kernels as K
+    g = torch.Generator(device="cuda")
+    g.manual_seed(23)
+    out = {}
+    for name, (roles, opts, role, n) in COMPARTMENT_SHAPES.items():
+        lay, prog = _compartment_role(roles, opts, role, n)
+        err = 0
+        for rnd in (37, 0, 1 << 20):
+            inbox, state = _random_compartment(g, role, lay, n, rnd)
+            before = clone(state), clone(inbox)
+            stall = torch.rand(n, generator=g, device="cuda") < 0.3
+            r = torch.tensor(rnd, dtype=torch.int32, device="cuda")
+            for ctx in ({"round": r}, {"round": r, "stall": stall}):
+                def step(ctx=ctx):
+                    return prog.step(state, inbox, ctx)
+                got = step()
+                with K.forced_plain():
+                    ref = step()
+                torch.cuda.synchronize()
+                err = max(err, max_abs_err(got, ref))
+                del got, ref
+            check(max_abs_err(before, (state, inbox)) == 0,
+                  f"{name}: the kernel updated an input")
+            del before
+        check(err == 0, f"{name} differs from its plain version (max abs "
+              f"err {err})")
+        new, outbox = prog.step(state, inbox, {"round": r})
+        io, ops = _compartment_io(role, lay, n, state, outbox)
+        b, by = bound_of(io, ops)
+        rec = {"max_abs_err": err, "bound_ms": b, "bound_by": by,
+               "bytes": io, "ops": ops, "nodes": n, "lanes": lay.K,
+               "slots": lay.cap, "table": {"sequencers": lay.QL,
+                                           "proxies": lay.QP}.get(role)}
+        del new, outbox
+        if timed:
+            def timed_step():
+                return prog.step(state, inbox, {"round": r})
+            rec["ms"] = cuda_ms(timed_step)
+            with K.forced_plain():
+                rec["plain_ms"] = cuda_ms(timed_step)
+        out[name] = rec
+        del prog, inbox, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_compartment_kernels(timed):
+    t0 = time.perf_counter()
+    r = compartment_kernel_checks(timed)
+    emit({"phase": "compartment_kernels", "timed": timed,
+          "seconds": time.perf_counter() - t0, "kernels": r})
+    return r
+
+
+def _rounds_run(tm):
+    """The rounds a run's scans ran, from its timing.json: those it
+    executed, those replayed after a chunk ran past an exit, and those
+    that ran past the exit and were rolled back. A role step launches
+    its kernel once for each."""
+    return (tm["rounds-executed"] + tm["scan-replayed-rounds"]
+            + tm["scan-rolled-back-rounds"])
+
+
+def phase_cli_compartment(smi):
+    """The compartment's runs through the kernels, launch counters set to
+    0 just before each and read just after: each history (and the
+    targeted run's ring) must hash to the JAX runner's, every run valid
+    with no pool overflow, each of K23-K26 launched once for every
+    round the scan ran (`_rounds_run`); the targeted run's kills on the
+    proxies (n1, n2) only, the shed run with both fails and oks."""
+    import shutil
+    from maelstrom_tpu_torch import kernels as K
+    store = os.path.join(ROOT, "store", "chip_smoke_compartment")
+    shutil.rmtree(store, ignore_errors=True)
+    runs, launches = {}, {}
+    for name, opts in CLI_COMPARTMENT:
+        K.reset_launches()
+        rc, d, res, tm, digest, wall = _core_run(opts, store)
+        launches[name] = K.launch_counts()
+        pin = PINNED_COMPARTMENT[name]
+        check(rc == 0 and res["valid"] is True
+              and res["net"]["dropped-overflow"] == 0,
+              f"compartment {name}: exit {rc}, valid {res.get('valid')}, "
+              f"overflow {res['net']['dropped-overflow']}")
+        check(res["workload"]["valid"] is True,
+              f"compartment {name}: workload {res['workload']}")
+        check(digest == pin["history"], f"compartment {name}: history.jsonl "
+              f"sha256 {digest}, the JAX runner's {pin['history']}")
+        n_launch = [launches[name][k] for k in COMPARTMENT_KERNELS]
+        ran = _rounds_run(tm)
+        check(tm["rounds-executed"] > 0 and n_launch == [ran] * len(n_launch),
+              f"compartment {name}: launches {n_launch} for {ran} rounds "
+              f"run ({tm['rounds-executed']} executed, "
+              f"{tm['scan-replayed-rounds']} replayed, "
+              f"{tm['scan-rolled-back-rounds']} rolled back)")
+        st = res["stats"]
+        rec = {"wall_s": wall, "final_round": tm["final-round"],
+               "rounds_executed": tm["rounds-executed"],
+               "replayed_rounds": tm["scan-replayed-rounds"],
+               "rolled_back_rounds": tm["scan-rolled-back-rounds"],
+               "ms_per_executed_round": 1e3 * tm["scan-s"]
+               / max(tm["rounds-executed"], 1),
+               "dispatches": tm["dispatches"], "drains": tm["drains"],
+               "history_ops": tm["history-ops"],
+               "ok": st["ok-count"], "fail": st["fail-count"],
+               "server_msgs": res["net"]["servers"]["send-count"],
+               "threefry_per_round": launches[name]["threefry"]
+               / max(n_launch[0], 1),
+               "history_sha256_equal": True}
+        if name == "comp9-shed":
+            check(st["fail-count"] > 0 and st["ok-count"] > 0,
+                  f"compartment {name}: {st['ok-count']} ok, "
+                  f"{st['fail-count']} failed")
+        if opts.get("telemetry"):
+            ring = _telemetry_checks(name, d, res, pin["telemetry"])
+            rec["role_sent"] = ring["role-sent"]
+            rec["telemetry_sha256_equal"] = True
+        if opts.get("nemesis_targets"):
+            with open(os.path.join(d, "history.jsonl")) as f:
+                vals = [o["value"] for o in map(json.loads, f)
+                        if o.get("process") == "nemesis"
+                        and o["type"] == "info"]
+            killed = [v for v in vals if str(v).startswith("killed")]
+            others = [f"'n{i}'" for i in (0, 3, 4, 5, 6, 7, 8)]
+            check(killed and all(("'n1'" in v or "'n2'" in v)
+                                 and not any(o in v for o in others)
+                                 for v in killed),
+                  f"compartment {name}: kills {killed}")
+            rec["killed"] = killed
+        runs[name] = rec
+    shutil.rmtree(store, ignore_errors=True)
+    emit({"phase": "cli_compartment", "runs": runs, "launches": {
+        k: {kk: v[kk] for kk in COMPARTMENT_KERNELS + ("threefry",)}
+        for k, v in launches.items()}, "nvidia_smi": smi})
+    return {k: sum(v[k] for v in launches.values())
+            for k in COMPARTMENT_KERNELS}
+
+
+def phase_bench_compartment(smi):
+    """bench.py's compartment sweep at full width through the port's
+    entry point (`python -m maelstrom_tpu_torch.bench --compartment`):
+    every point valid with the JAX runner's ok ops, 4 proxies at least
+    twice one's, each point's wall seconds and host ms an executed round
+    (from its store's timing.json, read before the bench removes it), the
+    launch counters set to 0 just before and read just after: each of
+    K23-K26 launched once for every round the sweep's scans ran."""
+    from maelstrom_tpu_torch import bench
+    from maelstrom_tpu_torch import core
+    from maelstrom_tpu_torch import kernels as K
+    timings = []
+    run = core.run
+
+    def timed_run(opts):
+        res = run(opts)
+        d = os.path.realpath(os.path.join(opts["store_root"], "latest"))
+        with open(os.path.join(d, "timing.json")) as f:
+            timings.append(json.load(f))
+        return res
+    K.reset_launches()
+    core.run = timed_run
+    try:
+        rec, rc = bench.main_compartment(device="cuda")
+    finally:
+        core.run = run
+    counts = K.launch_counts()
+    check(rc == 0 and rec["valid"] is True,
+          f"bench_compartment: exit {rc}, record {rec}")
+    got = {r["proxies"]: r["ok_ops"] for r in rec["proxies"]}
+    check(got == PINNED_COMPARTMENT_BENCH,
+          f"bench_compartment: ok ops {got}, the JAX runner's "
+          f"{PINNED_COMPARTMENT_BENCH}")
+    check(rec["scaling_1_to_4"] >= 2.0,
+          f"bench_compartment: scaling {rec['scaling_1_to_4']}")
+    check(len(timings) == len(rec["proxies"]),
+          f"bench_compartment: {len(timings)} runs timed for "
+          f"{len(rec['proxies'])} points")
+    points = []
+    for row, tm in zip(rec["proxies"], timings):
+        check(tm["rounds-executed"] > 0,
+              f"bench_compartment: P {row['proxies']} executed no round")
+        points.append({**row, "rounds_executed": tm["rounds-executed"],
+                       "replayed_rounds": tm["scan-replayed-rounds"],
+                       "rolled_back_rounds": tm["scan-rolled-back-rounds"],
+                       "host_ms_per_round": 1e3 * tm["scan-s"]
+                       / max(tm["rounds-executed"], 1),
+                       "dispatches": tm["dispatches"]})
+    ran = sum(map(_rounds_run, timings))
+    n_launch = [counts[k] for k in COMPARTMENT_KERNELS]
+    check(n_launch == [ran] * len(n_launch),
+          f"bench_compartment: launches {n_launch} for {ran} rounds run")
+    emit({"phase": "bench_compartment", "points": points,
+          "scaling_1_to_4": rec["scaling_1_to_4"],
+          "value": rec["value"], "ok_ops_equal": True,
+          "launches": {k: counts[k] for k in COMPARTMENT_KERNELS},
+          "nvidia_smi": smi})
+    return {k: counts[k] for k in COMPARTMENT_KERNELS}
+
+
 # --- the runs, side by side ---------------------------------------------------
 
 # The phases that drive the main path through the CLI, the runners, the
@@ -4501,9 +4941,9 @@ def phase_cli_services(smi):
 # this process. Every phase sets the launch counters to 0 just before its
 # runs and reads them just after, in the process that drives them, and
 # returns what it read. The groups hold about equal host time (NVIDIA H100
-# 80GB HBM3, 700 W: their phases one after another took 199 s, 184 s,
-# 202 s and 189 s; side by side, 273-299 s). The profiles and the kernel
-# times come after every group has ended, with the card to themselves.
+# 80GB HBM3, 700 W: their phases one after another took 208 s, 199 s,
+# 184 s, 202 s and 189 s). The profiles and the kernel times come after
+# every group has ended, with the card to themselves.
 RUN_PHASES = {
     "cli_small": lambda smi: phase_cli_small(),
     "cli_100k": phase_cli_100k,
@@ -4520,11 +4960,14 @@ RUN_PHASES = {
     "cli_txn": phase_cli_txn,
     "cli_stream": phase_cli_stream,
     "cli_services": phase_cli_services,
+    "cli_compartment": phase_cli_compartment,
+    "bench_compartment": phase_bench_compartment,
     "bench_checkers": phase_bench_checkers,
     "fuzz_kafka": phase_fuzz_kafka,
     "fuzz_100k": phase_fuzz_broadcast,
 }
 RUN_GROUPS = [
+    ["cli_compartment", "bench_compartment"],
     ["cli_services", "cli_small", "fuzz_kafka", "bench_batched",
      "cli_ordered", "raft_bench_10k"],
     ["cli_linkv", "cli_faults_small", "cli_faults_100k"],
@@ -4650,6 +5093,7 @@ def main() -> int:
     kchecks = phase_kafka_kernels(timed=False)
     schecks = phase_stream_kernels(timed=False)
     vchecks = phase_services_kernels(timed=False)
+    mchecks = phase_compartment_kernels(timed=False)
     phase_prng_pins()
     ret = run_groups(smi)
     launches = dict(ret["cli_100k"])
@@ -4663,6 +5107,9 @@ def main() -> int:
     for name in ("cli_crdt", "cli_batched", "cli_txn", "cli_stream",
                  "cli_services"):
         launches.update(ret[name])
+    # the compartment's kernels: the pinned runs' and the bench sweep's
+    for k in COMPARTMENT_KERNELS:
+        launches[k] = ret["cli_compartment"][k] + ret["bench_compartment"][k]
     launches["kafka_step"] = ret["cli_kafka"]["kafka_step"]
     elle_inputs = ret["bench_checkers"]
     # profiles and kernel times last: the profiler they are read from
@@ -4692,13 +5139,16 @@ def main() -> int:
     cli["tso_step"] = vtimed["tso_step@cli"]
     cli["seq_kv_step"] = vtimed["seq_kv_step@cli"]
     cli["lww_kv_step"] = vtimed["lww_kv_step@100k"]
+    mtimed = phase_compartment_kernels(timed=True)
+    for k in COMPARTMENT_KERNELS:
+        cli[k] = mtimed[f"{k}@bench"]
     phase_crdt_profile()
     phase_pool_profile(pool_launches["rounds_executed"])
     emit({"phase": "profiler", **PROFILER})
     errs = {}
     for r in (*checks.values(), fchecks, rchecks, raft, pchecks, cchecks,
               kchecks, ktimed, btimed, etimed, schecks, stimed, vchecks,
-              vtimed):
+              vtimed, mchecks, mtimed):
         for name, v in r.items():
             base = {"raft_step_stall": "raft_step",
                     "threefry_batched": "threefry",

@@ -1,4 +1,5 @@
-"""The throughput benchmarks on the port: broadcast, and Raft clusters.
+"""The throughput benchmarks on the port: broadcast, Raft clusters, batched
+broadcast, the checkers and the compartment's proxy scaling.
 
 The same workload as `bench.py`'s broadcast record (`_main_broadcast`): a
 grid of `n_nodes` nodes, `values` broadcast values injected one every
@@ -41,6 +42,19 @@ exits 1 unless every verdict and edge set matches and the screen
 decides at least 90% of the fixtures.
 
     python -m maelstrom_tpu_torch.bench --checkers [--device cpu]
+
+With `--compartment` it runs `bench.py`'s proxy-scaling record
+(`bench_compartment_record`, `_main_compartment`): lin-kv client ops
+against the PROXY count of `--node tpu:compartment` (P = 1, 2, 4, 8), at
+one fixed leader and acceptor budget (leader_slots 128, proxy_slots 8,
+compartment_inbox 16, a 2x2 grid, two replicas, kv_keys 1,024), offered
+8,000 ops a second for 2 s by 96 clients, seed 11, through `core.run`.
+The environment's BENCH_COMPARTMENT_PROXIES, _RATE, _TIME_LIMIT and
+_CONC override the sweep, as bench.py's do. It exits 1 unless every
+point grades valid and 4 proxies complete at least twice the ok ops of
+one (`scaling_1_to_4 >= 2`, when both points are in the sweep).
+
+    python -m maelstrom_tpu_torch.bench --compartment [--device cpu]
 """
 
 from __future__ import annotations
@@ -671,6 +685,95 @@ def bench_checkers_record(n_rows: int = 1_000_000, elle_ops: int = 1_000_000,
                           and register["valid"] is True and dev_ok)}
 
 
+# --- the compartment's proxy-scaling record ---------------------------------
+
+def bench_compartment_record(proxies=None, device="cuda") -> dict:
+    """bench.py's `bench_compartment_record` on the port: lin-kv client
+    ops a virtual second against the proxy count at fixed leader and
+    acceptor capacity, driven end to end through `core.run` on `--node
+    tpu:compartment` (kernels K23-K26). Offered load stays well above
+    the one-proxy tier's capacity, so the ok ops are the tier's
+    saturation capacity: excess commands shed definitely (error 11) and
+    every point must grade valid. `ops_per_vsec` is virtual throughput
+    (ok ops a simulated second); the wall numbers ride along. Each
+    point's `predicted` is null: the JAX record's cost-model block is
+    not ported (the port has no cost model)."""
+    import shutil
+    import tempfile
+
+    from . import core
+
+    dev = resolve_device(device)
+    if proxies is None:
+        proxies = [int(x) for x in os.environ.get(
+            "BENCH_COMPARTMENT_PROXIES", "1,2,4,8").split(",")
+            if x.strip()]
+    rate = float(os.environ.get("BENCH_COMPARTMENT_RATE", 8000.0))
+    tl = float(os.environ.get("BENCH_COMPARTMENT_TIME_LIMIT", 2.0))
+    conc = int(os.environ.get("BENCH_COMPARTMENT_CONC", 96))
+    rows = []
+    root = tempfile.mkdtemp(prefix="bench-compartment-")
+    try:
+        for p in proxies:
+            t0 = time.perf_counter()
+            res = core.run(dict(
+                store_root=root, seed=11, workload="lin-kv",
+                node="tpu:compartment",
+                roles=f"proxies={p},acceptors=2x2,replicas=2",
+                concurrency=conc, rate=rate, time_limit=tl,
+                journal_rows=False, device=str(dev),
+                # fixed leader/acceptor capacity across the sweep: only
+                # the proxy tier scales
+                leader_slots=128, proxy_slots=8, compartment_inbox=16,
+                kv_keys=1024, timeout_ms=20000))
+            dt = time.perf_counter() - t0
+            ok = res["stats"]["ok-count"]
+            rows.append({
+                "proxies": p,
+                "ok_ops": ok,
+                "ops_per_vsec": round(ok / tl, 1),
+                "wall_s": round(dt, 3),
+                "ops_per_wall_sec": round(ok / dt, 1),
+                "predicted": None,
+                # definite fails: leader backpressure sheds (error 11)
+                # and ordinary lin-kv cas-mismatch/absent-key errors
+                "failed_ops": res["stats"]["fail-count"],
+                "valid": res["valid"] is True,
+            })
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    by_p = {r["proxies"]: r for r in rows}
+    scaling = None
+    if 1 in by_p and 4 in by_p and by_p[1]["ops_per_vsec"]:
+        scaling = round(by_p[4]["ops_per_vsec"]
+                        / by_p[1]["ops_per_vsec"], 2)
+    return {
+        "proxies": rows,
+        "scaling_1_to_4": scaling,
+        "offered_rate": rate, "time_limit_s": tl, "concurrency": conc,
+        "host_cpus": os.cpu_count(),
+        "devices": torch.cuda.device_count() if dev.type == "cuda" else 0,
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu"),
+        "valid": all(r["valid"] for r in rows),
+    }
+
+
+def main_compartment(device="cuda") -> tuple:
+    """bench.py's `_main_compartment`: the proxy-scaling record with its
+    headline (client ops a virtual second at the largest proxy count).
+    Returns (record, exit code): 1 when a point graded invalid or the
+    1 -> 4 scaling fell under 2 (gated only when both points ran)."""
+    rec = bench_compartment_record(device=device)
+    top = max(rec["proxies"], key=lambda r: r["proxies"])
+    record = {"metric": "compartment_client_ops_per_vsec",
+              "value": top["ops_per_vsec"], "unit": "client-ops/vsec",
+              "vs_baseline": None, **rec}
+    bad_scaling = (rec["scaling_1_to_4"] is not None
+                   and rec["scaling_1_to_4"] < 2.0)
+    return record, (1 if not rec["valid"] or bad_scaling else 0)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nodes", type=int, default=None,
@@ -710,7 +813,15 @@ def main(argv=None) -> int:
                     help="the checker-throughput record (bench.py "
                          "bench_checkers_record), its Elle device block "
                          "through K16 and K17")
+    ap.add_argument("--compartment", action="store_true",
+                    help="the proxy-scaling record (bench.py "
+                         "bench_compartment_record) on tpu:compartment, "
+                         "through K23-K26")
     a = ap.parse_args(argv)
+    if a.compartment:
+        rec, rc = main_compartment(device=a.device)
+        print(json.dumps(rec))
+        return rc
     if a.checkers:
         rec = bench_checkers_record(device=a.device)
         print(json.dumps(rec))

@@ -15,7 +15,9 @@ txn-rw-register on the Raft transaction programs, lin-mutex on
 `tpu:lin-kv`, lin-kv, lin-mutex, kafka and txn-list-append over the
 ordering axis (`--ordering raft|batched`, the composed `tpu:ordered`),
 lin-tso on the in-cluster services (`--node tpu:services
-[--service-roles ...]`, a role partition), any of these programs wrapped
+[--service-roles ...]`, a role partition), lin-kv on compartmentalized
+consensus with a stable leader (`--node tpu:compartment [--roles ...]`,
+also an engine of the ordering axis), any of these programs wrapped
 as a one-role partition (`--node tpu:solo:<program>`), on one card, or
 on the CPU with `--device cpu`, under loss, randomized latency and the
 partition, kill, pause, duplicate and weather nemeses (kill, pause and
@@ -48,6 +50,9 @@ default, with an error that names the slice of the port that brings it
     python -m maelstrom_tpu_torch test -w lin-tso --node tpu:services \\
         --nemesis kill,pause,partition --nemesis-targets \\
         kill=lww-kv,pause=lin-tso
+    python -m maelstrom_tpu_torch test -w lin-kv --node tpu:compartment \\
+        --roles proxies=4,acceptors=2x2,replicas=2 --nemesis kill,partition \\
+        --nemesis-targets kill=proxies,partition=acceptor-col-0
     python -m maelstrom_tpu_torch test -w lin-kv --node tpu:solo:lin-kv
     python -m maelstrom_tpu_torch fuzz --program broadcast --nodes 100000
 """
@@ -71,6 +76,8 @@ PROGRAMS = {"broadcast": "tpu:broadcast", "lin-kv": "tpu:lin-kv",
                                        "txn-list-append",
                                        "txn-rw-register")},
             "lin-tso": "tpu:services"}
+# the other built-in programs a workload may name with --node
+ALSO = {"lin-kv": ("tpu:compartment",)}
 
 # (option, refused when, the slice of the port that brings it)
 OUT_OF_SCOPE = [
@@ -79,7 +86,9 @@ OUT_OF_SCOPE = [
     ("--workload", lambda v: v not in PROGRAMS, "the other node programs"),
     ("--nemesis", lambda v: "byzantine" in _faults(v),
      "the byzantine adversary"),
-    ("--client-retries", lambda v: v > 0, "retries and backoff"),
+    ("--client-retries", lambda v: v > 0,
+     "the compartment election and failover (the redirect budget's retries "
+     "and backoff)"),
     ("--fleet", lambda v: v is not None and v > 1, "mesh and fleet"),
     ("--fleet-sweep", lambda v: v is not None, "mesh and fleet"),
     ("--mesh", lambda v: v is not None, "mesh and fleet"),
@@ -92,14 +101,23 @@ OUT_OF_SCOPE = [
      "the overlap pipeline"),
     ("--byz-rate", lambda v: v != 1.0, "the byzantine adversary"),
     ("--byz-attacks", lambda v: v is not None, "the byzantine adversary"),
-    ("--ordering", lambda v: v == "compartment", "the compartment"),
-    ("--roles", lambda v: v is not None, "the compartment"),
+    ("--roles", lambda v: v is not None and _sequencers(v) > 1,
+     "the compartment election and failover"),
     ("--election-timeout-rounds", lambda v: v is not None,
-     "the compartment"),
-    ("--ballot-width", lambda v: v is not None, "the compartment"),
-    ("--compartment-retry", lambda v: v is not None, "the compartment"),
-    ("--leader-lease-ms", lambda v: v is not None, "the compartment"),
+     "the compartment election and failover"),
+    ("--leader-lease-ms", lambda v: v is not None,
+     "the compartment election and failover"),
 ]
+
+
+def _sequencers(spec: str) -> int:
+    """The sequencer count of a --roles spec (1 when the spec does not
+    parse: the program's layout then refuses it with its own message)."""
+    from .nodes.compartment import parse_roles
+    try:
+        return parse_roles(spec)["sequencers"]
+    except ValueError:
+        return 1
 
 
 def _faults(spec: str) -> set:
@@ -119,8 +137,9 @@ def build_parser() -> argparse.ArgumentParser:
     t = sub.add_parser("test", help="Run a single test")
     t.add_argument("--node", help="Built-in node program: tpu:<the "
                                   "workload>, tpu:lin-kv for lin-kv and "
-                                  "lin-mutex, tpu:services for lin-tso, "
-                                  "or tpu:solo:<that program>")
+                                  "lin-mutex, tpu:compartment for lin-kv, "
+                                  "tpu:services for lin-tso, or "
+                                  "tpu:solo:<that program>")
     t.add_argument("-w", "--workload", default="lin-kv", choices=WORKLOADS,
                    help="What workload to run (the port: broadcast, "
                         "broadcast-batched, lin-kv, lin-mutex, lin-tso, "
@@ -246,17 +265,23 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--byz-attacks")
     t.add_argument("--ordering", choices=["raft", "compartment", "batched"],
                    help="Ordering engine under the workload's applier "
-                        "(lin-kv, lin-mutex, kafka, txn-list-append): raft "
-                        "or batched; runs the composed program "
-                        "tpu:ordered")
-    t.add_argument("--roles")
+                        "(lin-kv, lin-mutex, kafka, txn-list-append): raft, "
+                        "compartment (sized by --roles) or batched; runs "
+                        "the composed program tpu:ordered")
+    t.add_argument("--roles",
+                   help="tpu:compartment layout: proxies=P,acceptors=RxC,"
+                        "replicas=R (default proxies=2,acceptors=2x2,"
+                        "replicas=2, one sequencer); sizes the cluster "
+                        "when --node-count is not given")
     t.add_argument("--service-roles",
                    help="tpu:services layout, e.g. lin-tso=1,seq-kv=1,"
                         "lww-kv=3 (the default); sizes the cluster when "
                         "--node-count is not given")
     t.add_argument("--election-timeout-rounds", type=int)
     t.add_argument("--ballot-width", type=int)
-    t.add_argument("--compartment-retry", type=int)
+    t.add_argument("--compartment-retry", type=int,
+                   help="tpu:compartment: rounds between the sequencer's "
+                        "and the proxies' resends (default 10)")
     t.add_argument("--leader-lease-ms", type=float)
     t.add_argument("--batch-max", type=int,
                    help="Batched broadcast: max client values distilled "
@@ -310,7 +335,8 @@ def check_scope(args) -> None:
         return   # the node is the composed tpu:ordered (core.build_test)
     want = PROGRAMS[args.workload]
     # tpu:solo:<program> wraps the program as a one-role partition
-    if args.node not in (want, "tpu:solo:" + want[len("tpu:"):]):
+    if args.node not in (want, "tpu:solo:" + want[len("tpu:"):],
+                         *ALSO.get(args.workload, ())):
         raise ScopeError(f"--node {args.node!r}: the port runs -w "
                          f"{args.workload} on --node {want} or "
                          f"tpu:solo:{want[len('tpu:'):]} (other programs "
@@ -369,7 +395,8 @@ def opts_from_args(args) -> dict:
               "max_values", "timeout_ms", "nemesis_seed", "kafka_groups",
               "session_timeout_ms", "poll_batch", "batch_max",
               "device_checker", "continuous_window_ms", "service_roles",
-              "nemesis_targets"):
+              "nemesis_targets", "roles", "compartment_retry",
+              "ballot_width"):
         v = getattr(args, k, None)
         if v is not None:
             opts[k] = v

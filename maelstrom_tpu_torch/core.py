@@ -107,6 +107,11 @@ def build_test(opts: dict) -> dict:
     opts["nodes"] = nodes
     if not opts.get("concurrency"):
         opts["concurrency"] = len(nodes)
+    if opts.get("node") == "tpu:compartment" or (
+            opts.get("ordering") == "compartment"):
+        # the compartment's layout is known before any store dir
+        from .nodes.compartment import checked_layout
+        checked_layout(opts, len(nodes))
     name = opts.get("name") or str(opts["workload"])
     if opts["workload"] not in WORKLOADS:
         raise NotImplementedError(

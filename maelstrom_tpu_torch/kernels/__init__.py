@@ -139,13 +139,27 @@ SEQ_KV_STEP = Kernel("seq_kv_step", "maelstrom_tpu_torch/csrc/services.cu",
                      "maelstrom_tpu/nodes/services.py:138")
 LWW_KV_STEP = Kernel("lww_kv_step", "maelstrom_tpu_torch/csrc/services.cu",
                      "maelstrom_tpu/nodes/services.py:199")
+COMPARTMENT_SEQUENCER_STEP = Kernel(
+    "compartment_sequencer_step", "maelstrom_tpu_torch/csrc/compartment.cu",
+    "maelstrom_tpu/nodes/compartment.py:465")
+COMPARTMENT_PROXY_STEP = Kernel(
+    "compartment_proxy_step", "maelstrom_tpu_torch/csrc/compartment.cu",
+    "maelstrom_tpu/nodes/compartment.py:877")
+COMPARTMENT_ACCEPTOR_STEP = Kernel(
+    "compartment_acceptor_step", "maelstrom_tpu_torch/csrc/compartment.cu",
+    "maelstrom_tpu/nodes/compartment.py:1095")
+COMPARTMENT_REPLICA_STEP = Kernel(
+    "compartment_replica_step", "maelstrom_tpu_torch/csrc/compartment.cu",
+    "maelstrom_tpu/nodes/compartment.py:1238")
 KERNELS = (EDGE_READ, EDGE_WRITE, BROADCAST_STEP, REPLY_COMPACT,
            REPLY_LOG_APPEND, QUIET_PROBE, THREEFRY, EDGE_FAULTS,
            EDGE_WRITE_SPILL, BROADCAST_STEP_STALL, RAFT_STEP, ECHO_STEP,
            UNIQUE_IDS_STEP, PN_COUNTER_STEP, REPLY_LOG_APPEND_I32,
            KAFKA_STEP, BROADCAST_BATCHED_STEP, BROADCAST_BATCHED_STEP_STALL,
            ELLE_EDGES, ELLE_SCREEN, SCHED_INJECT, RING_UPDATE, TSO_STEP,
-           SEQ_KV_STEP, LWW_KV_STEP)
+           SEQ_KV_STEP, LWW_KV_STEP, COMPARTMENT_SEQUENCER_STEP,
+           COMPARTMENT_PROXY_STEP, COMPARTMENT_ACCEPTOR_STEP,
+           COMPARTMENT_REPLICA_STEP)
 
 _state = {"lib": None, "forced_plain": False}
 

@@ -9,7 +9,9 @@ broadcast, g-set, PN-/g-counter and kafka programs on the edge channels,
 Raft serving lin-kv and the transaction programs (txn-list-append,
 txn-rw-register), echo and unique-ids on the pool path, the
 ordering axis's composed programs (`tpu:ordered`, `ordering/`), the
-in-cluster services (`tpu:services`, a role partition) and any of them
+in-cluster services (`tpu:services`, a role partition), compartmentalized
+consensus with a stable leader (`tpu:compartment`, a four-role partition)
+and any of them
 wrapped as a one-role partition (`tpu:solo:<program>`); `get_program`
 names the slice that brings any other.
 
@@ -299,10 +301,6 @@ def launch_pool_step(kernel, inbox, counter, stall, t_req: int,
 
 PROGRAMS: dict[str, Callable] = {}
 
-# the slice of the port that brings each of the JAX package's other
-# programs
-LATER = {"compartment": "the compartment"}
-
 
 def register(cls):
     PROGRAMS[cls.name] = cls
@@ -311,8 +309,9 @@ def register(cls):
 
 def get_program(name: str, opts: dict, nodes: list[str],
                 device="cuda") -> NodeProgram:
-    from . import (broadcast, broadcast_batched, echo,  # noqa: F401
-                   gset, kafka, pn_counter, raft, services,  # noqa: F401
+    from . import (broadcast, broadcast_batched,  # noqa: F401
+                   compartment, echo, gset, kafka,  # noqa: F401
+                   pn_counter, raft, services,  # noqa: F401
                    txn_list_append, txn_rw_register,  # noqa: F401
                    unique_ids)  # (register the programs)
     if name == "ordered":
@@ -327,9 +326,9 @@ def get_program(name: str, opts: dict, nodes: list[str],
         inner = get_program(name[len("solo:"):], opts, nodes, device=device)
         return RolePartition(opts, nodes, [("r0", inner)])
     if name not in PROGRAMS:
-        later = LATER.get(name.split(":")[0], "a later slice")
         raise ValueError(f"node program {name!r} is not ported to "
-                         f"maelstrom_tpu_torch yet (comes with {later}); "
+                         f"maelstrom_tpu_torch yet (comes with a later "
+                         f"slice); "
                          f"have {sorted(PROGRAMS)}")
     return PROGRAMS[name](opts, nodes, device=device)
 
@@ -341,6 +340,9 @@ def partition_node_count(name: str, opts: dict) -> int | None:
     if name == "services":
         from .services import roles_node_count
         return roles_node_count(opts.get("service_roles"))
+    if name == "compartment":
+        from .compartment import roles_node_count
+        return roles_node_count(opts.get("roles"))
     if name == "ordered":
         from ..ordering import ordered_node_count
         return ordered_node_count(opts)

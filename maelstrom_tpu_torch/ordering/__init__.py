@@ -4,12 +4,16 @@ Counterpart of `maelstrom_tpu/ordering/__init__.py` ("Stream-based
 State-Machine Replication", arxiv 2106.13019): SMR split into an ordered
 stream of opaque commands (the engine, a node program that needs a
 cluster) and a deterministic applier replaying that stream (the
-service). The port has two engines and three appliers:
+service). The port has three engines and three appliers:
 
     engines  (`engines.py`, adapters over the port's node programs)
       raft       the raft log (`nodes/raft.py`, kernel K10): commands
                  ride OP_TXN entries, the leader's reply carries the
                  commit position
+      compartment  compartmentalized consensus with one sequencer
+                 (`nodes/compartment.py`, kernels K23-K26): commands ride
+                 WRITE slots, a completion replays the best replica's
+                 applied prefix
       batched    batched atomic broadcast (`nodes/broadcast_batched.py`,
                  kernel K15): the distiller's contiguous id assignment is
                  the sequencer, id order the stream order
@@ -21,10 +25,9 @@ service). The port has two engines and three appliers:
       txn-list-append  the Raft transaction program's micro-op
                  interpreter (`nodes/txn_list_append.apply_txn`)
 
-Selected with `--ordering raft|batched` beside the workload's `-w`; the
-generator and the checker come from the workload unchanged. The
-compartment engine (a role partition) comes with the role-partitioned
-programs.
+Selected with `--ordering raft|compartment|batched` beside the
+workload's `-w`; the generator and the checker come from the workload
+unchanged.
 
 How a combination runs (`engines.StreamBoundary`): every workload op
 becomes one command `[os, seq, cmd]` interned to a dense id (`seq` is
@@ -33,7 +36,8 @@ id); the engine's unchanged device program orders the id; the host
 replays the committed prefix through the applier in slot order, a
 command id applying at its first slot only, and completes each op with
 its result. Capacity: one command per client op, bounded by the
-engine's id space (raft 65,536, batched `--max-values`); exhaustion
+engine's id space (raft 65,536, compartment `kv_keys` x 255, batched
+`--max-values`); exhaustion
 fails the op definitely (`EncodeCapacityError`)."""
 
 from __future__ import annotations
@@ -99,14 +103,9 @@ def get_applier(workload: str, opts: dict) -> Applier:
 
 def engine_program(opts: dict):
     """The engine adapter class opts['ordering'] names (raft by
-    default); raises naming the slice that brings an engine not
-    ported."""
-    from .engines import ENGINE_PROGRAMS, LATER
+    default); raises listing the engines for any other name."""
+    from .engines import ENGINE_PROGRAMS
     engine = str(opts.get("ordering") or "raft")
-    if engine in LATER:
-        raise ValueError(
-            f"--ordering {engine!r}: the {engine} engine is not ported to "
-            f"maelstrom_tpu_torch yet; it comes with {LATER[engine]}")
     cls = ENGINE_PROGRAMS.get(engine)
     if cls is None:
         raise ValueError(f"--ordering {engine!r}: expected one of "
@@ -124,7 +123,10 @@ def make_ordered(opts: dict, nodes: list, device="cuda"):
 
 
 def ordered_node_count(opts: dict) -> int | None:
-    """Node count the composed program derives from its engine: raft and
-    batched leave the count to the user (the compartment engine, which
-    sizes the cluster from --roles, is not ported)."""
+    """Node count the composed program derives from its engine spec
+    (`core.parse_nodes`): the compartment engine sizes the cluster from
+    --roles; raft and batched leave the count to the user."""
+    if str(opts.get("ordering") or "raft") == "compartment":
+        from ..nodes.compartment import roles_node_count
+        return roles_node_count(opts.get("roles"))
     return None

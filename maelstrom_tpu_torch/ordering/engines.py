@@ -18,8 +18,10 @@ Engine-specific surface (per adapter):
     (batched);
   - `check_capacity(n)`: the engine's command-id space bound.
 
-The compartment engine (`LATER`) runs on the role partition
-(`sim.RolePartition`) and comes with the compartment."""
+The compartment engine (`OrderedCompartment`) runs on the role partition
+(`sim.RolePartition`, kernels K23-K26) with one sequencer; its client
+replies carry no slot, so a completion finds its command by replaying the
+best replica's applied prefix (`SCAN_SLOT`)."""
 
 from __future__ import annotations
 
@@ -30,10 +32,17 @@ from ..checkers.set_full import range_checksum
 from ..nodes import EncodeCapacityError
 from ..nodes.broadcast_batched import (BroadcastBatchedProgram, T_BATCH,
                                        T_BATCH_OK)
+from ..nodes.compartment import (CompartmentProgram, OP_WRITE as C_WRITE,
+                                 _unpack_cmd)
 # T_WRITE names a wire code in the results' send-count-by-type, as the
 # JAX module's import does
 from ..nodes.raft import (OP_TXN, RaftProgram, T_TXN, T_TXN_OK,  # noqa: F401
                           T_WRITE)
+
+
+# sentinel slot: the engine's reply proves the command applied but not
+# where — ingest() must locate it in the replayed log
+SCAN_SLOT = -1
 
 
 class StreamLagError(RuntimeError):
@@ -121,12 +130,19 @@ class StreamBoundary:
                                                         str(e)]}
         res = self._results.get(cid)
         if res is None:
-            # ingest returned having replayed through the acked slot, so
-            # a missing command is a real invariant break (id packing or
-            # replay), not replication lag
-            raise RuntimeError(
-                f"ordered[{self.stream_engine}]: command {cid} acked at "
-                f"slot {slot} but absent from the replayed prefix")
+            if self.ingest_covers_ack:
+                # ingest returned having replayed through the acked
+                # slot, so a missing command is a real invariant break
+                # (id packing or replay), not replication lag
+                raise RuntimeError(
+                    f"ordered[{self.stream_engine}]: command {cid} "
+                    f"acked at slot {slot} but absent from the "
+                    f"replayed prefix")
+            # SCAN_SLOT engines replay to the best visible prefix,
+            # which a kill can leave short of the ack — same lag class
+            return {**op, "type": "info", "error": [
+                "stream-lag", f"command {cid} acked but not yet in "
+                              f"any readable applied prefix"]}
         return self.applier.completed(op, res)
 
     def completion_payload(self, op, body, payload, intern):
@@ -150,6 +166,12 @@ class StreamBoundary:
             super().set_host_state(st)
 
     # --- engine-specific surface ----------------------------------------
+
+    # True: a successful ingest(slot, ...) has replayed THROUGH the
+    # acked slot, so an acked command missing afterwards is a bug.
+    # False (SCAN_SLOT engines): ingest replays to the best visible
+    # prefix, which replication lag can leave short of the ack.
+    ingest_covers_ack = True
 
     def propose_words(self, cid: int):
         raise NotImplementedError
@@ -276,11 +298,75 @@ class OrderedBatched(StreamBoundary, BroadcastBatchedProgram):
         self._frontier = max(self._frontier, slot + 1)
 
 
+class OrderedCompartment(StreamBoundary, CompartmentProgram):
+    """The compartmentalized slot sequence serving an arbitrary applier:
+    commands ride WRITE slots (the interned id packed into the 12-bit key
+    x base-255 value fields), flowing sequencer -> proxy tier -> acceptor
+    grid -> replicas exactly as the lin-kv path (`sim.RolePartition`,
+    kernels K23-K26). Client replies don't carry the slot, so the
+    completion locates its command by scanning the replica's applied
+    prefix (every slot <= `applied` is chosen and final — the same
+    `state_reads_final` argument as raft's committed log)."""
+
+    name = "ordered"
+    stream_engine = "compartment"
+    ingest_covers_ack = False       # SCAN_SLOT: replays to best-visible
+
+    def __init__(self, opts, nodes, applier: Applier, device="cuda"):
+        CompartmentProgram.__init__(self, opts, nodes, device=device)
+        # RolePartition.__init__ derived these from the client role
+        # (False there), but the ordered boundary does read device state
+        # in completions, and those reads are final (applied slots are
+        # chosen): the declaration is instance state, set after the
+        # partition's single-role check. Sound on a multi-role partition
+        # because state_row maps global node ids into role subtrees.
+        self.needs_state_reads = True
+        self.state_reads_final = True
+        self._stream_init(applier)
+        self._id_cap = self.lay.keys * 255
+
+    def check_capacity(self, n):
+        if n >= self._id_cap:
+            raise EncodeCapacityError(
+                f"ordered[compartment] command table full "
+                f"({self._id_cap}; raise kv_keys)")
+
+    def propose_words(self, cid):
+        # a WRITE whose (key, value) words carry the id in base 255: the
+        # sequencer stores v1 = value + 1 (1..255), replicas apply
+        # kv[key] = v1 — inert for the stream, which only reads the slot
+        # sequence back
+        return (T_WRITE, cid // 255, cid % 255, 0)
+
+    def reply_slot(self, body):
+        if body.get("type") == "write_ok":
+            return SCAN_SLOT
+        return None
+
+    def ingest(self, slot, read_state, intern):
+        lay = self.lay
+        best, best_app = None, -1
+        for j in range(lay.R):
+            row = read_state(lay.r_base + j)
+            app = int(row["applied"])
+            if app > best_app:
+                best_app, best = app, row
+        if best is None or best_app < 0:
+            # an ack exists, so SOME replica applied the command — but
+            # kills can wipe every visible `applied` before this read
+            raise StreamLagError("ordered[compartment]: no readable "
+                                 "replica has applied anything")
+        r_cmd = np.asarray(best["r_cmd"])
+        for s in range(self._frontier, best_app + 1):
+            key, opc, v1, _v2 = _unpack_cmd(int(r_cmd[s]))
+            if opc != C_WRITE or v1 == 0:
+                continue    # NOOPs / recovered gap fills apply inert
+            self._apply_cid(int(key) * 255 + (int(v1) - 1), intern)
+        self._frontier = best_app + 1
+
+
 ENGINE_PROGRAMS = {
     "raft": OrderedRaft,
+    "compartment": OrderedCompartment,
     "batched": OrderedBatched,
 }
-
-# the engines of the JAX package still to port, and the slice that
-# brings each
-LATER = {"compartment": "the compartment"}

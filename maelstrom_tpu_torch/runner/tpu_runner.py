@@ -96,6 +96,15 @@ def quiet_probe(planes) -> torch.Tensor:
     return quiet
 
 
+# the scan's own counters, by their names in timing.json
+SCAN_COUNTS = ("scan-host-syncs", "scan-replayed-rounds",
+               "scan-rolled-back-rounds")
+
+
+def _scan_counts(scan) -> tuple:
+    return scan.host_syncs, scan.replayed, scan.rolled_back
+
+
 def _np_dtype(dt: torch.dtype):
     return torch.empty(0, dtype=dt).numpy().dtype
 
@@ -389,7 +398,8 @@ class TpuRunner:
                        "nemesis-s": 0.0, "nemesis-ops": 0,
                        "rounds-executed": 0, "rounds-bumped": 0,
                        "dispatches": 0, "quiet-probes": 0, "bumps": 0,
-                       "scan-host-syncs": 0, "scan-replayed-rounds": 0}
+                       "scan-host-syncs": 0, "scan-replayed-rounds": 0,
+                       "scan-rolled-back-rounds": 0}
 
     def _build_sim(self):
         """This runner's initial simulation state: the seeded key, and
@@ -1032,7 +1042,7 @@ class TpuRunner:
                 first_chunk=None if getattr(program, "is_edge", False)
                 else 1)
         scan = self._scan_fn
-        syncs0, replay0 = scan.host_syncs, scan.replayed
+        before = _scan_counts(scan)
         t0 = time.perf_counter()
         out = scan(self.sim, inject, k_max, stop)
         self.sim, k, rl = out[0], out[2], out[3]
@@ -1057,7 +1067,7 @@ class TpuRunner:
         if self.telemetry_rings:
             self._ring_host = ring
         rn = int(rn)
-        self._book_scan(scan, t0, t1, t2, k, syncs0, replay0)
+        self._book_scan(scan, t0, t1, t2, k, before)
         if journaled:
             t3 = time.perf_counter()
             for i in range(k):
@@ -1078,7 +1088,7 @@ class TpuRunner:
     def _ring_tree(self):
         return self.sim.telemetry if self.telemetry_rings else ()
 
-    def _book_scan(self, scan, t0, t1, t2, k, syncs0, replay0):
+    def _book_scan(self, scan, t0, t1, t2, k, before):
         """scan-s: the rounds' dispatch, their chunk-flag reads and the
         pack; drain-s: the packed fetch."""
         tm = self.timing
@@ -1086,8 +1096,8 @@ class TpuRunner:
         tm["drain-s"] += t2 - t1
         tm["rounds-executed"] += k
         tm["dispatches"] += 1
-        tm["scan-host-syncs"] += scan.host_syncs - syncs0
-        tm["scan-replayed-rounds"] += scan.replayed - replay0
+        for name, now, was in zip(SCAN_COUNTS, _scan_counts(scan), before):
+            tm[name] += now - was
 
     def _exec_cscan(self, rows, k_max, stop, r):
         """One continuous dispatch: the scheduled rows as a [Q] inject
@@ -1110,7 +1120,7 @@ class TpuRunner:
                 program, cfg, reply_cap=self.reply_log_cap,
                 device=dev, fetch=self._fetch_flag, sched_inject=True)
         scan = self._cscan_fn
-        syncs0, replay0 = scan.host_syncs, scan.replayed
+        before = _scan_counts(scan)
         t0 = time.perf_counter()
         self.sim, _cm, k, rl, im = scan(self.sim, inject, at, k_max, stop)
         self._state_cache = None
@@ -1130,7 +1140,7 @@ class TpuRunner:
         self._next_mid = int(next_mid)
         if self.telemetry_rings:
             self._ring_host = ring
-        self._book_scan(scan, t0, t1, t2, k, syncs0, replay0)
+        self._book_scan(scan, t0, t1, t2, k, before)
         return k, self._decode_replies(rlog, rounds, plog, int(rn)), im
 
     def _decode_replies(self, rlog, rounds, plog, rn: int) -> list:

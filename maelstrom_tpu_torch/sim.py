@@ -989,7 +989,10 @@ def make_scan_fn(program, cfg: NetConfig, reply_cap: int = 256,
     doubles it up to `chunk`, so that an early exit runs few rounds past
     it; the host then reads at most ceil(k / chunk) + log2(chunk /
     first_chunk) flags a dispatch, else ceil(k / chunk).
-    `scan_fn.host_syncs` counts them."""
+    `scan_fn.host_syncs` counts them; `scan_fn.replayed` the rounds
+    replayed and `scan_fn.rolled_back` the rounds run past an exit and
+    discarded, so that a dispatch runs k + replayed + rolled_back rounds
+    for the k it returns."""
     dev = resolve_device(device)
     T.check_scope(cfg)
     _check_program(program, cfg, dev)
@@ -1067,6 +1070,7 @@ def make_scan_fn(program, cfg: NetConfig, reply_cap: int = 256,
                     break
                 continue
             # rounds e+1 .. k+n ran past the exit: roll back and replay
+            scan_fn.rolled_back += k + n - e
             cur = snap
             st["im"], st["sent"] = fold_snap
             if rn_snap is None:
@@ -1099,4 +1103,5 @@ def make_scan_fn(program, cfg: NetConfig, reply_cap: int = 256,
 
     scan_fn.host_syncs = 0
     scan_fn.replayed = 0
+    scan_fn.rolled_back = 0
     return scan_fn

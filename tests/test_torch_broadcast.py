@@ -153,7 +153,8 @@ def test_other_programs_and_random_latency_are_refused():
     each (lin-kv runs since the raft slice, echo, unique-ids and the CRDT
     programs since the pool-path slice, broadcast-batched since its own,
     the transaction programs since theirs, the services since the
-    role-partition slice: the compartment stays refused);
+    role-partition slice, the compartment since its own: a cluster that
+    its roles do not size is refused);
     randomized latency, refused
     until the fault slice, now sizes the channels as the JAX package
     does (the spill write and its doubled lanes on 4,096 nodes or fewer,
@@ -162,7 +163,9 @@ def test_other_programs_and_random_latency_are_refused():
                          device="cpu").name == "txn-list-append"
     assert p_get_program("services", {}, [f"n{i}" for i in range(5)],
                          device="cpu").name == "services"
-    with pytest.raises(ValueError, match="the compartment"):
+    assert p_get_program("compartment", {}, [f"n{i}" for i in range(9)],
+                         device="cpu").name == "compartment"
+    with pytest.raises(ValueError, match="needs 9 nodes"):
         p_get_program("compartment", {}, ["n0"], device="cpu")
     for n, opts in ((5, {"latency": {"mean": 5, "dist": "uniform"}}),
                     (25, {"latency": {"mean": 3, "dist": "exponential"},

@@ -13,6 +13,7 @@ import torch
 
 from maelstrom_tpu_torch import cli, core
 from maelstrom_tpu_torch.bench import (bench_checkers_record,
+                                       bench_compartment_record,
                                        run_broadcast_batched_bench,
                                        run_broadcast_bench, run_raft_bench)
 from maelstrom_tpu_torch.checkers.elle import analyze
@@ -82,6 +83,12 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             get_program("ordered", {"workload": "lin-kv",
                                     "ordering": engine}, nodes)
+    nine = [f"n{i}" for i in range(9)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_program("compartment", {}, nine)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_program("ordered", {"workload": "kafka",
+                                "ordering": "compartment"}, nine)
     raft = get_program("lin-kv", {}, nodes, device="cpu")
     prog = get_program("broadcast", opts, nodes, device="cpu")
     cfg = NetConfig(n_nodes=4, n_clients=1)
@@ -144,7 +151,11 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
                                    "--store", str(tmp_path)]),
                  lambda: cli.main(["test", "-w", "lin-kv", "--node",
                                    "tpu:solo:lin-kv", "--node-count", "3",
-                                   "--store", str(tmp_path)])):
+                                   "--store", str(tmp_path)]),
+                 lambda: cli.main(["test", "-w", "lin-kv", "--node",
+                                   "tpu:compartment", "--store",
+                                   str(tmp_path)]),
+                 lambda: bench_compartment_record(proxies=[1])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert not any(tmp_path.iterdir())      # refused before any store dir
@@ -189,6 +200,11 @@ CPU_RUNS = {
     "solo-echo": ["test", "-w", "echo", "--node", "tpu:solo:echo",
                   "--node-count", "3", "--time-limit", "0.2",
                   "--ms-per-round", "5"],
+    # the compartment, its cluster sized by --roles (as lin-kv's, too
+    # short a run for the stats checker's verdict)
+    "compartment": {"workload": "lin-kv", "node": "tpu:compartment",
+                    "roles": "proxies=1,acceptors=1x2,replicas=1",
+                    "time_limit": 0.3, "rate": 20, "ms_per_round": 5.0},
 }
 
 
@@ -201,5 +217,5 @@ def test_entry_points_run_on_the_cpu_when_asked(name, tmp_path):
         return
     res = core.run({**run, "device": "cpu", "store_root": str(tmp_path)})
     assert res["workload"]["valid"] is True and res["net"]["valid"] is True
-    if name != "lin-kv":
+    if name not in ("lin-kv", "compartment"):
         assert res["valid"] is True

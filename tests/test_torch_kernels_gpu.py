@@ -1279,3 +1279,190 @@ def test_service_steps_match_plain(cuda, role, n, K_, keys, G, stalled):
     _equal(got, ref)
     _equal(st_g, _tensors(state, "cpu"))    # no input updated
     assert ref[1].valid.any() or stalled
+
+
+# --- the compartment's role steps (K23-K26) ----------------------------------
+
+def compartment_layout(roles, n_nodes=None, **opts):
+    """A stable-leader `Layout` for `roles` (the cluster sized by it)."""
+    from maelstrom_tpu_torch.nodes import compartment as C
+    n = n_nodes or C.roles_node_count(roles)
+    return C.Layout({"roles": roles, **opts}, n)
+
+
+COMPARTMENT_ROLES = ("sequencers", "proxies", "acceptors", "replicas")
+
+
+def compartment_role(role, lay, n, device):
+    """The role program over `n` nodes of `lay`'s cluster."""
+    from maelstrom_tpu_torch.nodes import compartment as C
+    cls = {"sequencers": C.SequencerRole, "proxies": C.ProxyRole,
+           "acceptors": C.GridAcceptors, "replicas": C.ReplicaRole}[role]
+    return cls({}, [f"n{i}" for i in range(n)], lay, device=device)
+
+
+def random_compartment_inputs(rng, role, lay, n, rnd):
+    """(inbox, state) as numpy fields for a compartment role step at
+    round `rnd`: every lane type the role reads and some it does not,
+    slots repeated across lanes, matching live rows and past the log's
+    capacity, grid and replica indices past both ends, words at INT32_MAX
+    (b + 1 wraps and clips to 0), client ids below and above the
+    cluster, tables empty, partly full and full, rows due and not due,
+    acks one short of a quorum, logs whose apply frontier is stored or
+    missing, commands of every op with keys past the row."""
+    K_, C = lay.K, lay.cap
+    shape = (n, K_)
+    Q = {"sequencers": lay.QL, "proxies": lay.QP}.get(role, 1)
+
+    def ri(lo, hi, shp):
+        return rng.integers(lo, hi, shp).astype(np.int32)
+
+    def dens(shp):
+        # per-node fill: empty, sparse, half, dense, full
+        d = rng.choice(np.array([0.0, 0.1, 0.5, 0.9, 1.0]), (shp[0], 1))
+        return rng.random(shp) < d
+    last = rnd - ri(0, 2 * lay.retry, (n, Q))
+    last[rng.random((n, Q)) < 0.2] = -(1 << 20)
+    inbox = {"valid": rng.random(shape) < 0.85,
+             "src": ri(0, lay.n_nodes + 40, shape),
+             "dest": ri(0, n, shape), "due": ri(0, 50, shape),
+             "mid": ri(0, 1000, shape),
+             "reply_to": ri(-1, 1000, shape),
+             "b": ri(-2, 9, shape), "c": ri(-2, 9, shape)}
+    for w in ("b", "c"):
+        inbox[w][rng.random(shape) < 0.04] = INT32_MAX
+    if role == "sequencers":
+        slots = ri(0, C + 4, (n, Q))
+        types = np.array([10, 12, 14, 35, 35, 30, 0, 31], np.int32)
+        a = ri(-2, 8, shape)
+        a[rng.random(shape) < 0.05] = lay.keys + 3
+        done = rng.random(shape) < 0.5
+        pick = slots[np.arange(n)[:, None], ri(0, Q, shape)]
+        inbox["type"] = rng.choice(types, shape).astype(np.int32)
+        inbox["a"] = np.where(inbox["type"] == 35,
+                              np.where(done, pick, ri(0, C + 4, shape)),
+                              a).astype(np.int32)
+        nxt = ri(0, C + 1, (n,))
+        nxt[rng.random(n) < 0.3] = C - rng.integers(0, 3)
+        state = {"next_slot": nxt, "t_valid": dens((n, Q)),
+                 "t_slot": slots, "t_cmd": ri(0, 1 << 30, (n, Q)),
+                 "t_client": ri(0, 0x8000, (n, Q)),
+                 "t_mid": ri(-1, 1000, (n, Q)), "t_last": last}
+    elif role == "proxies":
+        AR = lay.AR
+        slots = ri(0, C + 4, (n, Q))
+        pick = slots[np.arange(n)[:, None], ri(0, Q, shape)]
+        types = np.array([32, 32, 34, 34, 30, 30, 0, 35], np.int32)
+        inbox["type"] = rng.choice(types, shape).astype(np.int32)
+        slot_in = np.where(rng.random(shape) < 0.6, pick,
+                           ri(0, C + 4, shape)) & 0x7FFF
+        client = ri(0, 0x8000, shape)
+        inbox["a"] = np.where(inbox["type"] == 30,
+                              (client << 16) | slot_in,
+                              slot_in).astype(np.int32)
+        inbox["b"] = np.where(np.isin(inbox["type"], (32, 34)),
+                              ri(-1, AR + 2, shape),
+                              inbox["b"]).astype(np.int32)
+        acks = rng.random((n, Q, AR)) < rng.choice(
+            np.array([0.0, 0.5, 0.8, 1.0]), (n, Q, 1))
+        state = {"p_valid": dens((n, Q)), "p_learn": rng.random((n, Q)) < 0.4,
+                 "p_slot": slots, "p_cmd": ri(0, 1 << 30, (n, Q)),
+                 "p_client": ri(0, 0x8000, (n, Q)),
+                 "p_mid": ri(-1, 1000, (n, Q)), "p_last": last,
+                 "p_acks": acks}
+    elif role == "acceptors":
+        types = np.array([31, 31, 31, 32, 0, 33], np.int32)
+        inbox["type"] = rng.choice(types, shape).astype(np.int32)
+        a = ri(-2, C + 3, shape)
+        rep = rng.random(shape) < 0.3
+        a[rep] = a[np.nonzero(rep)[0], 0]            # repeated slots
+        inbox["a"] = a
+        state = {"acc_cmd": ri(0, 1 << 30, (n, C)),
+                 "acc_has": rng.random((n, C)) < 0.3}
+    else:
+        keys = lay.keys
+        applied = ri(-1, C, (n,))
+        applied[rng.random(n) < 0.2] = C - 1 - rng.integers(0, 3)
+        applied[0] = -1
+        base = applied[:, None] + ri(-2, lay.AP + 3, shape)
+        slot_in = np.where(rng.random(shape) < 0.1, C + ri(0, 3, shape),
+                           base) & 0x7FFF
+        rep = rng.random(shape) < 0.2
+        slot_in[rep] = slot_in[np.nonzero(rep)[0], 0]
+        client = ri(0, 0x8000, shape)
+        types = np.array([33, 33, 33, 34, 0, 31], np.int32)
+        inbox["type"] = rng.choice(types, shape).astype(np.int32)
+        inbox["a"] = ((client << 16) | slot_in).astype(np.int32)
+        key = ri(0, keys, (n, C))
+        key[rng.random((n, C)) < 0.02] = min(keys + 1, 4095)
+        op = ri(0, 4, (n, C))
+        v1, v2 = ri(0, 10, (n, C)), ri(0, 10, (n, C))
+        cmd = (key << 18) | (op << 16) | (v1 << 8) | v2
+        inbox["b"] = np.where(inbox["type"] == 33,
+                              cmd[np.arange(n)[:, None],
+                                  ri(0, C, shape)], inbox["b"]
+                              ).astype(np.int32)
+        has = rng.random((n, C)) < 0.3
+        # runs of stored slots past the frontier
+        for r in range(n):
+            lo = max(applied[r] + 1, 0)
+            has[r, lo:lo + rng.integers(0, 2 * lay.AP)] = True
+        state = {"r_cmd": cmd.astype(np.int32),
+                 "r_client": ri(0, 0x8000, (n, C)),
+                 "r_mid": ri(-2, 1000, (n, C)), "r_has": has,
+                 "applied": applied, "kv": ri(0, 10, (n, keys))}
+    return inbox, state
+
+
+# (roles spec, layout options, role, role nodes)
+COMPARTMENT_CASES = {
+    "seq-cli": ("proxies=2,acceptors=2x2,replicas=2", {}, "sequencers", 1),
+    "seq-bench": ("proxies=8,acceptors=2x2,replicas=2",
+                  {"leader_slots": 128, "compartment_inbox": 16},
+                  "sequencers", 3),
+    "seq-shed": ("proxies=2,acceptors=2x2,replicas=2",
+                 {"leader_slots": 2, "concurrency": 16}, "sequencers", 4),
+    "proxy-cli": ("proxies=2,acceptors=2x2,replicas=2", {}, "proxies", 2),
+    "proxy-wide": ("proxies=8,acceptors=3x5,replicas=3",
+                   {"proxy_slots": 40, "compartment_inbox": 16},
+                   "proxies", 8),
+    "proxy-r": ("proxies=3,acceptors=1x2,replicas=5", {}, "proxies", 3),
+    "acc-cli": ("proxies=2,acceptors=2x2,replicas=2", {}, "acceptors", 4),
+    "acc-odd": ("proxies=2,acceptors=3x7,replicas=2",
+                {"log_cap": 1001, "compartment_inbox": 16}, "acceptors",
+                21),
+    "rep-cli": ("proxies=2,acceptors=2x2,replicas=2", {}, "replicas", 2),
+    "rep-odd": ("proxies=2,acceptors=2x2,replicas=5",
+                {"log_cap": 333, "kv_keys": 4095, "compartment_inbox": 16},
+                "replicas", 5),
+}
+
+
+@pytest.mark.parametrize("case", list(COMPARTMENT_CASES))
+@pytest.mark.parametrize("rnd", [0, 37, 1 << 20])
+@pytest.mark.parametrize("stalled", [False, True], ids=["", "stall"])
+def test_compartment_steps_match_plain(cuda, case, rnd, stalled):
+    roles, opts, role, n = COMPARTMENT_CASES[case]
+    lay = compartment_layout(roles, rate=20.0, time_limit=2.0, **opts)
+    rng = np.random.default_rng(n * 11 + rnd % 97 + int(stalled))
+    inbox, state = random_compartment_inputs(rng, role, lay, n, rnd)
+    stall = rng.random(n) < 0.4
+    kernel = {"sequencers": K.COMPARTMENT_SEQUENCER_STEP,
+              "proxies": K.COMPARTMENT_PROXY_STEP,
+              "acceptors": K.COMPARTMENT_ACCEPTOR_STEP,
+              "replicas": K.COMPARTMENT_REPLICA_STEP}[role]
+
+    def run(dev):
+        prog = compartment_role(role, lay, n, dev)
+        ctx = {"round": torch.tensor(rnd, dtype=torch.int32, device=dev)}
+        if stalled:
+            ctx["stall"] = torch.tensor(stall, device=dev)
+        st = _tensors(state, dev)
+        ib = Msgs(**_tensors(inbox, dev))
+        return prog.step(st, ib, ctx), st
+
+    before = kernel.launches
+    (got, st_g), (ref, _st) = run(cuda), run("cpu")
+    assert kernel.launches == before + 1
+    _equal(got, ref)
+    _equal(st_g, _tensors(state, "cpu"))    # no input updated

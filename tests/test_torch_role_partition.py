@@ -14,8 +14,9 @@ package's, on the CPU.
   durable views and restore per role).
 - The constructor's refusals with JAX's messages, `fault_groups`,
   `state_row`, literal-node nemesis targets on a program that is not a
-  partition, and the CLI's scope: `--roles` and `--ordering compartment`
-  stay refused, naming the compartment.
+  partition, and the CLI's scope: an elected compartment (`--roles
+  sequencers=S`, S > 1) and its options stay refused, naming the
+  compartment's election and failover.
 """
 
 from __future__ import annotations
@@ -284,8 +285,8 @@ def test_cli_scope(capsys, tmp_path):
         "lin-tso=1,lww-kv=2", "--nemesis-targets", "kill=lww-kv"))
     assert opts["service_roles"] == "lin-tso=1,lww-kv=2"
     assert opts["nemesis_targets"] == "kill=lww-kv"
-    for extra in (["--roles", "proxies=2"],
-                  ["--ordering", "compartment"],
+    for extra in (["--roles", "sequencers=2,proxies=2"],
+                  ["--ordering", "compartment", "--roles", "sequencers=3"],
                   ["--leader-lease-ms", "5"]):
         assert pcli.main(["test", "-w", "lin-kv", "--node", "tpu:lin-kv",
                           "--device", "cpu", "--store", str(tmp_path),
@@ -295,5 +296,6 @@ def test_cli_scope(capsys, tmp_path):
     with pytest.raises(pcli.ScopeError, match="tpu:solo:lin-kv"):
         pcli.check_scope(_args("-w", "lin-kv", "--node", "tpu:solo:echo"))
     with pytest.raises(ValueError, match="the compartment"):
-        p_get_program("compartment", {}, NODES5, device="cpu")
+        p_get_program("compartment", {"roles": "sequencers=2"},
+                      [f"n{i}" for i in range(10)], device="cpu")
     assert not any(tmp_path.iterdir())

@@ -136,10 +136,12 @@ def test_free_set_rotation_matches_sorted_list():
     (["--nemesis", "byzantine"], "the byzantine adversary"),
     (["--nemesis", "kill,byzantine"], "the byzantine adversary"),
     # the cases that refused what now runs (--nemesis-targets, lin-tso,
-    # --ordering compartment's slice name) keep their ids and check what
-    # stays refused beside them: the compartment's options
-    pytest.param(["--nemesis-targets", "kill=n0", "--roles", "proxies=2"],
-                 "the compartment",
+    # --ordering compartment's slice name, the stable-leader compartment)
+    # keep their ids and check what stays refused beside them: the
+    # elected compartment's options
+    pytest.param(["--nemesis-targets", "kill=n0", "--roles",
+                  "sequencers=2"],
+                 "the compartment election and failover",
                  id="extra2-the role-partitioned programs"),
     (["--byz-rate", "0.5"], "the byzantine adversary"),
     (["--client-retries", "3"], "retries and backoff"),
@@ -161,14 +163,16 @@ def test_free_set_rotation_matches_sorted_list():
                  "the overlap pipeline", id="extra10-device Elle"),
     pytest.param(["--telemetry", "--checkpoint-every", "1"],
                  "checkpoint and resume", id="extra11-telemetry rings"),
-    pytest.param(["--ordering", "compartment"], "the compartment",
+    pytest.param(["--ordering", "compartment", "--roles", "sequencers=2"],
+                 "the compartment election and failover",
                  id="extra12-the role-partitioned programs"),
     pytest.param(["-w", "txn-rw-register", "--bin",
                   "demo/python/txn_rw_register.py"],
                  "the host-process path",
                  id="extra13-the Raft transaction programs"),
-    pytest.param(["-w", "txn-list-append", "--ordering", "compartment"],
-                 "the compartment",
+    pytest.param(["-w", "txn-list-append", "--ordering", "compartment",
+                  "--election-timeout-rounds", "90"],
+                 "the compartment election and failover",
                  id="extra14-the Raft transaction programs"),
     pytest.param(["-w", "lin-tso", "--node", "tpu:services",
                   "--leader-lease-ms", "5"], "the compartment",

@@ -115,9 +115,10 @@ def test_ordered_raft_cli_matches_jax(tmp_path):
 
 @pytest.mark.parametrize("extra,message", [
     # the compartment engine's slice, named "the role-partitioned
-    # programs" until the partition landed (the id kept)
+    # programs" until the partition landed (the id kept); the engine runs
+    # since the compartment's slice and sizes its cluster from --roles
     pytest.param(["-w", "lin-kv", "--ordering", "compartment"],
-                 "the compartment",
+                 "needs 9 nodes",
                  id="extra0-the role-partitioned programs"),
     # refused the txn-list-append applier before it was ported (the
     # id kept); the JAX package has no txn-rw-register applier either

@@ -223,6 +223,44 @@ def test_scan_with_faults_matches_jax(stop):
         assert out_p[2] % 4 and scan.replayed > 0
 
 
+@pytest.mark.parametrize("stop,chunk", [(True, 4), (True, 7), (False, 4)])
+def test_scan_counts_every_round_it_runs(stop, chunk):
+    """A dispatch runs the k rounds it returns, the rounds it replays
+    after a chunk ran past the exit, and the rounds of that chunk past
+    the exit, which it rolls back: the program steps once for each, so
+    k + replayed + rolled_back is a kernel's launch count."""
+    n = 16
+    nodes = [f"n{i}" for i in range(n)]
+    opts = {"topology": "grid", "max_values": 40,
+            "latency": {"mean": 2, "dist": "uniform"}}
+    jprog = j_get_program("broadcast", opts, nodes)
+    pprog = p_get_program("broadcast", opts, nodes, device="cpu")
+    kw = dict(n_nodes=n, n_clients=C, pool_cap=64,
+              inbox_cap=jprog.inbox_cap, client_cap=12,
+              latency_mean_rounds=2.0, latency_dist="uniform")
+    pcfg = PT.NetConfig(**kw)
+    start = jax_tree_to_numpy(j_make_sim(jprog, JT.NetConfig(**kw), seed=9))
+    steps = []
+    edge_step = pprog.edge_step
+
+    def counted(*a, **k):
+        steps.append(1)
+        return edge_step(*a, **k)
+    pprog.edge_step = counted
+    scan = p_make_scan_fn(pprog, pcfg, reply_cap=RCAP, device="cpu",
+                          chunk=chunk)
+    sim = convert.state_from_numpy(start, pprog, pcfg, device="cpu")
+    inj = convert.msgs_from_numpy(_inject(n, 17), device="cpu")
+    k = scan(sim, inj, 40, stop)[2]
+    assert len(steps) == k + scan.replayed + scan.rolled_back
+    if stop:
+        assert k < 40 and k % chunk
+        assert scan.rolled_back == chunk - k % chunk
+        assert scan.replayed == k % chunk
+    else:
+        assert (k, scan.replayed, scan.rolled_back) == (40, 0, 0)
+
+
 def _random_cm(rng, CW, n):
     return PT.Msgs(
         valid=torch.tensor(rng.random(CW) < 0.3),
