@@ -88,9 +88,20 @@ partition with the ring on, the leader's shed) and kafka over the
 compartment engine, whose histories and ring must hash to the JAX
 runner's (`PINNED_COMPARTMENT`), and bench.py's proxy-scaling sweep at
 full width (`python -m maelstrom_tpu_torch.bench --compartment`), whose
-ok ops must equal the JAX runner's (`PINNED_COMPARTMENT_BENCH`).
-The runs (the CLI, the benches and the sweeps) go in five groups side
-by side, four of them in worker processes the script starts and waits
+ok ops must equal the JAX runner's (`PINNED_COMPARTMENT_BENCH`). Then
+the election slice: K27 compartment_sequencer_elect, K28
+compartment_proxy_elect, K29 compartment_acceptor_elect and K26 at the
+elected learn packing (with and without their stall masks, at the CLI's
+and bench.py's failover shapes and at the elected layout's limits)
+against their plain versions, the elected compartment's runs (`--roles
+sequencers=2`: the kill=sequencer soup, a partitioned grid column with
+the ring on, --continuous, two redirect hops with the lease off) whose
+histories, ring and election blocks must equal the JAX runner's
+(`PINNED_ELECTION`), and bench.py's failover record at full width
+(`python -m maelstrom_tpu_torch.bench --failover`), whose counts must
+equal the JAX runner's (`PINNED_FAILOVER_BENCH`).
+The runs (the CLI, the benches and the sweeps) go in six groups side
+by side, five of them in worker processes the script starts and waits
 for (`--worker`), each phase counting the launches of its own runs; the
 profiles and the kernel times come after, with the card to themselves.
 Every phase prints one JSON line; any failed check exits non-zero. The line before the last lists every kernel
@@ -4599,8 +4610,10 @@ def _compartment_role(roles, opts, role, n):
 
 
 def _random_compartment(g, role, lay, n, rnd):
-    """Random inputs of a compartment role step on the card (the gpu
-    tests' `random_compartment_inputs`, in torch): every lane type the
+    """Random inputs of a compartment role step, drawn on the card (as
+    `testing.compartment.random_compartment_inputs` draws them with
+    numpy, which the stress shape's 660 MB of planes would make slow on
+    the host): every lane type the
     role reads and some it does not, slots repeated, matching live rows
     and past the log, grid and replica indices past both ends, INT32_MAX
     words, client ids below and above the cluster, tables empty, partly
@@ -4704,27 +4717,41 @@ def _random_compartment(g, role, lay, n, rnd):
     return Msgs(**inbox), state
 
 
-def _compartment_io(role, lay, n, state, out):
-    """(bytes, int32 operations) a step must move and do: the inbox
-    fields the kernel reads, the state read and written, the outbox
-    written; a few dozen operations a row and a lane, the proxies' ack
-    fold (Q x K x AR) and the in-round dedups (K x K a node)."""
-    K_ = lay.K
-    lane_in = {"sequencers": 25, "proxies": 17, "acceptors": 17,
-               "replicas": 21}[role]
-    st = 2 * nbytes(*state.values())
-    io = n * K_ * lane_in + st + nbytes(*[getattr(out, f) for f in (
-        "valid", "src", "dest", "due", "mid", "reply_to", "type", "a", "b",
-        "c")])
-    Q = {"sequencers": lay.QL, "proxies": lay.QP}.get(role, 0)
-    ops = n * (K_ * K_ + 30 * (Q + K_))
-    if role == "sequencers":
-        ops += n * Q * K_ * 3
-    elif role == "proxies":
-        ops += n * Q * K_ * 4 + n * Q * lay.AR * 6
-    else:
-        ops += n * lay.cap + n * lay.AP * (K_ + 30)
-    return io, ops
+# The inbox bytes a lane each compartment role kernel reads: valid (1)
+# and 4 for each int32 field it loads. K23 and K27 read src, mid, type,
+# a, b and c; K24 and K28 type, a, b and c; K25 type, a, b and src; K26
+# and K29 type, a, b, c and src.
+LANE_IN = {"compartment_sequencer_step": 25, "compartment_proxy_step": 17,
+           "compartment_acceptor_step": 17, "compartment_replica_step": 21,
+           "compartment_sequencer_elect": 25, "compartment_proxy_elect": 17,
+           "compartment_acceptor_elect": 21}
+
+
+def _role_io(kernel, lay, n, state, out):
+    """(bytes, int32 operations) a compartment role step (K23-K29) must
+    move and do: the inbox fields the kernel reads (`LANE_IN`), the state
+    read and written, the outbox written; a few dozen operations a row
+    and a lane and the in-round dedups (K x K a node), then the kernel's
+    own folds: K23's retire (Q x K); K24's ack fold (Q x K x AR); K25's
+    and K26's slots and apply walk; K27's retire and QVAL folds
+    (Q x K), done_bits row and fan; K28's ack, fence and upgrade folds
+    (Q x K x 3 + Q x AR); K29's query resolution (K x K) and copied
+    rows."""
+    K_, C, AR, AP = lay.K, lay.cap, lay.AR, lay.AP
+    io = (n * K_ * LANE_IN[kernel] + 2 * nbytes(*state.values())
+          + nbytes(*[getattr(out, f) for f in (
+              "valid", "src", "dest", "due", "mid", "reply_to", "type", "a",
+              "b", "c")]))
+    Q = (lay.QL if "sequencer" in kernel
+         else lay.QP if "proxy" in kernel else 0)
+    extra = {"compartment_sequencer_step": Q * K_ * 3,
+             "compartment_proxy_step": Q * K_ * 4 + Q * AR * 6,
+             "compartment_acceptor_step": C + AP * (K_ + 30),
+             "compartment_replica_step": C + AP * (K_ + 30),
+             "compartment_sequencer_elect": Q * K_ * 6 + C + Q * AR * 8,
+             "compartment_proxy_elect": Q * K_ * 12 + Q * AR * 6,
+             "compartment_acceptor_elect": 3 * C + 2 * K_ * K_}[kernel]
+    return io, n * (K_ * K_ + 30 * (Q + K_) + extra)
 
 
 def compartment_kernel_checks(timed):
@@ -4760,7 +4787,7 @@ def compartment_kernel_checks(timed):
         check(err == 0, f"{name} differs from its plain version (max abs "
               f"err {err})")
         new, outbox = prog.step(state, inbox, {"round": r})
-        io, ops = _compartment_io(role, lay, n, state, outbox)
+        io, ops = _role_io(name.split("@")[0], lay, n, state, outbox)
         b, by = bound_of(io, ops)
         rec = {"max_abs_err": err, "bound_ms": b, "bound_by": by,
                "bytes": io, "ops": ops, "nodes": n, "lanes": lay.K,
@@ -4931,6 +4958,345 @@ def phase_bench_compartment(smi):
     return {k: counts[k] for k in COMPARTMENT_KERNELS}
 
 
+# --- the compartment slice: elections and failover (K27-K29) ------------------
+
+# tests/test_election.py's ELECT config (2 candidates, 1 proxy, a 1x2 grid,
+# 1 replica; seed 11, rate 30 for 2.5 s, timeout 300 ms, election timeout
+# 40 rounds, kill=sequencer, 1 s of recovery): the soup of kill, pause,
+# partition and duplicate every 0.6 s; kill=sequencer with acceptor
+# column 0 partitioned every 0.7 s (seed 13, 3 s, 2 s of recovery, the
+# ring on); the kill under --continuous; and the soup with two redirect
+# hops, 20 ms of backoff and the lease off. Nothing is cut.
+ELECT_BASE = {"workload": "lin-kv", "node": "tpu:compartment", "seed": 11,
+              "rate": 30.0, "time_limit": 2.5, "journal_rows": False,
+              "timeout_ms": 300, "election_timeout_rounds": 40,
+              "roles": "sequencers=2,proxies=1,acceptors=1x2,replicas=1",
+              "nemesis_targets": "kill=sequencer", "recovery_s": 1}
+SOUP4 = {"kill", "pause", "partition", "duplicate"}
+CLI_ELECTION = [
+    ("elect-soup", {**ELECT_BASE, "nemesis": SOUP4,
+                    "nemesis_interval": 0.6}),
+    ("elect-col", {**ELECT_BASE, "seed": 13, "time_limit": 3.0,
+                   "nemesis": {"kill", "partition"}, "nemesis_interval": 0.7,
+                   "nemesis_targets": "kill=sequencer,"
+                                      "partition=acceptor-col-0",
+                   "recovery_s": 2, "telemetry": "auto"}),
+    ("elect-cont", {**ELECT_BASE, "continuous": True, "nemesis": {"kill"},
+                    "nemesis_interval": 0.6}),
+    ("elect-retries", {**ELECT_BASE, "nemesis": SOUP4,
+                       "nemesis_interval": 0.6, "client_retries": 2,
+                       "client_backoff_ms": 20, "leader_lease_ms": 0}),
+]
+# sha256 of the JAX runner's history.jsonl and of its `net.telemetry`
+# block (None with the ring off), and its `availability.election` block,
+# for each run above, on the CPU (JAX without its overlap pipeline);
+# re-derived by
+#   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_election.py -m slow
+PINNED_ELECTION = {
+    "elect-soup": {
+        "history":
+            "2a951850297a70ac97546b716e2c4473875bf344cb1d4851295c9cd302aaa761",
+        "telemetry": None,
+        "election": {
+            "candidates": 2,
+            "failovers": 3,
+            "wins-per-candidate": [1, 2],
+            "ballot": 7,
+            "leader": 1,
+            "ballot-overflows": 0,
+            "rounds-to-leader": {"mean": 2.0, "max": 2}}},
+    "elect-col": {
+        "history":
+            "de8761b119552619b1fada13c5ef2c9327d5d357bd200b94df76ebcb6c1038e7",
+        "telemetry":
+            "b850d5841e96a90e654c56e34d88e57ae01654e1440b21ffb2a2520dad064ffa",
+        "election": {
+            "candidates": 2,
+            "failovers": 2,
+            "wins-per-candidate": [1, 1],
+            "ballot": 4,
+            "leader": 0,
+            "ballot-overflows": 0,
+            "rounds-to-leader": {"mean": 2.0, "max": 2}}},
+    "elect-cont": {
+        "history":
+            "ec6430ac36d651b818c431fe3e8860d5ff313b7caeae01bcc00cae49ca0dcc0a",
+        "telemetry": None,
+        "election": {
+            "candidates": 2,
+            "failovers": 3,
+            "wins-per-candidate": [1, 2],
+            "ballot": 7,
+            "leader": 1,
+            "ballot-overflows": 0,
+            "rounds-to-leader": {"mean": 2.0, "max": 2}}},
+    "elect-retries": {
+        "history":
+            "5584e5fc08acac6d0b05e8fe2df5d198c274cc0e3964c34a615a7edb99d38544",
+        "telemetry": None,
+        "election": {
+            "candidates": 2,
+            "failovers": 3,
+            "wins-per-candidate": [1, 2],
+            "ballot": 7,
+            "leader": 1,
+            "ballot-overflows": 0,
+            "rounds-to-leader": {"mean": 2.0, "max": 2}}},
+}
+# bench.py's failover record at full width (`bench_failover_record`): the
+# JAX runner's counts on the CPU, re-derived by the same command
+PINNED_FAILOVER_BENCH = {
+    "failovers": 4, "forced_kills": 4,
+    "rounds_to_leader": {"mean": 2.0, "max": 2},
+    "client_ops_per_vsec": {"before": 170.0, "during": 127.5, "after": 160.0},
+    "longest_ok_gap_rounds": 156, "dip_count": 0}
+FAILOVER_PIN_KEYS = ("failovers", "forced_kills", "rounds_to_leader",
+                     "client_ops_per_vsec", "longest_ok_gap_rounds",
+                     "dip_count")
+
+ELECT_KERNELS = ("compartment_sequencer_elect", "compartment_proxy_elect",
+                 "compartment_acceptor_elect", "compartment_replica_step")
+# (roles, layout options, role, role nodes) of each K26-K29 check at the
+# elected learn packing: the CLI runs' ELECT shape (QL 32, K 8, a 406-slot
+# log), bench.py's failover shape (the slice's path at full width, the
+# kernels line's shape: 3 candidates, 4 proxies, a 2x2 grid, QL 128,
+# K 16, a 2,656-slot log, 1,024 keys) and a stress shape at the elected
+# layout's limits: 63 candidates, a 5 x 6 grid, a 4,095-slot log, QL
+# 1,024, K 16, 4,096 proxies and 64 replicas.
+_ELECT_ROLES = "sequencers=2,proxies=1,acceptors=1x2,replicas=1"
+_ELECT_LAY = {"rate": 30.0, "time_limit": 2.5, "election_timeout_rounds": 40}
+_FAIL_ROLES = "sequencers=3,proxies=4,acceptors=2x2,replicas=2"
+_FAIL_LAY = {"leader_slots": 128, "proxy_slots": 8, "compartment_inbox": 16,
+             "kv_keys": 1024, "concurrency": 48, "rate": 200.0,
+             "time_limit": 6.0}
+_STRESS_ROLES = "sequencers=63,proxies=4096,acceptors=5x6,replicas=64"
+_STRESS_LAY = {"leader_slots": 1024, "compartment_inbox": 16,
+               "log_cap": 4095, "kv_keys": 1024, "concurrency": 4000}
+ELECT_SHAPES = {}
+for _tag, (_roles, _lay) in {"elect": (_ELECT_ROLES, _ELECT_LAY),
+                             "failover": (_FAIL_ROLES, _FAIL_LAY),
+                             "stress": (_STRESS_ROLES, _STRESS_LAY)}.items():
+    _n = {"elect": (2, 1, 2, 1), "failover": (3, 4, 4, 2),
+          "stress": (63, 4096, 30, 64)}[_tag]
+    for _k, _role, _nn in zip(ELECT_KERNELS, ("sequencers", "proxies",
+                                              "acceptors", "replicas"), _n):
+        ELECT_SHAPES[f"{_k}@{_tag}"] = (_roles, _lay, _role, _nn)
+
+
+def election_kernel_checks(timed):
+    """K27-K29 and K26 at the elected learn packing, with and without the
+    stall mask, against their plain versions on the same inputs on the
+    card (exact: int32 and bool) at `ELECT_SHAPES`, on the gpu tests'
+    hazard inputs (`testing.compartment.random_compartment_inputs`: every
+    phase-1 lane type, QVAL ballot ties, duplicate and stale prepares, a
+    query of a slot written the same round, done_bits backlogs past 8,
+    ballots at the width limit), the inputs unchanged after the launch,
+    at rounds 37, 0 and 2^20; timed without the mask, the sequencer's
+    jitter drawn before (its K7 draws are not K27's)."""
+    import numpy as np
+    import torch
+    from maelstrom_tpu_torch import kernels as K
+    from maelstrom_tpu_torch import prng
+    from maelstrom_tpu_torch.net.tpu import Msgs
+    from maelstrom_tpu_torch.testing.compartment import \
+        random_compartment_inputs
+    out = {}
+    for name, (roles, opts, role, n) in ELECT_SHAPES.items():
+        lay, prog = _compartment_role(roles, opts, role, n)
+        err = 0
+        for rnd in (37, 0, 1 << 20):
+            rng = np.random.default_rng(n * 7 + rnd % 101)
+            ib_np, st_np = random_compartment_inputs(rng, role, lay, n,
+                                                     rnd)
+            inbox = Msgs(**{k: torch.tensor(v, device="cuda")
+                            for k, v in ib_np.items()})
+            state = {k: torch.tensor(v, device="cuda")
+                     for k, v in st_np.items()}
+            before = clone(state), clone(inbox)
+            stall = torch.tensor(rng.random(n) < 0.3, device="cuda")
+            r = torch.tensor(rnd, dtype=torch.int32, device="cuda")
+            key = prng.PRNGKey(rnd + n, "cuda")
+            for ctx in ({"round": r, "key": key},
+                        {"round": r, "key": key, "stall": stall}):
+                def step(ctx=ctx):
+                    return prog.step(state, inbox, ctx)
+                got = step()
+                with K.forced_plain():
+                    ref = step()
+                torch.cuda.synchronize()
+                err = max(err, max_abs_err(got, ref))
+                del got, ref
+            check(max_abs_err(before, (state, inbox)) == 0,
+                  f"{name}: the kernel updated an input")
+            del before
+        check(err == 0, f"{name} differs from its plain version (max abs "
+              f"err {err})")
+        ctx = {"round": r, "key": key}
+        new, outbox = prog.step(state, inbox, ctx)
+        io, ops = _role_io(name.split("@")[0], lay, n, state, outbox)
+        b, by = bound_of(io, ops)
+        rec = {"max_abs_err": err, "bound_ms": b, "bound_by": by,
+               "bytes": io, "ops": ops, "nodes": n, "lanes": lay.K,
+               "slots": lay.cap, "candidates": lay.S, "grid": lay.A,
+               "table": {"sequencers": lay.QL,
+                         "proxies": lay.QP}.get(role)}
+        del new, outbox
+        if timed:
+            if role == "sequencers":
+                jit1 = prog.jitter(ctx)
+
+                def timed_step():
+                    return prog._launch_elect(state, inbox, r, None, jit1)
+
+                def plain_step():
+                    return prog.step_plain_elect(state, inbox, r, jit1)
+            else:
+                def timed_step():
+                    return prog.step(state, inbox, ctx)
+                plain_step = timed_step
+            rec["ms"] = cuda_ms(timed_step)
+            with K.forced_plain():
+                rec["plain_ms"] = cuda_ms(plain_step)
+        out[name] = rec
+        del prog, inbox, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_election_kernels(timed):
+    t0 = time.perf_counter()
+    r = election_kernel_checks(timed)
+    emit({"phase": "election_kernels", "timed": timed,
+          "seconds": time.perf_counter() - t0, "kernels": r})
+    return r
+
+
+def phase_cli_election(smi):
+    """The elected compartment's runs through the kernels, launch
+    counters set to 0 just before each and read just after: each history
+    (and elect-col's ring) must hash to the JAX runner's, its
+    `availability.election` block equal JAX's, every run valid with no
+    pool overflow, elect-soup with two failovers or more, every kill on a
+    candidate (n0, n1), each of K26-K29 launched once for every round the
+    scan ran (an elected cluster never quiesces: every round of the
+    window runs); the K7 launches a round beside them."""
+    import shutil
+    from maelstrom_tpu_torch import kernels as K
+    store = os.path.join(ROOT, "store", "chip_smoke_election")
+    shutil.rmtree(store, ignore_errors=True)
+    runs, launches = {}, {}
+    for name, opts in CLI_ELECTION:
+        K.reset_launches()
+        rc, d, res, tm, digest, wall = _core_run(opts, store)
+        launches[name] = K.launch_counts()
+        pin = PINNED_ELECTION[name]
+        check(rc == 0 and res["valid"] is True
+              and res["net"]["dropped-overflow"] == 0,
+              f"election {name}: exit {rc}, valid {res.get('valid')}, "
+              f"overflow {res['net']['dropped-overflow']}")
+        check(res["workload"]["valid"] is True,
+              f"election {name}: workload {res['workload']}")
+        check(digest == pin["history"], f"election {name}: history.jsonl "
+              f"sha256 {digest}, the JAX runner's {pin['history']}")
+        elect = res["availability"].get("election")
+        check(elect == pin["election"], f"election {name}: election block "
+              f"{elect}, the JAX runner's {pin['election']}")
+        n_launch = [launches[name][k] for k in ELECT_KERNELS]
+        ran = _rounds_run(tm)
+        check(tm["rounds-executed"] > 0 and tm["rounds-bumped"] == 0
+              and n_launch == [ran] * len(n_launch),
+              f"election {name}: launches {n_launch} for {ran} rounds run "
+              f"({tm['rounds-executed']} executed, "
+              f"{tm['scan-replayed-rounds']} replayed, "
+              f"{tm['scan-rolled-back-rounds']} rolled back, "
+              f"{tm['rounds-bumped']} bumped)")
+        with open(os.path.join(d, "history.jsonl")) as f:
+            kills = [o["value"] for o in map(json.loads, f)
+                     if o.get("process") == "nemesis" and o["type"] == "info"
+                     and str(o["value"]).startswith("killed")]
+        check(kills and all(("'n0'" in v) != ("'n1'" in v) for v in kills),
+              f"election {name}: kills {kills}")
+        if name == "elect-soup":
+            check(elect["failovers"] >= 2, f"election {name}: {elect}")
+        st = res["stats"]
+        rec = {"wall_s": wall, "final_round": tm["final-round"],
+               "rounds_executed": tm["rounds-executed"],
+               "replayed_rounds": tm["scan-replayed-rounds"],
+               "rolled_back_rounds": tm["scan-rolled-back-rounds"],
+               "ms_per_executed_round": 1e3 * tm["scan-s"]
+               / max(tm["rounds-executed"], 1),
+               "dispatches": tm["dispatches"], "drains": tm["drains"],
+               "history_ops": tm["history-ops"],
+               "ok": st["ok-count"], "fail": st["fail-count"],
+               "info": st["info-count"], "election": elect,
+               "longest_ok_gap_rounds":
+                   res["availability"]["longest-ok-gap-rounds"],
+               "threefry_per_round": launches[name]["threefry"]
+               / max(n_launch[0], 1),
+               "kills": len(kills), "history_sha256_equal": True,
+               "election_equal": True}
+        if opts.get("telemetry"):
+            ring = _telemetry_checks(name, d, res, pin["telemetry"])
+            rec["role_sent"] = ring["role-sent"]
+            rec["telemetry_sha256_equal"] = True
+        runs[name] = rec
+    shutil.rmtree(store, ignore_errors=True)
+    emit({"phase": "cli_election", "runs": runs, "launches": {
+        k: {kk: v[kk] for kk in ELECT_KERNELS + ("threefry",)}
+        for k, v in launches.items()}, "nvidia_smi": smi})
+    return {k: sum(v[k] for v in launches.values()) for k in ELECT_KERNELS}
+
+
+def phase_bench_failover(smi):
+    """bench.py's failover record at full width through the port's entry
+    point (`python -m maelstrom_tpu_torch.bench --failover`): valid with
+    two failovers or more, its counts equal to the JAX runner's
+    (`PINNED_FAILOVER_BENCH`), its host ms an executed round from the
+    store's timing.json (read before the bench removes it), the launch
+    counters set to 0 just before and read just after: each of K26-K29
+    launched once for every round the scans ran."""
+    from maelstrom_tpu_torch import bench
+    from maelstrom_tpu_torch import core
+    from maelstrom_tpu_torch import kernels as K
+    timings = []
+    run = core.run
+
+    def timed_run(opts):
+        res = run(opts)
+        d = os.path.realpath(os.path.join(opts["store_root"], "latest"))
+        with open(os.path.join(d, "timing.json")) as f:
+            timings.append(json.load(f))
+        return res
+    K.reset_launches()
+    core.run = timed_run
+    try:
+        rec, rc = bench.main_failover(device="cuda")
+    finally:
+        core.run = run
+    counts = K.launch_counts()
+    check(rc == 0 and rec["valid"] is True and rec["failovers"] >= 2,
+          f"bench_failover: exit {rc}, record {rec}")
+    got = {k: rec[k] for k in FAILOVER_PIN_KEYS}
+    check(got == PINNED_FAILOVER_BENCH,
+          f"bench_failover: {got}, the JAX runner's {PINNED_FAILOVER_BENCH}")
+    check(len(timings) == 1, f"bench_failover: {len(timings)} runs timed")
+    tm = timings[0]
+    ran = _rounds_run(tm)
+    n_launch = [counts[k] for k in ELECT_KERNELS]
+    check(tm["rounds-executed"] > 0 and n_launch == [ran] * len(n_launch),
+          f"bench_failover: launches {n_launch} for {ran} rounds run")
+    emit({"phase": "bench_failover", "record": rec, "counts_equal": True,
+          "rounds_executed": tm["rounds-executed"],
+          "replayed_rounds": tm["scan-replayed-rounds"],
+          "rolled_back_rounds": tm["scan-rolled-back-rounds"],
+          "host_ms_per_round": 1e3 * tm["scan-s"]
+          / max(tm["rounds-executed"], 1),
+          "dispatches": tm["dispatches"],
+          "launches": {k: counts[k] for k in ELECT_KERNELS + ("threefry",)},
+          "nvidia_smi": smi})
+    return {k: counts[k] for k in ELECT_KERNELS}
+
+
 # --- the runs, side by side ---------------------------------------------------
 
 # The phases that drive the main path through the CLI, the runners, the
@@ -4941,9 +5307,10 @@ def phase_bench_compartment(smi):
 # this process. Every phase sets the launch counters to 0 just before its
 # runs and reads them just after, in the process that drives them, and
 # returns what it read. The groups hold about equal host time (NVIDIA H100
-# 80GB HBM3, 700 W: their phases one after another took 208 s, 199 s,
-# 184 s, 202 s and 189 s). The profiles and the kernel times come after
-# every group has ended, with the card to themselves.
+# 80GB HBM3, 700 W: the election group's phases one after another took
+# 264 s, the others' 208 s, 199 s, 184 s, 202 s and 189 s). The profiles
+# and the kernel times come after every group has ended, with the card
+# to themselves.
 RUN_PHASES = {
     "cli_small": lambda smi: phase_cli_small(),
     "cli_100k": phase_cli_100k,
@@ -4962,11 +5329,14 @@ RUN_PHASES = {
     "cli_services": phase_cli_services,
     "cli_compartment": phase_cli_compartment,
     "bench_compartment": phase_bench_compartment,
+    "cli_election": phase_cli_election,
+    "bench_failover": phase_bench_failover,
     "bench_checkers": phase_bench_checkers,
     "fuzz_kafka": phase_fuzz_kafka,
     "fuzz_100k": phase_fuzz_broadcast,
 }
 RUN_GROUPS = [
+    ["cli_election", "bench_failover"],
     ["cli_compartment", "bench_compartment"],
     ["cli_services", "cli_small", "fuzz_kafka", "bench_batched",
      "cli_ordered", "raft_bench_10k"],
@@ -5094,6 +5464,7 @@ def main() -> int:
     schecks = phase_stream_kernels(timed=False)
     vchecks = phase_services_kernels(timed=False)
     mchecks = phase_compartment_kernels(timed=False)
+    echecks = phase_election_kernels(timed=False)
     phase_prng_pins()
     ret = run_groups(smi)
     launches = dict(ret["cli_100k"])
@@ -5110,6 +5481,11 @@ def main() -> int:
     # the compartment's kernels: the pinned runs' and the bench sweep's
     for k in COMPARTMENT_KERNELS:
         launches[k] = ret["cli_compartment"][k] + ret["bench_compartment"][k]
+    # the elected tier's: the election runs' and the failover bench's (K26
+    # runs on both paths)
+    for k in ELECT_KERNELS:
+        launches[k] = (launches.get(k, 0) + ret["cli_election"][k]
+                       + ret["bench_failover"][k])
     launches["kafka_step"] = ret["cli_kafka"]["kafka_step"]
     elle_inputs = ret["bench_checkers"]
     # profiles and kernel times last: the profiler they are read from
@@ -5142,13 +5518,16 @@ def main() -> int:
     mtimed = phase_compartment_kernels(timed=True)
     for k in COMPARTMENT_KERNELS:
         cli[k] = mtimed[f"{k}@bench"]
+    etimed2 = phase_election_kernels(timed=True)
+    for k in ELECT_KERNELS[:3]:
+        cli[k] = etimed2[f"{k}@failover"]
     phase_crdt_profile()
     phase_pool_profile(pool_launches["rounds_executed"])
     emit({"phase": "profiler", **PROFILER})
     errs = {}
     for r in (*checks.values(), fchecks, rchecks, raft, pchecks, cchecks,
               kchecks, ktimed, btimed, etimed, schecks, stimed, vchecks,
-              vtimed, mchecks, mtimed):
+              vtimed, mchecks, mtimed, echecks, etimed2):
         for name, v in r.items():
             base = {"raft_step_stall": "raft_step",
                     "threefry_batched": "threefry",

@@ -1,5 +1,6 @@
 """The throughput benchmarks on the port: broadcast, Raft clusters, batched
-broadcast, the checkers and the compartment's proxy scaling.
+broadcast, the checkers, the compartment's proxy scaling and its leader
+failover.
 
 The same workload as `bench.py`'s broadcast record (`_main_broadcast`): a
 grid of `n_nodes` nodes, `values` broadcast values injected one every
@@ -55,6 +56,21 @@ point grades valid and 4 proxies complete at least twice the ok ops of
 one (`scaling_1_to_4 >= 2`, when both points are in the sweep).
 
     python -m maelstrom_tpu_torch.bench --compartment [--device cpu]
+
+With `--failover` it runs `bench.py`'s leader-failover record
+(`bench_failover_record`, `_main_failover`): `--nemesis-targets
+kill=sequencer` kills the LIVE elected leader every 0.7 s on `--node
+tpu:compartment --roles sequencers=3,proxies=4,acceptors=2x2,replicas=2`
+(leader_slots 128, proxy_slots 8, compartment_inbox 16, kv_keys 1,024,
+timeout 400 ms, 48 clients at 200 ops a second for 6 s, 2 s of
+recovery, seed 11), through `core.run` (kernels K26-K29). The record
+reports completed failovers, forced kills, rounds from candidacy to win,
+ok ops a virtual second before, during and after the kill windows, the
+longest no-ok gap and the dips past the RPC timeout. BENCH_FAILOVER_RATE,
+_TIME_LIMIT and _INTERVAL override the run, as bench.py's do. It exits 1
+unless the run grades valid with at least two failovers.
+
+    python -m maelstrom_tpu_torch.bench --failover [--device cpu]
 """
 
 from __future__ import annotations
@@ -774,6 +790,106 @@ def main_compartment(device="cuda") -> tuple:
     return record, (1 if not rec["valid"] or bad_scaling else 0)
 
 
+def bench_failover_record(device="cuda") -> dict:
+    """bench.py's `bench_failover_record` on the port: the elected
+    compartment under forced sequencer kills, its history segmented by
+    the kill windows (see the module docstring). `devices` counts CUDA
+    devices."""
+    import shutil
+    import tempfile
+
+    from . import core
+
+    dev = resolve_device(device)
+    rate = float(os.environ.get("BENCH_FAILOVER_RATE", 200.0))
+    tl = float(os.environ.get("BENCH_FAILOVER_TIME_LIMIT", 6.0))
+    interval = float(os.environ.get("BENCH_FAILOVER_INTERVAL", 0.7))
+    root = tempfile.mkdtemp(prefix="bench-failover-")
+    try:
+        t0 = time.perf_counter()
+        res = core.run(dict(
+            store_root=root, seed=11, workload="lin-kv",
+            node="tpu:compartment",
+            roles="sequencers=3,proxies=4,acceptors=2x2,replicas=2",
+            concurrency=48, rate=rate, time_limit=tl,
+            journal_rows=False, device=str(dev),
+            leader_slots=128, proxy_slots=8, compartment_inbox=16,
+            kv_keys=1024, timeout_ms=400,
+            nemesis={"kill"}, nemesis_interval=interval,
+            nemesis_targets="kill=sequencer", recovery_s=2))
+        wall = time.perf_counter() - t0
+        ns_pr = 1e6                  # 1 ms a round
+        # segment ok completions by the kill windows
+        kills, heals, oks = [], [], []
+        with open(os.path.join(root, "latest", "history.jsonl")) as f:
+            for ln in f:
+                o = json.loads(ln)
+                if o.get("process") == "nemesis" \
+                        and o.get("type") == "invoke":
+                    if o.get("f") == "start-kill":
+                        kills.append(o["time"] / ns_pr)
+                    elif o.get("f") == "stop-kill":
+                        heals.append(o["time"] / ns_pr)
+                elif o.get("type") == "ok":
+                    oks.append(o["time"] / ns_pr)
+        end_r = tl * 1000.0
+        first_kill = min(kills) if kills else float("inf")
+
+        def window_close(k):
+            # the heal closing this kill window, else the run's end
+            return min((h for h in heals if h >= k), default=end_r)
+
+        last_heal = max((window_close(k) for k in kills), default=0.0)
+        in_window = sum(1 for t in oks
+                        for k in kills if k <= t <= window_close(k))
+        windows_r = sum(window_close(k) - k for k in kills)
+        before = sum(1 for t in oks if t < first_kill)
+        after = sum(1 for t in oks if t > last_heal)
+        seg = {
+            "before": round(before / max(first_kill / 1000.0, 1e-9), 1),
+            "during": round(in_window / max(windows_r / 1000.0, 1e-9), 1),
+            "after": round(after / max((end_r - last_heal) / 1000.0,
+                                       1e-9), 1),
+        }
+        avail = res.get("availability", {})
+        elect = avail.get("election", {})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {
+        "failovers": elect.get("failovers", 0),
+        "forced_kills": len(kills),
+        "rounds_to_leader": elect.get("rounds-to-leader"),
+        "client_ops_per_vsec": seg,
+        "longest_ok_gap_rounds": avail.get("longest-ok-gap-rounds"),
+        "dip_count": avail.get("dip-count"),
+        "dip_threshold_rounds": avail.get("dip-threshold-rounds"),
+        # the client-side leader lease: on at twice the election timeout
+        "leader_lease_rounds":
+            2 * core.DEFAULTS["election_timeout_rounds"],
+        "offered_rate": rate, "time_limit_s": tl,
+        "nemesis_interval_s": interval,
+        "wall_s": round(wall, 3),
+        "host_cpus": os.cpu_count(),
+        "devices": torch.cuda.device_count() if dev.type == "cuda" else 0,
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu"),
+        "valid": res["valid"] is True,
+    }
+
+
+def main_failover(device="cuda") -> tuple:
+    """bench.py's `_main_failover`: the failover record with its headline
+    (the most rounds from candidacy to a won election). Returns (record,
+    exit code): 1 unless the run graded valid with two failovers or
+    more."""
+    rec = bench_failover_record(device=device)
+    rtl = rec.get("rounds_to_leader") or {}
+    record = {"metric": "failover_rounds_to_new_leader_max",
+              "value": rtl.get("max"), "unit": "rounds",
+              "vs_baseline": None, **rec}
+    return record, (1 if not rec["valid"] or rec["failovers"] < 2 else 0)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nodes", type=int, default=None,
@@ -817,7 +933,15 @@ def main(argv=None) -> int:
                     help="the proxy-scaling record (bench.py "
                          "bench_compartment_record) on tpu:compartment, "
                          "through K23-K26")
+    ap.add_argument("--failover", action="store_true",
+                    help="the leader-failover record (bench.py "
+                         "bench_failover_record) on the elected "
+                         "tpu:compartment, through K26-K29")
     a = ap.parse_args(argv)
+    if a.failover:
+        rec, rc = main_failover(device=a.device)
+        print(json.dumps(rec))
+        return rc
     if a.compartment:
         rec, rc = main_compartment(device=a.device)
         print(json.dumps(rec))

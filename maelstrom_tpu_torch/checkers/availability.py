@@ -1,11 +1,12 @@
 """Availability accounting: no-reply gaps in virtual rounds.
 
-A copy of `maelstrom_tpu/checkers/availability.py` without the election
-report (broadcast holds no elections). It folds the history's ok
+A copy of `maelstrom_tpu/checkers/availability.py`. It folds the history's ok
 completions into no-reply gaps and, when the nemesis killed nodes, the
 rounds from each kill to the next ok completion (virtual rounds, so the
-numbers are deterministic per seed). Purely observational: `valid` is always
-True. Everything but `check-wall-s` is a pure function of the
+numbers are deterministic per seed), and adds the program's election
+report (`election_report`: the elected compartment's failovers, rounds
+to leader, highest ballot, current leader) where it has one. Purely
+observational: `valid` is always True. Everything but `check-wall-s` is a pure function of the
 history."""
 
 from __future__ import annotations
@@ -96,6 +97,14 @@ class AvailabilityChecker(Checker):
             ms_per_round=float(test.get("ms_per_round", 1.0)),
             end_round=int(getattr(self.runner, "final_round", 0) or 0),
             dip_threshold_rounds=thr)
+        rep_fn = getattr(self.runner.program, "election_report", None)
+        if rep_fn is not None:
+            try:
+                rep = rep_fn(self.runner._nodes_host())
+            except Exception as e:    # observational: never fail the run
+                rep = {"error": repr(e)}
+            if rep is not None:
+                out["election"] = rep
         out["valid"] = True
         out["check-wall-s"] = round(time.perf_counter() - t0, 6)
         return out

@@ -16,8 +16,10 @@ txn-rw-register on the Raft transaction programs, lin-mutex on
 ordering axis (`--ordering raft|batched`, the composed `tpu:ordered`),
 lin-tso on the in-cluster services (`--node tpu:services
 [--service-roles ...]`, a role partition), lin-kv on compartmentalized
-consensus with a stable leader (`--node tpu:compartment [--roles ...]`,
-also an engine of the ordering axis), any of these programs wrapped
+consensus (`--node tpu:compartment [--roles ...]`, also an engine of the
+ordering axis; `--roles sequencers=S` with S > 1 elects the leader, and
+`--nemesis kill --nemesis-targets kill=sequencer` kills the live one,
+each kill a failover), any of these programs wrapped
 as a one-role partition (`--node tpu:solo:<program>`), on one card, or
 on the CPU with `--device cpu`, under loss, randomized latency and the
 partition, kill, pause, duplicate and weather nemeses (kill, pause and
@@ -53,6 +55,9 @@ default, with an error that names the slice of the port that brings it
     python -m maelstrom_tpu_torch test -w lin-kv --node tpu:compartment \\
         --roles proxies=4,acceptors=2x2,replicas=2 --nemesis kill,partition \\
         --nemesis-targets kill=proxies,partition=acceptor-col-0
+    python -m maelstrom_tpu_torch test -w lin-kv --node tpu:compartment \
+        --roles sequencers=3,proxies=4,acceptors=2x2,replicas=2 \
+        --nemesis kill --nemesis-targets kill=sequencer
     python -m maelstrom_tpu_torch test -w lin-kv --node tpu:solo:lin-kv
     python -m maelstrom_tpu_torch fuzz --program broadcast --nodes 100000
 """
@@ -86,9 +91,6 @@ OUT_OF_SCOPE = [
     ("--workload", lambda v: v not in PROGRAMS, "the other node programs"),
     ("--nemesis", lambda v: "byzantine" in _faults(v),
      "the byzantine adversary"),
-    ("--client-retries", lambda v: v > 0,
-     "the compartment election and failover (the redirect budget's retries "
-     "and backoff)"),
     ("--fleet", lambda v: v is not None and v > 1, "mesh and fleet"),
     ("--fleet-sweep", lambda v: v is not None, "mesh and fleet"),
     ("--mesh", lambda v: v is not None, "mesh and fleet"),
@@ -101,23 +103,7 @@ OUT_OF_SCOPE = [
      "the overlap pipeline"),
     ("--byz-rate", lambda v: v != 1.0, "the byzantine adversary"),
     ("--byz-attacks", lambda v: v is not None, "the byzantine adversary"),
-    ("--roles", lambda v: v is not None and _sequencers(v) > 1,
-     "the compartment election and failover"),
-    ("--election-timeout-rounds", lambda v: v is not None,
-     "the compartment election and failover"),
-    ("--leader-lease-ms", lambda v: v is not None,
-     "the compartment election and failover"),
 ]
-
-
-def _sequencers(spec: str) -> int:
-    """The sequencer count of a --roles spec (1 when the spec does not
-    parse: the program's layout then refuses it with its own message)."""
-    from .nodes.compartment import parse_roles
-    try:
-        return parse_roles(spec)["sequencers"]
-    except ValueError:
-        return 1
 
 
 def _faults(spec: str) -> set:
@@ -225,7 +211,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "groups come from the node family's fault groups, "
                         "e.g. lin-tso, seq-kv, lww-kv for tpu:services, "
                         "or are literal node names)")
-    t.add_argument("--client-retries", type=int, default=0)
+    t.add_argument("--client-retries", type=int, default=0,
+                   help="Leader-redirect hops a client op may take "
+                        "(0, the default: 16)")
     t.add_argument("--continuous", action="store_true",
                    help="Continuous generator mode: client ops are "
                         "injected at their seeded offered-rate rounds "
@@ -269,20 +257,29 @@ def build_parser() -> argparse.ArgumentParser:
                         "compartment (sized by --roles) or batched; runs "
                         "the composed program tpu:ordered")
     t.add_argument("--roles",
-                   help="tpu:compartment layout: proxies=P,acceptors=RxC,"
-                        "replicas=R (default proxies=2,acceptors=2x2,"
-                        "replicas=2, one sequencer); sizes the cluster "
-                        "when --node-count is not given")
+                   help="tpu:compartment layout: sequencers=S,proxies=P,"
+                        "acceptors=RxC,replicas=R (default sequencers=1,"
+                        "proxies=2,acceptors=2x2,replicas=2); S > 1 makes "
+                        "the leader elected, so a kill of the live "
+                        "sequencer fails over; sizes the cluster when "
+                        "--node-count is not given")
     t.add_argument("--service-roles",
                    help="tpu:services layout, e.g. lin-tso=1,seq-kv=1,"
                         "lww-kv=3 (the default); sizes the cluster when "
                         "--node-count is not given")
-    t.add_argument("--election-timeout-rounds", type=int)
+    t.add_argument("--election-timeout-rounds", type=int,
+                   help="Failure-detector deadline of the sequencer "
+                        "election in rounds (default 60; --roles "
+                        "sequencers>1)")
     t.add_argument("--ballot-width", type=int)
     t.add_argument("--compartment-retry", type=int,
                    help="tpu:compartment: rounds between the sequencer's "
                         "and the proxies' resends (default 10)")
-    t.add_argument("--leader-lease-ms", type=float)
+    t.add_argument("--leader-lease-ms", type=float,
+                   help="Client-side leader lease in virtual ms: new ops "
+                        "rotate to the next candidate after this long "
+                        "without a reply from the guessed leader "
+                        "(default twice the election timeout; 0 off)")
     t.add_argument("--batch-max", type=int,
                    help="Batched broadcast: max client values distilled "
                         "into one batch (broadcast-batched workload; "
@@ -396,7 +393,7 @@ def opts_from_args(args) -> dict:
               "session_timeout_ms", "poll_batch", "batch_max",
               "device_checker", "continuous_window_ms", "service_roles",
               "nemesis_targets", "roles", "compartment_retry",
-              "ballot_width"):
+              "ballot_width", "election_timeout_rounds", "leader_lease_ms"):
         v = getattr(args, k, None)
         if v is not None:
             opts[k] = v

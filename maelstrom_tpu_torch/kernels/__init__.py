@@ -151,6 +151,15 @@ COMPARTMENT_ACCEPTOR_STEP = Kernel(
 COMPARTMENT_REPLICA_STEP = Kernel(
     "compartment_replica_step", "maelstrom_tpu_torch/csrc/compartment.cu",
     "maelstrom_tpu/nodes/compartment.py:1238")
+COMPARTMENT_SEQUENCER_ELECT = Kernel(
+    "compartment_sequencer_elect", "maelstrom_tpu_torch/csrc/compartment.cu",
+    "maelstrom_tpu/nodes/compartment.py:524")
+COMPARTMENT_PROXY_ELECT = Kernel(
+    "compartment_proxy_elect", "maelstrom_tpu_torch/csrc/compartment.cu",
+    "maelstrom_tpu/nodes/compartment.py:877")
+COMPARTMENT_ACCEPTOR_ELECT = Kernel(
+    "compartment_acceptor_elect", "maelstrom_tpu_torch/csrc/compartment.cu",
+    "maelstrom_tpu/nodes/compartment.py:1115")
 KERNELS = (EDGE_READ, EDGE_WRITE, BROADCAST_STEP, REPLY_COMPACT,
            REPLY_LOG_APPEND, QUIET_PROBE, THREEFRY, EDGE_FAULTS,
            EDGE_WRITE_SPILL, BROADCAST_STEP_STALL, RAFT_STEP, ECHO_STEP,
@@ -159,7 +168,8 @@ KERNELS = (EDGE_READ, EDGE_WRITE, BROADCAST_STEP, REPLY_COMPACT,
            ELLE_EDGES, ELLE_SCREEN, SCHED_INJECT, RING_UPDATE, TSO_STEP,
            SEQ_KV_STEP, LWW_KV_STEP, COMPARTMENT_SEQUENCER_STEP,
            COMPARTMENT_PROXY_STEP, COMPARTMENT_ACCEPTOR_STEP,
-           COMPARTMENT_REPLICA_STEP)
+           COMPARTMENT_REPLICA_STEP, COMPARTMENT_SEQUENCER_ELECT,
+           COMPARTMENT_PROXY_ELECT, COMPARTMENT_ACCEPTOR_ELECT)
 
 _state = {"lib": None, "forced_plain": False}
 

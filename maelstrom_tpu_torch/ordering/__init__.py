@@ -10,10 +10,10 @@ service). The port has three engines and three appliers:
       raft       the raft log (`nodes/raft.py`, kernel K10): commands
                  ride OP_TXN entries, the leader's reply carries the
                  commit position
-      compartment  compartmentalized consensus with one sequencer
-                 (`nodes/compartment.py`, kernels K23-K26): commands ride
-                 WRITE slots, a completion replays the best replica's
-                 applied prefix
+      compartment  compartmentalized consensus, one sequencer or an
+                 elected tier (`nodes/compartment.py`, kernels K23-K29):
+                 commands ride WRITE slots, a completion replays the
+                 best replica's applied prefix
       batched    batched atomic broadcast (`nodes/broadcast_batched.py`,
                  kernel K15): the distiller's contiguous id assignment is
                  the sequencer, id order the stream order

@@ -303,7 +303,8 @@ class OrderedCompartment(StreamBoundary, CompartmentProgram):
     commands ride WRITE slots (the interned id packed into the 12-bit key
     x base-255 value fields), flowing sequencer -> proxy tier -> acceptor
     grid -> replicas exactly as the lin-kv path (`sim.RolePartition`,
-    kernels K23-K26). Client replies don't carry the slot, so the
+    kernels K23-K26, K26-K29 with an elected tier: its elections,
+    failover, leader redirects and lease too). Client replies don't carry the slot, so the
     completion locates its command by scanning the replica's applied
     prefix (every slot <= `applied` is chosen and final — the same
     `state_reads_final` argument as raft's committed log)."""

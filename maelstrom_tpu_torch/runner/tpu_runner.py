@@ -30,11 +30,19 @@ phase spans and a per-window record through a `TelemetrySession`.
 
 Role-targeted faults (`--nemesis-targets`) resolve against the
 program's `fault_groups` (a role partition's role ranges) and literal
-node names.
+node names; the dynamic group "sequencer" resolves to the elected
+compartment's live leader when the fault fires.
+
+A leader redirect (error 31 with a hint, from a sequencer that does not
+lead) re-issues the same op, in its open invoke window, to the hinted
+node after a seeded exponential backoff in rounds (`_backoff_rounds`),
+up to `--client-retries` hops (16 when unset); programs with a
+client-side routing lease see the round at each boundary
+(`observe_round`), every reply (`note_reply`) and every timeout
+(`note_timeout`).
 
 Not ported here (their options are refused by the CLI, naming the slice
-that brings each): client retries and leader-redirect requeues,
-checkpoint/resume and preemption, the overlapped
+that brings each): checkpoint/resume and preemption, the overlapped
 analysis pipeline, meshes and fleets, the byzantine adversary, and the
 static-audit and cost blocks of the results."""
 
@@ -391,6 +399,10 @@ class TpuRunner:
                                          for i in range(self.concurrency)]
         self._dispatches = 0
         self.final_round = 0
+        # the leader-redirect requeue's session table (built a run) and
+        # its hop budget: client_retries 0, the default, means unset
+        self._sessions = None
+        self._redirect_budget = int(test.get("client_retries") or 0) or 16
         # wall seconds by phase of the run (timing.json in the store dir)
         self.nemesis = None
         self.timing = {"scan-s": 0.0, "drain-s": 0.0, "poll-s": 0.0,
@@ -510,12 +522,35 @@ class TpuRunner:
     def _time_ns(self, r: int) -> int:
         return int(r * self.ms_per_round * 1e6)
 
+    def _backoff_rounds(self, process, attempt: int) -> int:
+        """The leader-redirect requeue's seeded truncated-exponential
+        backoff in rounds: full jitter under min(cap, base * 2^attempt)
+        (`--client-backoff-ms`, `--client-backoff-cap-ms`), drawn from an
+        md5 of (seed, process, attempt), so a seed fixes the schedule."""
+        import hashlib
+
+        from .sessions import trunc_exp_bound
+        bo_ms = self.test.get("client_backoff_ms")
+        cap_ms = self.test.get("client_backoff_cap_ms")
+        base = max(1, int(float(50.0 if bo_ms is None else bo_ms)
+                          / self.ms_per_round))
+        cap = max(base, int(float(2000.0 if cap_ms is None else cap_ms)
+                            / self.ms_per_round))
+        bound = trunc_exp_bound(base, cap, attempt)
+        h = int.from_bytes(hashlib.md5(
+            f"{self.test.get('seed', 0)}:{process}:{attempt}"
+            .encode()).digest()[:4], "big")
+        return 1 + (h % bound)
+
     def _complete(self, history, gen, ctx, process, completed, free):
         history.append_row(completed.get("type", "info"),
                            completed.get("f"), completed.get("value"),
                            process, ctx["time"], completed.get("error"),
                            completed.get("final", False))
         free.add(process)
+        # the op's redirect-retry chain (if any) ends with its window
+        if self._sessions is not None:
+            self._sessions.close_retry(process)
         return gen.update(ctx, completed)
 
     def _free_rotated(self, free):
@@ -573,6 +608,10 @@ class TpuRunner:
         dl = sessions.min_deadline()
         if dl is not None:
             bound = min(bound, dl)
+        due = sessions.requeue_min_due()
+        if due is not None:
+            # a redirect retry becomes injectable at its due round
+            bound = min(bound, due)
         bound = min(bound, max_rounds)
         return max(bound - r, 1)
 
@@ -602,6 +641,7 @@ class TpuRunner:
         for p in processes:
             free.add(p)
         sessions = CoroutineSessions()
+        self._sessions = sessions
         history = History()
         max_rounds = int(test.get("max_rounds", 2_000_000))
         # host mirror of the device message-id counter (refreshed by
@@ -658,7 +698,12 @@ class TpuRunner:
         program = self.program
         r = 0
         exhausted = False
+        observe_round = getattr(program, "observe_round", None)
         while r < max_rounds:
+            if observe_round is not None:
+                # a routing lease reads the round before this boundary's
+                # ops are routed
+                observe_round(r)
             # one host poll pass per stretch boundary
             _poll_t0 = time.perf_counter()
             ctx = {"time": self._time_ns(r), "free": self._free_rotated(free),
@@ -708,7 +753,12 @@ class TpuRunner:
             self._tel_span("schedule-encode", _poll_t0, _poll_t1)
             self.timing["poll-s"] += _poll_t1 - _poll_t0
 
-            if exhausted and not sessions and len(free) == len(processes):
+            # leader-redirect retries whose backoff elapsed re-inject now
+            # (their invoke windows are open: no new history rows)
+            inject_rows += sessions.take_due_requeues(r)
+
+            if exhausted and not sessions and not sessions.has_requeue() \
+                    and len(free) == len(processes):
                 break
 
             # fast-forward quiescent stretches (nothing in flight, nothing
@@ -743,11 +793,16 @@ class TpuRunner:
             # stale), then each completion folds in
             entries = sessions.absorb_results([rep[5] for rep in replies])
             for rep, entry in zip(replies, entries):
-                gen = self._apply_reply(program, gen, history, free,
-                                        processes, rep, entry)
+                gen = self._apply_reply(program, gen, history, sessions,
+                                        free, processes, rep, entry)
 
-            # timeouts -> indefinite :info (client.clj:214-233)
-            for process, op, _ni in sessions.take_expired(r):
+            # timeouts -> indefinite :info (client.clj:214-233); a
+            # timed-out node may be a dead leader: the program may rotate
+            # its routing guess
+            nt = getattr(program, "note_timeout", None)
+            for process, op, ni in sessions.take_expired(r):
+                if nt is not None:
+                    nt(ni)
                 completed = {**op, "type": "info", "error": "net-timeout"}
                 gen = self._complete(history, gen, ctx, process, completed,
                                      free)
@@ -843,7 +898,10 @@ class TpuRunner:
         carry_nem = None
         carry_host: list = []
         r = 0
+        observe_round = getattr(program, "observe_round", None)
         while r < max_rounds:
+            if observe_round is not None:
+                observe_round(r)
             # boundary work due now
             while carry_nem is not None and carry_nem[0] <= r:
                 nop = carry_nem[1]
@@ -892,6 +950,9 @@ class TpuRunner:
                     carry_nem = nem
                 break
             exhausted = end_kind == "exhausted"
+            # leader-redirect retries join the scheduled rows (their due
+            # rounds clamp to this window's start)
+            carry_sched += sessions.drain_requeues(r)
             # stable by round: carried rows precede same-round new ones
             carry_sched.sort(key=lambda rw: rw[0])
             _poll_t1 = time.perf_counter()
@@ -948,21 +1009,27 @@ class TpuRunner:
                         raise RuntimeError(
                             f"continuous scan executed {k} rounds but "
                             f"reported no mid for row {seq} at round {rd}")
-                    history.append_row("invoke", op.get("f"),
-                                       op.get("value"), process,
-                                       self._time_ns(rd),
-                                       final=op.get("final", False))
+                    if not sessions.retry_is_open(process):
+                        # a redirect retry keeps its original invoke
+                        history.append_row("invoke", op.get("f"),
+                                           op.get("value"), process,
+                                           self._time_ns(rd),
+                                           final=op.get("final", False))
                     sessions.register(mid, process, op, node_idx,
                                       rd + self.timeout_rounds)
                 else:
                     entry = sessions.absorb_results([int(item[5])])[0]
-                    gen = self._apply_reply(program, gen, history, free,
-                                            processes, item, entry)
+                    gen = self._apply_reply(program, gen, history,
+                                            sessions, free, processes,
+                                            item, entry)
 
             # timeouts -> indefinite :info (client.clj:214-233)
             ctx = {"time": self._time_ns(r), "free": self._free_rotated(free),
                    "processes": processes}
-            for process, op, _ni in sessions.take_expired(r):
+            nt = getattr(program, "note_timeout", None)
+            for process, op, ni in sessions.take_expired(r):
+                if nt is not None:
+                    nt(ni)
                 completed = {**op, "type": "info", "error": "net-timeout"}
                 gen = self._complete(history, gen, ctx, process, completed,
                                      free)
@@ -970,17 +1037,43 @@ class TpuRunner:
             self.timing["replies-s"] += time.perf_counter() - t0
         return r
 
-    def _apply_reply(self, program, gen, history, free, processes, rep,
-                     entry):
+    def _apply_reply(self, program, gen, history, sessions, free,
+                     processes, rep, entry):
         """Decodes one drained reply row — (round_stamp, type, a, b, c,
         reply_to, payload) — and folds its completion into the
-        history and generator state. Returns the rebound generator."""
+        history and generator state, or requeues a redirected op.
+        Returns the rebound generator."""
         stamp, t_, a_, b_, c_, _rt, payload = rep
         if entry is None:
             return gen              # stale reply (client.clj:167-168)
         process, op, node_idx, _dl = entry
         body = program.decode_body(t_, a_, b_, c_, self.intern)
+        # any reply proves the contacted node alive (a routing lease)
+        nr = getattr(program, "note_reply", None)
+        if nr is not None:
+            nr(node_idx, int(stamp))
         if body.get("type") == "error":
+            # a leader redirect is definite (the op did not execute):
+            # re-issue the same op, in its open invoke window, to the
+            # hinted node under seeded backoff; an exhausted budget falls
+            # through to the ordinary definite fail
+            hint_fn = getattr(program, "redirect_hint", None)
+            h = hint_fn(body) if hint_fn is not None else None
+            attempt = sessions.attempt(process)
+            if h is not None and attempt < self._redirect_budget:
+                target = int(h)
+                if not 0 <= target < self.cfg.n_nodes:
+                    # no live leader known: probe the tier
+                    target = int(program.next_probe(node_idx))
+                note = getattr(program, "note_leader", None)
+                if note is not None:
+                    note(target)
+                t2, a2, b2, c2 = program.encode_body(
+                    program.request_for_op(op), self.intern)
+                sessions.open_retry(process, attempt + 1)
+                due = int(stamp) + self._backoff_rounds(process, attempt)
+                sessions.requeue(due, process, op, target, t2, a2, b2, c2)
+                return gen
             err = ERROR_REGISTRY.get(body.get("code"))
             definite = err.definite if err else False
             completed = {**op,

@@ -8,8 +8,8 @@ one sequencer) against the JAX package's, on the CPU.
   empty tables.
 - The role steps: the plain versions of K23 (`SequencerRole`), K24
   (`ProxyRole`), K25 (`AcceptorRole`) and K26 (`ReplicaRole`) against
-  JAX's `step` on random inboxes (`test_torch_kernels_gpu.
-  random_compartment_inputs`: every lane type, slots repeated and past
+  JAX's `step` on random inboxes (`maelstrom_tpu_torch.testing.
+  compartment.random_compartment_inputs`: every lane type, slots repeated and past
   the log, full and empty tables, INT32_MAX words, keys past the row),
   at the CLI's shapes and at K 16 / QL 128, with the stall mask on and
   off (JAX's freeze and output mask after the step). Tolerance: exact,
@@ -20,8 +20,8 @@ one sequencer) against the JAX package's, on the CPU.
 - lin-kv through `core.run`, byte-equal to the JAX runner's history
   (the role-targeted kill and partition with the ring on, the leader's
   shed), and `--ordering compartment` for lin-kv and kafka; the
-  refusals (an elected tier, the election options, the byzantine
-  adversary) naming what brings each.
+  refusals (the byzantine adversary, and the options of later slices
+  beside the election's) naming what brings each.
 
 `-m slow` re-derives `chip_smoke.PINNED_COMPARTMENT` (the full-length
 runs of the smoke's `cli_compartment` phase) and the bench's ok ops
@@ -57,9 +57,10 @@ from maelstrom_tpu_torch.net import tpu as PT
 from maelstrom_tpu_torch.nodes import compartment as PC
 from maelstrom_tpu_torch.nodes import get_program as p_get_program
 from maelstrom_tpu_torch.sim import make_run_fn as p_make_run_fn
+from maelstrom_tpu_torch.testing.compartment import \
+    random_compartment_inputs
 from test_torch_kernels_gpu import (COMPARTMENT_CASES, compartment_layout,
-                                    compartment_role,
-                                    random_compartment_inputs)
+                                    compartment_role)
 from test_torch_support import (as_numpy, assert_msgs_equal_on_valid,
                                 assert_trees_equal, jax_tree_to_numpy)
 
@@ -402,16 +403,19 @@ BASE = ["test", "-w", "lin-kv", "--node", "tpu:compartment", "--device",
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["--roles", "sequencers=2"], "the compartment election and failover"),
-    (["--roles", "sequencers=3,proxies=4"],
-     "the compartment election and failover"),
-    (["--election-timeout-rounds", "90"],
-     "the compartment election and failover"),
-    (["--leader-lease-ms", "5"], "the compartment election and failover"),
-    (["--client-retries", "2"], "the compartment election and failover"),
+    (["--roles", "sequencers=2", "--checkpoint-every", "0.5"],
+     "checkpoint and resume"),
+    (["--roles", "sequencers=3,proxies=4", "--mesh", "1,2"],
+     "mesh and fleet"),
+    (["--election-timeout-rounds", "90", "--fleet", "2"],
+     "mesh and fleet"),
+    (["--leader-lease-ms", "5", "--byz-rate", "0.5"],
+     "the byzantine adversary"),
+    (["--client-retries", "2", "--check-workers", "2"],
+     "the overlap pipeline"),
     (["--nemesis", "kill,byzantine"], "the byzantine adversary"),
-    (["--ordering", "compartment", "--roles", "sequencers=2"],
-     "the compartment election and failover")])
+    (["--ordering", "compartment", "--roles", "sequencers=2",
+      "--resume", "x"], "checkpoint and resume")])
 def test_cli_refusals_name_their_slice(extra, what, tmp_path, capsys):
     args = BASE + ["--store", str(tmp_path)] + extra
     if "--ordering" in extra:
@@ -442,9 +446,11 @@ def test_cli_lifts_the_stable_leader_options():
 
 
 def test_program_refuses_an_elected_tier_and_the_adversary():
-    with pytest.raises(ValueError, match="election and failover"):
-        p_get_program("compartment", {"roles": "sequencers=2"},
-                      [f"n{i}" for i in range(10)], device="cpu")
+    # an elected tier runs since the election slice; only a layout the
+    # JAX package refuses is refused, in its words
+    prog = p_get_program("compartment", {"roles": "sequencers=2"},
+                         [f"n{i}" for i in range(10)], device="cpu")
+    assert prog.lay.S == 2 and prog.quiet_planes is None
     with pytest.raises(ValueError, match="the byzantine adversary"):
         p_get_program("compartment", {"nemesis": {"byzantine"}}, NODES9,
                       device="cpu")

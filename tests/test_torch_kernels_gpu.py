@@ -22,7 +22,11 @@ from 1 to 2^17 rounds and a wrapping latency sum), and the service role
 steps (K20-K22: every lane type, repeated and out-of-range keys, cas hits
 and misses, merges older and newer than the stored stamp, INT32_MAX
 words, wrapping clocks, dirty sets below, at and above G, up to 1,022
-replicas, with and without the stall mask).
+replicas, with and without the stall mask), and the compartment's role
+steps (K23-K26 with one sequencer; K27-K29 and K26 at the elected learn
+packing: every phase-1 lane type, QVAL ballot ties, prepares duplicate
+and stale, a query of a slot written the same round, done_bits backlogs
+past 8, ballots at the ballot-width limit).
 
 These tests need a CUDA device and skip without one. They import
 nothing of JAX, so they run on a machine without it:
@@ -45,6 +49,8 @@ from maelstrom_tpu_torch.runner.tpu_runner import (quiet_probe,
                                                    quiet_probe_plain)
 from maelstrom_tpu_torch.sim import (append_replies, append_replies_plain,
                                      compact_replies, empty_reply_log)
+from maelstrom_tpu_torch.testing.compartment import \
+    random_compartment_inputs
 from maelstrom_tpu_torch.tree import leaves, to, tree_map
 
 pytestmark = pytest.mark.gpu
@@ -1301,119 +1307,6 @@ def compartment_role(role, lay, n, device):
     return cls({}, [f"n{i}" for i in range(n)], lay, device=device)
 
 
-def random_compartment_inputs(rng, role, lay, n, rnd):
-    """(inbox, state) as numpy fields for a compartment role step at
-    round `rnd`: every lane type the role reads and some it does not,
-    slots repeated across lanes, matching live rows and past the log's
-    capacity, grid and replica indices past both ends, words at INT32_MAX
-    (b + 1 wraps and clips to 0), client ids below and above the
-    cluster, tables empty, partly full and full, rows due and not due,
-    acks one short of a quorum, logs whose apply frontier is stored or
-    missing, commands of every op with keys past the row."""
-    K_, C = lay.K, lay.cap
-    shape = (n, K_)
-    Q = {"sequencers": lay.QL, "proxies": lay.QP}.get(role, 1)
-
-    def ri(lo, hi, shp):
-        return rng.integers(lo, hi, shp).astype(np.int32)
-
-    def dens(shp):
-        # per-node fill: empty, sparse, half, dense, full
-        d = rng.choice(np.array([0.0, 0.1, 0.5, 0.9, 1.0]), (shp[0], 1))
-        return rng.random(shp) < d
-    last = rnd - ri(0, 2 * lay.retry, (n, Q))
-    last[rng.random((n, Q)) < 0.2] = -(1 << 20)
-    inbox = {"valid": rng.random(shape) < 0.85,
-             "src": ri(0, lay.n_nodes + 40, shape),
-             "dest": ri(0, n, shape), "due": ri(0, 50, shape),
-             "mid": ri(0, 1000, shape),
-             "reply_to": ri(-1, 1000, shape),
-             "b": ri(-2, 9, shape), "c": ri(-2, 9, shape)}
-    for w in ("b", "c"):
-        inbox[w][rng.random(shape) < 0.04] = INT32_MAX
-    if role == "sequencers":
-        slots = ri(0, C + 4, (n, Q))
-        types = np.array([10, 12, 14, 35, 35, 30, 0, 31], np.int32)
-        a = ri(-2, 8, shape)
-        a[rng.random(shape) < 0.05] = lay.keys + 3
-        done = rng.random(shape) < 0.5
-        pick = slots[np.arange(n)[:, None], ri(0, Q, shape)]
-        inbox["type"] = rng.choice(types, shape).astype(np.int32)
-        inbox["a"] = np.where(inbox["type"] == 35,
-                              np.where(done, pick, ri(0, C + 4, shape)),
-                              a).astype(np.int32)
-        nxt = ri(0, C + 1, (n,))
-        nxt[rng.random(n) < 0.3] = C - rng.integers(0, 3)
-        state = {"next_slot": nxt, "t_valid": dens((n, Q)),
-                 "t_slot": slots, "t_cmd": ri(0, 1 << 30, (n, Q)),
-                 "t_client": ri(0, 0x8000, (n, Q)),
-                 "t_mid": ri(-1, 1000, (n, Q)), "t_last": last}
-    elif role == "proxies":
-        AR = lay.AR
-        slots = ri(0, C + 4, (n, Q))
-        pick = slots[np.arange(n)[:, None], ri(0, Q, shape)]
-        types = np.array([32, 32, 34, 34, 30, 30, 0, 35], np.int32)
-        inbox["type"] = rng.choice(types, shape).astype(np.int32)
-        slot_in = np.where(rng.random(shape) < 0.6, pick,
-                           ri(0, C + 4, shape)) & 0x7FFF
-        client = ri(0, 0x8000, shape)
-        inbox["a"] = np.where(inbox["type"] == 30,
-                              (client << 16) | slot_in,
-                              slot_in).astype(np.int32)
-        inbox["b"] = np.where(np.isin(inbox["type"], (32, 34)),
-                              ri(-1, AR + 2, shape),
-                              inbox["b"]).astype(np.int32)
-        acks = rng.random((n, Q, AR)) < rng.choice(
-            np.array([0.0, 0.5, 0.8, 1.0]), (n, Q, 1))
-        state = {"p_valid": dens((n, Q)), "p_learn": rng.random((n, Q)) < 0.4,
-                 "p_slot": slots, "p_cmd": ri(0, 1 << 30, (n, Q)),
-                 "p_client": ri(0, 0x8000, (n, Q)),
-                 "p_mid": ri(-1, 1000, (n, Q)), "p_last": last,
-                 "p_acks": acks}
-    elif role == "acceptors":
-        types = np.array([31, 31, 31, 32, 0, 33], np.int32)
-        inbox["type"] = rng.choice(types, shape).astype(np.int32)
-        a = ri(-2, C + 3, shape)
-        rep = rng.random(shape) < 0.3
-        a[rep] = a[np.nonzero(rep)[0], 0]            # repeated slots
-        inbox["a"] = a
-        state = {"acc_cmd": ri(0, 1 << 30, (n, C)),
-                 "acc_has": rng.random((n, C)) < 0.3}
-    else:
-        keys = lay.keys
-        applied = ri(-1, C, (n,))
-        applied[rng.random(n) < 0.2] = C - 1 - rng.integers(0, 3)
-        applied[0] = -1
-        base = applied[:, None] + ri(-2, lay.AP + 3, shape)
-        slot_in = np.where(rng.random(shape) < 0.1, C + ri(0, 3, shape),
-                           base) & 0x7FFF
-        rep = rng.random(shape) < 0.2
-        slot_in[rep] = slot_in[np.nonzero(rep)[0], 0]
-        client = ri(0, 0x8000, shape)
-        types = np.array([33, 33, 33, 34, 0, 31], np.int32)
-        inbox["type"] = rng.choice(types, shape).astype(np.int32)
-        inbox["a"] = ((client << 16) | slot_in).astype(np.int32)
-        key = ri(0, keys, (n, C))
-        key[rng.random((n, C)) < 0.02] = min(keys + 1, 4095)
-        op = ri(0, 4, (n, C))
-        v1, v2 = ri(0, 10, (n, C)), ri(0, 10, (n, C))
-        cmd = (key << 18) | (op << 16) | (v1 << 8) | v2
-        inbox["b"] = np.where(inbox["type"] == 33,
-                              cmd[np.arange(n)[:, None],
-                                  ri(0, C, shape)], inbox["b"]
-                              ).astype(np.int32)
-        has = rng.random((n, C)) < 0.3
-        # runs of stored slots past the frontier
-        for r in range(n):
-            lo = max(applied[r] + 1, 0)
-            has[r, lo:lo + rng.integers(0, 2 * lay.AP)] = True
-        state = {"r_cmd": cmd.astype(np.int32),
-                 "r_client": ri(0, 0x8000, (n, C)),
-                 "r_mid": ri(-2, 1000, (n, C)), "r_has": has,
-                 "applied": applied, "kv": ri(0, 10, (n, keys))}
-    return inbox, state
-
-
 # (roles spec, layout options, role, role nodes)
 COMPARTMENT_CASES = {
     "seq-cli": ("proxies=2,acceptors=2x2,replicas=2", {}, "sequencers", 1),
@@ -1435,6 +1328,42 @@ COMPARTMENT_CASES = {
     "rep-odd": ("proxies=2,acceptors=2x2,replicas=5",
                 {"log_cap": 333, "kv_keys": 4095, "compartment_inbox": 16},
                 "replicas", 5),
+}
+
+
+# the elected tier's cases: the CLI runs' ELECT shape (2 candidates, 1
+# proxy, a 1x2 grid, 1 replica), bench.py's failover shape (3
+# candidates, 4 proxies, a 2x2 grid, 2 replicas, QL 128, K 16, a
+# 2,656-slot log) and odd ones (a 3x5 grid, 7 candidates at ballot width
+# 3, 5 replicas)
+_ELECT = "sequencers=2,proxies=1,acceptors=1x2,replicas=1"
+_FAILOVER = "sequencers=3,proxies=4,acceptors=2x2,replicas=2"
+_FAILOVER_LAY = {"leader_slots": 128, "proxy_slots": 8,
+                 "compartment_inbox": 16, "kv_keys": 1024,
+                 "concurrency": 48, "log_cap": 2656}
+ELECT_CASES = {
+    "eseq-elect": (_ELECT, {"election_timeout_rounds": 40}, "sequencers",
+                   2),
+    "eseq-failover": (_FAILOVER, _FAILOVER_LAY, "sequencers", 3),
+    "eseq-odd": ("sequencers=7,proxies=2,acceptors=3x5,replicas=5",
+                 {"ballot_width": 3, "leader_slots": 40,
+                  "compartment_inbox": 12, "log_cap": 333},
+                 "sequencers", 7),
+    "eproxy-elect": (_ELECT, {}, "proxies", 1),
+    "eproxy-failover": (_FAILOVER, _FAILOVER_LAY, "proxies", 4),
+    "eproxy-odd": ("sequencers=5,proxies=6,acceptors=3x5,replicas=3",
+                   {"proxy_slots": 40, "compartment_inbox": 16},
+                   "proxies", 6),
+    "eacc-elect": (_ELECT, {}, "acceptors", 2),
+    "eacc-failover": (_FAILOVER, _FAILOVER_LAY, "acceptors", 4),
+    "eacc-odd": ("sequencers=2,proxies=2,acceptors=3x7,replicas=2",
+                 {"log_cap": 1001, "compartment_inbox": 16}, "acceptors",
+                 21),
+    "erep-elect": (_ELECT, {}, "replicas", 1),
+    "erep-failover": (_FAILOVER, _FAILOVER_LAY, "replicas", 2),
+    "erep-odd": ("sequencers=3,proxies=2,acceptors=2x2,replicas=5",
+                 {"log_cap": 333, "kv_keys": 4095,
+                  "compartment_inbox": 16}, "replicas", 5),
 }
 
 
@@ -1466,3 +1395,64 @@ def test_compartment_steps_match_plain(cuda, case, rnd, stalled):
     assert kernel.launches == before + 1
     _equal(got, ref)
     _equal(st_g, _tensors(state, "cpu"))    # no input updated
+
+
+@pytest.mark.parametrize("case", list(ELECT_CASES))
+@pytest.mark.parametrize("rnd", [0, 37, 1 << 20])
+@pytest.mark.parametrize("stalled", [False, True], ids=["", "stall"])
+def test_compartment_elect_steps_match_plain(cuda, case, rnd, stalled):
+    """K27-K29 and K26 at the elected learn packing against their plain
+    versions; the sequencer's election jitter comes from the same key."""
+    from maelstrom_tpu_torch import prng
+    roles, opts, role, n = ELECT_CASES[case]
+    lay = compartment_layout(roles, rate=20.0, time_limit=2.0, **opts)
+    rng = np.random.default_rng(n * 11 + rnd % 97 + int(stalled))
+    inbox, state = random_compartment_inputs(rng, role, lay, n, rnd)
+    stall = rng.random(n) < 0.4
+    kernel = {"sequencers": K.COMPARTMENT_SEQUENCER_ELECT,
+              "proxies": K.COMPARTMENT_PROXY_ELECT,
+              "acceptors": K.COMPARTMENT_ACCEPTOR_ELECT,
+              "replicas": K.COMPARTMENT_REPLICA_STEP}[role]
+
+    def run(dev):
+        prog = compartment_role(role, lay, n, dev)
+        ctx = {"round": torch.tensor(rnd, dtype=torch.int32, device=dev),
+               "key": prng.PRNGKey(rnd + n, dev)}
+        if stalled:
+            ctx["stall"] = torch.tensor(stall, device=dev)
+        st = _tensors(state, dev)
+        ib = Msgs(**_tensors(inbox, dev))
+        return prog.step(st, ib, ctx), st
+
+    before = kernel.launches
+    (got, st_g), (ref, _st) = run(cuda), run("cpu")
+    assert kernel.launches == before + 1
+    _equal(got, ref)
+    _equal(st_g, _tensors(state, "cpu"))    # no input updated
+
+
+def test_replica_step_reads_the_elected_learn_word(cuda):
+    """K26 with an elected tier: a learn from client 5 (not a multiple of
+    8) at slot 3 lands at slot 3 with client 5, as the plain version
+    stores it (the one-sequencer decode, a & 0x7FFF and a >> 16, would
+    put it past the log with client 1)."""
+    lay = compartment_layout("sequencers=2,proxies=1,acceptors=1x2,"
+                             "replicas=1", rate=20.0, time_limit=2.0)
+    prog_state = compartment_role("replicas", lay, 1, "cpu").init_state()
+    state = {k: v.numpy() for k, v in prog_state.items()}
+    inbox = {f: np.zeros((1, lay.K), np.int32) for f in (
+        "src", "dest", "due", "mid", "reply_to", "type", "a", "b", "c")}
+    inbox["valid"] = np.zeros((1, lay.K), bool)
+    inbox["valid"][0, 0] = True
+    inbox["type"][0, 0] = 33
+    inbox["a"][0, 0] = (5 << 12) | 3
+    inbox["b"][0, 0] = (7 << 18) | (1 << 16) | (4 << 8)
+    outs = []
+    for dev in (cuda, "cpu"):
+        prog = compartment_role("replicas", lay, 1, dev)
+        outs.append(prog.step(_tensors(state, dev), Msgs(**_tensors(
+            inbox, dev)), {"round": torch.tensor(1, dtype=torch.int32,
+                                                  device=dev)}))
+    _equal(*outs)
+    new = outs[1][0]
+    assert bool(new["r_has"][0, 3]) and int(new["r_client"][0, 3]) == 5

@@ -162,14 +162,14 @@ def test_capacity_and_refusals():
         small.encode_body(small.request_for_op({"f": "poll"}), it)
     with pytest.raises(EncodeCapacityError, match="command table full"):
         small.encode_body(small.request_for_op({"f": "poll"}), it)
-    # the compartment engine sizes its cluster from --roles, with one
-    # sequencer (an elected tier comes with its election and failover)
+    # the compartment engine sizes its cluster from --roles; an elected
+    # tier's layout is refused only where JAX's is, in its words
     with pytest.raises(ValueError, match="needs 9 nodes"):
         make_ordered({"workload": "lin-kv", "ordering": "compartment"},
                      NODES5, device="cpu")
-    with pytest.raises(ValueError, match="the compartment election"):
+    with pytest.raises(ValueError, match="ballot_width must be"):
         make_ordered({"workload": "lin-kv", "ordering": "compartment",
-                      "roles": "sequencers=2"},
+                      "roles": "sequencers=2", "ballot_width": 9},
                      [f"n{i}" for i in range(10)], device="cpu")
     assert get_applier("txn-list-append", {}).name == "txn-list-append"
     assert get_applier("lin-mutex", {}).name == "lin-kv"

@@ -15,8 +15,9 @@ package's, on the CPU.
 - The constructor's refusals with JAX's messages, `fault_groups`,
   `state_row`, literal-node nemesis targets on a program that is not a
   partition, and the CLI's scope: an elected compartment (`--roles
-  sequencers=S`, S > 1) and its options stay refused, naming the
-  compartment's election and failover.
+  sequencers=S`, S > 1) and its options pass the scope check and reach
+  the program, which builds it; a later slice's option beside them is
+  still refused, naming that slice.
 """
 
 from __future__ import annotations
@@ -288,14 +289,16 @@ def test_cli_scope(capsys, tmp_path):
     for extra in (["--roles", "sequencers=2,proxies=2"],
                   ["--ordering", "compartment", "--roles", "sequencers=3"],
                   ["--leader-lease-ms", "5"]):
+        pcli.check_scope(_args("-w", "lin-kv", "--node", "tpu:compartment",
+                               *extra))
         assert pcli.main(["test", "-w", "lin-kv", "--node", "tpu:lin-kv",
                           "--device", "cpu", "--store", str(tmp_path),
-                          *extra]) == 2
+                          *extra, "--checkpoint-every", "1"]) == 2
         err = capsys.readouterr().err
-        assert "the compartment" in err and "does not run it yet" in err
+        assert "checkpoint and resume" in err and "does not run it yet" in err
     with pytest.raises(pcli.ScopeError, match="tpu:solo:lin-kv"):
         pcli.check_scope(_args("-w", "lin-kv", "--node", "tpu:solo:echo"))
-    with pytest.raises(ValueError, match="the compartment"):
-        p_get_program("compartment", {"roles": "sequencers=2"},
-                      [f"n{i}" for i in range(10)], device="cpu")
+    prog = p_get_program("compartment", {"roles": "sequencers=2"},
+                         [f"n{i}" for i in range(10)], device="cpu")
+    assert prog.lay.S == 2
     assert not any(tmp_path.iterdir())

@@ -136,15 +136,16 @@ def test_free_set_rotation_matches_sorted_list():
     (["--nemesis", "byzantine"], "the byzantine adversary"),
     (["--nemesis", "kill,byzantine"], "the byzantine adversary"),
     # the cases that refused what now runs (--nemesis-targets, lin-tso,
-    # --ordering compartment's slice name, the stable-leader compartment)
-    # keep their ids and check what stays refused beside them: the
-    # elected compartment's options
+    # --ordering compartment's slice name, the compartment, its elected
+    # tier, --client-retries) keep their ids and check what stays refused
+    # beside them
     pytest.param(["--nemesis-targets", "kill=n0", "--roles",
-                  "sequencers=2"],
-                 "the compartment election and failover",
+                  "sequencers=2", "--checkpoint-every", "1"],
+                 "checkpoint and resume",
                  id="extra2-the role-partitioned programs"),
     (["--byz-rate", "0.5"], "the byzantine adversary"),
-    (["--client-retries", "3"], "retries and backoff"),
+    pytest.param(["--client-retries", "3", "--sessions", "columnar"],
+                 "mesh and fleet", id="extra4-retries and backoff"),
     # the cases that refused what now runs (--continuous, --telemetry)
     # keep their ids and check what stays refused beside them
     pytest.param(["--continuous", "--fleet", "2"], "mesh and fleet",
@@ -163,19 +164,20 @@ def test_free_set_rotation_matches_sorted_list():
                  "the overlap pipeline", id="extra10-device Elle"),
     pytest.param(["--telemetry", "--checkpoint-every", "1"],
                  "checkpoint and resume", id="extra11-telemetry rings"),
-    pytest.param(["--ordering", "compartment", "--roles", "sequencers=2"],
-                 "the compartment election and failover",
+    pytest.param(["--ordering", "compartment", "--roles", "sequencers=2",
+                  "--mesh", "1,2"], "mesh and fleet",
                  id="extra12-the role-partitioned programs"),
     pytest.param(["-w", "txn-rw-register", "--bin",
                   "demo/python/txn_rw_register.py"],
                  "the host-process path",
                  id="extra13-the Raft transaction programs"),
     pytest.param(["-w", "txn-list-append", "--ordering", "compartment",
-                  "--election-timeout-rounds", "90"],
-                 "the compartment election and failover",
+                  "--election-timeout-rounds", "90", "--fleet", "2"],
+                 "mesh and fleet",
                  id="extra14-the Raft transaction programs"),
     pytest.param(["-w", "lin-tso", "--node", "tpu:services",
-                  "--leader-lease-ms", "5"], "the compartment",
+                  "--leader-lease-ms", "5", "--nemesis", "byzantine"],
+                 "the byzantine adversary",
                  id="extra14-lin-mutex and lin-tso"),
     pytest.param(["-w", "lin-mutex", "--node", "tpu:lin-kv", "--nemesis",
                   "byzantine"], "the byzantine adversary",
