@@ -99,9 +99,20 @@ the ring on, --continuous, two redirect hops with the lease off) whose
 histories, ring and election blocks must equal the JAX runner's
 (`PINNED_ELECTION`), and bench.py's failover record at full width
 (`python -m maelstrom_tpu_torch.bench --failover`), whose counts must
-equal the JAX runner's (`PINNED_FAILOVER_BENCH`).
-The runs (the CLI, the benches and the sweeps) go in six groups side
-by side, five of them in worker processes the script starts and waits
+equal the JAX runner's (`PINNED_FAILOVER_BENCH`). Then the byzantine
+slice: K30 byz_corrupt_pool and K31 byz_corrupt_edge (every attack, the
+gate open and closed, culprits out of range, both round parities)
+and the conviction forms of K24 and K28 (and K23, K27 on E_BYZANTINE
+NACK lanes) against their plain versions, the adversary's runs
+(`--nemesis byzantine`: the equivocating sequencer at two candidates
+and at one, stale ballots, forged batch proofs, the armed detectors on
+honest traffic) whose histories, verdicts and `byzantine` blocks must
+equal the JAX runner's (`PINNED_BYZANTINE`), and bench.py's conviction
+record at full width (`python -m maelstrom_tpu_torch.bench
+--byzantine`), whose windows, ledger, convictions, latency and ok ops
+must equal the JAX runner's (`PINNED_BYZANTINE_BENCH`).
+The runs (the CLI, the benches and the sweeps) go in eight groups side
+by side, seven of them in worker processes the script starts and waits
 for (`--worker`), each phase counting the launches of its own runs; the
 profiles and the kernel times come after, with the card to themselves.
 Every phase prints one JSON line; any failed check exits non-zero. The line before the last lists every kernel
@@ -1226,7 +1237,7 @@ def phase_cli_profile(faults=False):
           "helpers": helpers})
 
 
-# --- the fault slice ----------------------------------------------------------
+# --- the fault slice ---------------------------------------------------------
 
 # The 100,000-node fault run's shapes (CLI_FAULTS_100K): grid, 1024
 # values, 4 gossip lanes + the digest lane, concurrency 100,000, uniform
@@ -1559,7 +1570,7 @@ def phase_cli_faults_100k(smi):
     return launches
 
 
-# --- the Raft slice -----------------------------------------------------------
+# --- the Raft slice ----------------------------------------------------------
 
 # The raft bench's state after 300 rounds (bench.py bench_raft_clusters'
 # config: 5 nodes, latency 0, one client, pool 64, client_cap 4, no
@@ -2225,7 +2236,7 @@ def phase_raft_profile():
     emit({"phase": "raft_profile", **rec})
 
 
-# --- the pool-path round and the CRDT programs ----------------------------------
+# --- the pool-path round and the CRDT programs -------------------------------
 
 POOL_KERNELS = ("echo_step", "unique_ids_step", "threefry",
                 "reply_log_append")
@@ -3538,6 +3549,8 @@ def phase_cli_batched(smi):
         for k in (step,) + BATCHED_KERNELS:
             check(launches[name][k] > 0, f"batched {name} did not launch "
                   f"{k}")
+        check(all(launches[name][k] == 0 for k in BYZ_KERNELS),
+              f"batched {name}: a benign run launched the adversary")
     shutil.rmtree(store, ignore_errors=True)
     emit({"phase": "cli_batched", "runs": runs, "launches": launches,
           "nvidia_smi": smi})
@@ -4513,7 +4526,7 @@ def phase_cli_services(smi):
             for k in SERVICES_KERNELS}
 
 
-# --- the compartment slice: one sequencer (K23-K26) ---------------------------
+# --- the compartment slice: one sequencer (K23-K26) --------------------------
 
 # The JAX package's compartment runs (tests/test_compartment.py): the
 # default roles (one sequencer, 2 proxies, a 2x2 grid, 2 replicas) at
@@ -4600,13 +4613,15 @@ COMPARTMENT_SHAPES = {
 }
 
 
-def _compartment_role(roles, opts, role, n):
-    """The role program of a `--roles` layout over n nodes, on the card."""
+def _compartment_role(roles, opts, role, n, byz=False):
+    """The role program of a `--roles` layout over n nodes, on the card
+    (with `byz`, under the byzantine adversary)."""
     from maelstrom_tpu_torch.nodes import compartment as C
     lay = C.Layout({"roles": roles, **opts}, C.roles_node_count(roles))
     cls = {"sequencers": C.SequencerRole, "proxies": C.ProxyRole,
            "acceptors": C.GridAcceptors, "replicas": C.ReplicaRole}[role]
-    return lay, cls({}, [f"n{i}" for i in range(n)], lay)
+    return lay, cls({"nemesis": {"byzantine"}} if byz else {},
+                    [f"n{i}" for i in range(n)], lay)
 
 
 def _random_compartment(g, role, lay, n, rnd):
@@ -4724,7 +4739,10 @@ def _random_compartment(g, role, lay, n, rnd):
 LANE_IN = {"compartment_sequencer_step": 25, "compartment_proxy_step": 17,
            "compartment_acceptor_step": 17, "compartment_replica_step": 21,
            "compartment_sequencer_elect": 25, "compartment_proxy_elect": 17,
-           "compartment_acceptor_elect": 21}
+           "compartment_acceptor_elect": 21,
+           # the conviction lanes read src too
+           "compartment_proxy_step+byz": 21,
+           "compartment_proxy_elect+byz": 21}
 
 
 def _role_io(kernel, lay, n, state, out):
@@ -4738,7 +4756,10 @@ def _role_io(kernel, lay, n, state, out):
     (Q x K x 3 + Q x AR); K29's query resolution (K x K) and copied
     rows."""
     K_, C, AR, AP = lay.K, lay.cap, lay.AR, lay.AP
-    io = (n * K_ * LANE_IN[kernel] + 2 * nbytes(*state.values())
+    lane_in = LANE_IN.get(kernel, LANE_IN[kernel.split("+")[0]])
+    byz = kernel.endswith("+byz")
+    kernel = kernel.split("+")[0]
+    io = (n * K_ * lane_in + 2 * nbytes(*state.values())
           + nbytes(*[getattr(out, f) for f in (
               "valid", "src", "dest", "due", "mid", "reply_to", "type", "a",
               "b", "c")]))
@@ -4751,6 +4772,8 @@ def _role_io(kernel, lay, n, state, out):
              "compartment_sequencer_elect": Q * K_ * 6 + C + Q * AR * 8,
              "compartment_proxy_elect": Q * K_ * 12 + Q * AR * 6,
              "compartment_acceptor_elect": 3 * C + 2 * K_ * K_}[kernel]
+    if byz and "proxy" in kernel:
+        extra += Q * K_ * 3     # the conviction scan over the rows
     return io, n * (K_ * K_ + 30 * (Q + K_) + extra)
 
 
@@ -4850,6 +4873,8 @@ def phase_cli_compartment(smi):
               f"sha256 {digest}, the JAX runner's {pin['history']}")
         n_launch = [launches[name][k] for k in COMPARTMENT_KERNELS]
         ran = _rounds_run(tm)
+        check(all(launches[name][k] == 0 for k in BYZ_KERNELS),
+              f"compartment {name}: a benign run launched the adversary")
         check(tm["rounds-executed"] > 0 and n_launch == [ran] * len(n_launch),
               f"compartment {name}: launches {n_launch} for {ran} rounds "
               f"run ({tm['rounds-executed']} executed, "
@@ -4958,7 +4983,7 @@ def phase_bench_compartment(smi):
     return {k: counts[k] for k in COMPARTMENT_KERNELS}
 
 
-# --- the compartment slice: elections and failover (K27-K29) ------------------
+# --- the compartment slice: elections and failover (K27-K29) -----------------
 
 # tests/test_election.py's ELECT config (2 candidates, 1 proxy, a 1x2 grid,
 # 1 replica; seed 11, rate 30 for 2.5 s, timeout 300 ms, election timeout
@@ -5203,6 +5228,8 @@ def phase_cli_election(smi):
               f"{elect}, the JAX runner's {pin['election']}")
         n_launch = [launches[name][k] for k in ELECT_KERNELS]
         ran = _rounds_run(tm)
+        check(all(launches[name][k] == 0 for k in BYZ_KERNELS),
+              f"election {name}: a benign run launched the adversary")
         check(tm["rounds-executed"] > 0 and tm["rounds-bumped"] == 0
               and n_launch == [ran] * len(n_launch),
               f"election {name}: launches {n_launch} for {ran} rounds run "
@@ -5297,7 +5324,498 @@ def phase_bench_failover(smi):
     return {k: counts[k] for k in ELECT_KERNELS}
 
 
-# --- the runs, side by side ---------------------------------------------------
+# --- the byzantine adversary (K30, K31; K24 and K28's conviction lanes) ------
+
+# tests/test_byzantine.py's run() config (seed 3, 2 candidates, 2 proxies, a
+# 1x2 grid, 1 replica, retry 3, rate 20 for 3 s, a window every 0.8 s,
+# byzantine=n0, equivocation); the same at one sequencer, so that K24's
+# lanes run; byzantine=sequencers with stale ballots; the batched run of
+# test_forged_proof_convicted_by_expansion_audit (seed 7, 5 nodes, rate
+# 10 for 6 s, a window every 1.5 s, forged proofs); and the armed
+# detectors on honest traffic (rate 0 permille, 2 s). Nothing is cut.
+BYZ_BASE = {"workload": "lin-kv", "node": "tpu:compartment", "seed": 3,
+            "rate": 20.0, "time_limit": 3.0, "journal_rows": False,
+            "roles": "sequencers=2,proxies=2,acceptors=1x2,replicas=1",
+            "compartment_retry": 3, "nemesis": {"byzantine"},
+            "nemesis_interval": 0.8}
+CLI_BYZANTINE = [
+    ("byz-eq", {**BYZ_BASE, "nemesis_targets": "byzantine=n0",
+                "byz_attacks": "equivocation"}),
+    ("byz-eq1", {**BYZ_BASE, "roles": "proxies=2,acceptors=1x2,replicas=1",
+                 "nemesis_targets": "byzantine=n0",
+                 "byz_attacks": "equivocation"}),
+    ("byz-stale", {**BYZ_BASE, "nemesis_targets": "byzantine=sequencers",
+                   "byz_attacks": "stale-ballot"}),
+    ("byz-forge", {"workload": "broadcast-batched",
+                   "node": "tpu:broadcast-batched", "node_count": 5,
+                   "seed": 7, "rate": 10.0, "time_limit": 6.0,
+                   "journal_rows": False, "nemesis": {"byzantine"},
+                   "nemesis_interval": 1.5, "byz_attacks": "forged-proof"}),
+    ("byz-armed", {**BYZ_BASE, "nemesis_targets": "byzantine=n0",
+                   "byz_attacks": "equivocation", "byz_rate": 0.0,
+                   "time_limit": 2.0}),
+]
+# sha256 of the JAX runner's history.jsonl, its `byzantine` block and its
+# verdict for each run above, on the CPU (JAX without its overlap
+# pipeline); re-derived by
+#   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_byzantine.py -m slow
+PINNED_BYZANTINE = {
+    "byz-eq": {
+        "history":
+            "405e72f76ced883b60fd63b0ec617c7b865f83db3b1b82a9feff8ae953b98e82",
+        "valid": False,
+        "byzantine": {
+            "convictions": [{"rule": "equivocation", "culprit": "n0",
+                             "evidence": {"count": 32, "slot": 62,
+                                          "round": 894},
+                             "code": 32, "witness": "n2"}],
+            "injected": {"equivocation": 64, "forged-proof": 0,
+                         "stale-ballot": 0},
+            "unconvicted": [], "spurious": [], "valid": True}},
+    "byz-eq1": {
+        "history":
+            "543162186a2c3ee9d073df8bb3501ec7f7a020c032d0ec6474846525d37b87f6",
+        "valid": False,
+        "byzantine": {
+            "convictions": [{"rule": "equivocation", "culprit": "n0",
+                             "evidence": {"count": 32, "slot": 62,
+                                          "round": 894},
+                             "code": 32, "witness": "n1"}],
+            "injected": {"equivocation": 64, "forged-proof": 0,
+                         "stale-ballot": 0},
+            "unconvicted": [], "spurious": [], "valid": True}},
+    "byz-stale": {
+        "history":
+            "59acf00d51d3276359c01b396986088dfa8e49eb8e409f3d398aaed2d58f17f3",
+        "valid": True,
+        "byzantine": {
+            "convictions": [{"rule": "stale-ballot", "culprit": "n0",
+                             "evidence": {"count": 13265, "ballot": 1,
+                                          "round": 891},
+                             "code": 32, "witness": "n3"}],
+            "injected": {"equivocation": 0, "forged-proof": 0,
+                         "stale-ballot": 13268},
+            "unconvicted": [], "spurious": [], "valid": True}},
+    "byz-forge": {
+        "history":
+            "05666c746be6193aff2d27dd8c18ff1c152e2c739517498a3f1df17f52e39473",
+        "valid": False,
+        "byzantine": {
+            "convictions": [
+                {"rule": "forged-count", "culprit": "n2",
+                 "evidence": {"count": 2, "index": 52, "process": 2,
+                              "error": "forged-count", "claimed": 4,
+                              "acked": 8, "expanded": 4},
+                 "code": 32},
+                {"rule": "forged-proof", "culprit": "n2",
+                 "evidence": {"count": 2, "index": 52, "process": 2,
+                              "error": "forged-proof", "proof": 378,
+                              "expected": 772},
+                 "code": 32}],
+            "injected": {"equivocation": 0, "forged-proof": 2,
+                         "stale-ballot": 0},
+            "unconvicted": [], "spurious": [], "valid": True}},
+    "byz-armed": {
+        "history":
+            "782c5f99a8437a5179e7b0c35d3516ddbf98200754b9f604ca769543445dde1e",
+        "valid": True,
+        "byzantine": {
+            "convictions": [],
+            "injected": {"equivocation": 0, "forged-proof": 0,
+                         "stale-ballot": 0},
+            "unconvicted": [], "spurious": [], "valid": True}},
+}
+# bench.py's byzantine record at full width (`bench_byzantine_record`: 2
+# candidates, 2 proxies, a 1x2 grid, 1 replica, 16 clients at 200 ops a
+# second for 6 s, a window every 1.5 s, 1,024 keys, seed 3): the JAX
+# runner's counts on the CPU, re-derived by the same command
+PINNED_BYZANTINE_BENCH = {
+    "attack_windows": 2, "conviction_latency_rounds": 5.0,
+    "injected": {"equivocation": 1174, "forged-proof": 0,
+                 "stale-ballot": 0},
+    "convictions": [{"rule": "equivocation", "culprit": "n0", "count": 587,
+                     "witness": "n3"}],
+    "client_ops_per_vsec": {"benign": 157.5, "under_attack": 153.2},
+    "benign_convictions": 0, "byzantine_valid": True, "benign_valid": True}
+BYZ_BENCH_PIN_KEYS = tuple(PINNED_BYZANTINE_BENCH)
+
+BYZ_KERNELS = ("byz_corrupt_pool", "byz_corrupt_edge")
+# the proxy kernel each compartment run steps its proxies with
+_BYZ_PROXY = {"byz-eq1": "compartment_proxy_step"}
+# (roles, layout options) of the compartment shapes the byzantine checks
+# run at: the smoke's ELECT runs' (2 candidates, 1 proxy), the bench
+# record's (the slice's path at full width, the kernels line's shape:
+# QL 32, K 8, QP 8, a 2,656-slot log, 1,024 keys), the one-sequencer run's
+# (byz-eq1) and the stress shapes: 63 candidates, 4,096 proxies at AR 64
+# (K28), and one sequencer with 4,096 proxies at AR 64 (K24)
+_BYZ_BENCH_LAY = {"rate": 200.0, "time_limit": 6.0, "concurrency": 16,
+                  "kv_keys": 1024, "compartment_retry": 3}
+_BYZ_S1_ROLES = "proxies=2,acceptors=1x2,replicas=1"
+_BYZ_STRESS1 = "proxies=4096,acceptors=5x6,replicas=64"
+BYZ_ROLE_SHAPES = {
+    "compartment_proxy_elect+byz@elect": (_ELECT_ROLES, _ELECT_LAY,
+                                         "proxies", 1),
+    "compartment_proxy_elect+byz@bench": (BYZ_BASE["roles"], _BYZ_BENCH_LAY,
+                                         "proxies", 2),
+    "compartment_proxy_elect+byz@stress": (_STRESS_ROLES, _STRESS_LAY,
+                                          "proxies", 4096),
+    "compartment_proxy_step+byz@eq1": (_BYZ_S1_ROLES, _CLI_LAY, "proxies",
+                                      2),
+    "compartment_proxy_step+byz@stress": (_BYZ_STRESS1, _STRESS_LAY,
+                                         "proxies", 4096),
+    "compartment_sequencer_elect+byz@bench": (BYZ_BASE["roles"],
+                                              _BYZ_BENCH_LAY, "sequencers",
+                                              2),
+    "compartment_sequencer_step+byz@eq1": (_BYZ_S1_ROLES, _CLI_LAY,
+                                           "sequencers", 1),
+}
+# the outboxes K30 rewrites (the whole compartment's [N, O]) and the
+# client batches K31 rewrites ([N, K] of the batched program): the ELECT
+# runs', the bench record's, the one-sequencer run's and the failover
+# bench's (13 nodes, 539 lanes); the forged-proof run's 5 nodes and
+# 100,000
+BYZ_POOL_SHAPES = {"elect": (_ELECT_ROLES, _ELECT_LAY),
+                   "bench": (BYZ_BASE["roles"], _BYZ_BENCH_LAY),
+                   "eq1": (_BYZ_S1_ROLES, _CLI_LAY),
+                   "failover": (_FAIL_ROLES, _FAIL_LAY)}
+BYZ_EDGE_SHAPES = {"forge": 5, "stress100k": 100_000}
+
+
+def _byz_compartment(roles, opts, device="cuda"):
+    from maelstrom_tpu_torch.nodes import get_program
+    from maelstrom_tpu_torch.nodes import compartment as C
+    n = C.roles_node_count(roles)
+    return get_program("compartment", {"roles": roles, **opts,
+                                       "nemesis": {"byzantine"}},
+                       [f"n{i}" for i in range(n)], device=device)
+
+
+def _byz_edge_k():
+    """K of the batched program's client batch (the forged-proof run's)."""
+    from maelstrom_tpu_torch.nodes import get_program
+    opts = dict(CLI_BYZANTINE)["byz-forge"]
+    prog = get_program("broadcast-batched", dict(opts),
+                       [f"n{i}" for i in range(5)], device="cpu")
+    return prog.inbox_cap
+
+
+def _random_byz_batch(g, n, L, msg_type):
+    """An outbox on the card: mostly lanes of the attacked type, some
+    invalid, words over the whole int32 range."""
+    import torch
+    from maelstrom_tpu_torch.net.tpu import Msgs
+
+    def ri(lo, hi):
+        return torch.randint(lo, hi, (n, L), generator=g, device="cuda",
+                             dtype=torch.int32)
+    typ = torch.where(torch.rand((n, L), generator=g, device="cuda") < 0.7,
+                      msg_type, ri(0, 45))
+    return Msgs(valid=torch.rand((n, L), generator=g, device="cuda") < 0.8,
+                src=ri(0, n), dest=ri(0, n), due=ri(0, 50),
+                mid=ri(0, 1000), reply_to=ri(-1, 1000), type=typ,
+                a=ri(-2**31, 2**31 - 1), b=ri(-2**31, 2**31 - 1),
+                c=ri(-2**31, 2**31 - 1))
+
+
+def _byz_carries(n):
+    """(name, carry) for the K30 / K31 checks on the card: each attack at
+    a culprit in range, the culprit -1 and past the rows, the gate closed
+    (rate 0 and inactive) and open (1,000 permille)."""
+    import torch
+
+    def carry(attack, culprit, rate_q, active=1, delta=12345):
+        def i(v):
+            return torch.tensor(v, dtype=torch.int32, device="cuda")
+        return {"active": i(active), "attack": i(attack),
+                "culprit": i(culprit), "delta": i(delta),
+                "rate_q": i(rate_q),
+                "injected": torch.tensor([7, 1 << 20, 3], dtype=torch.int32,
+                                         device="cuda")}
+    out = [(f"attack{a}", carry(a, n // 2, 1000)) for a in range(3)]
+    out += [("last", carry(0, n - 1, 1000, delta=0x7FFF)),
+            ("culprit-1", carry(0, -1, 1000)),
+            ("past", carry(2, n, 1000)), ("rate0", carry(0, 0, 0)),
+            ("rate1", carry(1, 0, 1)), ("rate999", carry(2, 0, 999)),
+            ("inactive", carry(0, 0, 1000, active=0))]
+    return out
+
+
+def byzantine_kernel_checks(timed):
+    """K30 and K31 against their plain versions on the same inputs on the
+    card (exact) at `BYZ_POOL_SHAPES` / `BYZ_EDGE_SHAPES`, every carry of
+    `_byz_carries` at rounds 0, 1, 2^20 and 2^31 - 1 (both parities, the
+    gate's wrap), the carry unchanged after the launch; and the byz forms
+    of K24, K28 (and K23, K27 on E_BYZANTINE NACK lanes) at
+    `BYZ_ROLE_SHAPES`, with and without the stall mask, on
+    `testing.compartment.random_byz_inputs` (equivocating, stale-ballot
+    and honest assigns), the inputs unchanged. Timed without the mask,
+    K30 and K31 at the equivocation / forged-proof carry with the gate
+    open."""
+    import numpy as np
+    import torch
+    from maelstrom_tpu_torch import byzantine as BZ
+    from maelstrom_tpu_torch import kernels as K
+    from maelstrom_tpu_torch import prng
+    from maelstrom_tpu_torch.net.tpu import Msgs
+    from maelstrom_tpu_torch.nodes.broadcast_batched import T_BATCH_OK
+    from maelstrom_tpu_torch.nodes.compartment import T_ASSIGN
+    from maelstrom_tpu_torch.testing.compartment import random_byz_inputs
+    from maelstrom_tpu_torch.tree import to
+    g = torch.Generator(device="cuda")
+    g.manual_seed(30)
+    out = {}
+    edge_k = _byz_edge_k()
+    cases = [(f"byz_corrupt_pool@{tag}", False, roles, opts)
+             for tag, (roles, opts) in BYZ_POOL_SHAPES.items()]
+    cases += [(f"byz_corrupt_edge@{tag}", True, n, None)
+              for tag, n in BYZ_EDGE_SHAPES.items()]
+    for name, edge, a1, a2 in cases:
+        if edge:
+            n, L, wire = a1, edge_k, BZ.EdgeWire(T_BATCH_OK)
+            prog = type("Edge", (), {"byz_wire_edge": lambda self: wire})()
+            fn, plain = BZ.corrupt_edge, BZ.corrupt_edge_plain
+        else:
+            prog = _byz_compartment(a1, a2)
+            n, L, wire = prog.n_nodes, prog.outbox_cap, prog.byz_wire()
+            fn, plain = BZ.corrupt_pool, BZ.corrupt_pool_plain
+        err, rewrote = 0, 0
+        for rnd in (0, 1, 1 << 20, 2**31 - 1):
+            r = torch.tensor(rnd, dtype=torch.int32, device="cuda")
+            for _tag, carry in _byz_carries(n):
+                batch = _random_byz_batch(g, n, L, wire.msg_type)
+                keep = clone(carry)
+                with K.forced_plain():
+                    ref = plain(wire, carry, clone(batch), r)
+                got = fn(prog, carry, batch, r)
+                torch.cuda.synchronize()
+                err = max(err, max_abs_err(got, ref))
+                check(max_abs_err(carry, keep) == 0,
+                      f"{name}: the kernel updated the carry")
+                rewrote += int((got[0]["injected"]
+                                != carry["injected"]).any())
+        check(err == 0, f"{name} differs from its plain version (max abs "
+              f"err {err})")
+        check(rewrote > 0, f"{name}: no check rewrote a lane")
+        # bound: the culprit's row (valid, type and the two words read and
+        # written) and the carry, 13 bytes a lane
+        io = 13 * L + 4 * (len(BZ.SCALARS) + 2 * len(BZ.ATTACKS) + 1)
+        b, by = bound_of(io, 8 * L)
+        rec = {"max_abs_err": err, "bound_ms": b, "bound_by": by,
+               "bytes": io, "nodes": n, "lanes": L}
+        if timed:
+            # equivocation (K30), forged-proof (K31), the gate open
+            carry = _byz_carries(n)[1 if edge else 0][1]
+            batch = _random_byz_batch(g, n, L, wire.msg_type)
+            r = torch.tensor(36, dtype=torch.int32, device="cuda")
+
+            def timed_step():
+                return fn(prog, carry, batch, r)
+            rec["ms"] = cuda_ms(timed_step)
+            with K.forced_plain():
+                rec["plain_ms"] = cuda_ms(timed_step)
+        out[name] = rec
+        del prog
+        torch.cuda.empty_cache()
+    for name, (roles, opts, role, n) in BYZ_ROLE_SHAPES.items():
+        lay, prog = _compartment_role(roles, opts, role, n, byz=True)
+        err = 0
+        for rnd in (37, 0, 1 << 20):
+            rng = np.random.default_rng(n * 31 + rnd % 101)
+            ib_np, st_np = random_byz_inputs(rng, role, lay, n, rnd)
+            inbox = Msgs(**{k: torch.tensor(v, device="cuda")
+                            for k, v in ib_np.items()})
+            state = {k: torch.tensor(v, device="cuda")
+                     for k, v in st_np.items()}
+            before = clone(state), clone(inbox)
+            stall = torch.tensor(rng.random(n) < 0.3, device="cuda")
+            r = torch.tensor(rnd, dtype=torch.int32, device="cuda")
+            key = prng.PRNGKey(rnd + n, "cuda")
+            for ctx in ({"round": r, "key": key},
+                        {"round": r, "key": key, "stall": stall}):
+                def step(ctx=ctx):
+                    return prog.step(state, inbox, ctx)
+                got = step()
+                with K.forced_plain():
+                    ref = step()
+                torch.cuda.synchronize()
+                err = max(err, max_abs_err(got, ref))
+                del got, ref
+            check(max_abs_err(before, (state, inbox)) == 0,
+                  f"{name}: the kernel updated an input")
+            del before
+        check(err == 0, f"{name} differs from its plain version (max abs "
+              f"err {err})")
+        ctx = {"round": r, "key": key}
+        new, outbox = prog.step(state, inbox, ctx)
+        io, ops = _role_io(name.split("@")[0], lay, n, state, outbox)
+        b, by = bound_of(io, ops)
+        rec = {"max_abs_err": err, "bound_ms": b, "bound_by": by,
+               "bytes": io, "ops": ops, "nodes": n, "lanes": lay.K,
+               "candidates": lay.S, "table": {"sequencers": lay.QL,
+                                              "proxies": lay.QP}[role]}
+        del new, outbox
+        if timed:
+            if role == "sequencers" and lay.S > 1:
+                jit1 = prog.jitter(ctx)
+
+                def timed_step():
+                    return prog._launch_elect(state, inbox, r, None, jit1)
+
+                def plain_step():
+                    return prog.step_plain_elect(state, inbox, r, jit1)
+            else:
+                def timed_step():
+                    return prog.step(state, inbox, ctx)
+                plain_step = timed_step
+            rec["ms"] = cuda_ms(timed_step)
+            with K.forced_plain():
+                rec["plain_ms"] = cuda_ms(plain_step)
+        out[name] = rec
+        del prog, inbox, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_byzantine_kernels(timed):
+    t0 = time.perf_counter()
+    r = byzantine_kernel_checks(timed)
+    emit({"phase": "byzantine_kernels", "timed": timed,
+          "seconds": time.perf_counter() - t0, "kernels": r})
+    return r
+
+
+# the byzantine runs, split over two run groups: (phase, runs)
+BYZ_RUN_SPLIT = {"cli_byzantine": ("byz-eq", "byz-eq1", "byz-armed"),
+                 "cli_byzantine_b": ("byz-stale", "byz-forge")}
+
+
+def phase_cli_byzantine(smi, phase="cli_byzantine"):
+    """The adversary's runs of `BYZ_RUN_SPLIT[phase]` through the
+    kernels, launch counters set to 0 just before each and read just
+    after: each history must hash to the
+    JAX runner's, its `byzantine` block equal JAX's (valid: every
+    injected kind convicted, none spurious), its verdict JAX's, no pool
+    overflow; K30 (the compartment runs) or K31 (the forged-proof run)
+    launched once for every round the scans ran, the other never; the
+    proxy kernel with its conviction lanes once a round too."""
+    import shutil
+    from maelstrom_tpu_torch import kernels as K
+    store = os.path.join(ROOT, "store", f"chip_smoke_{phase}")
+    shutil.rmtree(store, ignore_errors=True)
+    runs, launches = {}, {}
+    for name, opts in CLI_BYZANTINE:
+        if name not in BYZ_RUN_SPLIT[phase]:
+            continue
+        K.reset_launches()
+        rc, d, res, tm, digest, wall = _core_run(opts, store)
+        launches[name] = K.launch_counts()
+        pin = PINNED_BYZANTINE[name]
+        check(res["valid"] is pin["valid"]
+              and res["net"]["dropped-overflow"] == 0,
+              f"byzantine {name}: exit {rc}, valid {res.get('valid')} (the "
+              f"JAX runner's {pin['valid']}), overflow "
+              f"{res['net']['dropped-overflow']}")
+        check(digest == pin["history"], f"byzantine {name}: history.jsonl "
+              f"sha256 {digest}, the JAX runner's {pin['history']}")
+        blk = res.get("byzantine")
+        check(blk == pin["byzantine"] and blk["valid"] is True,
+              f"byzantine {name}: block {blk}, the JAX runner's "
+              f"{pin['byzantine']}")
+        ran = _rounds_run(tm)
+        edge = opts["node"] == "tpu:broadcast-batched"
+        on, off = BYZ_KERNELS[::-1] if edge else BYZ_KERNELS
+        n_on = launches[name][on]
+        check(tm["rounds-executed"] > 0 and n_on == ran
+              and launches[name][off] == 0,
+              f"byzantine {name}: {on} launched {n_on}, {off} "
+              f"{launches[name][off]}, for {ran} rounds run "
+              f"({tm['rounds-executed']} executed, "
+              f"{tm['scan-replayed-rounds']} replayed, "
+              f"{tm['scan-rolled-back-rounds']} rolled back)")
+        if not edge:
+            proxy = _BYZ_PROXY.get(name, "compartment_proxy_elect")
+            check(launches[name][proxy] == ran,
+                  f"byzantine {name}: {proxy} launched "
+                  f"{launches[name][proxy]} for {ran} rounds run")
+        st = res["stats"]
+        runs[name] = {
+            "wall_s": wall, "final_round": tm["final-round"],
+            "rounds_executed": tm["rounds-executed"],
+            "replayed_rounds": tm["scan-replayed-rounds"],
+            "rolled_back_rounds": tm["scan-rolled-back-rounds"],
+            "ms_per_executed_round": 1e3 * tm["scan-s"]
+            / max(tm["rounds-executed"], 1),
+            "dispatches": tm["dispatches"], "history_ops": tm["history-ops"],
+            "ok": st["ok-count"], "fail": st["fail-count"],
+            "injected": blk["injected"],
+            "convictions": [(c["rule"], c["culprit"], c.get("witness"))
+                            for c in blk["convictions"]],
+            "valid": res["valid"], "history_sha256_equal": True,
+            "block_equal": True}
+    shutil.rmtree(store, ignore_errors=True)
+    emit({"phase": phase, "runs": runs, "launches": {
+        k: {kk: v[kk] for kk in BYZ_KERNELS + (
+            "compartment_proxy_step", "compartment_proxy_elect",
+            "broadcast_batched_step")}
+        for k, v in launches.items()}, "nvidia_smi": smi})
+    return {k: sum(v[k] for v in launches.values())
+            for k in BYZ_KERNELS + ("compartment_proxy_step",
+                                    "compartment_proxy_elect")}
+
+
+def phase_bench_byzantine(smi):
+    """bench.py's byzantine record at full width through the port's entry
+    point (`python -m maelstrom_tpu_torch.bench --byzantine`): valid, its
+    attack windows, ledger, convictions, conviction latency and ok counts
+    equal to the JAX runner's (`PINNED_BYZANTINE_BENCH`), no block on the
+    benign twin; the launch counters set to 0 just before and read just
+    after: K30 launched once for every round the attacked run's scans
+    ran and never in the benign twin's, K28 once a round in both."""
+    from maelstrom_tpu_torch import bench
+    from maelstrom_tpu_torch import core
+    from maelstrom_tpu_torch import kernels as K
+    timings = []
+    run = core.run
+
+    def timed_run(opts):
+        res = run(opts)
+        d = os.path.realpath(os.path.join(opts["store_root"], "latest"))
+        with open(os.path.join(d, "timing.json")) as f:
+            timings.append(json.load(f))
+        return res
+    K.reset_launches()
+    core.run = timed_run
+    try:
+        rec, rc = bench.main_byzantine(device="cuda")
+    finally:
+        core.run = run
+    counts = K.launch_counts()
+    check(rc == 0 and rec["valid"] is True,
+          f"bench_byzantine: exit {rc}, record {rec}")
+    got = {k: rec[k] for k in BYZ_BENCH_PIN_KEYS}
+    check(got == PINNED_BYZANTINE_BENCH, f"bench_byzantine: {got}, the JAX "
+          f"runner's {PINNED_BYZANTINE_BENCH}")
+    check(len(timings) == 2, f"bench_byzantine: {len(timings)} runs timed")
+    benign, attacked = (_rounds_run(t) for t in timings)
+    check(counts["byz_corrupt_pool"] == attacked
+          and counts["byz_corrupt_edge"] == 0
+          and counts["compartment_proxy_elect"] == benign + attacked,
+          f"bench_byzantine: K30 {counts['byz_corrupt_pool']}, K31 "
+          f"{counts['byz_corrupt_edge']}, K28 "
+          f"{counts['compartment_proxy_elect']} for {benign} benign and "
+          f"{attacked} attacked rounds run")
+    emit({"phase": "bench_byzantine", "record": rec, "counts_equal": True,
+          "rounds_run": {"benign": benign, "under_attack": attacked},
+          "host_ms_per_round": [1e3 * t["scan-s"]
+                                / max(t["rounds-executed"], 1)
+                                for t in timings],
+          "launches": {k: counts[k] for k in BYZ_KERNELS + (
+              "compartment_proxy_elect", "threefry")},
+          "nvidia_smi": smi})
+    return {k: counts[k] for k in BYZ_KERNELS + ("compartment_proxy_elect",)}
+
+
+# --- the runs, side by side --------------------------------------------------
 
 # The phases that drive the main path through the CLI, the runners, the
 # benches and the sweeps. Their time is the host's: a run keeps about one
@@ -5308,7 +5826,9 @@ def phase_bench_failover(smi):
 # runs and reads them just after, in the process that drives them, and
 # returns what it read. The groups hold about equal host time (NVIDIA H100
 # 80GB HBM3, 700 W: the election group's phases one after another took
-# 264 s, the others' 208 s, 199 s, 184 s, 202 s and 189 s). The profiles
+# 264 s, the others' 208 s, 199 s, 184 s, 202 s and 189 s; PR 13's
+# byzantine runs alone: the bench 166 s, byz-eq, byz-eq1 and byz-armed
+# 112 s, byz-stale and byz-forge 186 s, in two more groups). The profiles
 # and the kernel times come after every group has ended, with the card
 # to themselves.
 RUN_PHASES = {
@@ -5331,11 +5851,17 @@ RUN_PHASES = {
     "bench_compartment": phase_bench_compartment,
     "cli_election": phase_cli_election,
     "bench_failover": phase_bench_failover,
+    "cli_byzantine": phase_cli_byzantine,
+    "cli_byzantine_b": lambda smi: phase_cli_byzantine(smi,
+                                                       "cli_byzantine_b"),
+    "bench_byzantine": phase_bench_byzantine,
     "bench_checkers": phase_bench_checkers,
     "fuzz_kafka": phase_fuzz_kafka,
     "fuzz_100k": phase_fuzz_broadcast,
 }
 RUN_GROUPS = [
+    ["bench_byzantine", "cli_byzantine"],
+    ["cli_byzantine_b"],
     ["cli_election", "bench_failover"],
     ["cli_compartment", "bench_compartment"],
     ["cli_services", "cli_small", "fuzz_kafka", "bench_batched",
@@ -5465,6 +5991,7 @@ def main() -> int:
     vchecks = phase_services_kernels(timed=False)
     mchecks = phase_compartment_kernels(timed=False)
     echecks = phase_election_kernels(timed=False)
+    zchecks = phase_byzantine_kernels(timed=False)
     phase_prng_pins()
     ret = run_groups(smi)
     launches = dict(ret["cli_100k"])
@@ -5486,6 +6013,13 @@ def main() -> int:
     for k in ELECT_KERNELS:
         launches[k] = (launches.get(k, 0) + ret["cli_election"][k]
                        + ret["bench_failover"][k])
+    # the adversary's: the byzantine runs' and the conviction bench's
+    # (K24 and K28 ran their conviction lanes there too)
+    for k in BYZ_KERNELS + ("compartment_proxy_step",
+                            "compartment_proxy_elect"):
+        launches[k] = (launches.get(k, 0) + ret["cli_byzantine"][k]
+                       + ret["cli_byzantine_b"][k]
+                       + ret["bench_byzantine"].get(k, 0))
     launches["kafka_step"] = ret["cli_kafka"]["kafka_step"]
     elle_inputs = ret["bench_checkers"]
     # profiles and kernel times last: the profiler they are read from
@@ -5521,18 +6055,22 @@ def main() -> int:
     etimed2 = phase_election_kernels(timed=True)
     for k in ELECT_KERNELS[:3]:
         cli[k] = etimed2[f"{k}@failover"]
+    ztimed = phase_byzantine_kernels(timed=True)
+    cli["byz_corrupt_pool"] = ztimed["byz_corrupt_pool@bench"]
+    cli["byz_corrupt_edge"] = ztimed["byz_corrupt_edge@forge"]
     phase_crdt_profile()
     phase_pool_profile(pool_launches["rounds_executed"])
     emit({"phase": "profiler", **PROFILER})
     errs = {}
     for r in (*checks.values(), fchecks, rchecks, raft, pchecks, cchecks,
               kchecks, ktimed, btimed, etimed, schecks, stimed, vchecks,
-              vtimed, mchecks, mtimed, echecks, etimed2):
+              vtimed, mchecks, mtimed, echecks, etimed2, zchecks, ztimed):
         for name, v in r.items():
+            # a kernel's byz form ("+byz") counts as the kernel
             base = {"raft_step_stall": "raft_step",
                     "threefry_batched": "threefry",
                     "reply_compact_batched": "reply_compact"}.get(
-                        name, name.split("@")[0])
+                        name, name.split("@")[0].split("+")[0])
             errs[base] = max(errs.get(base, 0), v["max_abs_err"],
                              v.get("cli_max_abs_err", 0))
 

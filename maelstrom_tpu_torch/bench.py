@@ -1,6 +1,6 @@
 """The throughput benchmarks on the port: broadcast, Raft clusters, batched
-broadcast, the checkers, the compartment's proxy scaling and its leader
-failover.
+broadcast, the checkers, the compartment's proxy scaling, its leader
+failover and its byzantine conviction record.
 
 The same workload as `bench.py`'s broadcast record (`_main_broadcast`): a
 grid of `n_nodes` nodes, `values` broadcast values injected one every
@@ -71,6 +71,21 @@ _TIME_LIMIT and _INTERVAL override the run, as bench.py's do. It exits 1
 unless the run grades valid with at least two failovers.
 
     python -m maelstrom_tpu_torch.bench --failover [--device cpu]
+
+With `--byzantine` it runs `bench.py`'s conviction record
+(`bench_byzantine_record`, `_main_byzantine`): the elected compartment
+(2 candidates, 2 proxies, a 1x2 grid, 1 replica, retry 3, 1,024 keys;
+16 clients at 200 ops a second for 6 s, seed 3) once benign and once
+under the equivocating sequencer (`--nemesis byzantine
+--nemesis-targets byzantine=sequencers --byz-attacks equivocation`, a
+window every 1.5 s). The record reports the attack windows, the injected
+ledger and the convictions, the conviction latency in rounds and the ok
+ops a virtual second benign and under attack. BENCH_BYZ_RATE,
+_TIME_LIMIT and _INTERVAL override the run. It exits 1 unless the
+byzantine block grades valid (every injection convicted, none spurious)
+and the benign twin grades valid with no block.
+
+    python -m maelstrom_tpu_torch.bench --byzantine [--device cpu]
 """
 
 from __future__ import annotations
@@ -890,6 +905,103 @@ def main_failover(device="cuda") -> tuple:
     return record, (1 if not rec["valid"] or rec["failovers"] < 2 else 0)
 
 
+def bench_byzantine_record(device="cuda") -> dict:
+    """bench.py's `bench_byzantine_record` on the port: the same
+    compartment cluster (2 candidates, 2 proxies, a 1x2 grid, 1 replica,
+    retry 3, 1,024 keys; 16 clients at the rate for the time limit, seed
+    3) runs once benign and once under the equivocating sequencer
+    (`--nemesis byzantine`, `byzantine=sequencers`, equivocation, a
+    window every interval), through `core.run` (kernels K26-K30). The
+    record reports the conviction latency (rounds from the first
+    start-byzantine invoke to the proxies' first conviction stamp), the
+    injected and convicted ledger of the `byzantine` block, and the ok
+    ops a virtual second benign and under attack. BENCH_BYZ_RATE,
+    _TIME_LIMIT and _INTERVAL override the run, as bench.py's do."""
+    import shutil
+    import tempfile
+
+    from . import core
+
+    dev = resolve_device(device)
+    rate = float(os.environ.get("BENCH_BYZ_RATE", 200.0))
+    tl = float(os.environ.get("BENCH_BYZ_TIME_LIMIT", 6.0))
+    interval = float(os.environ.get("BENCH_BYZ_INTERVAL", 1.5))
+    base = dict(
+        seed=3, workload="lin-kv", node="tpu:compartment",
+        roles="sequencers=2,proxies=2,acceptors=1x2,replicas=1",
+        concurrency=16, rate=rate, time_limit=tl, journal_rows=False,
+        compartment_retry=3, kv_keys=1024, device=str(dev))
+    root = tempfile.mkdtemp(prefix="bench-byzantine-")
+    try:
+        t0 = time.perf_counter()
+        res_b = core.run(dict(base, store_root=root))
+        wall_b = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res_a = core.run(dict(
+            base, store_root=root, nemesis={"byzantine"},
+            nemesis_interval=interval,
+            nemesis_targets="byzantine=sequencers",
+            byz_attacks="equivocation"))
+        wall_a = time.perf_counter() - t0
+        ns_pr = 1e6                  # 1 ms a round
+        starts = []
+        with open(os.path.join(root, "latest", "history.jsonl")) as f:
+            for ln in f:
+                o = json.loads(ln)
+                if o.get("process") == "nemesis" \
+                        and o.get("type") == "invoke" \
+                        and o.get("f") == "start-byzantine":
+                    starts.append(o["time"] / ns_pr)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    blk = res_a.get("byzantine") or {}
+    convs = blk.get("convictions") or []
+    conv_rounds = [c["evidence"]["round"] for c in convs
+                   if c.get("evidence", {}).get("round", -1) >= 0]
+    latency = (round(min(conv_rounds) - min(starts), 1)
+               if conv_rounds and starts else None)
+    ok_b = res_b["stats"]["ok-count"]
+    ok_a = res_a["stats"]["ok-count"]
+    return {
+        "attack": "equivocation",
+        "attack_windows": len(starts),
+        "conviction_latency_rounds": latency,
+        "injected": blk.get("injected"),
+        "convictions": [
+            {"rule": c["rule"], "culprit": c["culprit"],
+             "count": c["evidence"].get("count"),
+             "witness": c.get("witness")} for c in convs],
+        "byzantine_valid": blk.get("valid") is True,
+        "client_ops_per_vsec": {"benign": round(ok_b / tl, 1),
+                                "under_attack": round(ok_a / tl, 1)},
+        "benign_valid": res_b["valid"] is True,
+        "benign_convictions": len(
+            (res_b.get("byzantine") or {}).get("convictions") or ()),
+        "offered_rate": rate, "time_limit_s": tl,
+        "nemesis_interval_s": interval,
+        "wall_s": {"benign": round(wall_b, 3),
+                   "under_attack": round(wall_a, 3)},
+        "host_cpus": os.cpu_count(),
+        "devices": torch.cuda.device_count() if dev.type == "cuda" else 0,
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu"),
+        "valid": blk.get("valid") is True and res_b["valid"] is True
+        and "byzantine" not in res_b,
+    }
+
+
+def main_byzantine(device="cuda") -> tuple:
+    """bench.py's `_main_byzantine`: the conviction record with its
+    headline (rounds from injection to the first device conviction).
+    Returns (record, exit code): 1 when the byzantine block graded
+    invalid or the benign twin was not clean."""
+    rec = bench_byzantine_record(device=device)
+    record = {"metric": "byzantine_conviction_latency_rounds",
+              "value": rec["conviction_latency_rounds"], "unit": "rounds",
+              "vs_baseline": None, **rec}
+    return record, (0 if rec["valid"] else 1)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nodes", type=int, default=None,
@@ -937,7 +1049,16 @@ def main(argv=None) -> int:
                     help="the leader-failover record (bench.py "
                          "bench_failover_record) on the elected "
                          "tpu:compartment, through K26-K29")
+    ap.add_argument("--byzantine", action="store_true",
+                    help="the conviction record (bench.py "
+                         "bench_byzantine_record) on the elected "
+                         "tpu:compartment under the equivocating "
+                         "sequencer, through K26-K30")
     a = ap.parse_args(argv)
+    if a.byzantine:
+        rec, rc = main_byzantine(device=a.device)
+        print(json.dumps(rec))
+        return rc
     if a.failover:
         rec, rc = main_failover(device=a.device)
         print(json.dumps(rec))

@@ -1,8 +1,8 @@
 """Checkers: pure functions of histories.
 
 A copy of `maelstrom_tpu/checkers/__init__.py` without the stream
-observers of the overlap pipeline and the byzantine conviction block
-(neither is ported; the broadcast checkers never convict).
+observers of the overlap pipeline (not ported). `Compose` gathers every
+checker's byzantine convictions into the `byzantine` results block.
 
 A checker takes (test, history, opts) and returns a map with at least
 `{"valid": True | False | "unknown"}`. Mirrors jepsen.checker/Checker as used
@@ -23,6 +23,14 @@ class Checker:
 
     def check(self, test: dict, history, opts: dict | None = None) -> dict:
         raise NotImplementedError
+
+    def convictions(self, test: dict, history, opts: dict | None = None):
+        """The byzantine conviction hook: a list of `{"rule", "culprit",
+        "evidence", ...}` dicts (`byzantine.conviction`), one for each
+        lying node this checker can prove misbehaved. `Compose` gathers
+        them from every checker into the `byzantine` results block. By
+        default a checker has nothing to say."""
+        return []
 
 
 def merge_valid(vs) -> bool | str:
@@ -55,9 +63,33 @@ class Compose(Checker):
                 results[name] = {"valid": "unknown",
                                  "error": repr(e),
                                  "traceback": traceback.format_exc()}
+        self._check_convictions(test, history, opts, results)
         results["valid"] = merge_valid(
             r.get("valid", "unknown") for r in results.values())
         return results
+
+    def _check_convictions(self, test, history, opts, results):
+        """Gathers the byzantine convictions of every checker and grades
+        them against the injection ledger (`test["byz_injected"]`, which
+        the runner sets). The block appears only when a byzantine nemesis
+        ran or a checker convicted someone: a benign run that stays
+        conviction-free has none."""
+        convictions, cerrs = [], []
+        for c in self.checkers.values():
+            try:
+                convictions.extend(c.convictions(test, history, opts or {}))
+            except Exception as e:  # a crashed auditor proves no innocence
+                cerrs.append({"checker": c.name, "error": repr(e),
+                              "traceback": traceback.format_exc()})
+        injected = test.get("byz_injected")
+        if injected is None and not convictions and not cerrs:
+            return
+        from ..byzantine import assemble_block
+        block = assemble_block(convictions, injected or {})
+        if cerrs:
+            block["errors"] = cerrs
+            block["valid"] = False
+        results["byzantine"] = block
 
 
 class UnhandledExceptions(Checker):

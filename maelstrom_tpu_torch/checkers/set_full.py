@@ -29,7 +29,7 @@ time rather than the idle gap before final reads.
 from __future__ import annotations
 
 from . import Checker
-from ..errors import BYZANTINE
+from ..byzantine import conviction
 from ..history import coerce_history
 
 
@@ -331,10 +331,3 @@ class BatchedBroadcastChecker(Checker):
                                       {"count": 1, **e})
         return list(agg.values())
 
-
-def conviction(rule: str, culprit, evidence) -> dict:
-    """One conviction triple (the JAX package's `byzantine.conviction`):
-    the violated rule, the node it names, the evidence that proves it,
-    and the definite Byzantine error code."""
-    return {"rule": rule, "culprit": culprit, "evidence": evidence,
-            "code": int(BYZANTINE.code)}

@@ -23,7 +23,11 @@ each kill a failover), any of these programs wrapped
 as a one-role partition (`--node tpu:solo:<program>`), on one card, or
 on the CPU with `--device cpu`, under loss, randomized latency and the
 partition, kill, pause, duplicate and weather nemeses (kill, pause and
-partition scoped to role groups or nodes with `--nemesis-targets`),
+partition scoped to role groups or nodes with `--nemesis-targets`), and
+under the byzantine adversary (`--nemesis byzantine`, `--byz-rate`,
+`--byz-attacks`: the compartment's equivocating or stale-ballot
+sequencer, the batched broadcast's forged proofs, each run graded by its
+`byzantine` conviction block),
 round-synchronous or in continuous mode (`--continuous`), with the
 flight recorder (`--telemetry [DIR]`, tailed by `top`). `fuzz` runs
 the broadcast and kafka fault sweeps (`fuzz.py`). Every other option of the JAX CLI is recognised and refused unless it holds its
@@ -58,6 +62,10 @@ default, with an error that names the slice of the port that brings it
     python -m maelstrom_tpu_torch test -w lin-kv --node tpu:compartment \
         --roles sequencers=3,proxies=4,acceptors=2x2,replicas=2 \
         --nemesis kill --nemesis-targets kill=sequencer
+    python -m maelstrom_tpu_torch test -w lin-kv --node tpu:compartment \
+        --roles sequencers=2,proxies=2,acceptors=1x2,replicas=1 \
+        --nemesis byzantine --nemesis-targets byzantine=sequencers \
+        --byz-attacks stale-ballot
     python -m maelstrom_tpu_torch test -w lin-kv --node tpu:solo:lin-kv
     python -m maelstrom_tpu_torch fuzz --program broadcast --nodes 100000
 """
@@ -89,8 +97,6 @@ OUT_OF_SCOPE = [
     ("--bin", lambda v: v is not None,
      "the host-process path (external node binaries)"),
     ("--workload", lambda v: v not in PROGRAMS, "the other node programs"),
-    ("--nemesis", lambda v: "byzantine" in _faults(v),
-     "the byzantine adversary"),
     ("--fleet", lambda v: v is not None and v > 1, "mesh and fleet"),
     ("--fleet-sweep", lambda v: v is not None, "mesh and fleet"),
     ("--mesh", lambda v: v is not None, "mesh and fleet"),
@@ -101,8 +107,6 @@ OUT_OF_SCOPE = [
     ("--sync-checkpoint", bool, "checkpoint and resume"),
     ("--check-workers", lambda v: v is not None and v > 0,
      "the overlap pipeline"),
-    ("--byz-rate", lambda v: v != 1.0, "the byzantine adversary"),
-    ("--byz-attacks", lambda v: v is not None, "the byzantine adversary"),
 ]
 
 
@@ -249,8 +253,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "and cycle screen on the device (kernels K16, "
                         "K17): on, off, or auto (the default: past 1,024 "
                         "transactions)")
-    t.add_argument("--byz-rate", type=float, default=1.0)
-    t.add_argument("--byz-attacks")
+    t.add_argument("--byz-rate", type=float, default=1.0,
+                   help="Byzantine injection probability a round while an "
+                        "attack window is open (--nemesis byzantine; a pure "
+                        "hash gate, so the benign streams do not move)")
+    t.add_argument("--byz-attacks", default=None,
+                   help="Restrict the byzantine package's attack pool: a "
+                        "comma list of equivocation, forged-proof, "
+                        "stale-ballot (default: all)")
     t.add_argument("--ordering", choices=["raft", "compartment", "batched"],
                    help="Ordering engine under the workload's applier "
                         "(lin-kv, lin-mutex, kafka, txn-list-append): raft, "
@@ -393,7 +403,8 @@ def opts_from_args(args) -> dict:
               "session_timeout_ms", "poll_batch", "batch_max",
               "device_checker", "continuous_window_ms", "service_roles",
               "nemesis_targets", "roles", "compartment_retry",
-              "ballot_width", "election_timeout_rounds", "leader_lease_ms"):
+              "ballot_width", "election_timeout_rounds", "leader_lease_ms",
+              "byz_rate", "byz_attacks"):
         v = getattr(args, k, None)
         if v is not None:
             opts[k] = v

@@ -5,7 +5,8 @@ Counterpart of `maelstrom_tpu/core.py` for the parts the port runs:
 derives), and the built-in-program branch of `build_test` for the
 workloads of `WORKLOADS` (the nemesis package beside the clients, the
 generator phases with the nemesis's final heal, the composed checker
-suite; `ordering` selects the composed program
+suite with the byzantine conviction source under `--nemesis byzantine`
+and the `--byz-attacks` pool; `ordering` selects the composed program
 `tpu:ordered`), without the host network and external node
 processes. `run` makes the store dir, attaches the network journal and
 the run log, and hands the test to `runner.tpu_runner.run_tpu_test`."""
@@ -109,9 +110,10 @@ def build_test(opts: dict) -> dict:
         opts["concurrency"] = len(nodes)
     if opts.get("node") == "tpu:compartment" or (
             opts.get("ordering") == "compartment"):
-        # the compartment's layout is known before any store dir
-        from .nodes.compartment import checked_layout
-        checked_layout(opts, len(nodes))
+        # the compartment's layout (and the JAX layout's refusals, word
+        # for word) before any store dir
+        from .nodes.compartment import Layout
+        Layout(opts, len(nodes))
     name = opts.get("name") or str(opts["workload"])
     if opts["workload"] not in WORKLOADS:
         raise NotImplementedError(
@@ -122,6 +124,18 @@ def build_test(opts: dict) -> dict:
     ).workload(opts)
     nemesis_pkg = nem.package(set(opts["nemesis"]),
                               interval_s=opts["nemesis_interval"])
+    if opts.get("byz_attacks") is not None:
+        # --byz-attacks: the byzantine package's attack pool
+        from .byzantine import ATTACKS
+        raw = opts["byz_attacks"]
+        atks = tuple(s.strip() for s in str(raw).split(",")
+                     if s.strip()) \
+            if isinstance(raw, str) else tuple(raw)
+        bad = [a for a in atks if a not in ATTACKS]
+        if bad or not atks:
+            raise ValueError(f"--byz-attacks: unknown attack(s) {bad}; "
+                             f"expected any of {list(ATTACKS)}")
+        opts["byz_attacks"] = atks
 
     # Generator composition (reference core.clj:58-71)
     rate = opts["rate"]
@@ -151,6 +165,10 @@ def build_test(opts: dict) -> dict:
         "net": None,        # the runner's device-counter net stats
         "workload": workload["checker"],
     })
+    if "byzantine" in set(opts["nemesis"]):
+        # the runner's device-evidence checker; Compose assembles the
+        # `byzantine` results block from every checker's convictions
+        checker.checkers["byzantine"] = None
     return {**opts, "name": name, "generator": main, "checker": checker,
             "nemesis_pkg": nemesis_pkg}
 

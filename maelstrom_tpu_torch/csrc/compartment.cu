@@ -18,7 +18,7 @@
 // rows due on the retry tick; lanes [Q, Q + K) shed (error 11).
 //
 // K24 replaces ProxyRole.step at one sequencer (compartment.py:877-1060
-// without the ballot and conviction branches). One block a proxy, one
+// without the ballot branches). One block a proxy, one
 // thread a table row and an inbox lane, the [Q, AR] ack flags in shared
 // memory. In JAX's order: P2B and EXEC acks fold onto the rows (ack j is
 // lane b == j), rows whose R replicas all acked retire (T_DONE lanes
@@ -27,6 +27,11 @@
 // by slot (the first per slot; slots held by a live row drop) and fill
 // free rows by rank. Last the fan lanes [q * AR + j]: T_P2A to acceptor j
 // < A or T_LEARN to replica j < R, for the rows due on the retry tick.
+// With the adversary (the flag `byz`, compartment.py:948-1000) a deduped
+// assign that hits a live row of its slot with another command is
+// convicted before the hit: dropped, counted into the proxy's evidence
+// planes and NACKed T_ERR / E_BYZANTINE to its source on lanes
+// [Q * AR + Q, Q * AR + Q + K) (see "the proxies' conviction lanes").
 //
 // K25 replaces AcceptorRole._step_stable (compartment.py:1095-1113). A
 // grid of blocks over (node, slot chunk) copies the acc_cmd and acc_has
@@ -65,13 +70,18 @@
 // heartbeat lanes.
 //
 // K28 replaces ProxyRole.step with ballots (compartment.py:877-1060, the
-// S > 1 branches; not the conviction lanes). K24's order: acks fold (a
+// S > 1 branches). K24's order: acks fold (a
 // P2B must echo the row's ballot), retire (T_DONE to ballot % S), the
 // row quorum; then T_P2R drops the fenced rows and each hit lane sends
 // T_NLDR to the stale leader (the highest fenced ballot, 0 where no row
 // was hit); an upgrade (a higher-ballot assign of a live slot) frees its
 // row, a stale assign drops, and the assigns fill free rows by rank. The
-// fan (P2A c = the row's ballot) is written lane by lane.
+// fan (P2A c = the row's ballot) is written lane by lane. With the
+// adversary the conviction runs after the fence drop and before the
+// upgrade: an equivocation (a live row of the slot at the same ballot
+// with another command) or a stale ballot (ballot % S != src) leaves the
+// assigns that the upgrade loop and the rank scans read, and is NACKed on
+// lanes [Q * AR + Q + K, Q * AR + Q + 2K).
 //
 // K29 replaces AcceptorRole._step_elect (compartment.py:1115-1200). The
 // grid of K25 copies acc_cmd, acc_bal and acc_has out of place; every
@@ -168,6 +178,71 @@ __device__ __forceinline__ int block_scan(int x, int* s_warp, int* total) {
 }
 
 int block_threads(int rows) { return ((rows + 31) / 32) * 32; }
+
+// --- the proxies' conviction lanes (K24 and K28 with the adversary) --------
+//
+// Behind the integer flag `byz` and the eight optional evidence planes [n]
+// (z_eq, z_sb, z_eq_src, z_eq_slot, z_eq_rnd, z_sb_src, z_sb_bal,
+// z_sb_rnd: nodes/compartment.py Z_KEYS) in and out; with the flag off the
+// planes are null and nothing of this runs. The dynamic shared memory then
+// grows by a region 4-byte aligned past the proxy's own: the six block
+// counters (equivocations, stale ballots and the four witness maxima),
+// the lanes' src and the rows' commands.
+
+constexpr int T_ERR_LANE = 1, E_BYZANTINE = 32;
+
+struct Evidence {
+  const int* z[8];   // [n] each, or null without the adversary
+  int* o_z[8];
+};
+
+__device__ __forceinline__ int* conv_region(u8* end) {
+  return (int*)(((unsigned long long)end + 3) & ~3ull);
+}
+
+size_t conv_smem(int K, int Q) { return (size_t)(6 + K + Q) * 4 + 4; }
+
+__device__ __forceinline__ void conv_note(int* c, bool eq, bool sb, int src,
+                                          int slot, int bal) {
+  if (eq) {
+    atomicAdd(&c[0], 1);
+    atomicMax(&c[2], src);
+    atomicMax(&c[3], slot);
+  }
+  if (sb) {
+    atomicAdd(&c[1], 1);
+    atomicMax(&c[4], src);
+    atomicMax(&c[5], bal);
+  }
+}
+
+// thread 0, after the block's counters are final: the counts grow, a
+// first conviction stamps its round while the count was 0, the witnesses
+// take the maxima of this round's convicted lanes (each its own maximum);
+// a stalled proxy keeps its evidence
+__device__ __forceinline__ void conv_write(const Evidence& E, const int* c,
+                                           int n, int rnd, bool stalled) {
+  int z[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) z[j] = E.z[j][n];
+  if (!stalled) {
+    const bool eq = c[0] > 0, sb = c[1] > 0;
+    if (eq && z[0] == 0) z[4] = rnd;
+    if (sb && z[1] == 0) z[7] = rnd;
+    z[0] = wadd(z[0], c[0]);
+    z[1] = wadd(z[1], c[1]);
+    if (eq) {
+      z[2] = c[2];
+      z[3] = c[3];
+    }
+    if (sb) {
+      z[5] = c[4];
+      z[6] = c[5];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) E.o_z[j][n] = z[j];
+}
 
 // --- K23 -------------------------------------------------------------------
 
@@ -338,11 +413,12 @@ struct ProxyArgs {
   u8 *o_p_valid, *o_p_learn;
   int *o_p_slot, *o_p_cmd, *o_p_client, *o_p_mid, *o_p_last;
   u8* o_p_acks;
+  Evidence ev;                  // the conviction lanes' planes, or null
 };
 constexpr int kProxyPtrs = sizeof(ProxyArgs) / sizeof(void*);
 
 struct ProxyInts {
-  int n, K, Q, AR, A, R, rows, cols, leader, a_base, r_base, retry;
+  int n, K, Q, AR, A, R, rows, cols, leader, a_base, r_base, retry, byz;
 };
 
 __global__ void proxy_kernel(ProxyArgs A, ProxyInts I) {
@@ -360,12 +436,19 @@ __global__ void proxy_kernel(ProxyArgs A, ProxyInts I) {
   u8* l_valid = (u8*)(s_asg + Q);  // [K]
   u8* s_live = l_valid + K;      // [Q] p_valid after retirement
   u8* s_acks = s_live + Q;       // [Q * AR]
+  // with the adversary: the block's counters, the lanes' src, the rows'
+  // commands
+  int* c_conv = conv_region(s_acks + Q * AR);
+  int* l_src = c_conv + 6;
+  int* s_cmd = l_src + K;
   __shared__ int s_warp[32];
   const int n = blockIdx.x, t = threadIdx.x;
   const bool stalled = A.stall != nullptr && A.stall[n];
+  const bool byz = I.byz != 0;
   const int rnd = A.round[0];
-  const int L = Q * AR + Q;
+  const int L = Q * AR + Q + (byz ? K : 0);
   const long long abase = (long long)n * Q * AR;
+  if (byz && t < 6) c_conv[t] = t < 2 ? 0 : -1;
 
   for (int j = t; j < Q * AR; j += blockDim.x) s_acks[j] = A.p_acks[abase + j];
   const long long r = (long long)n * Q + t;
@@ -389,7 +472,9 @@ __global__ void proxy_kernel(ProxyArgs A, ProxyInts I) {
     l_a[t] = A.in.a[i];
     l_b[t] = A.in.b[i];
     l_c[t] = A.in.c[i];
+    if (byz) l_src[t] = A.in.src[i];
   }
+  if (byz && t < Q) s_cmd[t] = pc;
   __syncthreads();
 
   if (t < Q) {
@@ -431,19 +516,31 @@ __global__ void proxy_kernel(ProxyArgs A, ProxyInts I) {
   }
   __syncthreads();
 
-  // new assignments: the first per slot, slots of live rows dropped
-  bool asg = false;
+  // new assignments: the first per slot, slots of live rows dropped.
+  // With the adversary a first-per-slot assign that hits a live row of its
+  // slot with another command is an equivocation: convicted, dropped and
+  // NACKed to its source (lanes [Q * AR + Q, L))
+  bool asg = false, eq = false;
   if (t < K && l_valid[t] && l_type[t] == T_ASSIGN) {
     const int slot = l_a[t] & 0x7FFF;
     asg = true;
     for (int k = 0; k < t && asg; ++k)
       if (l_valid[k] && l_type[k] == T_ASSIGN && (l_a[k] & 0x7FFF) == slot)
         asg = false;
+    if (byz && asg) {
+      for (int q = 0; q < Q && !eq; ++q)
+        eq = s_live[q] && s_slot[q] == slot && s_cmd[q] != l_b[t];
+      asg = !eq;
+      if (eq) conv_note(c_conv, true, false, l_src[t], slot, 0);
+    }
     for (int q = 0; q < Q && asg; ++q)
       if (s_live[q] && s_slot[q] == slot) asg = false;
     l_slot[t] = slot;
     l_client[t] = l_a[t] >> 16;
   }
+  if (byz && t < K)
+    put_lane(A.out, (long long)n * L + Q * AR + Q + t, eq && !stalled,
+             l_src[t], T_ERR_LANE, E_BYZANTINE, l_a[t] & 0x7FFF, 0, -1);
   const int is_free = (t < Q && !pv) ? 1 : 0;
   int n_free;
   const int free_rank = block_scan(is_free, s_warp, &n_free);
@@ -494,6 +591,7 @@ __global__ void proxy_kernel(ProxyArgs A, ProxyInts I) {
       A.o_p_last[r] = plast;
     }
   }
+  if (byz && t == 0) conv_write(A.ev, c_conv, n, rnd, stalled);
   __syncthreads();
   for (int j = t; j < Q * AR; j += blockDim.x)
     A.o_p_acks[abase + j] = stalled ? A.p_acks[abase + j] : s_acks[j];
@@ -1159,11 +1257,12 @@ struct ProxyElectArgs {
   int *o_p_slot, *o_p_cmd, *o_p_client, *o_p_mid, *o_p_last;
   u8* o_p_acks;
   int* o_p_bal;
+  Evidence ev;                  // the conviction lanes' planes, or null
 };
 constexpr int kProxyElectPtrs = sizeof(ProxyElectArgs) / sizeof(void*);
 
 struct ProxyElectInts {
-  int n, K, Q, AR, A, R, rows, cols, S, s_base, a_base, r_base, retry;
+  int n, K, Q, AR, A, R, rows, cols, S, s_base, a_base, r_base, retry, byz;
 };
 
 __global__ void proxy_elect_kernel(ProxyElectArgs A, ProxyElectInts I) {
@@ -1185,6 +1284,11 @@ __global__ void proxy_elect_kernel(ProxyElectArgs A, ProxyElectInts I) {
   u8* s_live = l_asg + K;        // [Q]
   u8* s_acks = s_live + Q;       // [Q * AR]
   u8* f_flag = s_acks + Q * AR;  // [Q] 1: due and live, 2: a learn row
+  // with the adversary: the block's counters, the lanes' src, the rows'
+  // commands
+  int* c_conv = conv_region(f_flag + Q);
+  int* l_src = c_conv + 6;
+  int* s_cmd = l_src + K;
   // the rows' fan words (a, b, c) reuse s_slot, s_bal and s_rbr after
   // the assignments have read them
   int* f_a = s_slot;
@@ -1193,9 +1297,11 @@ __global__ void proxy_elect_kernel(ProxyElectArgs A, ProxyElectInts I) {
   __shared__ int s_warp[32];
   const int n = blockIdx.x, t = threadIdx.x;
   const bool stalled = A.stall != nullptr && A.stall[n];
+  const bool byz = I.byz != 0;
   const int rnd = A.round[0];
-  const int L = Q * AR + Q + K;
+  const int L = Q * AR + Q + K + (byz ? K : 0);
   const long long ob = (long long)n * L;
+  if (byz && t < 6) c_conv[t] = t < 2 ? 0 : -1;
   const long long abase = (long long)n * Q * AR;
 
   for (int j = t; j < Q * AR; j += blockDim.x) s_acks[j] = A.p_acks[abase + j];
@@ -1225,7 +1331,9 @@ __global__ void proxy_elect_kernel(ProxyElectArgs A, ProxyElectInts I) {
     l_slot[t] = a & 0xFFF;
     l_bal[t] = (a >> 24) & 0x3F;
     l_client[t] = (a >> 12) & 0xFFF;
+    if (byz) l_src[t] = A.in.src[i];
   }
+  if (byz && t < Q) s_cmd[t] = pc;
   __syncthreads();
 
   if (t < Q) {
@@ -1300,6 +1408,29 @@ __global__ void proxy_elect_kernel(ProxyElectArgs A, ProxyElectInts I) {
   }
   __syncthreads();
 
+  // with the adversary, on the rows left after retirement and the fence:
+  // a first-per-slot assign that hits a live row of its slot at its ballot
+  // with another command is an equivocation, one whose ballot lies outside
+  // its source's residue class a stale ballot; either is convicted, leaves
+  // the assigns before the hit, upgrade and allocation below, and is
+  // NACKed to its source (lanes [Q * AR + Q + K, L))
+  if (byz) {
+    bool eq = false, sb = false;
+    if (t < K && l_asg[t]) {
+      for (int q = 0; q < Q && !eq; ++q)
+        eq = s_live[q] && s_slot[q] == l_slot[t] && s_cmd[q] != l_b[t] &&
+             s_bal[q] == l_bal[t];
+      sb = mt_mod(l_bal[t], I.S) != l_src[t];
+      conv_note(c_conv, eq, sb, l_src[t], l_slot[t], l_bal[t]);
+    }
+    if (t < K) {
+      put_lane(A.out, ob + Q * AR + Q + K + t, (eq || sb) && !stalled,
+               l_src[t], T_ERR_LANE, E_BYZANTINE, l_slot[t], l_bal[t], -1);
+      if (eq || sb) l_asg[t] = 0;
+    }
+    __syncthreads();
+  }
+
   // a higher-ballot assign frees the row it hits; a stale one drops
   bool asg = false;
   if (t < K && l_asg[t]) {
@@ -1366,6 +1497,7 @@ __global__ void proxy_elect_kernel(ProxyElectArgs A, ProxyElectInts I) {
       A.o_p_bal[r] = pb;
     }
   }
+  if (byz && t == 0) conv_write(A.ev, c_conv, n, rnd, stalled);
   __syncthreads();
   for (int l = t; l < Q * AR; l += blockDim.x) {
     const int q = l / AR, j = l - q * AR;
@@ -1522,10 +1654,11 @@ MT_API int mt_compartment_sequencer_step(void* const* p, int n_ptrs,
 
 // ptrs: the inbox's valid, src, mid, type, a, b, c; p_valid, p_learn,
 //       p_slot, p_cmd, p_client, p_mid, p_last, p_acks; round; stall (or
-//       null); the outbox's ten fields ([n, Q * AR + Q]); the eight state
-//       outputs
+//       null); the outbox's ten fields ([n, Q * AR + Q], + K NACK lanes
+//       with byz); the eight state outputs; the eight evidence planes in
+//       and out (Z_KEYS; null without byz)
 // ints: n, K, Q (proxy_slots), AR, A, R, rows, cols, leader, a_base,
-//       r_base, retry
+//       r_base, retry, byz (the conviction lanes on)
 MT_API int mt_compartment_proxy_step(void* const* p, int n_ptrs,
                                      const long long* v, int n_ints,
                                      void* stream) {
@@ -1542,7 +1675,8 @@ MT_API int mt_compartment_proxy_step(void* const* p, int n_ptrs,
       I.rows * I.cols != I.A || threads > 1024)
     return cudaErrorInvalidValue;
   const size_t smem = (size_t)(6 * I.K + 3 * I.Q) * sizeof(int) + I.K +
-                      I.Q + (size_t)I.Q * I.AR;
+                      I.Q + (size_t)I.Q * I.AR +
+                      (I.byz ? conv_smem(I.K, I.Q) : 0);
   if (smem > 48 * 1024) return cudaErrorInvalidValue;
   proxy_kernel<<<I.n, threads, smem, (cudaStream_t)stream>>>(A, I);
   return cudaGetLastError();
@@ -1627,10 +1761,11 @@ MT_API int mt_compartment_sequencer_elect(void* const* p, int n_ptrs,
 
 // ptrs: the inbox's valid, src, mid, type, a, b, c; p_valid, p_learn,
 //       p_slot, p_cmd, p_client, p_mid, p_last, p_acks, p_bal; round; stall
-//       (or null); the outbox's ten fields ([n, Q * AR + Q + K]); the nine
-//       state outputs
+//       (or null); the outbox's ten fields ([n, Q * AR + Q + K], + K NACK
+//       lanes with byz); the nine state outputs; the eight evidence planes
+//       in and out (Z_KEYS; null without byz)
 // ints: n, K, Q (proxy_slots), AR, A, R, rows, cols, S, s_base, a_base,
-//       r_base, retry
+//       r_base, retry, byz (the conviction lanes on)
 MT_API int mt_compartment_proxy_elect(void* const* p, int n_ptrs,
                                       const long long* v, int n_ints,
                                       void* stream) {
@@ -1647,7 +1782,8 @@ MT_API int mt_compartment_proxy_elect(void* const* p, int n_ptrs,
       I.rows * I.cols != I.A || I.S < 2 || threads > 1024)
     return cudaErrorInvalidValue;
   const size_t smem = (size_t)(7 * I.K + 4 * I.Q) * sizeof(int) + 2 * I.K +
-                      2 * I.Q + (size_t)I.Q * I.AR;
+                      2 * I.Q + (size_t)I.Q * I.AR +
+                      (I.byz ? conv_smem(I.K, I.Q) : 0);
   if (smem > 48 * 1024) return cudaErrorInvalidValue;
   proxy_elect_kernel<<<I.n, threads, smem, (cudaStream_t)stream>>>(A, I);
   return cudaGetLastError();

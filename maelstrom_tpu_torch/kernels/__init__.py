@@ -160,6 +160,12 @@ COMPARTMENT_PROXY_ELECT = Kernel(
 COMPARTMENT_ACCEPTOR_ELECT = Kernel(
     "compartment_acceptor_elect", "maelstrom_tpu_torch/csrc/compartment.cu",
     "maelstrom_tpu/nodes/compartment.py:1115")
+BYZ_CORRUPT_POOL = Kernel("byz_corrupt_pool",
+                          "maelstrom_tpu_torch/csrc/byzantine.cu",
+                          "maelstrom_tpu/byzantine.py:163")
+BYZ_CORRUPT_EDGE = Kernel("byz_corrupt_edge",
+                          "maelstrom_tpu_torch/csrc/byzantine.cu",
+                          "maelstrom_tpu/byzantine.py:178")
 KERNELS = (EDGE_READ, EDGE_WRITE, BROADCAST_STEP, REPLY_COMPACT,
            REPLY_LOG_APPEND, QUIET_PROBE, THREEFRY, EDGE_FAULTS,
            EDGE_WRITE_SPILL, BROADCAST_STEP_STALL, RAFT_STEP, ECHO_STEP,
@@ -169,7 +175,8 @@ KERNELS = (EDGE_READ, EDGE_WRITE, BROADCAST_STEP, REPLY_COMPACT,
            SEQ_KV_STEP, LWW_KV_STEP, COMPARTMENT_SEQUENCER_STEP,
            COMPARTMENT_PROXY_STEP, COMPARTMENT_ACCEPTOR_STEP,
            COMPARTMENT_REPLICA_STEP, COMPARTMENT_SEQUENCER_ELECT,
-           COMPARTMENT_PROXY_ELECT, COMPARTMENT_ACCEPTOR_ELECT)
+           COMPARTMENT_PROXY_ELECT, COMPARTMENT_ACCEPTOR_ELECT,
+           BYZ_CORRUPT_POOL, BYZ_CORRUPT_EDGE)
 
 _state = {"lib": None, "forced_plain": False}
 

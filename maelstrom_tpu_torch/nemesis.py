@@ -1,11 +1,11 @@
 """Fault packages: the nemesis's schedules and decisions.
 
-A copy of `maelstrom_tpu/nemesis.py` without the byzantine package (the
-adversary slice brings it) and the host-path executor (the port runs no
-host network): the grudge shapes, `grudge_matrix`, the role-targeted
-scoping (`parse_targets`, `resolve_targets`: `--nemesis-targets`), the
-seeded decision streams of `NemesisDecisions` and the generator
-schedules of `package`.
+A copy of `maelstrom_tpu/nemesis.py` without the host-path executor (the
+port runs no host network): the grudge shapes, `grudge_matrix`, the
+role-targeted scoping (`parse_targets`, `resolve_targets`:
+`--nemesis-targets`), the seeded decision streams of `NemesisDecisions`
+(the byzantine attack plans too) and the generator schedules of
+`package`.
 The decision streams are the JAX package's, draw for draw, so a seed
 gives the same fault schedule and the same history in both packages;
 the runner applies the decisions (`runner/tpu_runner.py`
@@ -17,7 +17,9 @@ and restarts from its durable store), ``pause`` (a minority stops
 stepping), ``duplicate`` (server-to-server messages re-sent with an
 independent latency draw with probability p) and ``weather`` (seeded
 loss and latency-scale fronts; stop-weather restores the run's
-configured --p-loss and --latency-scale)."""
+configured --p-loss and --latency-scale) and ``byzantine`` (a seeded
+attack plan, `next_byz_plan`: the kind, the lying node and the nonce;
+`byzantine.py`)."""
 
 from __future__ import annotations
 
@@ -240,12 +242,16 @@ class NemesisDecisions:
     node-picking packages: kill and pause sample their minority of the
     named pool, and a targeted partition isolates the pool. "@<group>"
     entries expand at invoke time through `resolve_dynamic`, which the
-    executing runner sets."""
+    executing runner sets. `attacks` (`--byz-attacks`) restricts the
+    attack kinds the byzantine package draws; None draws from all of
+    `byzantine.ATTACKS`."""
 
-    def __init__(self, nodes, seed: int = 0, targets: dict | None = None):
+    def __init__(self, nodes, seed: int = 0, targets: dict | None = None,
+                 attacks=None):
         self.nodes = list(nodes)
         self.seed = seed
         self.rngs = {f: random.Random(f"{seed}:{f}") for f in FAULTS}
+        self.byz_attacks = tuple(attacks) if attacks else None
         self.targets = dict(targets or {})
         self.resolve_dynamic = None
 
@@ -298,6 +304,19 @@ class NemesisDecisions:
         """(name, p_loss, latency_scale) for the next weather front."""
         return self.rngs["weather"].choice(WEATHER_FRONTS)
 
+    def next_byz_plan(self) -> tuple:
+        """(attack, culprit, delta) for the next byzantine window: the
+        attack kind, the lying node (of the targeted pool, if any) and
+        the corruption nonce, from the byzantine package's own stream."""
+        from .byzantine import ATTACKS
+        rng = self.rngs["byzantine"]
+        pool = self._expand_pool(self.targets.get("byzantine")) \
+            or self.nodes
+        culprit = rng.choice(sorted(pool))
+        attack = rng.choice(list(self.byz_attacks or ATTACKS))
+        delta = rng.randint(1, 0x7FFF)
+        return attack, culprit, delta
+
 
 # --- schedules -------------------------------------------------------------
 
@@ -322,9 +341,9 @@ def fault_schedule(fault: str, interval_s: float, offset_s: float):
 def package(faults: set, interval_s: float = 10.0):
     """Builds {generator, final_generator, faults} for the requested
     fault set — any subset of ``partition``, ``kill``, ``pause``,
-    ``duplicate``, ``weather`` (the reference CLI stops at partition,
-    `core.clj:40-42`). Packages compose: each keeps its own schedule,
-    staggered across the interval so a ``kill,pause,partition`` run
+    ``duplicate``, ``weather``, ``byzantine`` (the reference CLI stops at
+    partition, `core.clj:40-42`). Packages compose: each keeps its own
+    schedule, staggered across the interval so a ``kill,pause,partition`` run
     overlaps faults rather than synchronizing them. The final generator
     emits a stop op for every selected package so ALL fault types heal
     before recovery grading."""
@@ -333,9 +352,6 @@ def package(faults: set, interval_s: float = 10.0):
     if unknown:
         raise ValueError(f"unknown nemesis fault(s) {sorted(unknown)}; "
                          f"expected any of {list(FAULTS)}")
-    if "byzantine" in faults:
-        raise NotImplementedError(
-            "the byzantine nemesis comes with the adversary slice")
     ordered = [f for f in FAULTS if f in faults]
     if not ordered:
         return {"generator": None, "final_generator": None, "faults": ()}

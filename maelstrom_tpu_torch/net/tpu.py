@@ -153,13 +153,9 @@ class NetConfig:
 
 
 def check_scope(cfg: NetConfig) -> None:
-    """Refuses the parts of the network that later slices port."""
+    """Refuses a latency distribution the port does not know."""
     if cfg.latency_dist not in prng.DISTS:
         raise ValueError(f"unknown latency dist {cfg.latency_dist!r}")
-    if cfg.enable_byz:
-        raise NotImplementedError(
-            "maelstrom_tpu_torch does not port enable_byz (adversary "
-            "slice) yet")
 
 
 def make_net(cfg: NetConfig, device) -> NetState:

@@ -18,9 +18,10 @@ net books client-op units beside messages (`net/tpu.py`,
 set rides the reply payload (kernel K5), as the parent's does.
 
 `edge_step` has a hand-written CUDA kernel (K15, `csrc/broadcast_batched.cu`)
-and the plain PyTorch version `edge_step_plain`. The byzantine
-forged-proof surface of the JAX program (`byz_wire_edge`) comes with the
-byzantine adversary and is refused here."""
+and the plain PyTorch version `edge_step_plain`. Under the byzantine
+adversary the culprit's T_BATCH_OK acks are the forged-proof surface
+(`byz_wire_edge`, rewritten in the round by K31), and the expansion-proof
+audit convicts (`checkers/set_full.py`)."""
 
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import kernels as K
+from ..byzantine import EdgeWire, byz_enabled
 from ..checkers.set_full import PROOF_MOD, range_checksum
 from ..net.static import EdgeMsgs
 from ..net.tpu import I32, wrap_i32
@@ -45,26 +47,11 @@ T_BREAD_OK = 23    # bare ack; set materialized from the reply payload
 T_GRANGE = 24      # edge gossip: a = lo, b = n (a run of value ids)
 
 
-def _faults(opts) -> set:
-    pkg = opts.get("nemesis_pkg") or {}
-    faults = pkg.get("faults")
-    if faults is None:
-        faults = opts.get("nemesis")
-    if isinstance(faults, str):
-        faults = set(filter(None, faults.split(",")))
-    return set(faults or ())
-
-
 @register
 class BroadcastBatchedProgram(BroadcastProgram):
     name = "broadcast-batched"
 
     def __init__(self, opts, nodes, device="cuda"):
-        if "byzantine" in _faults(opts):
-            raise NotImplementedError(
-                "broadcast-batched: the forged-proof surface (byz_wire_edge) "
-                "is not ported to maelstrom_tpu_torch yet; it comes with "
-                "the byzantine adversary")
         opts = dict(opts)
         # batches always retransmit until digest-acked
         opts["naive_broadcast"] = False
@@ -77,6 +64,18 @@ class BroadcastBatchedProgram(BroadcastProgram):
         # the largest run one CLIENT batch record may claim (--batch-max);
         # gossip ranges are not capped by it
         self.max_batch = min(int(opts.get("batch_max") or self.V), self.V)
+        # the forged-proof surface, only with the adversary in the fault
+        # set
+        self.byz = byz_enabled(opts)
+
+    def byz_wire_edge(self):
+        """The edge-path corruption surface (`byzantine.corrupt_edge`,
+        K31), or None without the adversary: the culprit node lies about
+        its expansion, the count inflated on odd rounds and the checksum
+        forged on even ones. Both are definite `verify_batch_proofs`
+        failures, and the honest `lo` keeps the record paired with its
+        invoke."""
+        return EdgeWire(T_BATCH_OK) if self.byz else None
 
     # --- plain version ----------------------------------------------------
 

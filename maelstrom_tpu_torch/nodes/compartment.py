@@ -58,15 +58,25 @@ elected tier: K27 `compartment_sequencer_elect`, K28
 paused nodes (`ctx["stall"]`) keep their state and send nothing: the
 kernels apply the freeze, the plain versions go through `freeze_step`.
 
-The proxies' byzantine conviction lanes are not ported: the
-constructor refuses the adversary, naming what brings it."""
+Under the byzantine adversary (`--nemesis byzantine`) the program names
+its corruption surface (`byz_wire`: the culprit sequencer's T_ASSIGN
+lanes, rewritten in the round by K30) and the proxies convict: a
+deduped assign that equivocates (a live row of its slot, at its ballot
+with S > 1, holding another command) or whose ballot lies outside its
+source's residue class (S > 1) is dropped, counted into the proxy's
+evidence leaves (`Z_KEYS`) and NACKed T_ERR / E_BYZANTINE to its source;
+`byz_evidence` turns the evidence into conviction triples. K24 and K28
+carry these lanes behind a flag; without the adversary the state tree
+and the outbox keep their shapes."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import kernels as K
 from .. import prng
+from ..byzantine import PoolWire, byz_enabled, conviction
 from ..net.tpu import I32, Msgs, cat_lanes
 from ..sim import RolePartition
 from ..tree import resolve_device
@@ -109,9 +119,6 @@ NOOP_CMD = 0         # key 0 / OP_NOOP: fills recovered gaps, applies inert
 _DEFAULT_ROLES = {"sequencers": 1, "proxies": 2, "rows": 2, "cols": 2,
                   "replicas": 2}
 DEFAULT_ROLES = "sequencers=1,proxies=2,acceptors=2x2,replicas=2"
-
-# what brings the option this module refuses
-BYZANTINE = "the byzantine adversary"
 
 # the inbox fields the kernels read, in their argument order
 _IN_FIELDS = ("valid", "src", "mid", "type", "a", "b", "c")
@@ -433,6 +440,10 @@ SEQ_ELECT_ALL = ("next_slot",) + SEQ_KEYS + (
 SEQ_BOOL = ("t_valid", "leading", "electing", "t_q", "done_bits")
 PROXY_KEYS = ("p_valid", "p_learn", "p_slot", "p_cmd", "p_client", "p_mid",
               "p_last", "p_acks")
+# a proxy's conviction evidence leaves (with the adversary), in K24's and
+# K28's order
+Z_KEYS = ("z_eq", "z_sb", "z_eq_src", "z_eq_slot", "z_eq_rnd", "z_sb_src",
+          "z_sb_bal", "z_sb_rnd")
 ACC_ELECT_KEYS = ("acc_cmd", "acc_has", "promised", "acc_bal", "acc_hi",
                   "acc_cmt")
 REPLICA_KEYS = ("r_cmd", "r_client", "r_mid", "r_has")
@@ -867,9 +878,14 @@ class ProxyRole(NodeProgram):
         super().__init__(opts, nodes)
         self.device = resolve_device(device)
         self.lay = lay
+        # the conviction duty: with the adversary in the fault set the
+        # proxy carries evidence leaves and NACKs convicted assigns (K
+        # more outbox lanes); static, so benign trees stay as they are
+        self.byz = byz_enabled(opts)
         self.inbox_cap = lay.K
         self.outbox_cap = (lay.QP * lay.AR + lay.QP
-                           + (lay.K if lay.S > 1 else 0))
+                           + (lay.K if lay.S > 1 else 0)
+                           + (lay.K if self.byz else 0))
 
     def init_state(self):
         n, Q, AR, dev = self.n_nodes, self.lay.QP, self.lay.AR, self.device
@@ -886,6 +902,13 @@ class ProxyRole(NodeProgram):
                                     device=dev)}
         if self.lay.S > 1:
             st["p_bal"] = z(n, Q)
+        if self.byz:
+            # conviction evidence, volatile like the rest of the tier:
+            # counts of equivocating and residue-violating assigns, the
+            # round of each first conviction, and the witness maxima
+            st.update({k: z(n) for k in ("z_eq", "z_sb")})
+            st.update({k: torch.full((n,), -1, dtype=I32, device=dev)
+                       for k in Z_KEYS[2:]})
         return st
 
     def quiet_planes(self, state):
@@ -949,6 +972,9 @@ class ProxyRole(NodeProgram):
         # table drops and the leader's retry tick re-delivers)
         bal_in, client_in, slot_in = lay.unpack_assign_a(inbox.a)
         asg = _first_per_key(v & (t == T_ASSIGN), slot_in)
+        if self.byz:
+            asg, nack = self._convict(s, inbox, asg, bal_in, slot_in, rnd)
+            outs.append(nack)
         hit = _match_rows(s["p_valid"], s["p_slot"], asg, slot_in)
         if S > 1:
             row_bal = s["p_bal"][:, :, None]
@@ -997,9 +1023,53 @@ class ProxyRole(NodeProgram):
                        a=flat(lane_a), b=flat(lane_b), c=flat(lane_c))
         return s, cat_lanes(fan_out, done_out, *outs)
 
+    def _convict(self, s, inbox, asg, bal_in, slot_in, rnd):
+        """The conviction lanes (JAX `compartment.py:948-1000`), on the
+        rows left after retirement and the T_P2R drop: an equivocation is
+        a first-per-slot T_ASSIGN that hits a live row of its slot with a
+        different command (at the same ballot with S > 1: an honest
+        leader resends one payload and two leaders never share a
+        ballot); a stale ballot (S > 1) lies outside the sender's residue
+        class. Convicted lanes leave `asg`, are counted into `s` (first-
+        conviction round stamps set while the count is 0, witness maxima
+        over the lanes) and NACKed T_ERR / E_BYZANTINE to their source.
+        Returns (asg, the NACK lanes)."""
+        S, rnd = self.lay.S, torch.as_tensor(rnd, dtype=I32)
+        n, K_ = asg.shape
+        hit0 = _match_rows(s["p_valid"], s["p_slot"], asg, slot_in)
+        cmd_neq = s["p_cmd"][:, :, None] != inbox.b[:, None, :]
+        if S > 1:
+            eq_lane = (hit0 & cmd_neq & (s["p_bal"][:, :, None]
+                                         == bal_in[:, None, :])).any(dim=1)
+            sb_lane = asg & (bal_in % S != inbox.src)
+        else:
+            eq_lane = (hit0 & cmd_neq).any(dim=1)
+            sb_lane = torch.zeros_like(asg)
+        asg = asg & ~eq_lane & ~sb_lane
+        any_eq, any_sb = eq_lane.any(dim=1), sb_lane.any(dim=1)
+        s["z_eq_rnd"] = torch.where((s["z_eq"] == 0) & any_eq, rnd,
+                                    s["z_eq_rnd"])
+        s["z_sb_rnd"] = torch.where((s["z_sb"] == 0) & any_sb, rnd,
+                                    s["z_sb_rnd"])
+        s["z_eq"] = s["z_eq"] + eq_lane.sum(dim=1, dtype=I32)
+        s["z_sb"] = s["z_sb"] + sb_lane.sum(dim=1, dtype=I32)
+
+        def wit(lane, f):
+            return torch.where(lane, f, -1).amax(dim=1)
+        for key, lane, any_, f in (("z_eq_src", eq_lane, any_eq, inbox.src),
+                                   ("z_eq_slot", eq_lane, any_eq, slot_in),
+                                   ("z_sb_src", sb_lane, any_sb, inbox.src),
+                                   ("z_sb_bal", sb_lane, any_sb, bal_in)):
+            s[key] = torch.where(any_, wit(lane, f), s[key])
+        nack = _out((n, K_), asg.device, valid=eq_lane | sb_lane,
+                    dest=inbox.src, type=T_ERR, a=E_BYZANTINE, b=slot_in,
+                    c=bal_in)
+        return asg, nack
+
     def step(self, state, inbox, ctx):
         """(state, inbox Msgs [n, K], ctx) -> (state', outbox Msgs [n,
-        QP * AR + QP], + K lanes of T_NLDR with S > 1)."""
+        QP * AR + QP], + K lanes of T_NLDR with S > 1, + K lanes of
+        E_BYZANTINE NACKs with the adversary)."""
         stall, rnd = ctx.get("stall"), ctx["round"]
         if not K.use_kernel(inbox.valid):
             return freeze_step(stall, state,
@@ -1015,20 +1085,26 @@ class ProxyRole(NodeProgram):
             "p_valid": (torch.bool, (n, Q)), "p_learn": (torch.bool, (n, Q)),
             **{k: (I32, (n, Q)) for k in PROXY_KEYS[2:7]},
             "p_acks": (torch.bool, (n, Q, AR)),
-            **({"p_bal": (I32, (n, Q))} if elect else {})})
+            **({"p_bal": (I32, (n, Q))} if elect else {}),
+            **({k: (I32, (n,)) for k in Z_KEYS} if self.byz else {})})
         if max(Q, K_) > MAX_ROWS or Q * AR > 32768:
             raise ValueError(f"{kern.name}: proxy_slots {Q}, inbox {K_}, "
                              f"{AR} acks a row")
         dev = inbox.valid.device
         out = _new_msgs((n, self.outbox_cap), dev)
-        new = {k: torch.empty_like(state[k]) for k in keys}
+        # the conviction lanes ride behind a flag: with it off the
+        # evidence planes are null pointers
+        zkeys = Z_KEYS if self.byz else ()
+        new = {k: torch.empty_like(state[k]) for k in keys + zkeys}
+        z_ptrs = ([state[k].contiguous() for k in zkeys]
+                  + [new[k] for k in zkeys]) or [None] * (2 * len(Z_KEYS))
         ints = [n, K_, Q, AR, lay.A, lay.R, lay.rows, lay.cols]
         ints += ([lay.S, lay.s_base] if elect else [lay.leader])
         kern.launch(
             _in_ptrs(inbox) + [state[k].contiguous() for k in keys]
             + [_check_round(kern, rnd), _check_stall(kern, stall, n)]
-            + _out_ptrs(out) + [new[k] for k in keys],
-            ints + [lay.a_base, lay.r_base, lay.retry], dev)
+            + _out_ptrs(out) + [new[k] for k in keys] + z_ptrs,
+            ints + [lay.a_base, lay.r_base, lay.retry, int(self.byz)], dev)
         return new, out
 
 
@@ -1328,32 +1404,6 @@ class ReplicaRole(NodeProgram):
         return new, out
 
 
-def _byz_requested(opts) -> bool:
-    """Whether the run's fault set includes the byzantine adversary."""
-    pkg = opts.get("nemesis_pkg") or {}
-    faults = pkg.get("faults")
-    if faults is None:
-        faults = opts.get("nemesis")
-    if not faults:
-        return False
-    if isinstance(faults, str):
-        faults = faults.split(",")
-    return "byzantine" in set(faults)
-
-
-def checked_layout(opts, n_nodes) -> Layout:
-    """The cluster's `Layout`, or ValueError: the JAX layout's own
-    refusals, word for word, then what this port does not run (the
-    byzantine adversary), naming what brings it. `core.build_test` calls
-    it before any store dir is made."""
-    lay = Layout(opts, n_nodes)
-    if _byz_requested(opts):
-        raise ValueError(
-            "--nemesis byzantine on tpu:compartment is not ported to "
-            f"maelstrom_tpu_torch yet; it comes with {BYZANTINE}")
-    return lay
-
-
 @register
 class CompartmentProgram(LinKVWire, RolePartition):
     """`--node tpu:compartment`: the role-partitioned compartmentalized
@@ -1365,8 +1415,11 @@ class CompartmentProgram(LinKVWire, RolePartition):
     name = "compartment"
 
     def __init__(self, opts, nodes, device="cuda"):
-        lay = checked_layout(opts, len(nodes))
+        lay = Layout(opts, len(nodes))
         self.lay = lay
+        # the adversary's surfaces (byz_wire) and the proxies' evidence
+        # (byz_evidence) exist only when the fault set holds byzantine
+        self.byz = byz_enabled(opts)
         # the host's leader guess: where new client ops are routed,
         # moved by redirect hints, timeouts and the lease
         self._leader_guess = lay.leader
@@ -1433,6 +1486,49 @@ class CompartmentProgram(LinKVWire, RolePartition):
             return {"type": "error", "code": E_BYZANTINE,
                     "text": "byzantine", "slot": int(b), "bal": int(c)}
         return super().decode_body(t, a, b, c, intern)
+
+    # --- the byzantine adversary -------------------------------------------
+
+    def byz_wire(self):
+        """The pool-path corruption surface (`byzantine.corrupt_pool`,
+        K30), or None without the adversary: the culprit sequencer's
+        T_ASSIGN lanes. Equivocation xors the command's value byte with a
+        round-varying nonzero pattern, so any two emissions of one slot
+        and ballot conflict (a consistent lie would pass for an honest
+        assign); with S > 1 stale-ballot re-stamps the ballot outside the
+        sender's residue class. S == 1 has no ballot field."""
+        return PoolWire(T_ASSIGN, self.lay.S) if self.byz else None
+
+    def byz_evidence(self, nodes_host) -> list:
+        """The proxies' evidence planes as conviction triples: per rule
+        with a nonzero count, the loudest witness proxy names the culprit
+        (its last convicted source, else the raw index) and the evidence
+        (the count over the tier, the witness's slot or ballot, and the
+        earliest first-conviction round)."""
+        if not self.byz:
+            return []
+        px = nodes_host["proxies"]
+        out = []
+        for rule, cnt_key, src_key, ev_key, ev_name in (
+                ("equivocation", "z_eq", "z_eq_src", "z_eq_slot", "slot"),
+                ("stale-ballot", "z_sb", "z_sb_src", "z_sb_bal",
+                 "ballot")):
+            cnt = np.asarray(px[cnt_key])
+            if int(cnt.sum()) == 0:
+                continue
+            w = int(cnt.argmax())
+            src = int(np.asarray(px[src_key])[w])
+            culprit = (self.nodes[src] if 0 <= src < len(self.nodes)
+                       else src)
+            rnds = np.asarray(px[cnt_key + "_rnd"])
+            live = rnds[rnds >= 0]
+            out.append(conviction(
+                rule, culprit,
+                {"count": int(cnt.sum()),
+                 ev_name: int(np.asarray(px[ev_key])[w]),
+                 "round": int(live.min()) if live.size else -1},
+                witness=self.nodes[self.lay.p_base + w]))
+        return out
 
     def redirect_hint(self, body):
         """A leader-redirect error body -> the hinted node id (-1 = no

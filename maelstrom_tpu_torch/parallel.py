@@ -68,6 +68,11 @@ def _check_config(program, cfg: NetConfig, mesh) -> None:
             "make_cluster_round_fn: a device mesh comes with the "
             "multi-GPU slice (torch.distributed)")
     T.check_scope(cfg)
+    if cfg.enable_byz:
+        # the JAX package's words (its fleet runner refuses the same)
+        raise NotImplementedError(
+            "--nemesis byzantine does not compose with --fleet yet: run "
+            "the adversary on a standalone cluster (--fleet 1)")
     if not hasattr(program, "step_rows"):
         raise NotImplementedError(
             f"{program.name}: the cluster axis runs programs whose step "

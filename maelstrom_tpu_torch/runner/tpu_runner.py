@@ -41,10 +41,15 @@ client-side routing lease see the round at each boundary
 (`observe_round`), every reply (`note_reply`) and every timeout
 (`note_timeout`).
 
+Under `--nemesis byzantine` the nemesis installs each drawn attack plan
+in the adversary's carry (`_byz_surgery`, at a dispatch boundary as kill
+and pause land), `TpuByzantine` reads the program's evidence, and the
+injection ledger is read once at the end into `test["byz_injected"]`.
+
 Not ported here (their options are refused by the CLI, naming the slice
 that brings each): checkpoint/resume and preemption, the overlapped
-analysis pipeline, meshes and fleets, the byzantine adversary, and the
-static-audit and cost blocks of the results."""
+analysis pipeline, meshes and fleets, and the static-audit and cost
+blocks of the results."""
 
 from __future__ import annotations
 
@@ -57,6 +62,7 @@ import time
 import numpy as np
 import torch
 
+from .. import byzantine as BZ
 from .. import generators as g
 from .. import kernels as K
 from .. import store
@@ -119,18 +125,21 @@ def _np_dtype(dt: torch.dtype):
 
 class TpuCombinedNemesis(NemesisDecisions):
     """Applies the combined fault packages to the simulated network's
-    masks (the JAX runner's executor of the same name, without the
-    byzantine package): partitions install directional block matrices,
-    kill and pause set the per-node down and paused masks, duplicate
-    sets the duplication probability, weather the loss probability and
-    latency scale, and stop-kill restarts killed nodes from the durable
-    store (`NodeProgram.restore`). Decisions come from the seeded
-    streams of `NemesisDecisions`, so a seed gives the JAX runner's
-    fault schedule, op for op."""
+    masks (the JAX runner's executor of the same name): partitions
+    install directional block matrices, kill and pause set the per-node
+    down and paused masks, duplicate sets the duplication probability,
+    weather the loss probability and latency scale, stop-kill restarts
+    killed nodes from the durable store (`NodeProgram.restore`), and
+    start-byzantine installs a drawn attack plan in the adversary's
+    carry (stop-byzantine turns injection off). Decisions come from the
+    seeded streams of `NemesisDecisions`, so a seed gives the JAX
+    runner's fault schedule, op for op."""
 
-    def __init__(self, runner, nodes, seed=0, targets=None):
-        super().__init__(nodes, seed, targets=targets)
+    def __init__(self, runner, nodes, seed=0, targets=None, attacks=None,
+                 byz_rate=1.0):
+        super().__init__(nodes, seed, targets=targets, attacks=attacks)
         self.runner = runner
+        self.byz_rate = float(byz_rate)
         self.killed: list = []
         self.paused_nodes: list = []
         self._idx = {n: i for i, n in enumerate(self.nodes)}
@@ -196,6 +205,16 @@ class TpuCombinedNemesis(NemesisDecisions):
             base_s = float(r.test.get("latency_scale") or 1.0)
             r._net_surgery(lambda net: T.set_weather(net, base_p, base_s))
             return {**op, "type": "info", "value": "weather cleared"}
+        if f == "start-byzantine":
+            attack, culprit, delta = self.next_byz_plan()
+            ci, rate = self._idx[culprit], self.byz_rate
+            r._byz_surgery(
+                lambda byz: BZ.start_state(byz, attack, ci, delta, rate))
+            return {**op, "type": "info",
+                    "value": f"byzantine {attack} culprit={culprit}"}
+        if f == "stop-byzantine":
+            r._byz_surgery(BZ.stop_state)
+            return {**op, "type": "info", "value": "byzantine cleared"}
         raise ValueError(f"unknown nemesis op {f!r}")
 
 
@@ -361,6 +380,7 @@ class TpuRunner:
             partition_groups=n if "partition" in faults else 1,
             enable_stall=bool({"kill", "pause"} & faults),
             enable_duplication="duplicate" in faults,
+            enable_byz="byzantine" in faults,
             # batch rows (broadcast-batched) carry several client ops a
             # message: the net books units beside the message counts
             unit_words=tuple(getattr(self.program, "unit_words", ())
@@ -446,6 +466,17 @@ class TpuRunner:
         down and paused masks, duplication, weather) between dispatches."""
         self.sim = self.sim.replace(net=fn(self.sim.net))
         self._state_cache = None
+
+    def _byz_surgery(self, fn):
+        """Applies a host-side adversary update `byz -> byz'` (the start-
+        and stop-byzantine plans) between dispatches. `fn` builds new
+        scalar tensors: the carry is never changed in place, so a
+        snapshot the scan holds keeps its values."""
+        if self.sim.byz is None:
+            raise ValueError(
+                "byzantine nemesis op without enable_byz: the fault set "
+                "is static compile capability (TpuRunner._fault_set)")
+        self.sim = self.sim.replace(byz=fn(self.sim.byz))
 
     def restart_nodes(self, mask):
         """Crash-restart (stop-kill): masked nodes come back with their
@@ -633,8 +664,13 @@ class TpuRunner:
             getattr(prog, "fault_groups", lambda: {})(), self.nodes,
             dynamic=getattr(prog, "dynamic_fault_groups", lambda: ())())
         if (test.get("nemesis_pkg") or {}).get("generator") is not None:
-            self.nemesis = TpuCombinedNemesis(self, self.nodes, nem_seed,
-                                              targets=targets)
+            # not `or 1.0`: an explicit --byz-rate 0 sticks (detectors
+            # armed on honest traffic)
+            byz_rate = test.get("byz_rate")
+            self.nemesis = TpuCombinedNemesis(
+                self, self.nodes, nem_seed, targets=targets,
+                attacks=test.get("byz_attacks"),
+                byz_rate=1.0 if byz_rate is None else float(byz_rate))
             self.nemesis.resolve_dynamic = self._resolve_dynamic_target
         processes = list(range(C)) + ([g.NEMESIS] if self.nemesis else [])
         free = g.FreeSet(processes)
@@ -1339,6 +1375,10 @@ def run_tpu_test(test: dict, test_dir: str) -> dict:
     from ..checkers.availability import AvailabilityChecker
     test["checker"].checkers["net"] = TpuNetStats(runner)
     test["checker"].checkers["availability"] = AvailabilityChecker(runner)
+    if "byzantine" in runner.faults:
+        # convictions come from the program's evidence leaves
+        from ..checkers.byzantine import TpuByzantine
+        test["checker"].checkers["byzantine"] = TpuByzantine(runner)
     test["nemesis"] = (True if (test.get("nemesis_pkg") or {}).get(
         "generator") is not None else None)
     try:
@@ -1350,6 +1390,12 @@ def run_tpu_test(test: dict, test_dir: str) -> dict:
             runner.telemetry.flush(history, runner.final_round,
                                    ring=runner._ring_dict())
         test["transfer"] = runner.transfer
+        if runner.cfg.enable_byz and runner.sim.byz is not None:
+            # the run's injection ledger, read once off the device: the
+            # convictions are graded against what the kernels rewrote
+            inj = runner.transfer.fetch(runner.sim.byz["injected"])
+            test["byz_injected"] = {a: int(inj[i])
+                                    for i, a in enumerate(BZ.ATTACKS)}
         results = test["checker"].check(test, history, {})
     finally:
         # the trace lands even when the run fails (close is idempotent)

@@ -34,6 +34,7 @@ from dataclasses import dataclass
 
 import torch
 
+from . import byzantine as BZ
 from . import kernels as K
 from . import prng
 from . import telemetry as TM
@@ -75,9 +76,12 @@ def make_sim(program, cfg: NetConfig, seed: int = 0, device="cuda",
     nodes = program.init_state()
     key = prng.PRNGKey(seed, dev)
     tel = TM.make_ring(cfg, dev) if cfg.telemetry else None
+    # the adversary's carry only where the fault set holds byzantine: a
+    # benign carry is shaped as before
+    byz = BZ.init_state(dev) if cfg.enable_byz else None
     return SimState(net=T.make_net(cfg, dev), nodes=nodes, key=key,
                     channels=channels, durable=program.durable_view(nodes),
-                    telemetry=tel)
+                    telemetry=tel, byz=byz)
 
 
 def _freeze(stall, old, new):
@@ -452,6 +456,12 @@ def _round_pool(program, cfg: NetConfig, sim: SimState, inject: Msgs):
     if cfg.enable_stall:
         ctx["stall"] = sim.net.down | sim.net.paused
     nodes, outbox = program.step(sim.nodes, inbox, ctx)
+    byz = sim.byz
+    if cfg.enable_byz:
+        # the adversary rewrites the culprit's outbox rows (K30) after the
+        # step's freeze and before the send: the lie travels the pool
+        # with its loss, partitions and latency
+        byz, outbox = BZ.corrupt_pool(program, byz, outbox, net.round)
     flat = tree_map(lambda f: f.reshape((N * O,) + tuple(f.shape[2:])),
                     outbox)
     src = torch.arange(N, dtype=I32, device=flat.valid.device)
@@ -467,7 +477,8 @@ def _round_pool(program, cfg: NetConfig, sim: SimState, inject: Msgs):
                              sim.net.round, (flat.valid.reshape(N, O),),
                              inject_sent, client_msgs)
     return (SimState(net=net, nodes=nodes, key=keys[0].contiguous(),
-                     durable=program.durable_view(nodes), telemetry=tel),
+                     durable=program.durable_view(nodes), telemetry=tel,
+                     byz=byz),
             client_msgs, (inject_sent, outbox_sent, inbox))
 
 
@@ -656,6 +667,12 @@ def _round_edge(program, cfg: NetConfig, sim: SimState, inject: Msgs,
             _rows(sim.nodes, axis), edge_in, _rows(client_inbox, axis),
             net.round, keys[:, 2].contiguous())
         nodes = _unrows(nodes, axis)
+    byz = sim.byz
+    if cfg.enable_byz:
+        # the forged-proof surface: the culprit's batch acks (K31), after
+        # the step's freeze and before the compaction
+        byz, client_out = BZ.corrupt_edge(program, byz, client_out,
+                                          net.round)
 
     # client replies bypass the pool (clients have zero latency,
     # net.clj:177-186): valid rows are compacted into the client buffer
@@ -751,7 +768,7 @@ def _round_edge(program, cfg: NetConfig, sim: SimState, inject: Msgs,
                              inject_sent, flat)
     return (SimState(net=net, nodes=nodes, key=keys[..., 0, :].contiguous(),
                      channels=ch, durable=program.durable_view(nodes),
-                     telemetry=tel),
+                     telemetry=tel, byz=byz),
             client_msgs,
             (inject_sent, replies, client_inbox, edge_out, edge_in))
 

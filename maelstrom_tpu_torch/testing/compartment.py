@@ -3,7 +3,10 @@ CPU parity tests, the card's kernel tests (`tests/test_torch_kernels_gpu.py`)
 and the chip smoke's `election_kernels` phase: numpy fields of an inbox
 and a state that exercise every lane type the role reads and the parity
 hazards of K23-K29. `random_compartment_inputs` is the entry point; it
-hands an elected tier (S > 1) to `random_elect_inputs`."""
+hands an elected tier (S > 1) to `random_elect_inputs`.
+`random_byz_inputs` gives the same under the byzantine adversary: the
+proxies' evidence leaves and conflicting, stale and honest assigns, and
+the E_BYZANTINE NACKs that reach the sequencers."""
 
 from __future__ import annotations
 
@@ -313,4 +316,64 @@ def _elect_replica_inputs(rng, lay, n, inbox, ri):
              "r_client": ri(0, 0x1000, (n, C)),
              "r_mid": ri(-2, 1000, (n, C)), "r_has": has,
              "applied": applied, "kv": ri(0, 10, (n, keys))}
+    return inbox, state
+
+
+Z_KEYS = ("z_eq", "z_sb", "z_eq_src", "z_eq_slot", "z_eq_rnd", "z_sb_src",
+          "z_sb_bal", "z_sb_rnd")
+
+
+def random_byz_inputs(rng, role, lay, n, rnd):
+    """(inbox, state) as `random_compartment_inputs` gives them, under the
+    byzantine adversary. Proxies: the evidence leaves (counts 0 and not,
+    witnesses and stamps unset and set), and T_ASSIGN lanes rewritten as
+    equivocations (a live row's slot, with S > 1 its ballot, another
+    command), honest resends (the row's command), assigns at a ballot
+    beside the row's, and sources in and out of the ballot's residue
+    class. Sequencers: T_ERR / E_BYZANTINE NACK lanes, which no branch of
+    their step reads. The other roles as without the adversary."""
+    inbox, state = random_compartment_inputs(rng, role, lay, n, rnd)
+    shape = inbox["type"].shape
+    if role == "sequencers":
+        nack = rng.random(shape) < 0.25
+        inbox["type"] = np.where(nack, 1, inbox["type"]).astype(np.int32)
+        inbox["a"] = np.where(nack, 32, inbox["a"]).astype(np.int32)
+        return inbox, state
+    if role != "proxies":
+        return inbox, state
+    S, Q = lay.S, lay.QP
+    rows = np.arange(n)[:, None]
+    q = rng.integers(0, Q, shape)
+    row_slot, row_cmd = state["p_slot"][rows, q], state["p_cmd"][rows, q]
+    asg = inbox["type"] == 30
+    kind = rng.integers(0, 4, shape)    # 0 conflict, 1 resend, 2/3 as drawn
+    cmd = np.where(kind == 0, row_cmd ^ (1 << 8), np.where(
+        kind == 1, row_cmd, inbox["b"]))
+    inbox["b"] = np.where(asg, cmd, inbox["b"]).astype(np.int32)
+    if S > 1:
+        row_bal = state["p_bal"][rows, q]
+        bal = np.where(kind < 2, row_bal, np.where(
+            kind == 2, row_bal + 1, rng.integers(0, 1 << lay.bal_width,
+                                                 shape))) & 0x3F
+        client = (inbox["a"] >> 12) & 0xFFF
+        slot = np.where(kind < 3, row_slot, inbox["a"]) & 0xFFF
+        a = (bal << 24) | (client << 12) | slot
+        # honest sources (bal % S), and liars outside the residue class
+        src = np.where(rng.random(shape) < 0.7, bal % S,
+                       rng.integers(0, lay.n_nodes, shape))
+        inbox["src"] = np.where(asg, src, inbox["src"]).astype(np.int32)
+    else:
+        client = (inbox["a"] >> 16) & 0x7FFF
+        slot = np.where(kind < 3, row_slot, inbox["a"]) & 0x7FFF
+        a = (client << 16) | slot
+    inbox["a"] = np.where(asg, a, inbox["a"]).astype(np.int32)
+
+    def ri(lo, hi):
+        return rng.integers(lo, hi, (n,)).astype(np.int32)
+    fresh = rng.random(n) < 0.5        # no conviction yet
+    for k in ("z_eq", "z_sb"):
+        state[k] = np.where(fresh, 0, ri(1, 1 << 20)).astype(np.int32)
+    for k in Z_KEYS[2:]:
+        state[k] = np.where(fresh, -1, ri(0, 4096)).astype(np.int32)
+    state["z_eq"][rng.random(n) < 0.1] = INT32_MAX     # the count wraps
     return inbox, state

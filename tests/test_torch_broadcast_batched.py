@@ -167,9 +167,12 @@ def test_fresh_state_and_sizing_match_jax():
         == (jprog.lanes, jprog.per_nb, jprog.retry_rounds, jprog.max_batch,
             jprog.unit_words, jprog.reply_payload_words)
     assert pprog.edge_cfg == type(pprog.edge_cfg)(**vars(jprog.edge_cfg))
-    with pytest.raises(NotImplementedError, match="byzantine adversary"):
-        p_get_program("broadcast-batched", {"nemesis": {"byzantine"}},
-                      ["n0", "n1"], device="cpu")
+    # under the byzantine adversary the program names its forged-proof
+    # surface, the state and sizing unchanged; without it, none
+    byz = p_get_program("broadcast-batched", {"nemesis": {"byzantine"}},
+                        ["n0", "n1"], device="cpu")
+    assert byz.byz_wire_edge().msg_type == 21
+    assert pprog.byz_wire_edge() is None
 
 
 # name: (nodes, rounds, cfg flags, faults installed)

@@ -409,11 +409,16 @@ BASE = ["test", "-w", "lin-kv", "--node", "tpu:compartment", "--device",
      "mesh and fleet"),
     (["--election-timeout-rounds", "90", "--fleet", "2"],
      "mesh and fleet"),
-    (["--leader-lease-ms", "5", "--byz-rate", "0.5"],
-     "the byzantine adversary"),
+    # the byzantine cases refused what now runs: they keep their ids and
+    # check what stays refused beside the adversary
+    pytest.param(["--leader-lease-ms", "5", "--byz-rate", "0.5",
+                  "--fleet", "2"], "mesh and fleet",
+                 id="extra3-the byzantine adversary"),
     (["--client-retries", "2", "--check-workers", "2"],
      "the overlap pipeline"),
-    (["--nemesis", "kill,byzantine"], "the byzantine adversary"),
+    pytest.param(["--nemesis", "kill,byzantine", "--checkpoint-every",
+                  "0.5"], "checkpoint and resume",
+                 id="extra5-the byzantine adversary"),
     (["--ordering", "compartment", "--roles", "sequencers=2",
       "--resume", "x"], "checkpoint and resume")])
 def test_cli_refusals_name_their_slice(extra, what, tmp_path, capsys):
@@ -446,14 +451,15 @@ def test_cli_lifts_the_stable_leader_options():
 
 
 def test_program_refuses_an_elected_tier_and_the_adversary():
-    # an elected tier runs since the election slice; only a layout the
-    # JAX package refuses is refused, in its words
+    # an elected tier runs since the election slice, the adversary since
+    # the byzantine slice (the proxies then carry the evidence leaves);
+    # only a layout the JAX package refuses is refused, in its words
     prog = p_get_program("compartment", {"roles": "sequencers=2"},
                          [f"n{i}" for i in range(10)], device="cpu")
     assert prog.lay.S == 2 and prog.quiet_planes is None
-    with pytest.raises(ValueError, match="the byzantine adversary"):
-        p_get_program("compartment", {"nemesis": {"byzantine"}}, NODES9,
-                      device="cpu")
+    byz = p_get_program("compartment", {"nemesis": {"byzantine"}}, NODES9,
+                        device="cpu")
+    assert byz.byz and "z_eq" in byz.init_state()["proxies"]
     # the JAX layout's own refusals come first, word for word
     with pytest.raises(ValueError, match="ballot_width must be"):
         p_get_program("compartment", {"roles": "sequencers=2",

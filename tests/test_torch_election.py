@@ -518,15 +518,18 @@ def test_elected_layout_refusals_match_jax(opts):
 
 
 def test_byzantine_stays_refused_on_an_elected_tier(tmp_path, capsys):
-    with pytest.raises(ValueError, match="the byzantine adversary"):
-        p_get_program("compartment", {"roles": "sequencers=2",
-                                      "nemesis": {"kill", "byzantine"}},
-                      [f"n{i}" for i in range(10)], device="cpu")
+    # the adversary runs on an elected tier since the byzantine slice (the
+    # proxies carry the stale-ballot surface there); beside a fleet it
+    # stays refused, naming the slice that brings fleets
+    prog = p_get_program("compartment", {"roles": "sequencers=2",
+                                         "nemesis": {"kill", "byzantine"}},
+                         [f"n{i}" for i in range(10)], device="cpu")
+    assert prog.byz_wire().S == 2          # the stale-ballot surface too
     assert pcli.main(["test", "-w", "lin-kv", "--node", "tpu:compartment",
                       "--roles", "sequencers=2", "--nemesis",
-                      "kill,byzantine", "--device", "cpu", "--store",
-                      str(tmp_path)]) == 2
-    assert "the byzantine adversary" in capsys.readouterr().err
+                      "kill,byzantine", "--fleet", "2", "--device", "cpu",
+                      "--store", str(tmp_path)]) == 2
+    assert "mesh and fleet" in capsys.readouterr().err
     assert not os.listdir(tmp_path)
 
 

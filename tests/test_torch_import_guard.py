@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from maelstrom_tpu_torch import cli, core
-from maelstrom_tpu_torch.bench import (bench_checkers_record,
+from maelstrom_tpu_torch.bench import (bench_byzantine_record,
+                                       bench_checkers_record,
                                        bench_compartment_record,
                                        run_broadcast_batched_bench,
                                        run_broadcast_bench, run_raft_bench)
@@ -155,7 +156,13 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
                  lambda: cli.main(["test", "-w", "lin-kv", "--node",
                                    "tpu:compartment", "--store",
                                    str(tmp_path)]),
-                 lambda: bench_compartment_record(proxies=[1])):
+                 lambda: bench_compartment_record(proxies=[1]),
+                 lambda: cli.main(["test", "-w", "lin-kv", "--node",
+                                   "tpu:compartment", "--nemesis",
+                                   "byzantine", "--byz-attacks",
+                                   "equivocation", "--store",
+                                   str(tmp_path)]),
+                 lambda: bench_byzantine_record()):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert not any(tmp_path.iterdir())      # refused before any store dir
@@ -205,6 +212,15 @@ CPU_RUNS = {
     "compartment": {"workload": "lin-kv", "node": "tpu:compartment",
                     "roles": "proxies=1,acceptors=1x2,replicas=1",
                     "time_limit": 0.3, "rate": 20, "ms_per_round": 5.0},
+    # the byzantine adversary on an elected tier (stale ballots) and on
+    # the batched broadcast (forged proofs; the run itself fails)
+    "compartment-byzantine": {
+        "workload": "lin-kv", "node": "tpu:compartment",
+        "roles": "sequencers=2,proxies=1,acceptors=1x2,replicas=1",
+        "time_limit": 0.4, "rate": 20, "ms_per_round": 5.0,
+        "nemesis": {"byzantine"}, "nemesis_interval": 0.1,
+        "nemesis_targets": "byzantine=sequencers",
+        "byz_attacks": "stale-ballot"},
 }
 
 
@@ -217,5 +233,8 @@ def test_entry_points_run_on_the_cpu_when_asked(name, tmp_path):
         return
     res = core.run({**run, "device": "cpu", "store_root": str(tmp_path)})
     assert res["workload"]["valid"] is True and res["net"]["valid"] is True
-    if name not in ("lin-kv", "compartment"):
+    if name == "compartment-byzantine":
+        assert res["byzantine"]["valid"] is True
+        assert res["byzantine"]["injected"]["stale-ballot"] > 0
+    elif name not in ("lin-kv", "compartment"):
         assert res["valid"] is True

@@ -26,7 +26,11 @@ replicas, with and without the stall mask), and the compartment's role
 steps (K23-K26 with one sequencer; K27-K29 and K26 at the elected learn
 packing: every phase-1 lane type, QVAL ballot ties, prepares duplicate
 and stale, a query of a slot written the same round, done_bits backlogs
-past 8, ballots at the ballot-width limit).
+past 8, ballots at the ballot-width limit), and the byzantine
+adversary's kernels (K30, K31: every attack, the gate open and closed,
+culprits out of range, both round parities; K24 and K28 with the
+conviction lanes on: equivocating, stale-ballot and honest assigns, and
+the sequencers' steps on E_BYZANTINE NACK lanes).
 
 These tests need a CUDA device and skip without one. They import
 nothing of JAX, so they run on a machine without it:
@@ -1299,12 +1303,14 @@ def compartment_layout(roles, n_nodes=None, **opts):
 COMPARTMENT_ROLES = ("sequencers", "proxies", "acceptors", "replicas")
 
 
-def compartment_role(role, lay, n, device):
-    """The role program over `n` nodes of `lay`'s cluster."""
+def compartment_role(role, lay, n, device, byz=False):
+    """The role program over `n` nodes of `lay`'s cluster (with `byz`,
+    under the byzantine adversary)."""
     from maelstrom_tpu_torch.nodes import compartment as C
     cls = {"sequencers": C.SequencerRole, "proxies": C.ProxyRole,
            "acceptors": C.GridAcceptors, "replicas": C.ReplicaRole}[role]
-    return cls({}, [f"n{i}" for i in range(n)], lay, device=device)
+    opts = {"nemesis": {"byzantine"}} if byz else {}
+    return cls(opts, [f"n{i}" for i in range(n)], lay, device=device)
 
 
 # (roles spec, layout options, role, role nodes)
@@ -1456,3 +1462,128 @@ def test_replica_step_reads_the_elected_learn_word(cuda):
     _equal(*outs)
     new = outs[1][0]
     assert bool(new["r_has"][0, 3]) and int(new["r_client"][0, 3]) == 5
+
+
+# --- the byzantine adversary (K30, K31; K24 and K28's conviction lanes) -----
+
+BYZ_CASES = {k: v for k, v in {**COMPARTMENT_CASES, **ELECT_CASES}.items()
+             if k in ("seq-cli", "seq-bench", "proxy-cli", "proxy-wide",
+                      "proxy-r", "eseq-elect", "eseq-failover",
+                      "eproxy-elect", "eproxy-failover", "eproxy-odd")}
+
+
+def _byz_role_run(case, rnd, stalled, dev, byz=True, zero_evidence=False):
+    from maelstrom_tpu_torch import prng
+    from maelstrom_tpu_torch.testing.compartment import (Z_KEYS,
+                                                         random_byz_inputs)
+    roles, opts, role, n = BYZ_CASES[case]
+    lay = compartment_layout(roles, rate=20.0, time_limit=2.0, **opts)
+    rng = np.random.default_rng(n * 13 + rnd % 89 + int(stalled))
+    inbox, state = random_byz_inputs(rng, role, lay, n, rnd)
+    if not byz:
+        state = {k: v for k, v in state.items() if k not in Z_KEYS}
+    if zero_evidence:
+        inbox["valid"] &= inbox["type"] != 30     # nothing to convict
+    stall = rng.random(n) < 0.4
+    prog = compartment_role(role, lay, n, dev, byz=byz)
+    ctx = {"round": torch.tensor(rnd, dtype=torch.int32, device=dev),
+           "key": prng.PRNGKey(rnd + n, dev)}
+    if stalled:
+        ctx["stall"] = torch.tensor(stall, device=dev)
+    st = _tensors(state, dev)
+    return prog.step(st, Msgs(**_tensors(inbox, dev)), ctx), st, state
+
+
+@pytest.mark.parametrize("case", list(BYZ_CASES))
+@pytest.mark.parametrize("rnd", [0, 37, 1 << 20])
+@pytest.mark.parametrize("stalled", [False, True], ids=["", "stall"])
+def test_compartment_byz_steps_match_plain(cuda, case, rnd, stalled):
+    """K24 and K28 with the conviction lanes (and K23 and K27 on NACK
+    lanes) against their plain versions, no input updated."""
+    (got, st_g, state), (ref, _st, _s) = (
+        _byz_role_run(case, rnd, stalled, cuda),
+        _byz_role_run(case, rnd, stalled, "cpu"))
+    _equal(got, ref)
+    _equal(st_g, _tensors(state, "cpu"))
+
+
+@pytest.mark.parametrize("case", ["proxy-cli", "proxy-wide", "eproxy-elect",
+                                  "eproxy-failover"])
+@pytest.mark.parametrize("stalled", [False, True], ids=["", "stall"])
+def test_proxy_flag_off_launch_is_the_flag_on_one_without_evidence(
+        cuda, case, stalled):
+    """K24 and K28 with the flag off against the flag-on launch on the
+    same lanes when no assign is there to convict: the same table and
+    lanes, the NACK lanes all invalid and the evidence unchanged."""
+    (off, _s1, _st1) = _byz_role_run(case, 37, stalled, cuda, byz=False,
+                                     zero_evidence=True)
+    (on, _s2, st_on) = _byz_role_run(case, 37, stalled, cuda,
+                                     zero_evidence=True)
+    L = off[1].valid.shape[1]
+    assert not on[1].valid[:, L:].any()
+    _equal(tree_map(lambda t: t[:, :L], on[1]), off[1])
+    _equal({k: v for k, v in on[0].items() if k in off[0]}, off[0])
+    _equal({k: v for k, v in on[0].items() if k not in off[0]},
+           {k: torch.tensor(v) for k, v in st_on.items()
+            if k not in off[0]})
+
+
+def _byz_carry(rng, dev, attack, culprit, rate_q, active=1):
+    return {"active": torch.tensor(active, dtype=torch.int32, device=dev),
+            "attack": torch.tensor(attack, dtype=torch.int32, device=dev),
+            "culprit": torch.tensor(culprit, dtype=torch.int32, device=dev),
+            "delta": torch.tensor(int(rng.integers(1, 0x8000)),
+                                  dtype=torch.int32, device=dev),
+            "rate_q": torch.tensor(rate_q, dtype=torch.int32, device=dev),
+            "injected": torch.tensor(rng.integers(0, 1 << 20, 3),
+                                     dtype=torch.int32, device=dev)}
+
+
+def _byz_batch(rng, n, L, msg_type, dev):
+    return Msgs(**_tensors({
+        "valid": rng.random((n, L)) < 0.8,
+        "src": rng.integers(0, n, (n, L)).astype(np.int32),
+        "dest": rng.integers(0, n, (n, L)).astype(np.int32),
+        "due": np.zeros((n, L), np.int32),
+        "mid": rng.integers(0, 1000, (n, L)).astype(np.int32),
+        "reply_to": np.full((n, L), -1, np.int32),
+        "type": np.where(rng.random((n, L)) < 0.7, msg_type,
+                         rng.integers(0, 45, (n, L))).astype(np.int32),
+        "a": rng.integers(-2**31, 2**31 - 1, (n, L)).astype(np.int32),
+        "b": rng.integers(-2**31, 2**31 - 1, (n, L)).astype(np.int32),
+        "c": rng.integers(-2**31, 2**31 - 1, (n, L)).astype(np.int32)},
+        dev))
+
+
+@pytest.mark.parametrize("edge", [False, True], ids=["pool", "edge"])
+@pytest.mark.parametrize("n,L,S", [(1, 1, 1), (9, 44, 1), (6, 300, 2),
+                                   (100_000, 8, 3), (4, 2000, 5)])
+@pytest.mark.parametrize("attack", [0, 1, 2])
+@pytest.mark.parametrize("rnd", [0, 1, 1 << 20, 2**31 - 1])
+def test_byz_corrupt_matches_plain(cuda, edge, n, L, S, attack, rnd):
+    """K30 and K31 against their plain versions: the rewritten batch and
+    the new ledger, the carry unchanged; rates 0, 1, 999 and 1000
+    permille, culprits -1, in range and past the rows, inactive."""
+    from maelstrom_tpu_torch import byzantine as BZ
+    from maelstrom_tpu_torch.nodes.broadcast_batched import T_BATCH_OK
+    from maelstrom_tpu_torch.nodes.compartment import T_ASSIGN
+    rng = np.random.default_rng(n + L + attack + rnd % 1000)
+    wire = BZ.EdgeWire(T_BATCH_OK) if edge else BZ.PoolWire(T_ASSIGN, S)
+    kern, plain = ((K.BYZ_CORRUPT_EDGE, BZ.corrupt_edge_plain) if edge
+                   else (K.BYZ_CORRUPT_POOL, BZ.corrupt_pool_plain))
+    fn = BZ.corrupt_edge if edge else BZ.corrupt_pool
+    hook = "byz_wire_edge" if edge else "byz_wire"
+    prog = type("P", (), {hook: lambda self: wire})()
+    for rate_q in (0, 1, 999, 1000):
+        for culprit, active in ((n - 1, 1), (0, 1), (-1, 1), (n, 1),
+                                (n // 2, 0)):
+            carry = _byz_carry(rng, cuda, attack, culprit, rate_q, active)
+            batch = _byz_batch(rng, n, L, wire.msg_type, cuda)
+            r = torch.tensor(rnd, dtype=torch.int32, device=cuda)
+            ref = plain(wire, to(carry, "cpu"), to(batch, "cpu"), r.cpu())
+            keep = tree_map(lambda t: t.clone(), carry)
+            before = kern.launches
+            got = fn(prog, carry, batch, r)
+            assert kern.launches == before + 1
+            _equal(got, ref)
+            _equal(carry, keep)        # the carry is not updated

@@ -130,15 +130,12 @@ def test_net_helpers_match_jax():
 
 
 def test_scope_guards_raise():
-    """The adversary part is refused; the fault paths, the
-    batched-broadcast unit accounting and the telemetry ring the port
-    has are not."""
-    for kw in ({"enable_byz": True},):
-        with pytest.raises(NotImplementedError):
-            PT.check_scope(PT.NetConfig(n_nodes=4, **kw))
+    """An unknown latency distribution is refused; the fault paths, the
+    batched-broadcast unit accounting, the telemetry ring and (since the
+    byzantine slice) the adversary are not."""
     for kw in ({"latency_dist": "uniform"}, {"enable_duplication": True},
                {"enable_stall": True}, {"partition_groups": 2},
-               {"unit_words": ((10, 0),)},
+               {"unit_words": ((10, 0),)}, {"enable_byz": True},
                {"telemetry": True, "telemetry_roles": ((0, 4),)}):
         PT.check_scope(PT.NetConfig(n_nodes=4, **kw))
     with pytest.raises(ValueError, match="latency dist"):

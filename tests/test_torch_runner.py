@@ -133,8 +133,12 @@ def test_free_set_rotation_matches_sorted_list():
 
 
 @pytest.mark.parametrize("extra,slice_", [
-    (["--nemesis", "byzantine"], "the byzantine adversary"),
-    (["--nemesis", "kill,byzantine"], "the byzantine adversary"),
+    # the cases that refused the byzantine adversary, which now runs, keep
+    # their ids and check what stays refused beside it
+    pytest.param(["--nemesis", "byzantine", "--fleet", "2"],
+                 "mesh and fleet", id="extra0-the byzantine adversary"),
+    pytest.param(["--nemesis", "kill,byzantine", "--mesh", "1,2"],
+                 "mesh and fleet", id="extra1-the byzantine adversary"),
     # the cases that refused what now runs (--nemesis-targets, lin-tso,
     # --ordering compartment's slice name, the compartment, its elected
     # tier, --client-retries) keep their ids and check what stays refused
@@ -143,7 +147,9 @@ def test_free_set_rotation_matches_sorted_list():
                   "sequencers=2", "--checkpoint-every", "1"],
                  "checkpoint and resume",
                  id="extra2-the role-partitioned programs"),
-    (["--byz-rate", "0.5"], "the byzantine adversary"),
+    pytest.param(["--byz-rate", "0.5", "--checkpoint-every", "1"],
+                 "checkpoint and resume",
+                 id="extra3-the byzantine adversary"),
     pytest.param(["--client-retries", "3", "--sessions", "columnar"],
                  "mesh and fleet", id="extra4-retries and backoff"),
     # the cases that refused what now runs (--continuous, --telemetry)
@@ -176,11 +182,12 @@ def test_free_set_rotation_matches_sorted_list():
                  "mesh and fleet",
                  id="extra14-the Raft transaction programs"),
     pytest.param(["-w", "lin-tso", "--node", "tpu:services",
-                  "--leader-lease-ms", "5", "--nemesis", "byzantine"],
-                 "the byzantine adversary",
+                  "--leader-lease-ms", "5", "--nemesis", "byzantine",
+                  "--resume", "x"], "checkpoint and resume",
                  id="extra14-lin-mutex and lin-tso"),
     pytest.param(["-w", "lin-mutex", "--node", "tpu:lin-kv", "--nemesis",
-                  "byzantine"], "the byzantine adversary",
+                  "byzantine", "--byz-attacks", "equivocation", "--bin",
+                  "demo/python/lin_kv.py"], "the host-process path",
                  id="extra16-lin-mutex on tpu:lin-kv"),
 ])
 def test_cli_refuses_options_out_of_scope(extra, slice_, tmp_path,
