@@ -110,7 +110,21 @@ honest traffic) whose histories, verdicts and `byzantine` blocks must
 equal the JAX runner's (`PINNED_BYZANTINE`), and bench.py's conviction
 record at full width (`python -m maelstrom_tpu_torch.bench
 --byzantine`), whose windows, ledger, convictions, latency and ok ops
-must equal the JAX runner's (`PINNED_BYZANTINE_BENCH`).
+must equal the JAX runner's (`PINNED_BYZANTINE_BENCH`). Then the fleet
+slice: K32 fleet_hold over the 10,000-cluster lin-kv carry and the fleet
+bench's, K33 wave_reduce at 64, 512 and 10,000 clusters, and the fleet
+forms of K1/K2/K9 ([F] rounds), K3 (rows, with the stall mask), K5, K6,
+K7 ([F, 2] keys) and K8 (F-led) at 10,000 x 5 nodes against their plain
+versions; five fleets through `core.run` (64 broadcast clusters, the
+lin-kv nemesis sweep under partitions, broadcast and lin-kv under the
+soup, a capacity sweep) whose every cluster's history must hash to the
+JAX fleet runner's (`PINNED_FLEET`), with K32 twice a lockstep round,
+K33 once a poll pass of the 64-cluster run, and one cluster of three
+runs equal to its standalone run;
+and bench.py's fleet record at 1 to 10,000 clusters (`python -m
+maelstrom_tpu_torch.bench --fleet`), every size converged, the message
+counts JAX's where the CPU pins them (`PINNED_FLEET_BENCH`), with a
+profile of its dispatch at 64 and 10,000 clusters.
 The runs (the CLI, the benches and the sweeps) go in eight groups side
 by side, seven of them in worker processes the script starts and waits
 for (`--worker`), each phase counting the launches of its own runs; the
@@ -5831,6 +5845,537 @@ def phase_bench_byzantine(smi):
 # 112 s, byz-stale and byz-forge 186 s, in two more groups). The profiles
 # and the kernel times come after every group has ended, with the card
 # to themselves.
+# --- the fleet slice ---------------------------------------------------------
+#
+# `--fleet N`: N clusters in lockstep through the fleet scan (K32 holds the
+# lanes that must not move, K5's fleet form keeps a reply log a lane), the
+# cluster axis under faults (K1/K2/K9 with [F] rounds, K3 over rows, K7 over
+# [F, 2] keys, K8 F-led), the fleet's [F] quiescence flags (K6's fleet
+# form) and its session table's wave pass (K33, from 64 clusters on).
+
+FLEET_KERNELS = ("fleet_hold", "wave_reduce", "reply_log_fleet",
+                 "quiet_probe_fleet")
+FLEET_PATH_KERNELS = ("fleet_hold", "reply_log_fleet", "edge_read",
+                      "edge_write", "reply_compact", "threefry")
+# the runs go through `core.run` (broadcast's recovery wait cut to 1 s,
+# which the CLI has no flag for; lin-kv's RPC timeouts to 1 s)
+FLEET_B = {"workload": "broadcast", "node": "tpu:broadcast",
+           "node_count": 5, "rate": 10.0, "seed": 7, "recovery_s": 1.0}
+FLEET_L = {"workload": "lin-kv", "node": "tpu:lin-kv", "node_count": 3,
+           "rate": 10.0, "seed": 11, "timeout_ms": 1000.0}
+FLEET_SOUP = {"nemesis": {"kill", "pause", "partition", "duplicate"},
+              "nemesis_interval": 0.4, "timeout_ms": 1000.0}
+CLI_FLEET = [
+    # uniform latency at 50 ops/s: each cluster's draws are its seed's,
+    # and reads catch values in flight, so the histories differ
+    ("bcast64-seed", {**FLEET_B, "rate": 50.0, "time_limit": 1.0,
+                      "latency": {"mean": 5, "dist": "uniform"},
+                      "fleet": 64}),
+    ("linkv8-nemesis-partition",
+     {**FLEET_L, "time_limit": 1.0, "fleet": 8, "fleet_sweep": "nemesis",
+      "nemesis": {"partition"}, "nemesis_interval": 0.3}),
+    ("bcast4-soup", {**FLEET_B, **FLEET_SOUP, "time_limit": 1.2,
+                     "fleet": 4}),
+    ("linkv4-soup", {**FLEET_L, **FLEET_SOUP, "time_limit": 1.2,
+                     "fleet": 4}),
+    ("bcast4-capacity", {**FLEET_B, "time_limit": 1.0, "fleet": 4,
+                         "fleet_sweep": "capacity"}),
+]
+# the cluster of a run whose standalone run the card runs too (the
+# broadcast soup's clusters are held to the JAX fleet's pins here, and to
+# their solos by tests/test_torch_fleet_faults.py on the CPU: its solo
+# would make the fleet's group the smoke's longest)
+FLEET_SOLOS = {"bcast64-seed": 63, "linkv8-nemesis-partition": 7,
+               "linkv4-soup": 2, "bcast4-capacity": 3}
+# every cluster's history.jsonl: the first 16 hex digits of its sha256, from
+# the JAX package's fleet runner (`maelstrom_tpu.core.run` with the audit
+# and the overlap pipeline off) on the CPU:
+#   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_fleet_faults.py \
+#       -m slow -k pins
+PINNED_FLEET = {
+    # 60 of the 64 clusters give one history; clusters 5, 14, 21, 45
+    # their own
+    "bcast64-seed": [{5: "8b5228a848fc315d", 14: "8b5228a848fc315d",
+                      21: "8b5228a848fc315d", 45: "b28d4a0ad2519e43"}.get(
+                          i, "a6cf57f21d4ef881") for i in range(64)],
+    "linkv8-nemesis-partition": [
+        "1d802e9d1ae63cc1", "519913c5bd41f69f", "424c27d6586058a3",
+        "d748d7b93f7c3c92", "be4c40a7948bf230", "dc8a9fdca187e421",
+        "cf82403e232c8d4c", "9b6e4076d7407c5a"],
+    "bcast4-soup": [
+        "0bf4dc3c053e5717", "d51f3c8ac5c3002f", "bccde50f30018ad3",
+        "e84acaeb4ba63e45"],
+    "linkv4-soup": [
+        "e00cfad3fd72ea30", "f5bb320fe74d6476", "626949c1e5203f32",
+        "34a32872fcc8a979"],
+    "bcast4-capacity": [
+        "2f50ee75b4013750", "504fc9007ae87bda", "1c7b18a3ea607df9",
+        "f9f0ce6f6d34b941"],
+}
+# bench.py's `bench_fleet_record`: messages delivered over the fleet at
+# the sizes the CPU pins (the same 5-node grid, 8 dispatches of 64 rounds),
+# from `maelstrom_tpu` on the CPU (the same slow test)
+PINNED_FLEET_BENCH = {1: 176, 8: 1_408, 64: 11_264}
+FLEET_SHAPE = {"clusters": 10_000, "nodes": 5}
+WAVE_SHAPES = (64, 512, 10_000)
+WAVE_CONCURRENCY = 5
+
+
+def _fleet_digests(d, F):
+    import hashlib
+    out = []
+    for i in range(F):
+        with open(os.path.join(d, f"cluster-{i:04d}", "history.jsonl"),
+                  "rb") as f:
+            out.append(hashlib.sha256(f.read()).hexdigest()[:16])
+    return out
+
+
+def _fleet_run(opts, store):
+    """A run (a fleet, or one cluster alone) through `core.run` in this
+    process; returns (results, store dir, timing, wall s)."""
+    import contextlib
+    from maelstrom_tpu_torch import core
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        res = core.run({**opts, "store_root": store})
+    wall = time.perf_counter() - t0
+    d = os.path.realpath(os.path.join(store, "latest"))
+    with open(os.path.join(d, "timing.json")) as f:
+        timing = json.load(f)
+    return res, d, timing, wall
+
+
+def phase_cli_fleet(smi):
+    """The port's fleets on the card (`core.run` with `fleet`, as `test
+    --fleet N` runs them), launch counters set to 0 just before and read
+    just after: every cluster's history must hash to the JAX fleet
+    runner's (`PINNED_FLEET`), the 64-cluster run must launch K33 (its
+    session table's wave pass) once a wave, and one cluster of each run
+    must equal its standalone run on the card (`FLEET_SOLOS`)."""
+    import hashlib
+    import shutil
+    from maelstrom_tpu_torch import core
+    from maelstrom_tpu_torch import kernels as K
+    store = os.path.join(ROOT, "store", "chip_smoke_fleet")
+    shutil.rmtree(store, ignore_errors=True)
+    K.reset_launches()
+    runs, digests = {}, {}
+    for name, opts in CLI_FLEET:
+        F = opts["fleet"]
+        k32, k33 = K.FLEET_HOLD.launches, K.WAVE_REDUCE.launches
+        res, d, tm, wall = _fleet_run(opts, store)
+        got = _fleet_digests(d, F)
+        digests[name] = got
+        check(res["fleet"] == F, f"cli {name}: {res.get('fleet')} clusters")
+        check(got == PINNED_FLEET[name],
+              f"cli {name}: cluster histories {got}, the JAX fleet's "
+              f"{PINNED_FLEET[name]}")
+        for c in res["clusters"]:
+            check(c["net"]["dropped-overflow"] == 0,
+                  f"cli {name}: pool overflow in cluster {c['cluster']}")
+        waves = tm["waves"]
+        check(waves > 0 and tm["scan-rounds"] > 0, f"cli {name}: {tm}")
+        # host reads: a packed fetch a wave and the scan's live-lane
+        # reads, never one a cluster-round
+        check(tm["drains"] < tm["lane-rounds"] / 2,
+              f"cli {name}: {tm['drains']} drains for "
+              f"{tm['lane-rounds']} cluster-rounds")
+        runs[name] = {
+            "fleet": F, "wall_s": wall, "valid": res["valid"],
+            "cluster_valid": sum(bool(c["valid"]) for c in res["clusters"]),
+            "waves": waves, "poll_passes": tm["poll-passes"],
+            "dispatches": tm["dispatches"],
+            "scan_rounds": tm["scan-rounds"],
+            "lane_rounds": tm["lane-rounds"],
+            "max_final_round": max(res["final-rounds"]),
+            "scan_host_syncs": tm["scan-host-syncs"],
+            "hold_row_bytes": tm["hold-row-bytes"],
+            "quiet_probes": tm["quiet-probes"], "bumps": tm["bumps"],
+            "session_device_waves": tm["session-device-waves"],
+            "fleet_hold_launches": K.FLEET_HOLD.launches - k32,
+            "wave_reduce_launches": K.WAVE_REDUCE.launches - k33,
+            "host_ms_per_wave": 1e3 * tm["run-s"] / waves,
+            "ms_per_scan_round": 1e3 * tm["run-s"] / tm["scan-rounds"],
+            "drains": tm["drains"],
+            "history_sha256_equal": True}
+        check(runs[name]["fleet_hold_launches"] == 2 * tm["scan-rounds"],
+              f"cli {name}: K32 launched "
+              f"{runs[name]['fleet_hold_launches']} times for "
+              f"{tm['scan-rounds']} lockstep rounds")
+        if F >= 64:
+            # the session table's wave pass: once a poll pass (the waves
+            # and the last pass, which finds every cluster done)
+            check(runs[name]["wave_reduce_launches"] == tm["poll-passes"],
+                  f"cli {name}: K33 launched "
+                  f"{runs[name]['wave_reduce_launches']} times for "
+                  f"{tm['poll-passes']} poll passes")
+    launches = K.launch_counts()
+    for k in FLEET_PATH_KERNELS + FLEET_KERNELS + (
+            "raft_step", "broadcast_step", "broadcast_step_stall",
+            "edge_faults", "edge_write_spill"):
+        check(launches[k] > 0, f"the fleet runs did not launch {k}: "
+              f"{launches}")
+    # one cluster of each run alone on the card: its standalone run
+    for name, opts in CLI_FLEET:
+        if name not in FLEET_SOLOS:
+            continue
+        i = FLEET_SOLOS[name]
+        solo = core.FleetSpec.from_test(opts).cluster_opts(opts, i)
+        _res, d, _tm, wall = _fleet_run(solo, store)
+        with open(os.path.join(d, "history.jsonl"), "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()[:16]
+        check(digest == digests[name][i],
+              f"cli {name}: cluster {i} {digests[name][i]}, its "
+              f"standalone run {digest}")
+        runs[name]["solo"] = {"cluster": i, "wall_s": wall,
+                              "history_sha256_equal": True}
+    shutil.rmtree(store, ignore_errors=True)
+    emit({"phase": "cli_fleet", "runs": runs, "launches": launches,
+          "nvidia_smi": smi})
+    return launches
+
+
+def phase_bench_fleet(smi):
+    """The port's fleet record (`python -m maelstrom_tpu_torch.bench
+    --fleet`) at 1, 8, 64, 512 and 10,000 clusters: every size
+    converged with nothing dropped, and the messages delivered equal to
+    the JAX package's record at the sizes the CPU pins."""
+    from maelstrom_tpu_torch import kernels as K
+    from maelstrom_tpu_torch.bench import bench_fleet_record
+    K.reset_launches()
+    rec = bench_fleet_record(device="cuda")
+    launches = K.launch_counts()
+    check(rec["valid"], f"bench_fleet: {rec}")
+    for r in rec["sizes"]:
+        pin = PINNED_FLEET_BENCH.get(r["fleet"])
+        if pin is not None:
+            check(r["messages_delivered"] == pin,
+                  f"bench_fleet {r['fleet']}: {r['messages_delivered']} "
+                  f"messages, JAX's {pin}")
+            r["messages_equal_jax"] = True
+    for k in ("fleet_hold", "reply_log_fleet", "broadcast_step"):
+        check(launches[k] > 0, f"bench_fleet did not launch {k}")
+    emit({"phase": "bench_fleet", **rec, "launches": launches,
+          "nvidia_smi": smi})
+    return launches
+
+
+def _fleet_carry(kind, F):
+    """A fleet's batched state at F clusters: Raft lin-kv's (5 nodes, the
+    CLI's pool and client widths) or the fleet bench's broadcast grid."""
+    from maelstrom_tpu_torch.net import tpu as T
+    from maelstrom_tpu_torch.parallel import make_fleet_sims
+    from maelstrom_tpu_torch.nodes import get_program
+    n = FLEET_SHAPE["nodes"]
+    nodes = [f"n{i}" for i in range(n)]
+    if kind == "lin-kv":
+        prog = get_program("lin-kv", {"latency": {"mean": 0}}, nodes,
+                           device="cuda")
+        cfg = T.NetConfig(n_nodes=n, n_clients=n, pool_cap=64,
+                          inbox_cap=prog.inbox_cap, client_cap=2 * n)
+    else:
+        prog = get_program("broadcast", {"topology": "grid",
+                                         "max_values": 8,
+                                         "latency": {"mean": 0},
+                                         "eager_resend": True}, nodes,
+                           device="cuda")
+        cfg = T.NetConfig(n_nodes=n, n_clients=1, pool_cap=64,
+                          inbox_cap=prog.inbox_cap, client_cap=0)
+    return prog, cfg, make_fleet_sims(prog, cfg, list(range(F)),
+                                      device="cuda")
+
+
+def fleet_kernel_checks(timed):
+    """K32 at 10,000 clusters over the lin-kv carry and the fleet bench's,
+    K33 at 64, 512 and 10,000 clusters of 5 clients, and the fleet forms
+    of K1/K2/K9 ([F] rounds), K3 (rows, with the stall mask), K5, K6, K7
+    ([F, 2] keys, [F] probabilities and scales) and K8 (F-led) at 10,000
+    x 5 nodes, each against its plain version on the card. Returns
+    {kernel@shape: {max_abs_err, bound_ms, bound_by[, ms, plain_ms]}}."""
+    import torch
+    from maelstrom_tpu_torch import kernels as K
+    from maelstrom_tpu_torch import parallel as PP
+    from maelstrom_tpu_torch import prng
+    from maelstrom_tpu_torch import sim as S
+    from maelstrom_tpu_torch.net import static
+    from maelstrom_tpu_torch.net import tpu as T
+    from maelstrom_tpu_torch.nodes import get_program
+    from maelstrom_tpu_torch.runner.sessions import wave_reduce
+    from maelstrom_tpu_torch.runner.tpu_runner import quiet_probe_fleet
+    from maelstrom_tpu_torch.tree import leaves, tree_map
+    g = torch.Generator(device="cuda")
+    g.manual_seed(15)
+    out = {}
+    F, n = FLEET_SHAPE["clusters"], FLEET_SHAPE["nodes"]
+
+    def record(name, got, ref, n_bytes, n_ops, fn_k, fn_p, extra=None):
+        torch.cuda.synchronize()
+        err = max_abs_err(got, ref)
+        check(err == 0, f"{name} differs from its plain version (max abs "
+              f"err {err})")
+        b, by = bound_of(n_bytes, n_ops)
+        r = {"max_abs_err": err, "bound_ms": b, "bound_by": by,
+             **(extra or {})}
+        if timed:
+            r["ms"] = cuda_ms(fn_k)
+            with K.forced_plain():
+                r["plain_ms"] = cuda_ms(fn_p)
+        out[name] = r
+
+    def both(fn):
+        got = fn()
+        with K.forced_plain():
+            ref = fn()
+        return got, ref
+
+    # K32 over the two carries: 30% of the lanes held
+    live = torch.rand(F, generator=g, device="cuda") >= 0.3
+    held = int((~live).sum())
+    for kind in ("lin-kv", "broadcast"):
+        _prog, _cfg, old = _fleet_carry(kind, F)
+        parts = [old.net, old.nodes, old.key, old.channels]
+        olds = [t for p in parts for _q, t in leaves(p)]
+
+        def bump(t):
+            return ~t if t.dtype == torch.bool else (
+                t.view(torch.int32) + 1).view(t.dtype) \
+                if t.element_size() == 4 else t + 1
+        news = {d: [bump(t) for t in olds] for d in ("k", "p")}
+        S.fleet_hold(live, list(zip(news["k"], olds)))
+        with K.forced_plain():
+            S.fleet_hold(live, list(zip(news["p"], olds)))
+        row = sum(t.numel() // F * t.element_size() for t in olds)
+        node_row = sum(t.numel() // F * t.element_size()
+                       for _q, t in leaves(old.nodes))
+        record(f"fleet_hold@{kind}10k", tuple(news["k"]), tuple(news["p"]),
+               2 * held * row + F, 0,
+               lambda: S.fleet_hold(live, list(zip(news["k"], olds))),
+               lambda: S.fleet_hold(live, list(zip(news["p"], olds))),
+               {"clusters": F, "held": held, "row_bytes": row,
+                "node_row_bytes": node_row, "carry_bytes": row * F,
+                "leaves": len(olds)})
+        del old, olds, news
+
+    # K33 at the fleet sizes, C = 5: S = 10 pending slots, R = 8 requeue
+    C = WAVE_CONCURRENCY
+    Sl, Rl = max(2 * C, 8), max(C, 8)
+    for Fw in WAVE_SHAPES:
+        p_mid = torch.where(
+            torch.rand((Fw, Sl), generator=g, device="cuda") < 0.4,
+            torch.randint(0, 10**6, (Fw, Sl), generator=g, device="cuda"),
+            -1).to(torch.int32)
+        p_dl = torch.randint(0, 2**31 - 1, (Fw, Sl), generator=g,
+                             device="cuda", dtype=torch.int32)
+        r_valid = torch.rand((Fw, Rl), generator=g, device="cuda") < 0.2
+        r_due = torch.randint(0, 2**31 - 1, (Fw, Rl), generator=g,
+                              device="cuda", dtype=torch.int32)
+
+        def k33(a=(p_mid, p_dl, r_valid, r_due)):
+            return wave_reduce(*a)
+        got, ref = both(k33)
+        # bytes: p_mid and p_dl (8 a pending slot), r_valid and r_due (5
+        # a requeue slot), dl and due written (8 a cluster)
+        record(f"wave_reduce@{Fw}", got, ref, Fw * (8 * Sl + 5 * Rl + 8),
+               Fw * (2 * Sl + 2 * Rl), k33, k33, {"clusters": Fw,
+                                                   "S": Sl, "R": Rl})
+
+    # the cluster axis under faults at 10,000 x 5: a faulted fleet state
+    # whose channels a few rounds filled
+    nodes = [f"n{i}" for i in range(n)]
+    for dist in ("constant", "uniform"):
+        prog = get_program("broadcast", {"topology": "grid",
+                                         "max_values": 32,
+                                         "latency": {"mean": 2,
+                                                     "dist": dist},
+                                         "nemesis": {"duplicate"}},
+                           nodes, device="cuda")
+        cfg = T.NetConfig(n_nodes=n, n_clients=5, pool_cap=64,
+                          inbox_cap=prog.inbox_cap, client_cap=10,
+                          latency_mean_rounds=2.0, latency_dist=dist,
+                          partition_groups=n, enable_stall=True,
+                          enable_duplication=True)
+        sims = PP.make_fleet_sims(prog, cfg, list(range(F)), device="cuda")
+        net = sims.net
+        comp = torch.zeros_like(net.component)
+        comp[:, :n] = torch.randint(0, 2, (F, n), generator=g,
+                                    device="cuda")
+        sims = sims.replace(net=net.replace(
+            round=torch.randint(0, 99, (F,), generator=g, device="cuda",
+                                dtype=torch.int32),
+            p_loss=torch.full((F,), 0.03, device="cuda"),
+            p_dup=torch.full((F,), 0.25, device="cuda"),
+            latency_scale=torch.rand(F, generator=g, device="cuda") + 0.5,
+            component=comp,
+            down=torch.rand((F, n), generator=g, device="cuda") < 0.2,
+            paused=torch.rand((F, n), generator=g, device="cuda") < 0.15))
+        fn = PP.make_cluster_round_fn(prog, cfg, device="cuda")
+        for _ in range(4):
+            sims = fn(sims, T.Msgs.empty((F, 5), "cuda"))[0]
+        axis = PP.cluster_axis(prog, F)
+        ecfg = axis.ecfg
+        rnd = sims.net.round
+        ch = sims.channels
+        rows = (F * n, prog.D, ecfg.ring, ecfg.lanes)
+        ch_rows = ch.replace(**{f: getattr(ch, f).reshape(rows)
+                                for f in ("valid", "type", "a", "b", "c")})
+        tag = "spill" if ecfg.spill else "fixed"
+        if dist == "constant":
+            # K1 with [F] rounds
+            def k1(c=ch_rows):
+                return static.edge_read(ecfg, clone(c), axis.neighbors,
+                                        axis.rev, rnd)
+            got, ref = both(k1)
+            lanes = F * n * prog.D * ecfg.lanes
+            record("edge_read@fleet10k", got, ref, lanes * 2 * 17 + F * 4,
+                   0, k1, k1, {"rows": F * n, "lanes": lanes})
+        eo = _random_edge_msgs(g, (F * n, prog.D, prog.lanes), 32,
+                               prog.n_windows)
+        lat = torch.randint(0, 4, (F * n, prog.D, prog.lanes), generator=g,
+                            device="cuda", dtype=torch.int32)
+        mask = torch.rand((F * n, prog.D, 1), generator=g,
+                          device="cuda") < 0.8
+
+        def k2(c=ch_rows):
+            return static.edge_write(ecfg, clone(c), eo, rnd, lat, mask)
+        got, ref = both(k2)
+        lanes = F * n * prog.D * prog.lanes
+        # bytes: every out lane's valid and latency, the [F * n, D] mask
+        # and the [F] rounds; for each written lane its 4 fields read and
+        # 17 bytes of the cell written, and K2 its cell's valid byte (the
+        # overwrite count), K9 its cell's Lc valid bytes (the occupancy)
+        ok_lanes = int((eo.valid & mask).sum())
+        record(f"edge_write{'_spill' if ecfg.spill else ''}@fleet10k",
+               got, ref, lanes * (1 + 4) + F * n * prog.D + F * 4
+               + ok_lanes * (16 + 17 + (ecfg.lanes if ecfg.spill else 1)),
+               0, k2, k2, {"rows": F * n, "channel": tag})
+        if dist == "constant":
+            continue
+        # K3 over the rows with the stall mask
+        st = sims.nodes
+        rows_state = {k: v.reshape((F * n,) + tuple(v.shape[2:]))
+                      for k, v in st.items()}
+        ein = _random_edge_msgs(g, (F * n, prog.D, ecfg.lanes), 32,
+                                prog.n_windows)
+        cin = _random_client(g, F * n, prog.inbox_cap, 32, 0.05)
+        stall = (sims.net.down | sims.net.paused).reshape(-1)
+        keys2 = prng.split(sims.key, 2)[:, 0].contiguous()
+
+        def k3():
+            return prog.step_rows(rows_state, ein, cin, rnd, keys2, stall)
+        got, ref = both(k3)
+        so, eo3, co = got
+        io = (nbytes(*rows_state.values(), stall, rnd,
+                     *[getattr(ein, f) for f in ("valid", "type", "a", "b",
+                                                 "c")],
+                     *[getattr(cin, f) for f in ("valid", "src", "due",
+                                                 "mid", "type", "a", "b",
+                                                 "c")])
+              + nbytes(*so.values(), *[getattr(eo3, f) for f in
+                                       ("valid", "type", "a", "b", "c")],
+                       *[getattr(co, f) for f in
+                         ("valid", "src", "dest", "due", "mid", "reply_to",
+                          "type", "a", "b", "c")]))
+        record("broadcast_step_stall@fleet10k", got, ref, io, 0, k3, k3,
+               {"rows": F * n, "stalled": int(stall.sum())})
+        # K8 F-led over [F, N, D, L]
+        valid = torch.rand((F, n, prog.D, prog.lanes), generator=g,
+                           device="cuda") < 0.3
+        keys7 = prng.split(sims.key, 7)
+
+        def k8():
+            return S.edge_faults(cfg, prog.neighbors, sims.net, valid,
+                                 keys7)
+        got, ref = both(k8)
+        n_el = valid.numel()
+        record("edge_faults@fleet10k", got, ref,
+               n_el + F * (8 * 4 * 2 + 2 * n + 12 + 7 * 8 + 32)
+               + n_el * 10, 4 * n_el * DRAW_OPS, k8, k8,
+               {"lanes": n_el})
+        # K7 over [F, 2] keys: the pool send's four draws of 5 rows a
+        # cluster, [F] probabilities and scales
+        ks4 = prng.split(keys7[:, 1].contiguous(), 4)
+        lat_spec = ("latency", "uniform", 2.0, sims.net.latency_scale)
+
+        def k7():
+            return (ks4,) + tuple(prng.draws(
+                ks4, 5, [lat_spec, ("mask", sims.net.p_loss),
+                         ("mask", sims.net.p_dup), lat_spec]))
+        got, ref = both(k7)
+        record("threefry@fleet10k", got, ref, F * (16 + 5 * 10 + 12),
+               F * 4 * 5 * DRAW_OPS, k7, k7, {"draws": F * 20})
+        # K6's fleet form over the broadcast fleet's planes
+        planes = [sims.net.pool.valid, sims.channels.valid] \
+            + prog.quiet_planes(sims.nodes)
+
+        def k6():
+            return quiet_probe_fleet(planes)
+        got, ref = both(k6)
+        record("quiet_probe_fleet@fleet10k", got, ref,
+               nbytes(*planes) + F, 0, k6, k6, {"clusters": F})
+        # K5's fleet form: a round's client rows into every live log
+        CW = 10 + 10
+        cm = _random_client(g, F, CW, 32, 0.1)
+        cm = cm.replace(src=torch.randint(0, n, (F, CW), generator=g,
+                                          device="cuda", dtype=torch.int32),
+                        dest=cm.dest, reply_to=cm.reply_to)
+        seen = sims.nodes["seen"].reshape(F * n, -1)
+        live5 = torch.rand(F, generator=g, device="cuda") < 0.8
+        kmax = torch.randint(1, 9, (F,), generator=g, device="cuda",
+                             dtype=torch.int32)
+        stop = torch.rand(F, generator=g, device="cuda") < 0.5
+        W = prog.reply_payload_words
+        logs = {}
+
+        def k5(which):
+            def run():
+                log = S.empty_fleet_log(F, 256, W, "cuda")
+                exit_k = torch.full((F,), 2**31 - 1, dtype=torch.int32,
+                                    device="cuda")
+                lv, nl = S.append_replies_fleet(log, cm, seen, n, rnd, 3,
+                                                kmax, stop, exit_k, live5)
+                logs[which] = (log, exit_k, lv, nl)
+                return logs[which]
+            return run
+        got = k5("k")()
+        with K.forced_plain():
+            ref = k5("p")()
+        n_valid = int((cm.valid & live5[:, None]).sum())
+        record("reply_log_fleet@fleet10k",
+               tuple(x for x in got[0] if x is not None) + got[1:],
+               tuple(x for x in ref[0] if x is not None) + ref[1:],
+               F * CW + F * 14 + n_valid * (41 + 4 * W + 32), 0, k5("k"),
+               k5("p"), {"lanes": F, "rows": n_valid})
+        del sims
+    return out
+
+
+def phase_fleet_kernels(timed):
+    t0 = time.perf_counter()
+    r = fleet_kernel_checks(timed)
+    emit({"phase": "fleet_kernels", "timed": timed,
+          "fleet_shape": FLEET_SHAPE, "seconds": time.perf_counter() - t0,
+          "kernels": r})
+    return r
+
+
+def phase_fleet_profile():
+    """Where a fleet dispatch's time goes on the card: the fleet bench's
+    dispatch at 64 and 10,000 clusters (`bench.profile_fleet`): host ms a
+    dispatch, the device's busy ms and idle share, the top device
+    functions."""
+    import torch
+    from maelstrom_tpu_torch.bench import profile_fleet
+    for F in (64, 10_000):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        rec = profile_fleet(F)
+        PROFILER["traces"] += 1
+        check(rec["device_busy_ms_per_dispatch"] > 0,
+              f"fleet profile {F}: no device time ({rec['top']})")
+        emit({"phase": "fleet_profile", **rec})
+
+
 RUN_PHASES = {
     "cli_small": lambda smi: phase_cli_small(),
     "cli_100k": phase_cli_100k,
@@ -5858,11 +6403,13 @@ RUN_PHASES = {
     "bench_checkers": phase_bench_checkers,
     "fuzz_kafka": phase_fuzz_kafka,
     "fuzz_100k": phase_fuzz_broadcast,
+    "cli_fleet": phase_cli_fleet,
+    "bench_fleet": phase_bench_fleet,
 }
 RUN_GROUPS = [
     ["bench_byzantine", "cli_byzantine"],
-    ["cli_byzantine_b"],
-    ["cli_election", "bench_failover"],
+    ["cli_byzantine_b", "cli_fleet"],
+    ["cli_election", "bench_failover", "bench_fleet"],
     ["cli_compartment", "bench_compartment"],
     ["cli_services", "cli_small", "fuzz_kafka", "bench_batched",
      "cli_ordered", "raft_bench_10k"],
@@ -5992,6 +6539,7 @@ def main() -> int:
     mchecks = phase_compartment_kernels(timed=False)
     echecks = phase_election_kernels(timed=False)
     zchecks = phase_byzantine_kernels(timed=False)
+    flchecks = phase_fleet_kernels(timed=False)
     phase_prng_pins()
     ret = run_groups(smi)
     launches = dict(ret["cli_100k"])
@@ -6021,12 +6569,17 @@ def main() -> int:
                        + ret["cli_byzantine_b"][k]
                        + ret["bench_byzantine"].get(k, 0))
     launches["kafka_step"] = ret["cli_kafka"]["kafka_step"]
+    # the fleet's kernels: the CLI fleets' and the fleet bench's (K33 runs
+    # only on the CLI's --fleet 64 run)
+    for k in FLEET_KERNELS:
+        launches[k] = ret["cli_fleet"][k] + ret["bench_fleet"][k]
     elle_inputs = ret["bench_checkers"]
     # profiles and kernel times last: the profiler they are read from
     # stays out of the runs' wall-clock timing
     phase_cli_profile()
     phase_cli_profile(faults=True)
     phase_raft_profile()
+    phase_fleet_profile()
     phase_kernels([BENCH_SHAPE], timed=True)
     cli = phase_kernels([CLI_SHAPE], timed=True, with_scan=True)["cli100k"]
     cli.update(phase_fault_kernels(timed=True))
@@ -6058,13 +6611,19 @@ def main() -> int:
     ztimed = phase_byzantine_kernels(timed=True)
     cli["byz_corrupt_pool"] = ztimed["byz_corrupt_pool@bench"]
     cli["byz_corrupt_edge"] = ztimed["byz_corrupt_edge@forge"]
+    fltimed = phase_fleet_kernels(timed=True)
+    cli["fleet_hold"] = fltimed["fleet_hold@lin-kv10k"]
+    cli["wave_reduce"] = fltimed["wave_reduce@10000"]
+    cli["reply_log_fleet"] = fltimed["reply_log_fleet@fleet10k"]
+    cli["quiet_probe_fleet"] = fltimed["quiet_probe_fleet@fleet10k"]
     phase_crdt_profile()
     phase_pool_profile(pool_launches["rounds_executed"])
     emit({"phase": "profiler", **PROFILER})
     errs = {}
     for r in (*checks.values(), fchecks, rchecks, raft, pchecks, cchecks,
               kchecks, ktimed, btimed, etimed, schecks, stimed, vchecks,
-              vtimed, mchecks, mtimed, echecks, etimed2, zchecks, ztimed):
+              vtimed, mchecks, mtimed, echecks, etimed2, zchecks, ztimed,
+              flchecks, fltimed):
         for name, v in r.items():
             # a kernel's byz form ("+byz") counts as the kernel
             base = {"raft_step_stall": "raft_step",

@@ -86,6 +86,20 @@ byzantine block grades valid (every injection convicted, none spurious)
 and the benign twin grades valid with no block.
 
     python -m maelstrom_tpu_torch.bench --byzantine [--device cpu]
+
+With `--fleet` it runs `bench.py`'s fleet record (`bench_fleet_record`):
+the same 5-node broadcast grid (eager resend, 8 values, pool 64, constant
+latency 0) in fleets of 1, 8, 64, 512 and 10,000 clusters, each size 8
+dispatches of the fleet scan (`sim.make_fleet_scan_fn`, the dispatch
+every fleet wave runs) of 64 rounds, one fresh value a cluster a
+dispatch, seeds from the size on. It reports clusters a second (the
+campaign's throughput), messages delivered a second over the whole
+fleet, the host milliseconds a dispatch and the speed-up over the
+1-cluster fleet, and exits 1 unless every size converges (every value
+on every node of every cluster) and drops nothing. BENCH_FLEET_SIZES,
+_NODES, _VALUES, _CHUNK and _POOL override it, as bench.py's do.
+
+    python -m maelstrom_tpu_torch.bench --fleet [--device cpu]
 """
 
 from __future__ import annotations
@@ -1002,6 +1016,154 @@ def main_byzantine(device="cuda") -> tuple:
     return record, (0 if rec["valid"] else 1)
 
 
+FLEET_SIZES = (1, 8, 64, 512, 10_000)
+
+
+def bench_fleet_record(sizes=None, device="cuda") -> dict:
+    """The fleet record (see the module docstring): one row a fleet size
+    with `clusters_per_sec`, `agg_msgs_per_sec`, `messages_delivered`,
+    `converged`, `dropped_overflow` and `host_ms_per_dispatch`, the keys
+    of the JAX package's record beside the port's own."""
+    from .parallel import make_fleet_sims
+    from .sim import make_fleet_scan_fn
+    dev = resolve_device(device)
+    if sizes is None:
+        sizes = [int(x) for x in os.environ.get(
+            "BENCH_FLEET_SIZES", ",".join(map(str, FLEET_SIZES))).split(",")
+            if x.strip()]
+    n = int(os.environ.get("BENCH_FLEET_NODES", 5))
+    V = int(os.environ.get("BENCH_FLEET_VALUES", 8))     # dispatches
+    chunk = int(os.environ.get("BENCH_FLEET_CHUNK", 64))  # rounds each
+    pool_cap = int(os.environ.get("BENCH_FLEET_POOL", 64))
+    nodes = [f"n{i}" for i in range(n)]
+    program = get_program("broadcast",
+                          {"topology": "grid", "max_values": V,
+                           "latency": {"mean": 0}, "eager_resend": True},
+                          nodes, device=dev)
+    cfg = T.NetConfig(n_nodes=n, n_clients=1, pool_cap=pool_cap,
+                      inbox_cap=program.inbox_cap, client_cap=0)
+    R = V * chunk
+    rows = []
+    for F in sizes:
+        fleet_fn = make_fleet_scan_fn(program, cfg, device=dev)
+        kmax = np.full(F, chunk, np.int32)
+        hold = np.zeros(F, bool)             # never stop on a reply
+        active = np.ones(F, bool)
+        injects = []
+        for d in range(V):
+            # one fresh value a cluster a dispatch, dest spread per
+            # (cluster, value) by the Fibonacci-hash stride
+            dest = (np.arange(F, dtype=np.int64) * V + d) \
+                * 2654435761 % n
+            inj = T.Msgs.empty((F, 1), dev)
+            injects.append(inj.replace(
+                valid=torch.ones((F, 1), dtype=torch.bool, device=dev),
+                src=torch.full((F, 1), n, dtype=T.I32, device=dev),
+                dest=torch.from_numpy(dest.astype(np.int32)[:, None]).to(
+                    dev),
+                type=torch.full((F, 1), T_BCAST, dtype=T.I32, device=dev),
+                a=torch.full((F, 1), d, dtype=T.I32, device=dev)))
+
+        def run(seed0, F=F, fleet_fn=fleet_fn, kmax=kmax, hold=hold,
+                active=active, injects=injects):
+            sim = make_fleet_sims(program, cfg, list(range(seed0,
+                                                           seed0 + F)),
+                                  device=dev)
+            _sync(dev)
+            t0 = time.perf_counter()
+            for inj in injects:
+                sim, _cm, _k, _log = fleet_fn(sim, inj, kmax, hold, active)
+            host = time.perf_counter() - t0
+            if int(sim.net.round[0]) != R:
+                raise RuntimeError(f"fleet {F}: ran {int(sim.net.round[0])} "
+                                   f"rounds, not {R}")
+            return sim, host
+        run(0)                                # warm-up
+        t0 = time.perf_counter()
+        sim, host = run(F)
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        st = T.stats_dict(sim.net)            # sums over the fleet
+        seen = sim.nodes["seen"][:, :, :V]
+        rows.append({
+            "fleet": F, "wall_s": round(dt, 3),
+            "rounds_per_cluster": R,
+            "messages_delivered": int(st["recv_all"]),
+            "agg_msgs_per_sec": round(st["recv_all"] / dt, 1),
+            "clusters_per_sec": round(F / dt, 3),
+            "converged": bool(seen.all()),
+            "dropped_overflow": st["dropped_overflow"],
+            "host_ms_per_dispatch": round(1e3 * host / V, 3),
+            "host_syncs": fleet_fn.host_syncs,
+            "hold_row_bytes": fleet_fn.row_bytes,
+        })
+        del sim
+        gc.collect()
+    base = next((r for r in rows if r["fleet"] == 1), rows[0])
+    for r in rows:
+        r["agg_speedup_vs_fleet1"] = round(
+            r["agg_msgs_per_sec"] / base["agg_msgs_per_sec"], 2)
+    return {"metric": "fleet_clusters_per_sec", "sizes": rows,
+            "nodes_per_cluster": n, "values": V, "rounds_per_cluster": R,
+            "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                       else "cpu"),
+            "valid": all(r["converged"] and not r["dropped_overflow"]
+                         for r in rows)}
+
+
+def profile_fleet(F: int, top: int = 12, device="cuda") -> dict:
+    """Where a fleet dispatch's time goes on the card: the fleet bench's
+    grid at F clusters, one dispatch of 64 rounds warm, one timed on the
+    host clock, one under `torch.profiler` (device busy ms a dispatch,
+    idle share, the `top` device functions)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from .parallel import make_fleet_sims
+    from .sim import make_fleet_scan_fn
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError("profile_fleet measures the card")
+    n, chunk = 5, 64
+    program = get_program("broadcast",
+                          {"topology": "grid", "max_values": 8,
+                           "latency": {"mean": 0}, "eager_resend": True},
+                          [f"n{i}" for i in range(n)], device=dev)
+    cfg = T.NetConfig(n_nodes=n, n_clients=1, pool_cap=64,
+                      inbox_cap=program.inbox_cap, client_cap=0)
+    fleet_fn = make_fleet_scan_fn(program, cfg, device=dev)
+    sim = make_fleet_sims(program, cfg, list(range(F)), device=dev)
+    inj = T.Msgs.empty((F, 1), dev)
+    args = (np.full(F, chunk, np.int32), np.zeros(F, bool),
+            np.ones(F, bool))
+    sim = fleet_fn(sim, inj, *args)[0]
+    _sync(dev)
+    t0 = time.perf_counter()
+    sim = fleet_fn(sim, inj, *args)[0]
+    _sync(dev)
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sim = fleet_fn(sim, inj, *args)[0]
+        _sync(dev)
+    rows = sorted(((e.key, e.self_device_time_total, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows) / 1e3
+    return {"clusters": F, "nodes_per_cluster": n,
+            "rounds_per_dispatch": chunk,
+            "wall_ms_per_dispatch": wall_ms,
+            "host_ms_per_round": wall_ms / chunk,
+            "device_busy_ms_per_dispatch": busy_ms,
+            "device_calls_per_dispatch": sum(r[2] for r in rows),
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "device": torch.cuda.get_device_name(dev),
+            "top": [{"name": k, "ms_per_dispatch": us / 1e3,
+                     "calls_per_dispatch": c}
+                    for k, us, c in rows[:top]]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nodes", type=int, default=None,
@@ -1054,7 +1216,15 @@ def main(argv=None) -> int:
                          "bench_byzantine_record) on the elected "
                          "tpu:compartment under the equivocating "
                          "sequencer, through K26-K30")
+    ap.add_argument("--fleet", action="store_true",
+                    help="the fleet record (bench.py bench_fleet_record): "
+                         "5-node broadcast clusters in fleets of 1 to "
+                         "10,000, through the fleet scan (K32, K5)")
     a = ap.parse_args(argv)
+    if a.fleet:
+        rec = bench_fleet_record(device=a.device)
+        print(json.dumps(rec))
+        return 0 if rec["valid"] else 1
     if a.byzantine:
         rec, rc = main_byzantine(device=a.device)
         print(json.dumps(rec))

@@ -29,7 +29,10 @@ under the byzantine adversary (`--nemesis byzantine`, `--byz-rate`,
 sequencer, the batched broadcast's forged proofs, each run graded by its
 `byzantine` conviction block),
 round-synchronous or in continuous mode (`--continuous`), with the
-flight recorder (`--telemetry [DIR]`, tailed by `top`). `fuzz` runs
+flight recorder (`--telemetry [DIR]`, tailed by `top`), and as fleets:
+`--fleet N` runs N independent broadcast or Raft lin-kv clusters in
+lockstep (`--fleet-sweep seed|nemesis|capacity`, `--sessions
+columnar|coroutine`), each byte-identical to its standalone run. `fuzz` runs
 the broadcast and kafka fault sweeps (`fuzz.py`). Every other option of the JAX CLI is recognised and refused unless it holds its
 default, with an error that names the slice of the port that brings it
 (`OUT_OF_SCOPE`).
@@ -67,6 +70,8 @@ default, with an error that names the slice of the port that brings it
         --nemesis byzantine --nemesis-targets byzantine=sequencers \
         --byz-attacks stale-ballot
     python -m maelstrom_tpu_torch test -w lin-kv --node tpu:solo:lin-kv
+    python -m maelstrom_tpu_torch test -w lin-kv --node tpu:lin-kv \
+        --node-count 3 --fleet 8 --fleet-sweep nemesis --nemesis partition
     python -m maelstrom_tpu_torch fuzz --program broadcast --nodes 100000
 """
 
@@ -92,15 +97,14 @@ PROGRAMS = {"broadcast": "tpu:broadcast", "lin-kv": "tpu:lin-kv",
 # the other built-in programs a workload may name with --node
 ALSO = {"lin-kv": ("tpu:compartment",)}
 
+MULTI_GPU = "the multi-GPU slice (torch.distributed)"
+
 # (option, refused when, the slice of the port that brings it)
 OUT_OF_SCOPE = [
     ("--bin", lambda v: v is not None,
      "the host-process path (external node binaries)"),
     ("--workload", lambda v: v not in PROGRAMS, "the other node programs"),
-    ("--fleet", lambda v: v is not None and v > 1, "mesh and fleet"),
-    ("--fleet-sweep", lambda v: v is not None, "mesh and fleet"),
-    ("--mesh", lambda v: v is not None, "mesh and fleet"),
-    ("--sessions", lambda v: v == "columnar", "mesh and fleet"),
+    ("--mesh", lambda v: v is not None, MULTI_GPU),
     ("--checkpoint-every", lambda v: v is not None,
      "checkpoint and resume"),
     ("--resume", lambda v: v is not None, "checkpoint and resume"),
@@ -229,10 +233,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "250): windows cross replies, and the window "
                         "bounds how long a freed worker waits for the "
                         "generator's next poll")
-    t.add_argument("--fleet", type=int)
-    t.add_argument("--fleet-sweep", choices=["seed", "nemesis", "capacity"])
+    t.add_argument("--fleet", type=int,
+                   help="Run N independent clusters in lockstep (the "
+                        "fleet runner): one batched state, one fleet scan "
+                        "a wave; each cluster byte-identical to its "
+                        "standalone run (broadcast and Raft lin-kv)")
+    t.add_argument("--fleet-sweep", choices=["seed", "nemesis", "capacity"],
+                   help="What the fleet varies a cluster (default seed): "
+                        "seed + i, the nemesis seed (same ops, other "
+                        "faults), or the offered rate x (i + 1)")
     t.add_argument("--mesh")
-    t.add_argument("--sessions", choices=["coroutine", "columnar"])
+    t.add_argument("--sessions", choices=["coroutine", "columnar"],
+                   help="Client-session table: columnar (one table for "
+                        "the fleet, the default under --fleet) or "
+                        "coroutine (the default standalone); the same "
+                        "bytes either way")
     t.add_argument("--checkpoint-every", type=float)
     t.add_argument("--resume")
     t.add_argument("--sync-checkpoint", action="store_true")
@@ -331,13 +346,36 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _check_fleet(args) -> None:
+    """The combinations a fleet (--fleet N, N > 1) does not run yet
+    (`runner.fleet_runner.check_fleet_scope`), refused before any store
+    dir."""
+    from .runner.fleet_runner import check_fleet_scope
+    try:
+        check_fleet_scope({"nemesis": _faults(args.nemesis),
+                           "continuous": args.continuous,
+                           "telemetry": args.telemetry,
+                           "workload": args.workload, "node": args.node,
+                           "ordering": args.ordering})
+    except (ValueError, NotImplementedError) as e:
+        raise ScopeError(str(e)) from None
+
+
 def check_scope(args) -> None:
     """Raises ScopeError naming the first option this slice refuses."""
+    if (args.fleet or 1) > 1 and not args.ordering and not (
+            args.node and str(args.node).startswith("tpu:")):
+        # the JAX CLI's words
+        raise ScopeError("--fleet needs the TPU path (--node tpu:<program>)"
+                         ": the cluster axis is a vmapped dimension of the "
+                         "compiled scan")
     for flag, refused, slice_ in OUT_OF_SCOPE:
         value = getattr(args, flag.lstrip("-").replace("-", "_"))
         if refused(value):
             raise ScopeError(f"{flag} {value!r}: maelstrom_tpu_torch does "
                              f"not run it yet; it comes with {slice_}")
+    if (args.fleet or 1) > 1:
+        _check_fleet(args)
     if args.ordering:
         return   # the node is the composed tpu:ordered (core.build_test)
     want = PROGRAMS[args.workload]
@@ -395,6 +433,9 @@ def opts_from_args(args) -> dict:
         "audit": False,
         "audit_trace": False,
         "ordering": args.ordering,
+        "fleet": args.fleet or 1,
+        "fleet_sweep": args.fleet_sweep or "seed",
+        "sessions": args.sessions,
     }
     # performance knobs: only forwarded when given, so the runner's own
     # defaults stay in one place

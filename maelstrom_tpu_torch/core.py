@@ -9,13 +9,17 @@ suite with the byzantine conviction source under `--nemesis byzantine`
 and the `--byz-attacks` pool; `ordering` selects the composed program
 `tpu:ordered`), without the host network and external node
 processes. `run` makes the store dir, attaches the network journal and
-the run log, and hands the test to `runner.tpu_runner.run_tpu_test`."""
+the run log, and hands the test to `runner.tpu_runner.run_tpu_test`
+(which routes `--fleet N`, N > 1, to `runner.fleet_runner`: N
+independent clusters, each the standalone run of `FleetSpec.cluster_opts`,
+the JAX package's `FleetSpec`)."""
 
 from __future__ import annotations
 
 import importlib
 import logging
 import os
+from dataclasses import dataclass
 
 from . import generators as g
 from . import nemesis as nem
@@ -58,6 +62,68 @@ DEFAULTS = dict(
     ordering=None,
     sessions=None,
 )
+
+
+# Keys build_test adds to a test dict (derived objects, not options):
+# stripped when a fleet re-derives each cluster's option set, so each
+# cluster's test is built from scratch as its standalone run's would be
+_BUILT_KEYS = frozenset({"net", "workload_map", "client", "generator",
+                         "checker", "nemesis_pkg", "store_dir",
+                         "analysis", "journal", "transfer"})
+
+
+@dataclass(frozen=True)
+class FleetSpec:
+    """The campaign of `--fleet N --fleet-sweep <dim>` (the JAX package's
+    `FleetSpec`): N independent clusters in lockstep, differing along
+    one swept dimension:
+
+      - ``seed``: cluster i runs with seed base + i (its op stream, its
+        simulation's draws and its nemesis schedule);
+      - ``nemesis``: the op stream is fixed (the base seed) and only the
+        nemesis decision streams vary (nemesis_seed = base + i);
+      - ``capacity``: the seed is fixed and cluster i offers rate * (i +
+        1).
+
+    Static shapes (node count, concurrency, capacities, fault packages)
+    stay uniform: they define the one program every cluster shares.
+    Cluster i's history equals the standalone run of `cluster_opts(i)`
+    byte for byte."""
+
+    fleet: int = 1
+    sweep: str = "seed"
+
+    SWEEPS = ("seed", "nemesis", "capacity")
+
+    @classmethod
+    def from_test(cls, test: dict) -> "FleetSpec":
+        raw = test.get("fleet")
+        fleet = 1 if raw is None else int(raw)
+        sweep = str(test.get("fleet_sweep") or "seed")
+        if fleet < 1:
+            raise ValueError(f"--fleet must be >= 1, got {fleet}")
+        if sweep not in cls.SWEEPS:
+            raise ValueError(f"--fleet-sweep {sweep!r}: expected one of "
+                             f"{list(cls.SWEEPS)}")
+        return cls(fleet=fleet, sweep=sweep)
+
+    def cluster_opts(self, test: dict, i: int) -> dict:
+        """The option set whose standalone run cluster i replays: the
+        base test's options plus this cluster's swept value, with the
+        fleet-level mechanics (mesh, resume, per-message journaling, the
+        static-audit block) stripped or forced off."""
+        opts = {k: v for k, v in test.items() if k not in _BUILT_KEYS}
+        opts.update(fleet=1, fleet_sweep=self.sweep, mesh=None, resume=None,
+                    journal_rows=False, audit=False, audit_trace=False)
+        base_seed = int(test.get("seed", 0) or 0)
+        if self.sweep == "seed":
+            opts["seed"] = base_seed + i
+        elif self.sweep == "nemesis":
+            opts["nemesis_seed"] = base_seed + i
+        else:   # capacity: the offered-load ramp
+            opts["rate"] = float(test.get("rate", DEFAULTS["rate"])) \
+                * (i + 1)
+        return opts
 
 
 # the workloads the port runs, each on its built-in program: the module

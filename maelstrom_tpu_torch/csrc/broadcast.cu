@@ -62,6 +62,10 @@ constexpr int kStepPtrs = sizeof(StepArgs) / sizeof(void*);
 
 struct StepDims {
   int N, D, V, W, L, K, Lout, per_nb, retry, naive, skip_sender, eager;
+  // nodes a cluster on the cluster axis (N = F * nc node rows: row n
+  // reads neighbors[n % nc] and round[n / nc]); 0 for one cluster, whose
+  // round is a scalar
+  int nc;
 };
 
 __device__ __forceinline__ bool bit_of(const unsigned* m, int v) {
@@ -97,8 +101,9 @@ __global__ void step_kernel(StepArgs A, StepDims S) {
   unsigned* imask = sm + 4 * Cp;  // inflight' on the current edge
   unsigned* fmask = sm + 5 * Cp;  // naive: arrived on an earlier edge
   unsigned* tmask = sm + 6 * Cp;  // sent on the current edge
-  const int round = *A.round;
+  const int round = S.nc > 0 ? A.round[n / S.nc] : *A.round;
   const long long nV = (long long)n * V;
+  const long long local = S.nc > 0 ? n % S.nc : n;  // the table's row
   // a stalled node keeps its planes and sends nothing
   const bool st = A.stall != nullptr && A.stall[n] != 0;
 
@@ -166,7 +171,7 @@ __global__ void step_kernel(StepArgs A, StepDims S) {
   for (int d = 0; d < D; ++d) {
     const long long nd = (long long)n * D + d;
     const long long ndV = nd * V;
-    const bool eok = A.neighbors[nd] >= 0;
+    const bool eok = A.neighbors[local * D + d] >= 0;
     bool has_dig = false;
     int w_in = 0, b_in = 0, c_in = 0;
     if (!S.naive) {
@@ -318,7 +323,8 @@ namespace {
 
 int launch_step(void* const* p, int n_ptrs, const long long* v, int n_ints,
                 void* stream, bool with_stall) {
-  if (mt_bad_args(n_ptrs, kStepPtrs - (with_stall ? 0 : 1), n_ints, 12))
+  if (mt_bad_args(n_ptrs, kStepPtrs - (with_stall ? 0 : 1), n_ints, 13) ||
+      v[12] < 0 || (v[12] > 0 && v[0] % v[12]))
     return cudaErrorInvalidValue;
   StepArgs args;
   memcpy(&args, p, sizeof(void*) * n_ptrs);
@@ -328,7 +334,8 @@ int launch_step(void* const* p, int n_ptrs, const long long* v, int n_ints,
     return cudaErrorInvalidValue;
   StepDims dims = {(int)v[0], (int)v[1], (int)v[2],  (int)v[3],
                    (int)v[4], (int)v[5], (int)v[6],  (int)v[7],
-                   (int)v[8], (int)v[9], (int)v[10], (int)v[11]};
+                   (int)v[8], (int)v[9], (int)v[10], (int)v[11],
+                   (int)v[12]};
   if (dims.N == 0) return cudaSuccess;
   size_t smem = (size_t)kWarps * kMasks * 2 * dims.W * sizeof(unsigned);
   if (smem > 48 * 1024) {
@@ -344,7 +351,9 @@ int launch_step(void* const* p, int n_ptrs, const long long* v, int n_ints,
 }  // namespace
 
 // ptrs: the fields of StepArgs in order but the last (stall); ints: the
-// fields of StepDims
+// fields of StepDims (nc last: 0 for one cluster and a scalar round, else
+// the nodes a cluster of the F * nc rows, neighbors the [nc, D] table of
+// one cluster and round an [F] array)
 MT_API int mt_broadcast_step(void* const* p, int n_ptrs, const long long* v,
                              int n_ints, void* stream) {
   return launch_step(p, n_ptrs, v, n_ints, stream, false);

@@ -108,3 +108,84 @@ __device__ __forceinline__ void mt_block_add(const int (&x)[NC],
   if (threadIdx.x < NC && s[threadIdx.x])
     atomicAdd(dst[threadIdx.x], s[threadIdx.x]);
 }
+
+// --- the reply log (K5 in scan.cu, its fleet form in fleet.cu) -------------
+//
+// A round's client rows cm and the log's columns, in the order both entry
+// points pass them: plog [rcap, W] and seen null when W == 0.
+struct MtReplyCols {
+  const u8* valid;
+  const int *src, *dest, *due, *mid, *reply_to, *type, *a, *b, *c;
+  u8* l_valid;
+  int *l_src, *l_dest, *l_due, *l_mid, *l_reply_to, *l_type, *l_a, *l_b,
+      *l_c, *l_rounds, *l_plog;
+  const u8* seen;
+};
+
+// Writes client row i at log position o: its ten Msgs fields, the round
+// stamp, and the W payload words of node row node0 + clip(src, 0, N - 1)
+// of seen: with kRows the row of an int32 plane [., W] as it is, else the
+// bool row [., V] packed 32 values a word, low bit first, bit 31 kept as
+// the sign as JAX's int32 sums keep it.
+template <bool kRows>
+__device__ __forceinline__ void mt_write_reply_row(
+    const MtReplyCols& C, long long i, long long o, int stamp,
+    long long node0, int N, int W, int V) {
+  C.l_valid[o] = 1;
+  C.l_src[o] = C.src[i];
+  C.l_dest[o] = C.dest[i];
+  C.l_due[o] = C.due[i];
+  C.l_mid[o] = C.mid[i];
+  C.l_reply_to[o] = C.reply_to[i];
+  C.l_type[o] = C.type[i];
+  C.l_a[o] = C.a[i];
+  C.l_b[o] = C.b[i];
+  C.l_c[o] = C.c[i];
+  C.l_rounds[o] = stamp;
+  if (W == 0) return;
+  const long long node = node0 + mt_clip(C.src[i], 0, N - 1);
+  if (kRows) {
+    const int* row = reinterpret_cast<const int*>(C.seen) + node * W;
+    for (int w = 0; w < W; ++w) C.l_plog[o * W + w] = row[w];
+    return;
+  }
+  const u8* row = C.seen + node * V;
+  for (int w = 0; w < W; ++w) {
+    unsigned word = 0u;
+    for (int j = 0; j < 32; ++j) {
+      const int v = w * 32 + j;
+      if (v < V && row[v]) word |= 1u << j;
+    }
+    C.l_plog[o * W + w] = (int)word;
+  }
+}
+
+// Ranks the valid rows of valid[lo, hi) a tile of kThreads at a time with
+// warp ballots and calls emit(i, r) for each valid row i, r its rank among
+// the valid rows from lo; returns their count. warp_base is a __shared__
+// int[kThreads / 32]. Every thread of the block (of kThreads) calls it.
+template <int kThreads, class Emit>
+__device__ __forceinline__ long long mt_rank_valid(const u8* valid,
+                                                   long long lo,
+                                                   long long hi,
+                                                   int* warp_base,
+                                                   Emit emit) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  long long vr = 0;  // valid rows before the current tile
+  for (long long tile = lo; tile < hi; tile += kThreads) {
+    const long long i = tile + t;
+    const bool v = i < hi && valid[i] != 0;
+    const unsigned m = __ballot_sync(0xffffffffu, v);
+    __syncthreads();  // warp_base may still be read by the last tile
+    if (lane == 0) warp_base[warp] = __popc(m);
+    __syncthreads();
+    int wb = 0, tile_valid = 0;
+    for (int w = 0; w < kThreads / 32; ++w) {
+      if (w < warp) wb += warp_base[w];
+      tile_valid += warp_base[w];
+    }
+    if (v) emit(i, vr + wb + __popc(m & ((1u << lane) - 1u)));
+    vr += tile_valid;
+  }
+  return vr;
+}

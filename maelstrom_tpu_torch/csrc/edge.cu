@@ -37,6 +37,14 @@
 // optional pointer; when it is null the test is one uniform branch and
 // the bench path moves no more bytes than without it.
 //
+// Per-cluster rounds (the fleet's cluster axis, where every cluster keeps
+// its own round): with rows_per_round > 0 the round pointer is an [F]
+// array and node row n reads round[n / rows_per_round] (its cluster's),
+// in K1's route and clear, K2's and K9's arrival cells and `sent` stamps;
+// under uniform_arrival K2 takes the latency entry of its cluster's first
+// row (JAX's entry 0 under vmap). rows_per_round 0 keeps the scalar round
+// of one cluster, or of F clusters at one round.
+//
 // K9 edge_write_spill replaces
 // maelstrom_tpu/net/static.py:_edge_write_spill (:267-322), the
 // collision-free write that broadcast takes under randomized latency on
@@ -77,13 +85,15 @@ __global__ void route_kernel(const u8* __restrict__ valid,
                              int* __restrict__ o_c,
                              const int* __restrict__ sent,
                              int* __restrict__ o_sent, int N, int D,
-                             int ring, int L) {
+                             int ring, int L, int rows_per_round) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   long long total = (long long)N * D * L;
   if (i >= total) return;
   int l = (int)(i % L);
   long long me = i / L;  // m * D + e
-  int s = mt_mod(*round_ptr, ring);
+  const int rnd =
+      rows_per_round > 0 ? round_ptr[me / D / rows_per_round] : *round_ptr;
+  int s = mt_mod(rnd, ring);
   int n = nb[me];
   int r = rev[me];
   long long row = (long long)mt_clip(n, 0, N - 1) * D + mt_clip(r, 0, D - 1);
@@ -98,10 +108,14 @@ __global__ void route_kernel(const u8* __restrict__ valid,
 
 __global__ void clear_kernel(u8* __restrict__ valid,
                              const int* __restrict__ round_ptr,
-                             long long ND, int ring, int L) {
+                             long long ND, int D, int ring, int L,
+                             int rows_per_round) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= ND * L) return;
-  int s = mt_mod(*round_ptr, ring);
+  const int rnd = rows_per_round > 0
+                      ? round_ptr[i / L / D / rows_per_round]
+                      : *round_ptr;
+  int s = mt_mod(rnd, ring);
   valid[((i / L) * ring + s) * L + i % L] = 0;
 }
 
@@ -121,7 +135,8 @@ __global__ void write_kernel(u8* __restrict__ cv, int* __restrict__ ct,
                              int* __restrict__ cs, long long ND,
                              int D, int ring, int L, int uniform,
                              Strides3 ls, Strides3 ms,
-                             long long rows_per_counter) {
+                             long long rows_per_counter,
+                             long long rows_per_round) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   int ow = 0, clipped = 0;
   if (i < ND * L) {
@@ -130,10 +145,14 @@ __global__ void write_kernel(u8* __restrict__ cv, int* __restrict__ ct,
     int d = (int)(nd % D), l = (int)(i % L);
     bool ok = ov[i] != 0 && mask[n * ms.s0 + d * ms.s1 + l * ms.s2] != 0;
     int lt = lat[n * ls.s0 + d * ls.s1 + l * ls.s2];
-    int lr = uniform ? lat[0] : lt;  // uniform: entry 0's arrival cell
+    const long long n0 =
+        rows_per_round > 0 ? n / rows_per_round * rows_per_round : 0;
+    int lr = uniform ? lat[n0 * ls.s0] : lt;  // uniform: entry 0's cell
     int off = mt_clip(lr, 0, ring - 1);
     off = off < 1 ? 1 : off;
-    int slot = mt_mod(*round_ptr + off, ring);
+    const int rnd =
+        rows_per_round > 0 ? round_ptr[n / rows_per_round] : *round_ptr;
+    int slot = mt_mod(rnd + off, ring);
     clipped = ok && lt > ring - 1;
     if (ok) {
       long long dst = ((i / L) * ring + slot) * L + i % L;
@@ -143,7 +162,7 @@ __global__ void write_kernel(u8* __restrict__ cv, int* __restrict__ ct,
       ca[dst] = oa[i];
       cb[dst] = ob[i];
       cc[dst] = oc[i];
-      if (cs) cs[dst] = *round_ptr * kLaneStride + l;
+      if (cs) cs[dst] = rnd * kLaneStride + l;
     }
   }
   if (rows_per_counter > 0) {  // uniform across the grid
@@ -177,13 +196,15 @@ __global__ void spill_kernel(u8* __restrict__ cv, int* __restrict__ ct,
                              int* __restrict__ lat_clipped,
                              int* __restrict__ cs, long long ND, int D,
                              int ring, int Lc, int Lo, Strides3 ls,
-                             Strides3 ms) {
+                             Strides3 ms, long long rows_per_counter,
+                             long long rows_per_round) {
   const long long nd = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   int cnt[2] = {0, 0};  // overwrites, clipped
   if (nd < ND) {
     const long long n = nd / D;
     const int d = (int)(nd % D);
-    const int round = *round_ptr;
+    const int round =
+        rows_per_round > 0 ? round_ptr[n / rows_per_round] : *round_ptr;
     int cell[kMaxLanes], lane[kMaxLanes];
     // pass 1: arrival cells, ranks and occupancies, before any write
     for (int l = 0; l < Lo; ++l) {
@@ -219,6 +240,14 @@ __global__ void spill_kernel(u8* __restrict__ cv, int* __restrict__ ct,
       if (cs) cs[dst] = round * kLaneStride + l;
     }
   }
+  if (rows_per_counter > 0) {  // uniform across the grid
+    if (nd < ND) {
+      const long long k = nd / D / rows_per_counter;
+      if (cnt[0]) atomicAdd(overwrites + k, cnt[0]);
+      if (cnt[1]) atomicAdd(lat_clipped + k, cnt[1]);
+    }
+    return;
+  }
   int* const dst[2] = {overwrites, lat_clipped};
   mt_block_add<2>(cnt, dst);
 }
@@ -230,13 +259,15 @@ constexpr int kThreads = 256;
 // ptrs: ch.valid, ch.type, ch.a, ch.b, ch.c, neighbors, rev, round,
 //       inbox.valid, inbox.type, inbox.a, inbox.b, inbox.c, ch.sent,
 //       inbox.sent (the last two both null or both set)
-// ints: N, D, ring, L
+// ints: N, D, ring, L, rows_per_round (0: round is a scalar; else an [F]
+//       array, node row n reading round[n / rows_per_round])
 MT_API int mt_edge_read(void* const* p, int n_ptrs, const long long* v,
                         int n_ints, void* stream) {
-  if (mt_bad_args(n_ptrs, 15, n_ints, 4) || (p[13] == nullptr) !=
-      (p[14] == nullptr))
+  if (mt_bad_args(n_ptrs, 15, n_ints, 5) || (p[13] == nullptr) !=
+      (p[14] == nullptr) || v[4] < 0)
     return cudaErrorInvalidValue;
   int N = (int)v[0], D = (int)v[1], ring = (int)v[2], L = (int)v[3];
+  const int rpr = (int)v[4];
   long long total = (long long)N * D * L;
   if (total == 0) return cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
@@ -244,11 +275,11 @@ MT_API int mt_edge_read(void* const* p, int n_ptrs, const long long* v,
       (const u8*)p[0], (const int*)p[1], (const int*)p[2], (const int*)p[3],
       (const int*)p[4], (const int*)p[5], (const int*)p[6],
       (const int*)p[7], (u8*)p[8], (int*)p[9], (int*)p[10], (int*)p[11],
-      (int*)p[12], (const int*)p[13], (int*)p[14], N, D, ring, L);
+      (int*)p[12], (const int*)p[13], (int*)p[14], N, D, ring, L, rpr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   clear_kernel<<<mt_blocks(total, kThreads), kThreads, 0, st>>>(
-      (u8*)p[0], (const int*)p[7], (long long)N * D, ring, L);
+      (u8*)p[0], (const int*)p[7], (long long)N * D, D, ring, L, rpr);
   return cudaGetLastError();
 }
 
@@ -259,10 +290,11 @@ MT_API int mt_edge_read(void* const* p, int n_ptrs, const long long* v,
 //       of latency_rounds and of deliver_mask (3 each; 0 on a broadcast
 //       axis, so a round's scalar latency and per-edge mask are read in
 //       place, not expanded), then rows_per_counter (0: one scalar pair of
-//       counters; else counter k counts node rows k * rows_per_counter ..)
+//       counters; else counter k counts node rows k * rows_per_counter ..),
+//       then rows_per_round (as mt_edge_read's)
 MT_API int mt_edge_write(void* const* p, int n_ptrs, const long long* v,
                          int n_ints, void* stream) {
-  if (mt_bad_args(n_ptrs, 16, n_ints, 12) || v[11] < 0)
+  if (mt_bad_args(n_ptrs, 16, n_ints, 13) || v[11] < 0 || v[12] < 0)
     return cudaErrorInvalidValue;
   long long ND = v[0] * v[1];
   int D = (int)v[1], ring = (int)v[2], L = (int)v[3], uniform = (int)v[4];
@@ -275,7 +307,7 @@ MT_API int mt_edge_write(void* const* p, int n_ptrs, const long long* v,
       (const u8*)p[5], (const int*)p[6], (const int*)p[7], (const int*)p[8],
       (const int*)p[9], (const int*)p[10], (const u8*)p[11],
       (const int*)p[12], (int*)p[13], (int*)p[14], (int*)p[15], ND, D, ring,
-      L, uniform, ls, ms, v[11]);
+      L, uniform, ls, ms, v[11], v[12]);
   return cudaGetLastError();
 }
 
@@ -283,11 +315,13 @@ MT_API int mt_edge_write(void* const* p, int n_ptrs, const long long* v,
 //       Lo <= Lc lanes, latency_rounds and deliver_mask read through their
 //       strides, round, ch.overwrites, ch.lat_clipped, ch.sent or null)
 // ints: N, D, ring, Lc, Lo, then the [N, D, Lo] element strides of
-//       latency_rounds and of deliver_mask
+//       latency_rounds and of deliver_mask, then rows_per_counter and
+//       rows_per_round (as mt_edge_write's)
 MT_API int mt_edge_write_spill(void* const* p, int n_ptrs,
                                const long long* v, int n_ints,
                                void* stream) {
-  if (mt_bad_args(n_ptrs, 16, n_ints, 11)) return cudaErrorInvalidValue;
+  if (mt_bad_args(n_ptrs, 16, n_ints, 13) || v[11] < 0 || v[12] < 0)
+    return cudaErrorInvalidValue;
   long long ND = v[0] * v[1];
   int D = (int)v[1], ring = (int)v[2], Lc = (int)v[3], Lo = (int)v[4];
   if (Lo > kMaxLanes || Lo > Lc) return cudaErrorInvalidValue;
@@ -299,6 +333,6 @@ MT_API int mt_edge_write_spill(void* const* p, int n_ptrs,
       (const u8*)p[5], (const int*)p[6], (const int*)p[7], (const int*)p[8],
       (const int*)p[9], (const int*)p[10], (const u8*)p[11],
       (const int*)p[12], (int*)p[13], (int*)p[14], (int*)p[15], ND, D, ring,
-      Lc, Lo, ls, ms);
+      Lc, Lo, ls, ms, v[11], v[12]);
   return cudaGetLastError();
 }

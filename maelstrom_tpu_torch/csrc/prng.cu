@@ -16,8 +16,10 @@
 // The counter of element i is the pair (i >> 32, i & 0xFFFFFFFF), as
 // jax/_src/prng.py iota_2x32_shape makes it. With a batch of keys [F, 2]
 // (per_key > 0: jax.random under vmap, one key a cluster) element i
-// hashes key i / per_key with counter i mod per_key, so F clusters' splits
-// or bits take one launch.
+// hashes key i / per_key with counter i mod per_key, so F clusters' splits,
+// bits, masks or latency rounds take one launch; the masks and latency
+// rounds then read p[i / per_key] and scale[i / per_key], a cluster's own
+// probability and latency scale ([F] float32).
 //
 // Bound: about 80 integer operations a draw for the 20 threefry rounds
 // against 4 bytes written, so at the card's int32 rate the kernel is
@@ -41,7 +43,8 @@ __global__ void threefry_kernel(const unsigned* __restrict__ key,
                                 void* __restrict__ out) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  if (per_key > 0) key += 2 * (i / per_key);
+  const long long kf = per_key > 0 ? i / per_key : 0;
+  key += 2 * kf;
   const unsigned long long c =
       base + (unsigned long long)(per_key > 0 ? i % per_key : i);
   if (mode == 0) {
@@ -60,16 +63,17 @@ __global__ void threefry_kernel(const unsigned* __restrict__ key,
   if (mode == 2) {
     ((float*)out)[i] = u;
   } else if (mode == 3) {
-    ((u8*)out)[i] = u < *p;
+    ((u8*)out)[i] = u < p[kf];
   } else {
-    ((int*)out)[i] = mt_latency(u, dist, __fmul_rn(mean_rounds, *scale));
+    ((int*)out)[i] = mt_latency(u, dist, __fmul_rn(mean_rounds, scale[kf]));
   }
 }
 
 }  // namespace
 
 // ptrs: key (uint32[2], or [F, 2] with per_key > 0), out, p (mode 3,
-//       else null), scale (mode 4, else null)
+//       else null), scale (mode 4, else null); p and scale are scalars, or
+//       [F] with per_key > 0
 // ints: n (all elements), counter base, mode, dist, float32 bits of
 //       mean_rounds, per_key (elements a key; 0 = one key for all)
 MT_API int mt_threefry(void* const* p, int n_ptrs, const long long* v,

@@ -55,14 +55,7 @@ constexpr int kSeg = 16 * kThreads;  // rows a block
 constexpr int kMaxPlanes = 8;
 
 struct AppendArgs {
-  // cm [CW]
-  const u8* valid;
-  const int *src, *dest, *due, *mid, *reply_to, *type, *a, *b, *c;
-  // the log [rcap]; plog [rcap, W] and seen [N, V] null when W == 0
-  u8* l_valid;
-  int *l_src, *l_dest, *l_due, *l_mid, *l_reply_to, *l_type, *l_a, *l_b,
-      *l_c, *l_rounds, *l_plog;
-  const u8* seen;
+  MtReplyCols cols;      // cm [CW], the log [rcap], seen [N, V]
   const int* round_ptr;  // post-round counter: the stamp
   const int* rn_in;
   int* rn_out;
@@ -100,43 +93,10 @@ __global__ void count_kernel(const u8* __restrict__ valid,
 }
 
 template <bool kRows>
-__device__ void write_row(const AppendArgs& A, const AppendInts& I,
-                          long long i, long long pos) {
-  A.l_valid[pos] = 1;
-  A.l_src[pos] = A.src[i];
-  A.l_dest[pos] = A.dest[i];
-  A.l_due[pos] = A.due[i];
-  A.l_mid[pos] = A.mid[i];
-  A.l_reply_to[pos] = A.reply_to[i];
-  A.l_type[pos] = A.type[i];
-  A.l_a[pos] = A.a[i];
-  A.l_b[pos] = A.b[i];
-  A.l_c[pos] = A.c[i];
-  A.l_rounds[pos] = *A.round_ptr;
-  if (I.W == 0) return;
-  const int node = mt_clip(A.src[i], 0, I.N - 1);
-  if (kRows) {
-    const int* row = reinterpret_cast<const int*>(A.seen) +
-                     (long long)node * I.W;
-    for (int w = 0; w < I.W; ++w) A.l_plog[pos * I.W + w] = row[w];
-    return;
-  }
-  const u8* row = A.seen + (long long)node * I.V;
-  for (int w = 0; w < I.W; ++w) {
-    unsigned word = 0u;
-    for (int j = 0; j < 32; ++j) {
-      const int v = w * 32 + j;
-      if (v < I.V && row[v]) word |= 1u << j;
-    }
-    A.l_plog[pos * I.W + w] = (int)word;  // bit 31 becomes the sign
-  }
-}
-
-template <bool kRows>
 __global__ void append_kernel(AppendArgs A, AppendInts I) {
   __shared__ int red[kWarps];
   __shared__ int warp_base[kWarps];
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int t = threadIdx.x;
   const int b = blockIdx.x;
   const bool last = b == I.n_seg - 1;
   int before = 0;
@@ -147,27 +107,14 @@ __global__ void append_kernel(AppendArgs A, AppendInts I) {
   }
   const int rn = *A.rn_in;
   const long long lo = (long long)b * kSeg;
-  long long vr = before;  // valid rows before the current tile
-  for (long long tile = lo; tile < lo + kSeg && tile < I.CW;
-       tile += kThreads) {
-    const long long i = tile + t;
-    const bool v = i < I.CW && A.valid[i] != 0;
-    const unsigned m = __ballot_sync(0xffffffffu, v);
-    __syncthreads();  // warp_base may still be read by the last tile
-    if (lane == 0) warp_base[warp] = __popc(m);
-    __syncthreads();
-    int wb = 0, tile_valid = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      if (w < warp) wb += warp_base[w];
-      tile_valid += warp_base[w];
-    }
-    if (v) {
-      const long long pos =
-          rn + vr + wb + __popc(m & ((1u << lane) - 1u));
-      if (pos < I.rcap) write_row<kRows>(A, I, i, pos);
-    }
-    vr += tile_valid;
-  }
+  const long long hi = lo + kSeg < I.CW ? lo + kSeg : I.CW;
+  const long long vr = before + mt_rank_valid<kThreads>(
+      A.cols.valid, lo, hi, warp_base, [&](long long i, long long r) {
+        const long long pos = rn + before + r;
+        if (pos < I.rcap)
+          mt_write_reply_row<kRows>(A.cols, i, pos, *A.round_ptr, 0, I.N,
+                                    I.W, I.V);
+      });
   if (last && t == 0) {
     const long long total = vr;  // every valid row of cm
     const long long rn2 = rn + total;
@@ -224,13 +171,13 @@ int reply_log_append(void* const* p, int n_ptrs, const long long* v,
   I.stop = (int)v[7];
   I.n_seg = (int)((I.CW + kSeg - 1) / kSeg);
   if (I.CW < 1 || (I.n_seg > 1 && I.n_seg > v[8]) || I.rcap < 1 ||
-      A.l_valid == nullptr ||
-      (I.W > 0 && (A.l_plog == nullptr || A.seen == nullptr)) ||
+      A.cols.l_valid == nullptr ||
+      (I.W > 0 && (A.cols.l_plog == nullptr || A.cols.seen == nullptr)) ||
       (kRows && I.V != I.W))
     return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (I.n_seg > 1) {
-    count_kernel<<<I.n_seg, kThreads, 0, st>>>(A.valid, A.seg_count, I.CW);
+    count_kernel<<<I.n_seg, kThreads, 0, st>>>(A.cols.valid, A.seg_count, I.CW);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }

@@ -166,6 +166,16 @@ BYZ_CORRUPT_POOL = Kernel("byz_corrupt_pool",
 BYZ_CORRUPT_EDGE = Kernel("byz_corrupt_edge",
                           "maelstrom_tpu_torch/csrc/byzantine.cu",
                           "maelstrom_tpu/byzantine.py:178")
+FLEET_HOLD = Kernel("fleet_hold", "maelstrom_tpu_torch/csrc/fleet.cu",
+                    "maelstrom_tpu/sim.py:1002")
+WAVE_REDUCE = Kernel("wave_reduce", "maelstrom_tpu_torch/csrc/fleet.cu",
+                     "maelstrom_tpu/runner/sessions.py:61")
+REPLY_LOG_FLEET = Kernel("reply_log_fleet",
+                         "maelstrom_tpu_torch/csrc/fleet.cu",
+                         "maelstrom_tpu/sim.py:999")
+QUIET_PROBE_FLEET = Kernel("quiet_probe_fleet",
+                           "maelstrom_tpu_torch/csrc/fleet.cu",
+                           "maelstrom_tpu/runner/fleet_runner.py:403")
 KERNELS = (EDGE_READ, EDGE_WRITE, BROADCAST_STEP, REPLY_COMPACT,
            REPLY_LOG_APPEND, QUIET_PROBE, THREEFRY, EDGE_FAULTS,
            EDGE_WRITE_SPILL, BROADCAST_STEP_STALL, RAFT_STEP, ECHO_STEP,
@@ -176,7 +186,8 @@ KERNELS = (EDGE_READ, EDGE_WRITE, BROADCAST_STEP, REPLY_COMPACT,
            COMPARTMENT_PROXY_STEP, COMPARTMENT_ACCEPTOR_STEP,
            COMPARTMENT_REPLICA_STEP, COMPARTMENT_SEQUENCER_ELECT,
            COMPARTMENT_PROXY_ELECT, COMPARTMENT_ACCEPTOR_ELECT,
-           BYZ_CORRUPT_POOL, BYZ_CORRUPT_EDGE)
+           BYZ_CORRUPT_POOL, BYZ_CORRUPT_EDGE, FLEET_HOLD, WAVE_REDUCE,
+           REPLY_LOG_FLEET, QUIET_PROBE_FLEET)
 
 _state = {"lib": None, "forced_plain": False}
 

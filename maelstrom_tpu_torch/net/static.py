@@ -18,6 +18,11 @@ inbox lanes are decoded by type) an incoming message takes the next free
 lane of its cell instead, and the channels have more lanes than a round
 sends.
 
+On the cluster axis (the node rows of F clusters, F * N rows) the round
+may be an [F] tensor, one round a cluster: node row n then reads
+round[n // (rows / F)], its own cluster's (the fleet, whose clusters run
+at rounds of their own); a scalar round serves every row.
+
 Each function has a hand-written CUDA kernel (`csrc/edge.cu`) and a plain
 PyTorch version; `kernels.use_kernel` picks by the tensors' device."""
 
@@ -153,14 +158,45 @@ def _count(ch: EdgeChannels, mask):
     return mask.reshape(ch.overwrites.shape[0], -1).sum(dim=1, dtype=I32)
 
 
+def _row_round(cfg: EdgeConfig, round_):
+    """The round of every node row: the scalar round as it is, an [F]
+    round (one a cluster) as an [N, 1, 1] column of its rows' clusters'
+    rounds."""
+    if round_.dim() == 0:
+        return round_
+    return round_.repeat_interleave(cfg.n_nodes // round_.shape[0])[
+        :, None, None]
+
+
+def _rows_per_round(cfg: EdgeConfig, round_) -> int:
+    """The kernels' rows_per_round: 0 for a scalar round, else the node
+    rows a cluster of an [F] round."""
+    if round_.dim() == 0:
+        return 0
+    F = round_.shape[0]
+    if round_.dim() != 1 or round_.dtype != I32 or F < 1 \
+            or cfg.n_nodes % F:
+        raise ValueError(f"round: {tuple(round_.shape)} {round_.dtype} "
+                         f"for {cfg.n_nodes} node rows")
+    return cfg.n_nodes // F
+
+
 def _arrival(cfg: EdgeConfig, latency_rounds, round_):
     """Arrival cell of every lane: (round + max(clip(lat, 0, ring-1), 1))
-    % ring; under `uniform_arrival` every lane takes entry 0's."""
+    % ring; under `uniform_arrival` every lane takes entry 0's (its
+    cluster's entry 0 with an [F] round)."""
     lat = torch.clamp(latency_rounds.clamp(0, cfg.ring - 1), min=1)
-    arrival = torch.remainder(round_ + lat, cfg.ring)
+    rnd = _row_round(cfg, round_)
     if cfg.uniform_arrival:
-        arrival = arrival.reshape(-1)[0].expand(arrival.shape)
-    return arrival
+        if rnd.dim():
+            per = cfg.n_nodes // round_.shape[0]
+            first = lat.reshape(round_.shape[0], per, -1)[:, :1, :1]
+            lat = first.expand(-1, per, 1).reshape(-1, 1, 1)
+        else:
+            lat = lat.reshape(-1)[0]
+    arrival = torch.remainder(rnd + lat, cfg.ring)
+    return arrival.expand(torch.broadcast_shapes(
+        arrival.shape, tuple(latency_rounds.shape)))
 
 
 def edge_write_plain(cfg: EdgeConfig, ch: EdgeChannels, out: EdgeMsgs,
@@ -182,7 +218,8 @@ def edge_write_plain(cfg: EdgeConfig, ch: EdgeChannels, out: EdgeMsgs,
     new = {f: getattr(out, f) for f in ("type", "a", "b", "c")}
     if ch.sent is not None:
         lane = torch.arange(cfg.lanes, dtype=I32, device=ok.device)
-        new["sent"] = (round_ * LANE_STRIDE + lane).expand(ok.shape)
+        new["sent"] = (_row_round(cfg, round_) * LANE_STRIDE
+                       + lane).expand(ok.shape)
     for f, val in new.items():
         chf = getattr(ch, f)
         old = torch.gather(chf, 2, arr).squeeze(2)
@@ -205,8 +242,9 @@ def edge_write_spill_plain(cfg: EdgeConfig, ch: EdgeChannels,
     Lo = out.valid.shape[2]
     ok = out.valid & deliver_mask
     lat = latency_rounds.expand(ok.shape)
-    ch.lat_clipped += (ok & (lat > cfg.ring - 1)).sum(dtype=I32)
-    arrival = torch.remainder(round_ + lat.clamp(0, R - 1).clamp(min=1), R)
+    ch.lat_clipped += _count(ch, ok & (lat > cfg.ring - 1))
+    rnd = _row_round(cfg, round_)
+    arrival = torch.remainder(rnd + lat.clamp(0, R - 1).clamp(min=1), R)
     cell = torch.where(ok, arrival, R).long()            # R = parked
     jl = torch.arange(Lo, device=ok.device)
     lower = jl[None, :] < jl[:, None]                    # [l, j]
@@ -216,14 +254,15 @@ def edge_write_spill_plain(cfg: EdgeConfig, ch: EdgeChannels,
     occ_at = torch.gather(occ, 2, cell.clamp(0, R - 1))
     lane = occ_at + rank
     write = ok & (lane < Lc)
-    ch.overwrites += (ok & (lane >= Lc)).sum(dtype=I32)
+    ch.overwrites += _count(ch, ok & (lane >= Lc))
     n_i, d_i, l_i = torch.nonzero(write, as_tuple=True)
     at = (n_i, d_i, cell[write], lane[write])
     ch.valid[at] = True
     for f in ("type", "a", "b", "c"):
         getattr(ch, f)[at] = getattr(out, f)[write]
     if ch.sent is not None:
-        ch.sent[at] = (round_ * LANE_STRIDE + l_i).to(I32)
+        r_n = (rnd.reshape(-1)[n_i] if rnd.dim() else rnd)
+        ch.sent[at] = (r_n * LANE_STRIDE + l_i).to(I32)
     return ch
 
 
@@ -242,7 +281,21 @@ def edge_write_spill(cfg: EdgeConfig, ch: EdgeChannels, out: EdgeMsgs,
                                       deliver_mask)
     return _launch_write(K.EDGE_WRITE_SPILL, cfg, ch, out, round_,
                          latency_rounds, deliver_mask, shape,
-                         [cfg.n_nodes, cfg.degree, cfg.ring, cfg.lanes, Lo])
+                         [cfg.n_nodes, cfg.degree, cfg.ring, cfg.lanes, Lo],
+                         [_rows_per_counter(cfg, ch)])
+
+
+def _rows_per_counter(cfg: EdgeConfig, ch: EdgeChannels) -> int:
+    """The kernels' rows_per_counter: 0 for one scalar pair of channel
+    counters, else the node rows a cluster of [F] counters."""
+    if ch.overwrites.dim() == 0:
+        return 0
+    n_c = ch.overwrites.shape[0]
+    if n_c < 1 or cfg.n_nodes % n_c or tuple(
+            ch.lat_clipped.shape) != (n_c,):
+        raise ValueError(f"edge_write: {n_c} counters for {cfg.n_nodes} "
+                         f"node rows")
+    return cfg.n_nodes // n_c
 
 
 def _launch_write(kernel, cfg, ch, out, round_, latency_rounds,
@@ -254,13 +307,15 @@ def _launch_write(kernel, cfg, ch, out, round_, latency_rounds,
                         ("type", out.type, I32), ("a", out.a, I32),
                         ("b", out.b, I32), ("c", out.c, I32)):
         _check(f"out.{name}", t, shape, dt)
-    _check("round", round_, (), I32)
+    rpr = _rows_per_round(cfg, round_)
+    if not rpr:
+        _check("round", round_, (), I32)
     kernel.launch(
         [ch.valid, ch.type, ch.a, ch.b, ch.c,
          out.valid.contiguous(), out.type.contiguous(), out.a.contiguous(),
          out.b.contiguous(), out.c.contiguous(), lat, mask, round_,
          ch.overwrites, ch.lat_clipped, ch.sent],
-        dims + [*lat.stride(), *mask.stride(), *extra],
+        dims + [*lat.stride(), *mask.stride(), *extra, rpr],
         ch.valid.device, strided=(lat, mask))
     return ch
 
@@ -270,8 +325,9 @@ def edge_write(cfg: EdgeConfig, ch: EdgeChannels, out: EdgeMsgs,
     """Writes this round's outgoing lanes into the rings (in place).
 
     latency_rounds: i32 [N, D, L] delay in rounds; deliver_mask: bool
-    broadcastable to [N, D, L]; round_: i32 scalar tensor. Spill
-    channels take the collision-free write (`edge_write_spill`)."""
+    broadcastable to [N, D, L]; round_: i32 scalar tensor, or [F] on the
+    cluster axis. Spill channels take the collision-free write
+    (`edge_write_spill`)."""
     _check_channels(cfg, ch)
     if cfg.spill:
         return edge_write_spill(cfg, ch, out, round_, latency_rounds,
@@ -283,18 +339,11 @@ def edge_write(cfg: EdgeConfig, ch: EdgeChannels, out: EdgeMsgs,
     if not K.use_kernel(ch.valid):
         return edge_write_plain(cfg, ch, out, round_, latency_rounds,
                                 deliver_mask)
-    per_counter = 0
-    if ch.overwrites.dim() == 1:        # one counter a cluster
-        n_c = ch.overwrites.shape[0]
-        if n_c < 1 or cfg.n_nodes % n_c or tuple(
-                ch.lat_clipped.shape) != (n_c,):
-            raise ValueError(f"edge_write: {n_c} counters for "
-                             f"{cfg.n_nodes} node rows")
-        per_counter = cfg.n_nodes // n_c
     return _launch_write(K.EDGE_WRITE, cfg, ch, out, round_, latency_rounds,
                          deliver_mask, shape,
                          [cfg.n_nodes, cfg.degree, cfg.ring, cfg.lanes,
-                          int(cfg.uniform_arrival)], [per_counter])
+                          int(cfg.uniform_arrival)],
+                         [_rows_per_counter(cfg, ch)])
 
 
 # --- edge_read ------------------------------------------------------------
@@ -312,31 +361,48 @@ def edge_read_plain(cfg: EdgeConfig, ch: EdgeChannels, neighbors, rev,
     edges, then clears that cell of every row in place. A tracked `sent`
     plane is routed with the other fields."""
     N, D, L = cfg.n_nodes, cfg.degree, cfg.lanes
-    s = torch.remainder(round_, cfg.ring).reshape(1).long()
     flat = _route_rows(cfg, neighbors, rev)
+    if round_.dim() == 0:
+        s = torch.remainder(round_, cfg.ring).reshape(1).long()
+
+        def cells(f):
+            return f.index_select(2, s).reshape(N * D, L)
+    else:
+        # each row's own cluster's cell
+        s = torch.remainder(_row_round(cfg, round_), cfg.ring).long()
+        s = s.reshape(N, 1, 1, 1).expand(N, D, 1, L)
+
+        def cells(f):
+            return torch.gather(f, 2, s).reshape(N * D, L)
 
     def route(f):
-        return f.index_select(2, s).reshape(N * D, L)[flat].reshape(N, D, L)
+        return cells(f)[flat].reshape(N, D, L)
 
     inbox = EdgeMsgs(valid=route(ch.valid) & (neighbors >= 0)[:, :, None],
                      type=route(ch.type), a=route(ch.a), b=route(ch.b),
                      c=route(ch.c),
                      sent=None if ch.sent is None else route(ch.sent))
-    ch.valid.index_fill_(2, s, False)
+    if round_.dim() == 0:
+        ch.valid.index_fill_(2, s, False)
+    else:
+        ch.valid.scatter_(2, s, False)
     return ch, inbox
 
 
 def edge_read(cfg: EdgeConfig, ch: EdgeChannels, neighbors, rev,
               round_) -> tuple[EdgeChannels, EdgeMsgs]:
     """(channels with this round's cell cleared, inbox EdgeMsgs [N, D, L]);
-    inbox slot (m, e) holds what m's e-th neighbour sent it."""
+    inbox slot (m, e) holds what m's e-th neighbour sent it. `round_` is
+    an i32 scalar, or [F] on the cluster axis."""
     _check_channels(cfg, ch)
     N, D, L = cfg.n_nodes, cfg.degree, cfg.lanes
     _check("neighbors", neighbors, (N, D), I32)
     _check("rev", rev, (N, D), I32)
+    rpr = _rows_per_round(cfg, round_)
     if not K.use_kernel(ch.valid):
         return edge_read_plain(cfg, ch, neighbors, rev, round_)
-    _check("round", round_, (), I32)
+    if not rpr:
+        _check("round", round_, (), I32)
     dev = ch.valid.device
 
     def i32():
@@ -349,5 +415,5 @@ def edge_read(cfg: EdgeConfig, ch: EdgeChannels, neighbors, rev,
         [ch.valid, ch.type, ch.a, ch.b, ch.c, neighbors.contiguous(),
          rev.contiguous(), round_, inbox.valid, inbox.type, inbox.a,
          inbox.b, inbox.c, ch.sent, inbox.sent],
-        [N, D, cfg.ring, L], dev)
+        [N, D, cfg.ring, L, rpr], dev)
     return ch, inbox

@@ -190,7 +190,7 @@ def payload_units(cfg: NetConfig, types, words, valid):
     registered batch types (`cfg.unit_words`), which count their payload
     word, floored at 1. The total wraps as JAX's int32 sum does (one
     total for the whole batch: the cluster axis books no units,
-    `parallel._check_config`)."""
+    `parallel.check_config`)."""
     u = valid.to(I32)
     for code, w in cfg.unit_words:
         u = torch.where(valid & (types == code),
@@ -259,10 +259,13 @@ def _send(cfg: NetConfig, net: NetState, out: Msgs, key):
     splits it. Returns (net', sent_view).
 
     On the cluster axis (a pool [F, P], `out` [F, M], the net's scalars
-    [F]) the caller passes key=None: its configs draw nothing that
-    changes a value (constant latency, the loss probability 0, no
-    duplication; `parallel.make_cluster_round_fn` checks them), so the
-    draws, which leave no key behind, are skipped."""
+    [F]) `key` is the [F, 2] batch of the clusters' keys: cluster f
+    draws from its own key, with its own loss and duplication
+    probabilities and latency scale (JAX's `vmap` of the send). The
+    cluster axis passes key=None when its draws change no value
+    (`parallel.make_cluster_round_fn`: constant latency, the loss
+    probability 0, no duplication); the draws, which leave no key
+    behind, are then skipped."""
     M = out.valid.shape[-1]
     dup_on = cfg.enable_duplication
     if key is None:
@@ -302,12 +305,13 @@ def _send(cfg: NetConfig, net: NetState, out: Msgs, key):
         # at-least-once amplification of kept server-to-server rows, same
         # id, independent latency; a copy that finds no slot is skipped
         dup = keep & ~client & d_dup
-        lat2 = (draw_latency_rounds(cfg, None, net.latency_scale, (M,))
+        lat2 = (draw_latency_rounds(cfg, None, net.latency_scale[..., None],
+                                    out.valid.shape)
                 if d_dlat is None else d_dlat)
-        due2 = (net.round + torch.clamp(lat2, min=1)).to(I32)
+        due2 = (net.round[..., None] + torch.clamp(lat2, min=1)).to(I32)
         pool, dup_ok = _scatter_new(cfg, pool, out.replace(
             valid=dup, mid=mid, due=due2))
-        n_dup = dup_ok.sum(dtype=I32)
+        n_dup = dup_ok.sum(dim=-1, dtype=I32)
     n_new = new.sum(dim=-1, dtype=I32)
     st = net.stats
     st = st.replace(
@@ -353,9 +357,13 @@ def _deliver(cfg: NetConfig, net: NetState):
     blocked = _gather(net.component, src_i) != _gather(net.component,
                                                        dest_i)
     if cfg.partition_groups > 1:
-        # directional grudges: may src's group reach dest's group?
+        # directional grudges: may src's group reach dest's group? (a
+        # cluster's own matrix on the cluster axis)
+        G = cfg.partition_groups
         bg = net.block_groups.long()
-        blocked = blocked | net.block_matrix[bg[src_i], bg[dest_i]]
+        cell = _gather(bg, src_i) * G + _gather(bg, dest_i)
+        blocked = blocked | _gather(
+            net.block_matrix.reshape(lead + (G * G,)), cell)
     blocked = blocked & ~client_msg
     if cfg.enable_stall:
         # a paused dest's mail waits in the pool; a down dest's is

@@ -162,14 +162,17 @@ class NodeProgram:
         """Crash-restart: nodes where the [N] bool `mask` is set come back
         with their volatile state rebuilt from `fresh` (an init_state()
         dict) overlaid with their `durable` entries; the others keep
-        `state`. A fully durable program keeps all of it."""
+        `state`. A fully durable program keeps all of it. On the cluster
+        axis `mask` is [F, N] over F-led `state` and `durable` (the
+        fleet's restart of one cluster's nodes): a False row keeps its
+        cluster as it is."""
         if self.durable_keys is None:
             return state
         recovered = {**fresh, **durable}
 
         def pick(k):
             o, r = state[k], recovered[k]
-            m = mask.reshape(mask.shape + (1,) * (r.dim() - 1))
+            m = mask.reshape(mask.shape + (1,) * (o.dim() - mask.dim()))
             return torch.where(m, r, o)
         return {k: pick(k) for k in state}
 

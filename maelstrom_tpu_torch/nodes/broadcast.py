@@ -17,7 +17,9 @@ once per edge with no digests.
 
 Killed and paused nodes (`ctx["stall"]`) keep their state and send
 nothing: the JAX round's freeze (`sim._freeze`), which the kernel folds
-into the step.
+into the step. On the cluster axis `step_rows` steps the F * N node rows
+of F clusters at once (one cluster's neighbour table read at row % N,
+each cluster's own round at row // N), as Raft's does.
 
 `edge_step` has a hand-written CUDA kernel (`csrc/broadcast.cu`) and the
 plain PyTorch version `edge_step_plain`."""
@@ -126,14 +128,14 @@ class BroadcastProgram(NodeProgram):
     def _digest_known(self, edge_in: EdgeMsgs):
         """[N, D, V] values each edge's neighbour has proven it holds; the
         last digest lane of an edge wins."""
-        N, D, V = self.n_nodes, self.D, self.V
-        L = edge_in.valid.shape[2]
+        V = self.V
+        R, D, L = edge_in.valid.shape
         vee = torch.arange(V, dtype=I32, device=edge_in.valid.device)
         d_in = edge_in.valid & (edge_in.type == T_DIGEST)
         has_digest = d_in.any(dim=2)
 
         def lane_pick(field):
-            out = torch.zeros((N, D), dtype=I32, device=field.device)
+            out = torch.zeros((R, D), dtype=I32, device=field.device)
             for lane in range(L):
                 out = torch.where(d_in[:, :, lane], field[:, :, lane], out)
             return out
@@ -150,9 +152,9 @@ class BroadcastProgram(NodeProgram):
         """Owes the windows gossip arrived in and pays the lowest owed
         window per edge. Returns (owed', have_owed, w_send, b_out,
         c_out)."""
-        N, D, W = self.n_nodes, self.D, self.n_windows
+        D, W = self.D, self.n_windows
         arrived_pad = _cat_zeros(arrived, self.Vp - self.V)
-        owed = owed | arrived_pad.reshape(N, D, W, 64).any(dim=3)
+        owed = owed | arrived_pad.reshape(-1, D, W, 64).any(dim=3)
         have_owed = owed.any(dim=2)
         www = torch.arange(W, dtype=I32, device=owed.device)
         w_send = torch.argmax(owed.to(I32) * (W - www), dim=2)
@@ -162,14 +164,19 @@ class BroadcastProgram(NodeProgram):
         c_out = words[:, 1::2].gather(1, w_send)
         return owed, have_owed, w_send.to(I32), b_out, c_out
 
-    def edge_step_plain(self, state, edge_in: EdgeMsgs, client_in, round_):
-        N, D, V = self.n_nodes, self.D, self.V
+    def edge_step_plain(self, state, edge_in: EdgeMsgs, client_in, round_,
+                        neighbors=None):
+        """The step of N node rows (or on the cluster axis R = F * N rows
+        with `neighbors` their [R, D] table and `round_` an [R, 1, 1]
+        column of their clusters' rounds)."""
+        D, V = self.D, self.V
+        N = state["seen"].shape[0]
         dev = edge_in.valid.device
         L = edge_in.valid.shape[2]
         seen, pending = state["seen"], state["pending"]
         inflight = state["inflight"]
         vee = torch.arange(V, dtype=I32, device=dev)
-        edge_ok = self.neighbors >= 0
+        edge_ok = (self.neighbors if neighbors is None else neighbors) >= 0
 
         g_in = edge_in.valid & (edge_in.type == T_GOSSIP)
         gv = edge_in.a.clamp(0, V - 1)
@@ -249,12 +256,20 @@ class BroadcastProgram(NodeProgram):
     # --- kernel -----------------------------------------------------------
 
     def _check_inputs(self, state, edge_in, client_in, round_):
-        N, D, V, W = self.n_nodes, self.D, self.V, self.n_windows
+        """N node rows with a scalar round, or F * N rows of F clusters
+        with an [F] round."""
+        D, V, W = self.D, self.V, self.n_windows
+        N = state["seen"].shape[0]
         L = edge_in.valid.shape[2]
         Kc = client_in.valid.shape[1]
+        F = N // self.n_nodes
+        rshape = () if round_.dim() == 0 else (F,)
+        if N % self.n_nodes or (rshape == () and N != self.n_nodes):
+            raise ValueError(f"edge_step: {N} node rows for "
+                             f"{self.n_nodes}-node clusters")
         want = [("seen", state["seen"], (N, V), torch.bool),
                 ("owed", state["owed"], (N, D, W), torch.bool),
-                ("round", round_, (), I32)]
+                ("round", round_, rshape, I32)]
         want += [(k, state[k], (N, D, V), torch.bool)
                  for k in ("pending", "inflight", "inflight_old")]
         want += [(f"edge_in.{f}", getattr(edge_in, f), (N, D, L),
@@ -269,11 +284,11 @@ class BroadcastProgram(NodeProgram):
     def _edge_step_kernel(self, state, edge_in, client_in, round_,
                           stall=None):
         self._check_inputs(state, edge_in, client_in, round_)
-        if stall is not None and (tuple(stall.shape) != (self.n_nodes,)
+        N, D = state["seen"].shape[0], self.D
+        if stall is not None and (tuple(stall.shape) != (N,)
                                   or stall.dtype != torch.bool):
             raise ValueError(f"edge_step stall: {tuple(stall.shape)} "
                              f"{stall.dtype}")
-        N, D = self.n_nodes, self.D
         dev = edge_in.valid.device
         L = edge_in.valid.shape[2]
         Kc = client_in.valid.shape[1]
@@ -307,8 +322,25 @@ class BroadcastProgram(NodeProgram):
         kernel.launch(
             ptrs, [N, D, self.V, self.n_windows, L, Kc, Lout, self.per_nb,
                    self.retry_rounds, int(self.naive),
-                   int(self.skip_sender), int(self.eager_resend)], dev)
+                   int(self.skip_sender), int(self.eager_resend),
+                   0 if round_.dim() == 0 else self.n_nodes], dev)
         return new_state, edge_out, client_out
+
+    def step_rows(self, state, edge_in, client_in, rnd, keys, stall=None):
+        """One gossip step of R = F * N node rows of F clusters (the
+        cluster axis, JAX's `vmap` of `edge_step`): `rnd` the clusters'
+        [F] rounds, `keys` their [F, 2] program keys (the gossip draws
+        nothing), `stall` the [R] bool mask of killed or paused rows,
+        which keep their state and send nothing. K3, with and without the
+        stall mask, over the rows."""
+        if K.use_kernel(edge_in.valid):
+            return self._edge_step_kernel(state, edge_in, client_in, rnd,
+                                          stall)
+        F = rnd.shape[0]
+        rows_round = rnd.repeat_interleave(self.n_nodes)[:, None, None]
+        return freeze_step(stall, state, *self.edge_step_plain(
+            state, edge_in, client_in, rows_round,
+            self.neighbors.repeat(F, 1)))
 
     def edge_step(self, state, edge_in: EdgeMsgs, client_in, ctx):
         """(state, edge_in [N, D, L], client_in Msgs [N, K], ctx) ->

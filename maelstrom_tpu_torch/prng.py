@@ -164,7 +164,8 @@ def f32_bits(x: float) -> int:
 def _launch(key, n, mode, out, base=0, p=None, scale=None, mean=0.0,
             dist="constant"):
     """One K7 launch of n draws a key: over a batch of keys [F, 2] the
-    F * n elements go key by key, each key's from counter `base`."""
+    F * n elements go key by key, each key's from counter `base` (with
+    [F] probabilities or scales, one a key)."""
     dev = key.device
     n_keys = key.shape[0] if key.dim() == 2 else 1
     K.THREEFRY.launch(
@@ -203,6 +204,15 @@ def random_bits(key, shape) -> torch.Tensor:
     return _launch(key, _numel(shape), BITS, out)
 
 
+def _check_per_key(key, t, name):
+    """A probability or scale: a scalar for one key, [F] for a batch of
+    keys [F, 2]."""
+    want = tuple(key.shape[:-1])
+    if tuple(t.shape) != want or t.dtype != torch.float32:
+        raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, expected "
+                         f"{want} float32")
+
+
 def uniform(key, shape) -> torch.Tensor:
     """float32 in [0, 1) of `shape` (`jax.random.uniform`)."""
     _check_key(key)
@@ -220,12 +230,16 @@ def exponential(key, shape) -> torch.Tensor:
 
 def bernoulli_below(key, shape, p) -> torch.Tensor:
     """bool of `shape`: uniform(key, shape) < p, `p` a float32 scalar
-    tensor on the key's device (the loss and duplication rolls)."""
-    _check_key(key)
+    tensor on the key's device (the loss and duplication rolls); (F,
+    *shape) for a batch of keys [F, 2] with p [F], one a key."""
+    _check_key(key, batched=True)
     shape = tuple(shape)
+    lead = tuple(key.shape[:-1])
     if not K.use_kernel(key):
-        return uniform_plain(key, shape) < p
-    out = torch.empty(shape, dtype=torch.bool, device=key.device)
+        pc = p.reshape(lead + (1,) * len(shape))
+        return bits_to_unit(random_bits_plain(key, shape)) < pc
+    _check_per_key(key, p, "p")
+    out = torch.empty(lead + shape, dtype=torch.bool, device=key.device)
     return _launch(key, _numel(shape), MASK, out, p=p.contiguous())
 
 
@@ -234,45 +248,57 @@ def draws(keys, n: int, specs):
     None (no draw), ("mask", p) for uniform < p, or ("latency", dist,
     mean, scale) for latency rounds, drawn from keys[i] of the uint32
     [k, 2] `keys`. Returns a list of flat [n] tensors (None where the
-    spec is None). On the card each is one K7 launch; the plain version
-    hashes every requested stream in one batched threefry."""
+    spec is None). On the cluster axis `keys` is [F, k, 2] (one split a
+    cluster), p and scale are [F], and each draw is [F, n], cluster f's
+    from its own keys[f, i]. On the card each is one K7 launch; the
+    plain version hashes every requested stream in one batched
+    threefry."""
     rows = [i for i, sp in enumerate(specs) if sp is not None]
     out = [None] * len(specs)
     if not rows:
         return out
+    fleet = keys.dim() == 3
     if K.use_kernel(keys):
         for i in rows:
             sp = specs[i]
+            ki = keys[:, i].contiguous() if fleet else keys[i]
             if sp[0] == "mask":
-                out[i] = bernoulli_below(keys[i], (n,), sp[1])
+                out[i] = bernoulli_below(ki, (n,), sp[1])
             else:
-                out[i] = latency_rounds(keys[i], (n,), *sp[1:])
+                out[i] = latency_rounds(ki, (n,), *sp[1:])
         return out
     # index after the int64 copy: torch's uint32 tensors take few ops
-    k0, k1 = _key_words(keys.to(torch.int64)[rows])
+    kk = keys.to(torch.int64)[..., rows, :]
+    k0, k1 = kk[..., 0:1], kk[..., 1:2]
     c0, c1 = _counters(n, keys.device)
     b0, b1 = threefry2x32(k0, k1, c0, c1)
-    u = bits_to_unit(b0 ^ b1)
+    u = bits_to_unit(b0 ^ b1)               # [(F,) len(rows), n]
     for j, i in enumerate(rows):
         sp = specs[i]
+        uj = u[..., j, :]
         if sp[0] == "mask":
-            out[i] = u[j] < sp[1]
+            out[i] = uj < (sp[1][:, None] if fleet else sp[1])
         else:
-            out[i] = latency_from_unit(u[j], sp[1],
-                                       mean_rounds(sp[2], sp[3]))
+            mean = mean_rounds(sp[2], sp[3])
+            out[i] = latency_from_unit(uj, sp[1],
+                                       mean[:, None] if fleet else mean)
     return out
 
 
 def latency_rounds(key, shape, dist: str, mean: float, scale):
     """int32 latency rounds of `shape` under a randomized distribution
     of mean `mean` rounds scaled by the float32 tensor `scale`
-    (`net/tpu.py draw_latency_rounds` of the JAX package)."""
-    _check_key(key)
+    (`net/tpu.py draw_latency_rounds` of the JAX package); (F, *shape)
+    for a batch of keys [F, 2] with scale [F], one a key."""
+    _check_key(key, batched=True)
     shape = tuple(shape)
+    lead = tuple(key.shape[:-1])
     if not K.use_kernel(key):
-        return latency_from_unit(uniform_plain(key, shape), dist,
-                                 mean_rounds(mean, scale))
-    out = torch.empty(shape, dtype=torch.int32, device=key.device)
+        m = mean_rounds(mean, scale).reshape(lead + (1,) * len(shape))
+        return latency_from_unit(bits_to_unit(random_bits_plain(key, shape)),
+                                 dist, m)
+    _check_per_key(key, scale, "scale")
+    out = torch.empty(lead + shape, dtype=torch.int32, device=key.device)
     return _launch(key, _numel(shape), LATENCY, out,
                    scale=scale.contiguous(), mean=mean, dist=dist)
 

@@ -46,10 +46,17 @@ in the adversary's carry (`_byz_surgery`, at a dispatch boundary as kill
 and pause land), `TpuByzantine` reads the program's evidence, and the
 injection ledger is read once at the end into `test["byz_injected"]`.
 
+A fleet (`--fleet N`, `runner/fleet_runner.py`) drives N of these
+runners as shells: the hooks `_build_sim`, `_net_surgery`,
+`restart_nodes`, `_read_state`, `_nodes_host`, `_init_next_mid` and the
+`_fleet_sessions` seat point a shell at its row of the fleet's batched
+state and session table, and its `_loop_steps` coroutine is the one a
+standalone run drives.
+
 Not ported here (their options are refused by the CLI, naming the slice
 that brings each): checkpoint/resume and preemption, the overlapped
-analysis pipeline, meshes and fleets, and the static-audit and cost
-blocks of the results."""
+analysis pipeline, meshes, and the static-audit and cost blocks of the
+results."""
 
 from __future__ import annotations
 
@@ -77,7 +84,7 @@ from ..nodes import HOST, EncodeCapacityError, Intern, get_program, \
     wire_name_table
 from ..sim import make_scan_fn, make_sim
 from ..tree import leaves, resolve_device, tree_map
-from .sessions import CoroutineSessions
+from .sessions import make_sessions
 
 log = logging.getLogger("maelstrom.tpu")
 
@@ -107,6 +114,37 @@ def quiet_probe(planes) -> torch.Tensor:
     quiet = torch.ones((), dtype=torch.bool, device=dev)
     flat = [p.contiguous() for p in planes]
     K.QUIET_PROBE.launch(flat + [quiet], [p.numel() for p in flat], dev)
+    return quiet
+
+
+def quiet_probe_fleet_plain(planes) -> torch.Tensor:
+    """bool [F]: True where no byte of cluster f's row of any F-led bool
+    plane is set (the JAX fleet's vmapped `_quiet`)."""
+    F = planes[0].shape[0]
+    busy = torch.zeros(F, dtype=torch.bool, device=planes[0].device)
+    for p in planes:
+        busy = busy | p.reshape(F, -1).any(dim=1)
+    return ~busy
+
+
+def quiet_probe_fleet(planes) -> torch.Tensor:
+    """The fleet's quiescence probe, one flag a cluster (see
+    `quiet_probe_fleet_plain`); the kernel is K6's fleet form
+    `quiet_probe_fleet` in `csrc/fleet.cu`: one launch over every plane,
+    one block a cluster."""
+    if not K.use_kernel(planes[0]):
+        return quiet_probe_fleet_plain(planes)
+    dev = planes[0].device
+    F = planes[0].shape[0]
+    for p in planes:
+        if p.dtype != torch.bool or p.device != dev or p.shape[0] != F:
+            raise ValueError(f"quiet_probe_fleet: planes must be bool [F, "
+                             f"...] on {dev}")
+    flat = [p.contiguous() for p in planes]
+    quiet = torch.empty(F, dtype=torch.bool, device=dev)
+    K.QUIET_PROBE_FLEET.launch(flat + [quiet],
+                               [F] + [p.numel() // max(F, 1) for p in flat],
+                               dev)
     return quiet
 
 
@@ -648,7 +686,12 @@ class TpuRunner:
 
     # --- main loop ---
 
-    def run(self) -> History:
+    def _setup_run(self) -> dict:
+        """The host-side run state the dispatch loop consumes (the JAX
+        runner's `_setup_run`): the generator, the nemesis executor, the
+        worker bookkeeping, the session table and the history. Returns
+        the keyword dict `_loop_steps` takes. Shared by `run` and the
+        fleet, which calls it on every cluster shell."""
         test = self.test
         C = self.concurrency
         gen = g.to_gen(test["generator"])
@@ -676,17 +719,34 @@ class TpuRunner:
         free = g.FreeSet(processes)
         for p in processes:
             free.add(p)
-        sessions = CoroutineSessions()
+        # a fleet shell gets its view of the fleet's one columnar table;
+        # a standalone run builds the backend --sessions names (the same
+        # bytes either way)
+        shared = getattr(self, "_fleet_sessions", None)
+        if shared is not None:
+            sessions = shared[0].view(shared[1])
+        else:
+            sessions = make_sessions(test, C, device=self.device)
         self._sessions = sessions
         history = History()
         max_rounds = int(test.get("max_rounds", 2_000_000))
         # host mirror of the device message-id counter (refreshed by
         # every dispatch's packed fetch)
+        self._init_next_mid()
+        return dict(gen=gen, processes=processes, free=free,
+                    sessions=sessions, history=history,
+                    max_rounds=max_rounds)
+
+    def _init_next_mid(self):
         self._next_mid = int(self.transfer.fetch(self.sim.net.next_mid))
+
+    def run(self) -> History:
+        st = self._setup_run()
         loop = (self._loop_steps_continuous if self.continuous
                 else self._loop_steps)
-        r = self._drive(loop(gen, processes, free, sessions, history,
-                             max_rounds))
+        r = self._drive(loop(**st))
+        max_rounds = st["max_rounds"]
+        history = st["history"]
         if r >= max_rounds:
             log.warning("runner hit max_rounds=%d", max_rounds)
         self.final_round = r
@@ -1362,7 +1422,12 @@ def run_tpu_test(test: dict, test_dir: str) -> dict:
     """Executes a full test: run, check, store (the JAX package's
     `run_tpu_test` for one cluster). Writes history.jsonl, history.txt,
     results.json, test.json, the network journal and timing.json (wall
-    seconds by phase, the port's own) into `test_dir`."""
+    seconds by phase, the port's own) into `test_dir`. `--fleet N` (N >
+    1) routes to the fleet runner: N independent clusters in lockstep,
+    each checked and stored on its own."""
+    if int(test.get("fleet") or 1) > 1:
+        from .fleet_runner import run_fleet_test
+        return run_fleet_test(test, test_dir)
     t_run0 = time.perf_counter()
     runner = TpuRunner(test)
     test["store_dir"] = test_dir

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from . import byzantine as BZ
@@ -42,7 +43,7 @@ from .net import static
 from .net import tpu as T
 from .net.tpu import I32, INT32_MAX, Msgs, NetConfig, NetState
 from .nodes import NodeProgram
-from .tree import Struct, resolve_device, tree_map
+from .tree import Struct, leaves, resolve_device, tree_map
 
 
 @dataclass
@@ -500,20 +501,33 @@ class EdgeFaults(Struct):
 _FAULT_STATS = ("lost", "dropped_partition", "dropped_down", "duplicated")
 
 
+def _pick(table, idx):
+    """table[..., idx]: a cluster's row of a per-cluster table ([C], or
+    [F, C] on the cluster axis) at node ids `idx` [N, D]."""
+    return table[..., idx]
+
+
 def _blocked_edges(cfg: NetConfig, nb, net: NetState):
-    """(blocked, stalled) [N, D]: partitioned edges (component labels and
-    the directional block matrix) and, with stall, edges into a killed or
-    paused destination, which count as blocked."""
+    """(blocked, stalled) [N, D] (or [F, N, D] on the cluster axis, each
+    cluster's by its own labels): partitioned edges (component labels
+    and the directional block matrix) and, with stall, edges into a
+    killed or paused destination, which count as blocked. `nb` is one
+    cluster's [N, D] table in local node ids."""
     N = cfg.n_nodes
     safe = nb.clamp(0, N - 1).long()
     comp = net.component
-    blocked = comp[:N, None] != comp[safe]
+    blocked = comp[..., :N, None] != _pick(comp, safe)
     if cfg.partition_groups > 1:
+        G = cfg.partition_groups
         bg = net.block_groups.long()
-        blocked = blocked | net.block_matrix[bg[:N, None], bg[safe]]
+        cell = bg[..., :N, None] * G + _pick(bg, safe)
+        bm = net.block_matrix.reshape(tuple(bg.shape[:-1]) + (G * G,))
+        blocked = blocked | torch.gather(
+            bm, -1, cell.reshape(tuple(bg.shape[:-1]) + (-1,))
+        ).reshape(cell.shape)
     blocked = blocked & (nb >= 0)
     if cfg.enable_stall:
-        stalled = (net.down | net.paused)[safe] & (nb >= 0) & ~blocked
+        stalled = _pick(net.down | net.paused, safe) & (nb >= 0) & ~blocked
     else:
         stalled = torch.zeros_like(blocked)
     return blocked | stalled, stalled
@@ -525,10 +539,14 @@ def edge_faults_plain(cfg: NetConfig, nb, net: NetState, valid, keys,
     stalled destinations, the loss roll (keys[3]), latency draws
     (keys[4]) and, with duplication, the duplicate roll (keys[5]) and
     its latency (keys[6]). Returns (EdgeFaults, the four counters
-    lost / dropped_partition / dropped_down / duplicated advanced)."""
-    N, D, L = valid.shape
-    dshape = (N, D, 1 if atomic else L)
-    n = N * D * dshape[2]
+    lost / dropped_partition / dropped_down / duplicated advanced). On
+    the cluster axis `valid` is [F, N, D, L], `keys` [F, 5 or 7, 2] and
+    the net's leaves F-led: every mask, draw and counter is its
+    cluster's own (JAX's `vmap` of the block)."""
+    N, D, L = valid.shape[-3:]
+    lead = tuple(valid.shape[:-3])
+    dshape = lead + (N, D, 1 if atomic else L)
+    n = N * D * dshape[-1]
     blocked, stalled = _blocked_edges(cfg, nb, net)
     lat_spec = (None if cfg.latency_dist == "constant" else
                 ("latency", cfg.latency_dist, cfg.latency_mean_rounds,
@@ -536,19 +554,20 @@ def edge_faults_plain(cfg: NetConfig, nb, net: NetState, valid, keys,
     dup_on = cfg.enable_duplication
     lost, lat, dup, dup_lat = (
         None if d is None else d.reshape(dshape) for d in prng.draws(
-            keys[3:], n, [("mask", net.p_loss), lat_spec]
+            keys[..., 3:, :], n, [("mask", net.p_loss), lat_spec]
             + ([("mask", net.p_dup), lat_spec] if dup_on else [None, None])))
-    deliver = ~blocked[:, :, None] & ~lost
+    deliver = ~blocked[..., None] & ~lost
     out = EdgeFaults(deliver=deliver, lat=lat)
     st = net.stats
-    counts = [valid & ~blocked[:, :, None] & lost,
-              valid & (blocked & ~stalled)[:, :, None],
-              valid & stalled[:, :, None]]
+    counts = [valid & ~blocked[..., None] & lost,
+              valid & (blocked & ~stalled)[..., None],
+              valid & stalled[..., None]]
     if dup_on:
         out.dup = deliver & dup
         out.dup_lat = dup_lat
         counts.append(valid & out.dup)
-    new = {f: getattr(st, f) + c.sum(dtype=I32)
+    new = {f: getattr(st, f) + c.reshape(lead + (-1,)).sum(dim=-1,
+                                                           dtype=I32)
            for f, c in zip(_FAULT_STATS, counts)}
     return out, st.replace(**new)
 
@@ -557,22 +576,27 @@ def edge_faults(cfg: NetConfig, nb, net: NetState, valid, keys,
                 atomic: bool = False):
     """A round's edge fault masks, draws and counters (see
     `edge_faults_plain`); the kernel is K8 `edge_faults` in
-    `csrc/faults.cu`. `keys` is the round's split [5 or 7, 2]."""
+    `csrc/faults.cu`. `keys` is the round's split [5 or 7, 2], or [F, 5
+    or 7, 2] with `valid` [F, N, D, L] on the cluster axis (one launch
+    for all F clusters)."""
     if not K.use_kernel(valid):
         return edge_faults_plain(cfg, nb, net, valid, keys, atomic)
-    N, D, L = valid.shape
+    N, D, L = valid.shape[-3:]
+    lead = tuple(valid.shape[:-3])
+    F = lead[0] if lead else 1
     dev = valid.device
     Ld = 1 if atomic else L
-    dshape = (N, D, Ld)
+    dshape = lead + (N, D, Ld)
     random_lat = cfg.latency_dist != "constant"
     dup_on = cfg.enable_duplication
     grudge = cfg.partition_groups > 1
     stall = cfg.enable_stall
-    if valid.dtype != torch.bool or tuple(nb.shape) != (N, D):
-        raise ValueError("edge_faults: valid [N, D, L] bool, neighbors "
-                         "[N, D]")
-    if keys.shape[0] != (7 if dup_on else 5):
-        raise ValueError(f"edge_faults: {keys.shape[0]} round keys")
+    if valid.dtype != torch.bool or tuple(nb.shape) != (N, D) \
+            or len(lead) > 1:
+        raise ValueError("edge_faults: valid [N, D, L] or [F, N, D, L] "
+                         "bool, neighbors [N, D]")
+    if tuple(keys.shape) != lead + (7 if dup_on else 5, 2):
+        raise ValueError(f"edge_faults: round keys {tuple(keys.shape)}")
 
     def new(dtype):
         return torch.empty(dshape, dtype=dtype, device=dev)
@@ -581,22 +605,26 @@ def edge_faults(cfg: NetConfig, nb, net: NetState, valid, keys,
                      dup=new(torch.bool) if dup_on else None,
                      dup_lat=new(I32) if dup_on and random_lat else None)
     st = net.stats
-    o_stats = {f: torch.empty((), dtype=I32, device=dev)
+    o_stats = {f: torch.empty(lead, dtype=I32, device=dev)
                for f in _FAULT_STATS}
-    acc = torch.empty(4, dtype=I32, device=dev)
+    acc = torch.empty(4 * F, dtype=I32, device=dev)
+
+    def key(i):
+        return keys[..., i, :].contiguous()
     K.EDGE_FAULTS.launch(
         [nb.contiguous(), net.component,
          net.block_groups if grudge else None,
          net.block_matrix if grudge else None,
          net.down if stall else None, net.paused if stall else None,
-         valid.contiguous(), keys[3], keys[4],
-         keys[5] if dup_on else None, keys[6] if dup_on else None,
+         valid.contiguous(), key(3), key(4),
+         key(5) if dup_on else None, key(6) if dup_on else None,
          net.p_loss, net.p_dup, net.latency_scale]
         + [getattr(st, f) for f in _FAULT_STATS]
         + [acc, out.deliver, out.lat, out.dup, out.dup_lat]
         + [o_stats[f] for f in _FAULT_STATS],
         [N, D, L, Ld, cfg.partition_groups, prng.DISTS[cfg.latency_dist],
-         prng.f32_bits(cfg.latency_mean_rounds)], dev)
+         prng.f32_bits(cfg.latency_mean_rounds), F,
+         net.component.shape[-1]], dev)
     return out, st.replace(**o_stats)
 
 
@@ -629,10 +657,15 @@ def _unrows(tree, axis):
 
 
 def _round_edge(program, cfg: NetConfig, sim: SimState, inject: Msgs,
-                axis: ClusterAxis = None):
+                axis: ClusterAxis = None, value_free: bool = False):
     """One round of one cluster, or with `axis` of F clusters at once
     (JAX's `vmap` of this round written out: every leaf leads with F,
-    each step is one launch for all clusters)."""
+    each step is one launch for all clusters). `inject` None is a round
+    with no client injection (its io's inject view is None). With
+    `value_free` (the cluster axis only: `parallel.make_cluster_round_fn`
+    finds that no fault draw of the round can change a value) the pool
+    send's loss roll and the edge fault pass (K8) are skipped: every
+    lane is delivered at latency 0 and the fault counters do not move."""
     N, Kc = cfg.n_nodes, program.inbox_cap
     lead = () if axis is None else (axis.F,)
     if axis is None:
@@ -641,31 +674,38 @@ def _round_edge(program, cfg: NetConfig, sim: SimState, inject: Msgs,
         ecfg, nb, rev = axis.ecfg, axis.neighbors, axis.rev
     # the round's keys: key', k1 (pool sends), k2 (the program), k4 (loss),
     # k5 (latency)[, k6 (duplication), k7 (its latency)]; on the cluster
-    # axis K7 splits all F keys at once, [F, 5, 2]
+    # axis K7 splits all F keys at once, [F, 5 or 7, 2], and every draw
+    # of cluster f comes from its own keys[f]
     keys = prng.split(sim.key, 7 if cfg.enable_duplication else 5)
-    # the cluster axis draws nothing that changes a value (see below): the
-    # pool send skips its loss roll
-    net, inject_sent = T._send(cfg, sim.net, inject,
-                               keys[1] if axis is None else None)
+    if inject is None:
+        # no injection (the fleet scan's rounds after its first): a send
+        # of no valid row changes no value, so it is skipped
+        net, inject_sent = sim.net, None
+    else:
+        net, inject_sent = T._send(
+            cfg, sim.net, inject,
+            None if value_free else keys[..., 1, :].contiguous())
     net, client_inbox, pool_client_msgs = T._deliver(cfg, net)
     ch0 = sim.channels
     ch = ch0.replace(**{f: _rows(getattr(ch0, f), axis)
                         for f in ("valid", "type", "a", "b", "c")})
-    # every cluster is at one round (`parallel` checks it): the exchange
-    # reads cluster 0's on the device
-    rnd = net.round if axis is None else net.round[0]
+    # a scalar round, or on the cluster axis every cluster's own [F]
+    # round (each node row reads its cluster's)
+    rnd = net.round
     ch, edge_in = static.edge_read(ecfg, ch, nb, rev, rnd)
+    stall = (sim.net.down | sim.net.paused) if cfg.enable_stall else None
     if axis is None:
         ctx = {"round": net.round, "key": keys[2]}
-        if cfg.enable_stall:
+        if stall is not None:
             # killed and paused nodes keep their state and send nothing
-            ctx["stall"] = sim.net.down | sim.net.paused
+            ctx["stall"] = stall
         nodes, edge_out, client_out = program.edge_step(
             sim.nodes, edge_in, client_inbox, ctx)
     else:
         nodes, edge_out, client_out = program.step_rows(
             _rows(sim.nodes, axis), edge_in, _rows(client_inbox, axis),
-            net.round, keys[:, 2].contiguous())
+            net.round, keys[:, 2].contiguous(),
+            None if stall is None else stall.reshape(-1))
         nodes = _unrows(nodes, axis)
     byz = sim.byz
     if cfg.enable_byz:
@@ -697,30 +737,35 @@ def _round_edge(program, cfg: NetConfig, sim: SimState, inject: Msgs,
                                  pool_client_msgs, replies))
 
     shape = edge_out.valid.shape
-    if axis is not None:
-        # the cluster axis runs constant latency 0 with the loss
-        # probability 0, one component, no stall and no duplication
-        # (`parallel` checks it): every fault draw is value-free, so the
-        # edge fault pass (K8) is skipped; every lane is delivered at
-        # latency 0 and the fault counters do not move
+    # edge faults (net.clj:213, 233): partitions, stalled destinations,
+    # loss, latency and duplication draws, one kernel (K8); on the cluster
+    # axis over [F, N, D, L] with each cluster's own labels, masks, keys
+    # and counters (partitions read the local neighbour table)
+    if ecfg.uniform_arrival and cfg.latency_dist != "constant":
+        raise ValueError(
+            "uniform_arrival requires constant latency draws (program "
+            "opts and NetConfig disagree about the latency "
+            "distribution)")
+    if value_free:
         fstats = net.stats
         dev = edge_out.valid.device
-        lat = torch.zeros((), dtype=I32, device=dev).expand(shape)
-        deliver = torch.ones((), dtype=torch.bool, device=dev).expand(shape)
-    else:
-        # edge faults (net.clj:213, 233): partitions, stalled
-        # destinations, loss, latency and duplication draws, one kernel
-        # (K8)
-        if ecfg.uniform_arrival and cfg.latency_dist != "constant":
-            raise ValueError(
-                "uniform_arrival requires constant latency draws (program "
-                "opts and NetConfig disagree about the latency "
-                "distribution)")
+        faults = EdgeFaults(
+            deliver=torch.ones((), dtype=torch.bool,
+                               device=dev).expand(shape),
+            lat=torch.zeros((), dtype=I32, device=dev).expand(shape))
+    elif axis is None:
         faults, fstats = edge_faults(cfg, nb, net, edge_out.valid, keys,
                                      program.edge_atomic_rpc)
-        lat, deliver = faults.lat, faults.deliver
-        if lat is None:
-            lat = T.draw_latency_rounds(cfg, None, net.latency_scale, shape)
+        scale = net.latency_scale
+    else:
+        faults, fstats = edge_faults(cfg, program.neighbors, net,
+                                     _unrows(edge_out.valid, axis), keys,
+                                     program.edge_atomic_rpc)
+        faults = tree_map(lambda t: _rows(t, axis), faults)
+        scale = net.latency_scale.repeat_interleave(N)[:, None, None]
+    lat, deliver = faults.lat, faults.deliver
+    if lat is None:
+        lat = T.draw_latency_rounds(cfg, None, scale, shape)
     ch = static.edge_write(ecfg, ch, edge_out, rnd, lat, deliver)
     if cfg.enable_duplication:
         # a delivered message is written again under its own latency
@@ -1122,3 +1167,285 @@ def make_scan_fn(program, cfg: NetConfig, reply_cap: int = 256,
     scan_fn.replayed = 0
     scan_fn.rolled_back = 0
     return scan_fn
+
+
+# --- the fleet scan (make_fleet_scan_fn): K32 and K5's fleet form ----------
+
+# K32's leaves a launch (csrc/fleet.cu kMaxLeaves)
+_HOLD_LEAVES = 96
+
+
+def fleet_hold_plain(live, pairs) -> None:
+    """dst[f] = src[f] where live[f] is False, in place, for every (dst,
+    src) pair of F-led tensors: `where(live, new, old)` written into
+    new."""
+    for dst, src in pairs:
+        if dst.dtype == torch.uint32:
+            # torch's CPU `where` takes no uint32 (the keys): the same bits
+            # as int32
+            dst, src = dst.view(torch.int32), src.view(torch.int32)
+        m = live.reshape((-1,) + (1,) * (dst.dim() - 1))
+        dst.copy_(torch.where(m, dst, src))
+
+
+def fleet_hold(live, pairs) -> int:
+    """Holds the lanes where the bool [F] `live` is False (see
+    `fleet_hold_plain`); the kernel is K32 `fleet_hold` in
+    `csrc/fleet.cu`, one launch over a table of up to 96 leaves. Pairs
+    whose dst is its src (a leaf the round passed on unchanged) and
+    repeated dsts (the durable view's aliases of node leaves) are
+    skipped. Returns the bytes a held lane copies."""
+    seen, todo = set(), []
+    for dst, src in pairs:
+        if dst.data_ptr() == src.data_ptr() or dst.data_ptr() in seen:
+            continue
+        seen.add(dst.data_ptr())
+        todo.append((dst, src))
+    row = sum(d.numel() // max(d.shape[0], 1) * d.element_size()
+              for d, _s in todo)
+    if not todo:
+        return 0
+    if not K.use_kernel(live):
+        fleet_hold_plain(live, todo)
+        return row
+    F = live.shape[0]
+    for dst, src in todo:
+        if dst.shape != src.shape or dst.dtype != src.dtype \
+                or dst.shape[0] != F or not dst.is_contiguous() \
+                or not src.is_contiguous():
+            raise ValueError(f"fleet_hold: leaves {tuple(dst.shape)} "
+                             f"{dst.dtype} / {tuple(src.shape)} "
+                             f"{src.dtype} for {F} lanes")
+    live = live.contiguous()
+    for lo in range(0, len(todo), _HOLD_LEAVES):
+        part = todo[lo:lo + _HOLD_LEAVES]
+        K.FLEET_HOLD.launch(
+            [live] + [t for pair in part for t in pair],
+            [F] + [d.numel() // F * d.element_size() for d, _s in part],
+            live.device)
+    return row
+
+
+def append_replies_fleet_plain(log, cm: Msgs, seen, n_nodes: int, round_i,
+                               k: int, k_max, stop, exit_k, live):
+    """K5 over F lanes (the vmapped `append_replies` and `cond`): lane
+    f's valid rows of cm [F, CW] go to its log row from rn[f] on (rows
+    at rcap or beyond dropped), stamped round_i[f], with the payload of
+    its own node row f * N + clip(src); rn[f] advances by every valid
+    row; where go = k < k_max[f] & ~(stop[f] & any valid) & rn[f] + CW
+    <= rcap fails, exit_k[f] takes k. Lanes not `live` append nothing.
+    rn and exit_k are updated in place. Returns (live', n_live): the
+    lanes live for the next round and their count."""
+    rlog, rounds, plog, rn = log
+    valid = cm.valid & live[:, None]
+    CW, rcap = valid.shape[1], rounds.shape[1]
+    total = valid.sum(dim=1, dtype=I32)
+    pos = rn[:, None].long() + torch.cumsum(valid, 1) - valid.long()
+    keep = valid & (pos < rcap)
+    f_i, _j = torch.nonzero(keep, as_tuple=True)
+    at = (f_i, pos[keep])
+    for f in _LOG_FIELDS:
+        getattr(rlog, f)[at] = getattr(cm, f)[keep]
+    rounds[at] = round_i[f_i].to(I32)
+    if plog is not None:
+        node = f_i * n_nodes + cm.src[keep].clamp(0, n_nodes - 1).long()
+        rows = seen[node]
+        plog[at] = (rows if rows.dtype == I32
+                    else pack_words(rows, plog.shape[2]))
+    rn2 = rn + total
+    go = (k < k_max) & ~(stop & (total > 0)) & (rn2 + CW <= rcap)
+    exit_k.copy_(torch.where(live & ~go & (exit_k > k), k, exit_k))
+    rn.copy_(rn2)
+    live2 = live & go
+    return live2, live2.sum(dtype=I32)
+
+
+def append_replies_fleet(log, cm: Msgs, seen, n_nodes: int, round_i,
+                         k: int, k_max, stop, exit_k, live):
+    """Appends a round's client replies to every live lane's reply log
+    and evaluates each lane's exit test (see
+    `append_replies_fleet_plain`); the kernel is K5's fleet form
+    `reply_log_fleet` in `csrc/fleet.cu`, one block a lane. `seen` is
+    the lanes' [F * N, V] bool payload plane or [F * N, W] int32 rows,
+    or None without payload."""
+    if not K.use_kernel(cm.valid):
+        return append_replies_fleet_plain(log, cm, seen, n_nodes, round_i,
+                                          k, k_max, stop, exit_k, live)
+    dev = cm.valid.device
+    F, CW = cm.valid.shape
+    for f in _LOG_FIELDS:
+        t = getattr(cm, f)
+        if tuple(t.shape) != (F, CW) or t.dtype != (
+                torch.bool if f == "valid" else I32):
+            raise ValueError(f"append_replies_fleet cm.{f}: "
+                             f"{tuple(t.shape)} {t.dtype}")
+    rlog, rounds, plog, rn = log
+    rcap = rounds.shape[1]
+    W = 0 if plog is None else plog.shape[2]
+    rows_i32 = bool(W) and seen.dtype == I32
+    V = seen.shape[1] if W else 0
+    if W and (tuple(seen.shape[:1]) != (F * n_nodes,)
+              or (seen.shape[1] != W if rows_i32 else
+                  seen.dtype != torch.bool or V > 32 * W)):
+        raise ValueError("append_replies_fleet: payload needs the [F * N, "
+                         "V] bool plane, V <= 32 W, or [F * N, W] int32")
+    live_out = torch.empty(F, dtype=torch.bool, device=dev)
+    n_live = torch.empty((), dtype=I32, device=dev)
+    K.REPLY_LOG_FLEET.launch(
+        [getattr(cm, f).contiguous() for f in _LOG_FIELDS]
+        + [getattr(rlog, f) for f in _LOG_FIELDS]
+        + [rounds, plog, seen.contiguous() if W else None,
+           round_i.contiguous(), rn, exit_k, k_max, stop, live.contiguous(),
+           live_out, n_live],
+        [F, CW, rcap, W, n_nodes, V, k, int(rows_i32)], dev)
+    return live_out, n_live
+
+
+def empty_fleet_log(F: int, rcap: int, W: int, device):
+    """A fresh reply log a lane: (Msgs [F, rcap], rounds i32 [F, rcap],
+    payload i32 [F, rcap, W] or None, rn i32 [F])."""
+    plog = (torch.zeros((F, rcap, W), dtype=I32, device=device) if W
+            else None)
+    return (Msgs.empty((F, rcap), device),
+            torch.zeros((F, rcap), dtype=I32, device=device), plog,
+            torch.zeros(F, dtype=I32, device=device))
+
+
+def _dense_t(t):
+    return t if t.is_contiguous() else t.contiguous()
+
+
+def _dense(program, sim: SimState) -> SimState:
+    """`sim` with every leaf contiguous (the durable view rebuilt over the
+    node leaves, so it aliases them as before)."""
+    nodes = tree_map(_dense_t, sim.nodes)
+    return sim.replace(net=tree_map(_dense_t, sim.net), nodes=nodes,
+                       durable=program.durable_view(nodes))
+
+
+def make_fleet_scan_fn(program, cfg: NetConfig, reply_cap: int = 256,
+                       device="cuda", fetch=None):
+    """fleet_fn(sim, inject [F, C], k_max [F], stop_on_reply [F], active
+    [F]) -> (sim', cm, k [F], (rlog, rounds, plog, rn [F])): the JAX
+    package's `make_fleet_scan_fn` (the scan vmapped over F lanes, one
+    cluster a lane, `parallel.make_fleet_sims`' tree). Lane f runs exactly
+    the rounds its own k_max, stop and reply-log room permit, as its
+    standalone scan would: `inject[f]` in its first round, then
+    injection-free rounds until the exit test fails (k its rounds, >=
+    1). A lane with `active` False returns its input row, k 0 and rn 0.
+    k_max, stop_on_reply and active are host values (numpy or lists);
+    cm is each lane's last executed round's client messages (empty for
+    a held lane).
+
+    The lanes run in lockstep: round j is one cluster-axis round of all
+    F lanes (`parallel.make_cluster_round_fn`), and K32 then holds the
+    lanes not live in round j: every leaf of the carry (nodes, the net
+    with its pool, counters and fault masks, the key, the durable view)
+    reverts to its pre-round row, and the edge channels, which the round
+    updates in place, to the rows a first K32 launch saved before the
+    round. A held lane therefore keeps its state, key and channels bit
+    for bit, and its later draws are its standalone run's. K5's fleet
+    form appends each live lane's replies to its own log and sets its
+    exit round. Per round K32 copies the held lanes' rows only: a held
+    lane copies `fleet_fn.row_bytes` bytes a round (its channel rows
+    twice, every other leaf's row once); a live row costs a flag read.
+
+    The host reads the count of live lanes after every round when a
+    live lane stops on replies, else once a chunk of SCAN_CHUNK rounds, and
+    stops when none is live or the largest k_max is reached; rounds past
+    every lane's exit are held whole. `fleet_fn.host_syncs` and
+    `fleet_fn.rounds` (lockstep rounds run) count them: a dispatch holds
+    F * rounds - sum(k) lane-rounds."""
+    from .parallel import make_cluster_round_fn
+    dev = resolve_device(device)
+    T.check_scope(cfg)
+    _check_program(program, cfg, dev)
+    round_fn = make_cluster_round_fn(program, cfg, device=dev)
+    rcap_req = max(1, int(reply_cap))
+    W = int(getattr(program, "reply_payload_words", 0) or 0)
+    N = cfg.n_nodes
+    read = fetch or (lambda t: int(t))
+
+    def carry_pairs(new: SimState, old: SimState):
+        """(new, old) leaf pairs of every part of the carry but the
+        channels."""
+        pairs = []
+        for part in ("net", "nodes", "key", "durable"):
+            a, b = getattr(new, part), getattr(old, part)
+            pairs += [(x, y) for (_p, x), (_q, y) in zip(leaves(a),
+                                                         leaves(b))]
+        return pairs
+
+    scratch = {}
+
+    def fleet_fn(sim: SimState, inject: Msgs, k_max, stop_on_reply,
+                 active):
+        F = sim.key.shape[0]
+        act = np.asarray(active, bool).reshape(F)
+        kmax_h = np.asarray(k_max, np.int64).reshape(F)
+        stop_h = np.asarray(stop_on_reply, bool).reshape(F)
+        k_max_t = torch.from_numpy(kmax_h.astype(np.int32)).to(dev)
+        stop_t = torch.from_numpy(stop_h).to(dev)
+        act_t = torch.from_numpy(act.copy()).to(dev)
+        live = act_t
+        exit_k = torch.full((F,), INT32_MAX, dtype=I32, device=dev)
+        last = max(int(kmax_h[act].max()), 1) if act.any() else 0
+        # a lane that stops on a reply may exit at any round: the count of
+        # live lanes is read after every round (on a host-bound loop the
+        # read costs the card's tail of the round, a round past every
+        # exit a whole round); otherwise lanes exit at their k_max or a
+        # full log, and it is read once a chunk
+        cur, cm_prev, log = sim, None, None
+        k, size = 0, 1 if (stop_h & act).any() else SCAN_CHUNK
+        while k < last:
+            n = min(size, last - k)
+            for j in range(n):
+                kk = k + j + 1
+                ch_leaves = [t for _p, t in leaves(cur.channels)]
+                shapes = tuple(tuple(t.shape) for t in ch_leaves)
+                if shapes not in scratch:
+                    scratch.clear()
+                    scratch[shapes] = [torch.empty_like(t)
+                                       for t in ch_leaves]
+                saved = scratch[shapes]
+                # the held lanes' channel rows, before the round moves
+                # them in place
+                row = fleet_hold(live, list(zip(saved, ch_leaves)))
+                nxt, cm, _io = round_fn(cur, inject if kk == 1 else None)
+                # K32 copies whole rows: the pool's scatters leave views
+                nxt, cm = _dense(program, nxt), tree_map(_dense_t, cm)
+                if cm_prev is None:
+                    cm_prev = Msgs.empty(tuple(cm.valid.shape), dev)
+                    log = empty_fleet_log(
+                        F, max(rcap_req, 2 * cm.valid.shape[1]), W, dev)
+                new_ch = [t for _p, t in leaves(nxt.channels)]
+                fleet_fn.row_bytes = row + fleet_hold(
+                    live, carry_pairs(nxt, cur) + list(zip(new_ch, saved))
+                    + [(x, y) for (_p, x), (_q, y) in zip(leaves(cm),
+                                                          leaves(cm_prev))])
+                seen = None
+                if W:
+                    seen = program.reply_payload_plane(nxt.nodes)
+                    seen = seen.reshape((F * N,) + tuple(seen.shape[2:]))
+                live, n_live = append_replies_fleet(
+                    log, cm, seen, N, nxt.net.round, kk, k_max_t, stop_t,
+                    exit_k, live)
+                cur, cm_prev = nxt, cm
+            k += n
+            fleet_fn.rounds += n
+            if k >= last:
+                break
+            fleet_fn.host_syncs += 1
+            if read(n_live) == 0:
+                break
+        k_out = torch.where(act_t, exit_k, 0)
+        if log is None:             # no lane ran
+            log = empty_fleet_log(F, rcap_req, W, dev)
+            cm_prev = Msgs.empty((F, max(cfg.client_cap,
+                                         2 * cfg.n_clients, 1)), dev)
+        return cur, cm_prev, k_out, log
+
+    fleet_fn.host_syncs = 0
+    fleet_fn.rounds = 0
+    fleet_fn.row_bytes = 0
+    return fleet_fn

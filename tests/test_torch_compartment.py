@@ -405,14 +405,17 @@ BASE = ["test", "-w", "lin-kv", "--node", "tpu:compartment", "--device",
 @pytest.mark.parametrize("extra,what", [
     (["--roles", "sequencers=2", "--checkpoint-every", "0.5"],
      "checkpoint and resume"),
-    (["--roles", "sequencers=3,proxies=4", "--mesh", "1,2"],
-     "mesh and fleet"),
-    (["--election-timeout-rounds", "90", "--fleet", "2"],
-     "mesh and fleet"),
+    # fleets run since the fleet slice, but not of the compartment (a role
+    # partition); a mesh names the multi-GPU slice: the cases keep their
+    # ids
+    pytest.param(["--roles", "sequencers=3,proxies=4", "--mesh", "1,2"],
+                 "the multi-GPU slice", id="extra1-mesh and fleet"),
+    pytest.param(["--election-timeout-rounds", "90", "--fleet", "2"],
+                 "the role partitions", id="extra2-mesh and fleet"),
     # the byzantine cases refused what now runs: they keep their ids and
     # check what stays refused beside the adversary
     pytest.param(["--leader-lease-ms", "5", "--byz-rate", "0.5",
-                  "--fleet", "2"], "mesh and fleet",
+                  "--fleet", "2"], "the role partitions",
                  id="extra3-the byzantine adversary"),
     (["--client-retries", "2", "--check-workers", "2"],
      "the overlap pipeline"),

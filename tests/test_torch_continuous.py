@@ -229,8 +229,8 @@ def test_continuous_rejections(tmp_path, capsys):
     base = ["test", "-w", "lin-kv", "--node", "tpu:lin-kv", "--node-count",
             "3", "--device", "cpu", "--continuous", "--store",
             str(tmp_path / "cli")]
-    for extra, slice_ in ((["--fleet", "2"], "mesh and fleet"),
-                          (["--mesh", "1,2"], "mesh and fleet"),
+    for extra, slice_ in ((["--fleet", "2"], "the continuous fleet"),
+                          (["--mesh", "1,2"], "the multi-GPU slice"),
                           (["--checkpoint-every", "1"],
                            "checkpoint and resume")):
         assert pcli.main(base + extra) == 2

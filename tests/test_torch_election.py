@@ -520,7 +520,7 @@ def test_elected_layout_refusals_match_jax(opts):
 def test_byzantine_stays_refused_on_an_elected_tier(tmp_path, capsys):
     # the adversary runs on an elected tier since the byzantine slice (the
     # proxies carry the stale-ballot surface there); beside a fleet it
-    # stays refused, naming the slice that brings fleets
+    # stays refused, in the JAX package's words
     prog = p_get_program("compartment", {"roles": "sequencers=2",
                                          "nemesis": {"kill", "byzantine"}},
                          [f"n{i}" for i in range(10)], device="cpu")
@@ -529,7 +529,7 @@ def test_byzantine_stays_refused_on_an_elected_tier(tmp_path, capsys):
                       "--roles", "sequencers=2", "--nemesis",
                       "kill,byzantine", "--fleet", "2", "--device", "cpu",
                       "--store", str(tmp_path)]) == 2
-    assert "mesh and fleet" in capsys.readouterr().err
+    assert "does not compose with --fleet" in capsys.readouterr().err
     assert not os.listdir(tmp_path)
 
 

@@ -15,6 +15,7 @@ from maelstrom_tpu_torch import cli, core
 from maelstrom_tpu_torch.bench import (bench_byzantine_record,
                                        bench_checkers_record,
                                        bench_compartment_record,
+                                       bench_fleet_record,
                                        run_broadcast_batched_bench,
                                        run_broadcast_bench, run_raft_bench)
 from maelstrom_tpu_torch.checkers.elle import analyze
@@ -23,9 +24,14 @@ from maelstrom_tpu_torch.fuzz import fuzz_broadcast, fuzz_kafka
 from maelstrom_tpu_torch.net.tpu import NetConfig
 from maelstrom_tpu_torch.nodes import get_program
 from maelstrom_tpu_torch.parallel import make_cluster_round_fn, \
-    make_cluster_sims
+    make_cluster_sims, make_fleet_sims
+from maelstrom_tpu_torch.runner.fleet_runner import FleetRunner, \
+    run_fleet_test
+from maelstrom_tpu_torch.runner.sessions import ColumnarSessions, \
+    SessionView
 from maelstrom_tpu_torch.runner.tpu_runner import run_tpu_test
-from maelstrom_tpu_torch.sim import make_run_fn, make_scan_fn, make_sim
+from maelstrom_tpu_torch.sim import make_fleet_scan_fn, make_run_fn, \
+    make_scan_fn, make_sim
 from maelstrom_tpu_torch.telemetry import TelemetrySession, make_ring, \
     render_top
 
@@ -62,7 +68,7 @@ def test_port_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", GUARD], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 71    # every module was imported
+    assert int(res.stdout.split()[-1]) >= 72    # every module was imported
 
 
 def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
@@ -162,7 +168,27 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
                                    "byzantine", "--byz-attacks",
                                    "equivocation", "--store",
                                    str(tmp_path)]),
-                 lambda: bench_byzantine_record()):
+                 lambda: bench_byzantine_record(),
+                 # the fleet slice's entry points
+                 lambda: make_fleet_sims(raft, cfg, [1, 2]),
+                 lambda: make_fleet_scan_fn(raft, cfg),
+                 lambda: cli.main(args + ["--fleet", "2"]),
+                 lambda: cli.main(["test", "-w", "lin-kv", "--node",
+                                   "tpu:lin-kv", "--node-count", "3",
+                                   "--fleet", "2", "--fleet-sweep",
+                                   "nemesis", "--nemesis", "partition",
+                                   "--store", str(tmp_path)]),
+                 lambda: FleetRunner(core.build_test({
+                     "workload": "broadcast", "node": "tpu:broadcast",
+                     "node_count": 4, "fleet": 2})),
+                 lambda: run_fleet_test(core.build_test({
+                     "workload": "broadcast", "node": "tpu:broadcast",
+                     "node_count": 4, "fleet": 2}), str(tmp_path)),
+                 lambda: ColumnarSessions(64, 4),
+                 lambda: SessionView(ColumnarSessions(1, 4,
+                                                      device_reduce=True),
+                                     0),
+                 lambda: bench_fleet_record(sizes=[1])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert not any(tmp_path.iterdir())      # refused before any store dir
@@ -204,6 +230,10 @@ CPU_RUNS = {
                          "--nemesis", "kill,pause", "--nemesis-interval",
                          "0.05", "--nemesis-targets",
                          "kill=lww-kv,pause=seq-kv", "--timeout-ms", "200"],
+    # a fleet of two clusters under a partition nemesis
+    "broadcast-fleet": BROADCAST4 + ["--time-limit", "0.2", "--fleet", "2",
+                                     "--nemesis", "partition",
+                                     "--nemesis-interval", "0.1"],
     "solo-echo": ["test", "-w", "echo", "--node", "tpu:solo:echo",
                   "--node-count", "3", "--time-limit", "0.2",
                   "--ms-per-round", "5"],

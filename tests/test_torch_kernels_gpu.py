@@ -1587,3 +1587,240 @@ def test_byz_corrupt_matches_plain(cuda, edge, n, L, S, attack, rnd):
             assert kern.launches == before + 1
             _equal(got, ref)
             _equal(carry, keep)        # the carry is not updated
+
+
+# --- the fleet slice: the cluster axis under faults, K32, K33 and the fleet
+# forms of K5 and K6 ------------------------------------------------------
+
+def _fleet_faults(sims, F, n, G, rng, device):
+    """Per-cluster faults on a cluster-batched state: loss, latency
+    scales, duplication, component and directional partitions, kill and
+    pause, and clusters at rounds of their own."""
+    net = sims.net
+    C = net.component.shape[1]
+    comp = np.zeros((F, C), np.int32)
+    comp[:, :n] = rng.integers(0, 2, (F, n))
+    bg = np.zeros((F, C), np.int32)
+    bg[:, :n] = rng.integers(0, G, (F, n))
+    bm = rng.random((F, G, G)) < 0.3
+    bm[:, np.arange(G), np.arange(G)] = False
+    upd = {"round": rng.integers(0, 50, F).astype(np.int32),
+           "p_loss": np.full(F, 0.03, np.float32),
+           "latency_scale": rng.choice(np.array([0.5, 1.0, 2.0], np.float32),
+                                       F),
+           "p_dup": rng.choice(np.array([0.0, 0.3], np.float32), F),
+           "component": comp, "block_groups": bg, "block_matrix": bm,
+           "down": rng.random((F, n)) < 0.2,
+           "paused": rng.random((F, n)) < 0.2}
+    return sims.replace(net=net.replace(**{
+        k: torch.from_numpy(v).to(device) for k, v in upd.items()}))
+
+
+@pytest.mark.parametrize("prog_name,dist,F", [
+    ("broadcast", "uniform", 7), ("broadcast", "constant", 64),
+    ("lin-kv", "exponential", 7), ("lin-kv", "constant", 64)])
+def test_fleet_cluster_round_under_faults_matches_plain(cuda, prog_name,
+                                                        dist, F):
+    """The cluster round under per-cluster faults through the kernels
+    (K1, K2, K9 with [F] rounds, K3 or K10 over rows with the stall
+    mask, K7 over [F, 2] keys with [F] probabilities and scales, K8
+    F-led, K4) against the plain versions on the CPU, 40 rounds with
+    client requests."""
+    from maelstrom_tpu_torch import parallel as PP
+    from maelstrom_tpu_torch.net import tpu as T
+    n, R = 5, 40
+    nodes = [f"n{i}" for i in range(n)]
+    opts = {"latency": {"mean": 2 if dist != "constant" else 1,
+                        "dist": dist},
+            "max_values": 32, "nemesis": {"duplicate"}}
+    rng = np.random.default_rng(F)
+    plan = [{"valid": rng.random((F, 2)) < 0.3,
+             "src": (n + rng.integers(0, 2, (F, 2))).astype(np.int32),
+             "dest": rng.integers(0, n, (F, 2), dtype=np.int32),
+             "type": rng.choice(np.array([10, 12], np.int32), (F, 2)),
+             "a": rng.integers(0, 8, (F, 2), dtype=np.int32),
+             "b": rng.integers(0, 5, (F, 2), dtype=np.int32),
+             "c": rng.integers(0, 5, (F, 2), dtype=np.int32)}
+            for _r in range(R)]
+    res = {}
+    for d in ("cpu", cuda):
+        prog = get_program(prog_name, opts, nodes, device=d)
+        cfg = T.NetConfig(n_nodes=n, n_clients=2, pool_cap=64,
+                          inbox_cap=prog.inbox_cap, client_cap=4,
+                          latency_mean_rounds=float(
+                              opts["latency"]["mean"]),
+                          latency_dist=dist, partition_groups=n,
+                          enable_stall=True, enable_duplication=True)
+        fn = PP.make_cluster_round_fn(prog, cfg, device=d)
+        sims = PP.make_fleet_sims(prog, cfg, list(range(F)), device=d)
+        sims = _fleet_faults(sims, F, n, n, np.random.default_rng(3), d)
+        for rows in plan:
+            sims = fn(sims, PP.injection_msgs(rows, d))[0]
+        res[d] = sims
+    torch.cuda.synchronize()
+    _equal(res[cuda], res["cpu"])
+    st = res["cpu"].net.stats
+    assert int(st.dropped_partition.sum()) > 0
+    assert int(st.dropped_down.sum()) > 0
+
+
+@pytest.mark.parametrize("prog_name", ["broadcast", "lin-kv"])
+def test_fleet_scan_matches_plain(cuda, prog_name):
+    """Two fleet-scan dispatches (K32 holds, K5's fleet form) on the card
+    against the plain versions: per-lane k_max, stop on reply, an
+    inactive lane."""
+    from maelstrom_tpu_torch import parallel as PP
+    from maelstrom_tpu_torch.net import tpu as T
+    from maelstrom_tpu_torch.sim import make_fleet_scan_fn
+    n, F = 5, 9
+    nodes = [f"n{i}" for i in range(n)]
+    rng = np.random.default_rng(1)
+    rows = {"valid": rng.random((F, 2)) < 0.8,
+            "src": (n + rng.integers(0, 2, (F, 2))).astype(np.int32),
+            "dest": rng.integers(0, n, (F, 2), dtype=np.int32),
+            "type": np.full((F, 2), 10 if prog_name == "broadcast" else 10,
+                            np.int32),
+            "a": rng.integers(0, 8, (F, 2), dtype=np.int32)}
+    kmax = rng.integers(1, 60, F)
+    stop = rng.random(F) < 0.5
+    active = np.ones(F, bool)
+    active[2] = False
+    res = {}
+    for d in ("cpu", cuda):
+        prog = get_program(prog_name, {"max_values": 32}, nodes, device=d)
+        cfg = T.NetConfig(n_nodes=n, n_clients=2, pool_cap=64,
+                          inbox_cap=prog.inbox_cap, client_cap=4)
+        sims = PP.make_fleet_sims(prog, cfg, list(range(F)), device=d)
+        fn = make_fleet_scan_fn(prog, cfg, reply_cap=64, device=d)
+        outs = []
+        for j in range(2):
+            inj = PP.injection_msgs(rows, d)
+            sims, cm, k, log = fn(sims, inj, kmax + 40 * j, stop, active)
+            outs.append((k, log))
+        res[d] = (sims, outs)
+    torch.cuda.synchronize()
+    _equal(res[cuda][0], res["cpu"][0])
+    for (kg, lg), (kr, lr) in zip(res[cuda][1], res["cpu"][1]):
+        _equal(kg, kr)
+        _equal(tuple(x for x in lg if x is not None),
+               tuple(x for x in lr if x is not None))
+
+
+@pytest.mark.parametrize("F,live_p", [(1, 0.0), (5, 0.5), (10_000, 0.3)])
+def test_fleet_hold_matches_plain(cuda, F, live_p):
+    """K32 over leaves of odd row sizes and alignments (bool, int32,
+    uint32, float32; 16-byte, 4-byte and byte copies)."""
+    from maelstrom_tpu_torch.sim import fleet_hold
+    rng = np.random.default_rng(F)
+    shapes = [((F,), np.int32), ((F, 3), np.bool_), ((F, 4, 4), np.int32),
+              ((F, 7), np.float32), ((F, 2), np.uint32),
+              ((F, 5, 4, 3), np.bool_)]
+    new = [rng.integers(0, 100, s).astype(t) for s, t in shapes]
+    old = [rng.integers(0, 100, s).astype(t) for s, t in shapes]
+    live = rng.random(F) < live_p
+    res = {}
+    for d in ("cpu", cuda):
+        dst = [torch.from_numpy(x.copy()).to(d) for x in new]
+        src = [torch.from_numpy(x.copy()).to(d) for x in old]
+        fleet_hold(torch.from_numpy(live).to(d), list(zip(dst, src)))
+        res[d] = tuple(dst)
+    torch.cuda.synchronize()
+    _equal(res[cuda], res["cpu"])
+    for x, y, z in zip(res["cpu"], new, old):
+        want = np.where(live.reshape((-1,) + (1,) * (y.ndim - 1)), y, z)
+        np.testing.assert_array_equal(x.numpy(), want)
+
+
+@pytest.mark.parametrize("F,S,R", [(1, 8, 8), (64, 10, 8), (10_000, 10, 8),
+                                   (3, 300, 129)])
+def test_wave_reduce_matches_plain(cuda, F, S, R):
+    """K33 on random session tables with empty rows, INT32_MAX-adjacent
+    deadlines and slots past one warp."""
+    from maelstrom_tpu_torch.runner.sessions import (wave_reduce,
+                                                     wave_reduce_plain)
+    rng = np.random.default_rng(S)
+    p_mid = np.where(rng.random((F, S)) < 0.4,
+                     rng.integers(0, 10**6, (F, S)), -1).astype(np.int32)
+    p_mid[::3] = -1
+    p_dl = rng.integers(0, 2**31 - 1, (F, S), dtype=np.int64).astype(
+        np.int32)
+    r_valid = rng.random((F, R)) < 0.3
+    r_valid[1::4] = False
+    r_due = rng.integers(-5, 2**31 - 1, (F, R), dtype=np.int64).astype(
+        np.int32)
+    args = [torch.from_numpy(a) for a in (p_mid, p_dl, r_valid, r_due)]
+    ref = wave_reduce_plain(*args)
+    got = wave_reduce(*[a.to(cuda) for a in args])
+    torch.cuda.synchronize()
+    _equal(got, ref)
+
+
+@pytest.mark.parametrize("F,CW,rcap,W", [(3, 9, 64, 2), (64, 20, 40, 0),
+                                         (10_000, 10, 256, 2),
+                                         (5, 600, 1300, 4)])
+def test_reply_log_fleet_matches_plain(cuda, F, CW, rcap, W):
+    """K5's fleet form: lanes live and held, logs near full, stop and
+    k_max per lane."""
+    from maelstrom_tpu_torch.sim import (append_replies_fleet,
+                                         empty_fleet_log)
+    rng = np.random.default_rng(F + CW)
+    N, V = 5, 32 * W if W else 0
+    cm = {"valid": rng.random((F, CW)) < 0.4,
+          **{f: rng.integers(-5, 99, (F, CW), dtype=np.int32)
+             for f in ("src", "dest", "due", "mid", "reply_to", "type", "a",
+                       "b", "c")}}
+    seen = rng.random((F * N, V)) < 0.5 if W else None
+    rn0 = rng.integers(0, rcap, F).astype(np.int32)
+    k_max = rng.integers(1, 9, F).astype(np.int32)
+    stop = rng.random(F) < 0.5
+    live = rng.random(F) < 0.7
+    exit0 = np.where(rng.random(F) < 0.2, 3, 2**31 - 1).astype(np.int32)
+    rnd = rng.integers(0, 999, F).astype(np.int32)
+    res = {}
+    for d in ("cpu", cuda):
+        log = empty_fleet_log(F, rcap, W, d)
+        log[3].copy_(torch.from_numpy(rn0))
+        exit_k = torch.from_numpy(exit0.copy()).to(d)
+        live2, n_live = append_replies_fleet(
+            log, Msgs(**_tensors(cm, d)),
+            None if seen is None else torch.from_numpy(seen).to(d), N,
+            torch.from_numpy(rnd).to(d), 4, torch.from_numpy(k_max).to(d),
+            torch.from_numpy(stop).to(d), exit_k,
+            torch.from_numpy(live).to(d))
+        res[d] = (tuple(x for x in log if x is not None), exit_k, live2,
+                  n_live)
+    torch.cuda.synchronize()
+    _equal(res[cuda], res["cpu"])
+
+
+@pytest.mark.parametrize("F,rows", [(1, [5, 3]), (7, [13, 64, 3]),
+                                    (10_000, [16, 320, 5])])
+def test_quiet_probe_fleet_matches_plain(cuda, F, rows):
+    from maelstrom_tpu_torch.runner.tpu_runner import (
+        quiet_probe_fleet, quiet_probe_fleet_plain)
+    rng = np.random.default_rng(F)
+    planes = [rng.random((F, r)) < 0.002 for r in rows]
+    ref = quiet_probe_fleet_plain([torch.from_numpy(p) for p in planes])
+    got = quiet_probe_fleet([torch.from_numpy(p).to(cuda) for p in planes])
+    torch.cuda.synchronize()
+    _equal(got, ref)
+    if F >= 1000:
+        assert 0 < int(ref.sum()) < F
+
+
+@pytest.mark.parametrize("F,n", [(3, 7), (10_000, 40)])
+def test_threefry_batched_masks_and_latency_match_plain(cuda, F, n):
+    """K7 over [F, 2] keys with [F] probabilities and latency scales."""
+    from maelstrom_tpu_torch import prng
+    rng = np.random.default_rng(n)
+    keys = rng.integers(0, 2**32, (F, 2), dtype=np.uint64).astype(np.uint32)
+    p = rng.random(F).astype(np.float32)
+    scale = rng.choice(np.array([0.5, 1.0, 3.0], np.float32), F)
+    res = {}
+    for d in ("cpu", cuda):
+        k = torch.from_numpy(keys.astype(np.int64)).to(torch.uint32).to(d)
+        res[d] = (prng.bernoulli_below(k, (n,), torch.from_numpy(p).to(d)),
+                  prng.latency_rounds(k, (n,), "uniform", 3.0,
+                                      torch.from_numpy(scale).to(d)))
+    torch.cuda.synchronize()
+    _equal(res[cuda], res["cpu"])

@@ -135,10 +135,14 @@ def test_free_set_rotation_matches_sorted_list():
 @pytest.mark.parametrize("extra,slice_", [
     # the cases that refused the byzantine adversary, which now runs, keep
     # their ids and check what stays refused beside it
+    # (fleets run since the fleet slice: beside one the adversary stays
+    # refused in the JAX package's words; a mesh names the multi-GPU
+    # slice)
     pytest.param(["--nemesis", "byzantine", "--fleet", "2"],
-                 "mesh and fleet", id="extra0-the byzantine adversary"),
+                 "does not compose with --fleet",
+                 id="extra0-the byzantine adversary"),
     pytest.param(["--nemesis", "kill,byzantine", "--mesh", "1,2"],
-                 "mesh and fleet", id="extra1-the byzantine adversary"),
+                 "the multi-GPU slice", id="extra1-the byzantine adversary"),
     # the cases that refused what now runs (--nemesis-targets, lin-tso,
     # --ordering compartment's slice name, the compartment, its elected
     # tier, --client-retries) keep their ids and check what stays refused
@@ -150,14 +154,20 @@ def test_free_set_rotation_matches_sorted_list():
     pytest.param(["--byz-rate", "0.5", "--checkpoint-every", "1"],
                  "checkpoint and resume",
                  id="extra3-the byzantine adversary"),
-    pytest.param(["--client-retries", "3", "--sessions", "columnar"],
-                 "mesh and fleet", id="extra4-retries and backoff"),
+    # --sessions columnar and --fleet run since the fleet slice
+    # (tests/test_torch_fleet.py holds them against JAX): these cases keep
+    # their ids and check what stays refused beside them
+    pytest.param(["--client-retries", "3", "--sessions", "columnar",
+                  "--fleet", "2", "--continuous"], "the continuous fleet",
+                 id="extra4-retries and backoff"),
     # the cases that refused what now runs (--continuous, --telemetry)
     # keep their ids and check what stays refused beside them
-    pytest.param(["--continuous", "--fleet", "2"], "mesh and fleet",
+    pytest.param(["--continuous", "--fleet", "2"], "the continuous fleet",
                  id="extra5-continuous mode"),
-    (["--fleet", "4"], "mesh and fleet"),
-    (["--mesh", "1,4"], "mesh and fleet"),
+    pytest.param(["--fleet", "4", "--telemetry"], "the continuous fleet",
+                 id="extra6-mesh and fleet"),
+    pytest.param(["--mesh", "1,4"], "the multi-GPU slice",
+                 id="extra7-mesh and fleet"),
     (["--checkpoint-every", "1"], "checkpoint and resume"),
     (["--resume", "x"], "checkpoint and resume"),
     # the cases that refused what now runs (--device-checker on, the
@@ -171,7 +181,7 @@ def test_free_set_rotation_matches_sorted_list():
     pytest.param(["--telemetry", "--checkpoint-every", "1"],
                  "checkpoint and resume", id="extra11-telemetry rings"),
     pytest.param(["--ordering", "compartment", "--roles", "sequencers=2",
-                  "--mesh", "1,2"], "mesh and fleet",
+                  "--mesh", "1,2"], "the multi-GPU slice",
                  id="extra12-the role-partitioned programs"),
     pytest.param(["-w", "txn-rw-register", "--bin",
                   "demo/python/txn_rw_register.py"],
@@ -179,7 +189,7 @@ def test_free_set_rotation_matches_sorted_list():
                  id="extra13-the Raft transaction programs"),
     pytest.param(["-w", "txn-list-append", "--ordering", "compartment",
                   "--election-timeout-rounds", "90", "--fleet", "2"],
-                 "mesh and fleet",
+                 "the role partitions",
                  id="extra14-the Raft transaction programs"),
     pytest.param(["-w", "lin-tso", "--node", "tpu:services",
                   "--leader-lease-ms", "5", "--nemesis", "byzantine",
