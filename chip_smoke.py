@@ -297,7 +297,8 @@ def event_ms(fn, iters: int) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def cuda_ms(fn, iters: int = 20, warmup: int = 3,
+            only: str | tuple = ()) -> float:
     """Mean device time of one call of `fn`: the kernels, copies and fills
     it runs on the card, summed from a `torch.profiler` trace of `iters`
     calls. Host dispatch and the idle gaps it leaves are not counted (a
@@ -309,7 +310,10 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     the count over `iters`, rounded), or one, is kept: the function's
     time is its mean recorded duration times c; one that lost more is
     taken again. When no trace is whole, the time is `event_ms`'s, and
-    the `profiler` line says so."""
+    the `profiler` line says so. With `only` (a name or a tuple of
+    names), the time is that of the device functions whose name holds
+    one of them (a kernel's, where each call first resets the kernel's
+    inputs)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -322,17 +326,26 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     def per_call(e):
         return round(e.count / iters)
 
+    names = (only,) if isinstance(only, str) else only
+
+    def pick(evs):
+        return [e for e in evs
+                if not names or any(k in e.key for k in names)]
+
     def whole(evs):
-        return all(per_call(e) >= 1 and 0 <= per_call(e) * iters - e.count
-                   <= max(1, per_call(e) * iters // 20) for e in evs)
+        evs = pick(evs)
+        return bool(evs) and all(
+            per_call(e) >= 1 and 0 <= per_call(e) * iters - e.count
+            <= max(1, per_call(e) * iters // 20) for e in evs)
 
     evs = traced(run, whole, "timing", keep_last=True)
     if not evs or not whole(evs):
         ms = event_ms(fn, iters)
         PROFILER["event_timed"].append({
             "held": {e.key[:40]: e.count for e in evs}, "iters": iters,
-            "ms": ms})
+            "ms": ms, "only": only})
         return ms
+    evs = pick(evs)
     missing = sum(per_call(e) * iters - e.count for e in evs)
     PROFILER["short"] += missing > 0
     PROFILER["records_missing"] += missing
@@ -689,6 +702,55 @@ def edge_sent_checks(n=4096, latency=5):
     return {"nodes": n, "ring": cfg.ring, "lanes": L, "max_abs_err": err}
 
 
+LARGE_V = {"nodes": 5, "values": 40_000}
+
+
+def k3_large_v_checks():
+    """K3 past the shared-memory masks of its first design (which refused
+    to launch above some 33,000 values): 5 nodes at 40,000 values, every
+    mode, with and without the stall mask, against its plain version on
+    the card. Returns {kernel@v40000: {max_abs_err, bound_ms}}."""
+    import torch
+    from maelstrom_tpu_torch import kernels as K
+    n, V = LARGE_V["nodes"], LARGE_V["values"]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(V)
+    out = {}
+    for mode in ("efficient", "eager", "naive", "naive-all"):
+        p = _program(n, V, 4, eager=mode == "eager",
+                     naive=mode.startswith("naive"))
+        p.skip_sender = mode != "naive-all"
+        D, W, Kc = p.D, p.n_windows, p.inbox_cap
+        state = {"seen": torch.rand((n, V), generator=g, device="cuda") < .3,
+                 "owed": torch.rand((n, D, W), generator=g,
+                                    device="cuda") < .3,
+                 **{k: torch.rand((n, D, V), generator=g, device="cuda") < .2
+                    for k in ("pending", "inflight", "inflight_old")}}
+        ein = _random_edge_msgs(g, (n, D, p.edge_cfg.lanes), V, W)
+        cin = _random_client(g, n, Kc, V, 0.5)
+        stall = torch.rand(n, generator=g, device="cuda") < 0.4
+        for ctx in ({"round": torch.tensor(p.retry_rounds * 3 + 1,
+                                           dtype=torch.int32,
+                                           device="cuda")},
+                    {"round": torch.tensor(p.retry_rounds * 3,
+                                           dtype=torch.int32,
+                                           device="cuda"),
+                     "stall": stall}):
+            got = p.edge_step(state, ein, cin, ctx)
+            with K.forced_plain():
+                ref = p.edge_step(state, ein, cin, ctx)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, ref)
+            name = ("broadcast_step_stall" if "stall" in ctx
+                    else "broadcast_step")
+            check(err == 0, f"{name} ({mode}) at {V} values on {n} nodes "
+                  f"differs from its plain version (max abs err {err})")
+            r = out.setdefault(f"{name}@v{V}", {"max_abs_err": 0,
+                                                "modes": []})
+            r["modes"].append(mode)
+    return out
+
+
 def scan_kernel_checks(timed):
     """K5 reply_log_append and K6 quiet_probe against their plain
     versions at the 100,000-node CLI run's shapes: client messages CW =
@@ -811,6 +873,8 @@ def phase_kernels(shapes, timed, with_scan=False):
                 "seconds": time.perf_counter() - t0, "kernels": r}
         if not timed and shape_name == "graft":
             line["edge_sent"] = edge_sent_checks()
+            r.update(k3_large_v_checks())
+            line["large_v"] = LARGE_V
         emit(line)
         res[shape_name] = r
     return res
@@ -6109,7 +6173,12 @@ def fleet_kernel_checks(timed):
     out = {}
     F, n = FLEET_SHAPE["clusters"], FLEET_SHAPE["nodes"]
 
-    def record(name, got, ref, n_bytes, n_ops, fn_k, fn_p, extra=None):
+    def record(name, got, ref, n_bytes, n_ops, fn_k, fn_p, extra=None,
+               kernel=(), reset=None):
+        """`reset`: what each call of fn_k and fn_p does first (restoring
+        the inputs a write fills in place); the kernel's time is then its
+        own, `kernel` naming it in the trace, and the plain version's
+        less reset's."""
         torch.cuda.synchronize()
         err = max_abs_err(got, ref)
         check(err == 0, f"{name} differs from its plain version (max abs "
@@ -6118,9 +6187,11 @@ def fleet_kernel_checks(timed):
         r = {"max_abs_err": err, "bound_ms": b, "bound_by": by,
              **(extra or {})}
         if timed:
-            r["ms"] = cuda_ms(fn_k)
+            r["ms"] = cuda_ms(fn_k, only=kernel)
             with K.forced_plain():
                 r["plain_ms"] = cuda_ms(fn_p)
+            if reset is not None:
+                r["plain_ms"] -= cuda_ms(reset)
         out[name] = r
 
     def both(fn):
@@ -6221,14 +6292,25 @@ def fleet_kernel_checks(timed):
                                 for f in ("valid", "type", "a", "b", "c")})
         tag = "spill" if ecfg.spill else "fixed"
         if dist == "constant":
-            # K1 with [F] rounds
-            def k1(c=ch_rows):
-                return static.edge_read(ecfg, clone(c), axis.neighbors,
-                                        axis.rev, rnd)
-            got, ref = both(k1)
+            # K1 with [F] rounds, timed in place: each call first
+            # restores the valid plane its clear empties
+            got, ref = both(lambda: static.edge_read(
+                ecfg, clone(ch_rows), axis.neighbors, axis.rev, rnd))
+            ck1 = clone(ch_rows)
+            valid1 = ck1.valid.clone()
+
+            def reset1(c=ck1):
+                c.valid.copy_(valid1)
+
+            def k1(c=ck1):
+                reset1()
+                return static.edge_read(ecfg, c, axis.neighbors, axis.rev,
+                                        rnd)
             lanes = F * n * prog.D * ecfg.lanes
             record("edge_read@fleet10k", got, ref, lanes * 2 * 17 + F * 4,
-                   0, k1, k1, {"rows": F * n, "lanes": lanes})
+                   0, k1, k1, {"rows": F * n, "lanes": lanes},
+                   kernel=("route_kernel", "clear_kernel"), reset=reset1)
+            del ck1, valid1
         eo = _random_edge_msgs(g, (F * n, prog.D, prog.lanes), 32,
                                prog.n_windows)
         lat = torch.randint(0, 4, (F * n, prog.D, prog.lanes), generator=g,
@@ -6236,19 +6318,36 @@ def fleet_kernel_checks(timed):
         mask = torch.rand((F * n, prog.D, 1), generator=g,
                           device="cuda") < 0.8
 
-        def k2(c=ch_rows):
-            return static.edge_write(ecfg, clone(c), eo, rnd, lat, mask)
-        got, ref = both(k2)
+        got, ref = both(lambda: static.edge_write(ecfg, clone(ch_rows), eo,
+                                                  rnd, lat, mask))
+        # timed in place, no copy of the channels: each call first
+        # restores the valid plane, so K9 finds its cells as the rounds
+        # left them (a cell filled by the last call would drop its lanes)
+        ck2 = clone(ch_rows)
+        valid0 = ck2.valid.clone()
+
+        def reset(c=ck2):
+            c.valid.copy_(valid0)
+
+        def k2(c=ck2):
+            reset()
+            return static.edge_write(ecfg, c, eo, rnd, lat, mask)
         lanes = F * n * prog.D * prog.lanes
         # bytes: every out lane's valid and latency, the [F * n, D] mask
-        # and the [F] rounds; for each written lane its 4 fields read and
-        # 17 bytes of the cell written, and K2 its cell's valid byte (the
-        # overwrite count), K9 its cell's Lc valid bytes (the occupancy)
+        # and the [F] rounds; for each delivered lane its cell's valid
+        # byte (K2's overwrite count) or Lc valid bytes (K9's occupancy);
+        # for each written lane its 4 fields read and 17 bytes written
         ok_lanes = int((eo.valid & mask).sum())
+        written = ok_lanes if not ecfg.spill else int(
+            got.valid.sum() - ch_rows.valid.sum())
         record(f"edge_write{'_spill' if ecfg.spill else ''}@fleet10k",
                got, ref, lanes * (1 + 4) + F * n * prog.D + F * 4
-               + ok_lanes * (16 + 17 + (ecfg.lanes if ecfg.spill else 1)),
-               0, k2, k2, {"rows": F * n, "channel": tag})
+               + ok_lanes * (ecfg.lanes if ecfg.spill else 1)
+               + written * (16 + 17), 0, k2, k2,
+               {"rows": F * n, "channel": tag, "delivered": ok_lanes,
+                "written": written},
+               kernel="spill_kernel" if ecfg.spill else "write_kernel",
+               reset=reset)
         if dist == "constant":
             continue
         # K3 over the rows with the stall mask
@@ -6580,7 +6679,7 @@ def main() -> int:
     phase_cli_profile(faults=True)
     phase_raft_profile()
     phase_fleet_profile()
-    phase_kernels([BENCH_SHAPE], timed=True)
+    phase_kernels([BENCH_SHAPE, GRAFT_SHAPE], timed=True)
     cli = phase_kernels([CLI_SHAPE], timed=True, with_scan=True)["cli100k"]
     cli.update(phase_fault_kernels(timed=True))
     raft = phase_raft_kernels(timed=True)

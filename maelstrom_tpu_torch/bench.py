@@ -18,8 +18,8 @@ With `--raft` it runs the throughput half of `bench.py`'s
 Raft clusters on the cluster axis (`parallel.make_cluster_round_fn`),
 300 rounds in chunks of 100, no client traffic, and reports
 cluster-rounds a second; it exits 1 unless every cluster has exactly one
-leader. The graded half (`bench_raft_graded.py`) comes with the fleet
-slice, so the record's `graded` is null.
+leader. The graded half (`bench_raft_graded.py`) comes with the graded
+Raft fleet slice, so the record's `graded` is null.
 
     python -m maelstrom_tpu_torch.bench --raft [--clusters F] [--rounds R]
 

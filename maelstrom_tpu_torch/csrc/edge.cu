@@ -7,29 +7,44 @@
 // lanes are [N, D, L].
 //
 // Bound: both move a few tens of bytes per lane and compute almost
-// nothing, so they are bound by device-memory bytes (about 30 MB a round
-// at 100k nodes, D 4, L 2). Design: one thread per (node, edge, lane), so
-// neighbouring threads touch neighbouring lanes and the L-wide runs of a
-// cell; the round counter is read on the device, so a run of rounds needs
-// no host sync.
+// nothing, so they are bound by device-memory bytes. K1: one thread per
+// (node, edge, lane), so neighbouring threads touch neighbouring lanes and
+// the L-wide runs of a cell. The round counter is read on the device, so
+// a run of rounds needs no host sync.
 //
 // edge_read race: missing edges (nb < 0) are clipped to row (0, 0), so
 // several threads may read that row while another thread clears it. The
 // clear of cell `round % ring` is therefore a second launch on the same
 // stream, after every route has read its cell.
 //
-// edge_write: each lane writes exactly one cell of its own (n, d, ., l)
+// edge_write (K2, the non-spill forms of net/static.py:edge_write, :168,
+// 192-264): each lane writes exactly one cell of its own (n, d, ., l)
 // column, so no two threads write one cell, and the three JAX forms
 // (uniform arrival, ring <= 4, broadcast select) are the same per-lane
-// code. The counters are summed per block with __syncthreads_count and
-// added with one atomicAdd each: integer sums, equal in any order. The
-// latency and the deliver mask are read through their strides: on the
-// round's path they are a broadcast scalar and an [N, D] mask, and an
-// expanded copy of them would move more bytes than the write itself.
-// On the cluster axis (F clusters' rows written in one launch) the two
-// counters are arrays of F, one a cluster of rows_per_counter node rows:
-// there each overwrite or clipped draw, rare events, is one atomicAdd on
-// its cluster's counter.
+// code. Bound: bytes, each lane's valid byte, the deliver mask and the
+// latency read, and for each delivered lane its 16 field bytes and the
+// destination's valid byte read and 17 bytes written: 39 MB at 100,000
+// nodes, D 4, L 5 (0.0117 ms at 3.35 TB/s). What sets its time is the
+// layout JAX fixes: the delivered lanes land in one ring slot of
+// [N, D, ring, L] planes, runs of L at ring * L apart, so every store
+// touches a part of its 32-byte sectors (its stores alone take some four
+// times the bound; scripts/time_k3_k2.py --variants times the parts,
+// building this source with MT_K2_PART set: 1 the loads alone, 2 the
+// stores alone, 3 without the destination's valid read). Design: a
+// thread a lane, so a warp covers 32 consecutive lanes (the runs of some
+// 32 / L cells) and its loads and stores are contiguous runs; int32
+// index arithmetic (the wrapper refuses 2^31 channel elements or more;
+// the first design's 64-bit divisions cost half its time); the
+// destination's valid byte is read through L2 alone (__ldcg), since a
+// load that fills L1 with a line other lanes store into doubled the
+// kernel's time; the counters go a warp at a time (__reduce_add_sync),
+// then a block at a time onto one atomicAdd each (mt_block_add): integer
+// sums, equal in any order. The latency and the deliver mask are read
+// through their strides: on the round's path they are a broadcast scalar
+// and an [N, D] mask, and an expanded copy would move more bytes than
+// the write itself. On the cluster axis (F clusters' rows in one launch)
+// the counters are arrays of F, one a cluster of rows_per_counter node
+// rows: a warp adds once for each cluster its counted lanes lie in.
 //
 // The `sent` plane (journaled runs only): K2 writes round * LANE_STRIDE +
 // lane into each lane it writes (maelstrom_tpu/net/static.py:192-197) and
@@ -66,6 +81,11 @@
 namespace {
 
 constexpr int kLaneStride = 64;  // net/static.py LANE_STRIDE
+
+// K2's parts, for timing them (see the header); 0 is the kernel
+#ifndef MT_K2_PART
+#define MT_K2_PART 0
+#endif
 
 // element strides of an [N, D, L] view; 0 where it is broadcast
 struct Strides3 {
@@ -119,6 +139,12 @@ __global__ void clear_kernel(u8* __restrict__ valid,
   valid[((i / L) * ring + s) * L + i % L] = 0;
 }
 
+// element strides of an [N, D, L] view in int32 (K2); 0 where broadcast
+struct Strides3i {
+  int s0, s1, s2;
+};
+
+// K2: a thread a lane i = nd * L + l (the header says why)
 __global__ void write_kernel(u8* __restrict__ cv, int* __restrict__ ct,
                              int* __restrict__ ca, int* __restrict__ cb,
                              int* __restrict__ cc,
@@ -132,50 +158,69 @@ __global__ void write_kernel(u8* __restrict__ cv, int* __restrict__ ct,
                              const int* __restrict__ round_ptr,
                              int* __restrict__ overwrites,
                              int* __restrict__ lat_clipped,
-                             int* __restrict__ cs, long long ND,
-                             int D, int ring, int L, int uniform,
-                             Strides3 ls, Strides3 ms,
-                             long long rows_per_counter,
-                             long long rows_per_round) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  int ow = 0, clipped = 0;
-  if (i < ND * L) {
-    long long nd = i / L;
-    long long n = nd / D;
-    int d = (int)(nd % D), l = (int)(i % L);
-    bool ok = ov[i] != 0 && mask[n * ms.s0 + d * ms.s1 + l * ms.s2] != 0;
-    int lt = lat[n * ls.s0 + d * ls.s1 + l * ls.s2];
-    const long long n0 =
-        rows_per_round > 0 ? n / rows_per_round * rows_per_round : 0;
-    int lr = uniform ? lat[n0 * ls.s0] : lt;  // uniform: entry 0's cell
+                             int* __restrict__ cs, int total, int D,
+                             int ring, int L, int uniform, Strides3i ls,
+                             Strides3i ms, int rows_per_counter,
+                             int rows_per_round) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  int cnt[2] = {0, 0};  // overwrites, clipped
+  int k = 0;            // the lane's counter (per-cluster counters)
+  if (i < total) {
+    const int nd = i / L, l = i - nd * L;
+    const int n = nd / D, d = nd - n * D;
+    // the round, and under uniform arrival the latency entry, of the
+    // row's cluster (its first row's entry 0); cluster 0 for a scalar
+    const int c = rows_per_round > 0 ? n / rows_per_round : 0;
+    const int rnd = round_ptr[c];
+    const int lt = lat[n * ls.s0 + d * ls.s1 + l * ls.s2];
+    const int lr = uniform ? lat[c * rows_per_round * ls.s0] : lt;
     int off = mt_clip(lr, 0, ring - 1);
     off = off < 1 ? 1 : off;
-    const int rnd =
-        rows_per_round > 0 ? round_ptr[n / rows_per_round] : *round_ptr;
-    int slot = mt_mod(rnd + off, ring);
-    clipped = ok && lt > ring - 1;
-    if (ok) {
-      long long dst = ((i / L) * ring + slot) * L + i % L;
-      ow = cv[dst] != 0;
+    const int dst = (nd * ring + mt_mod(rnd + off, ring)) * L + l;
+    // the destination's valid byte (the overwrite count) through L2 alone
+    // (__ldcg), issued with the lane's own loads: a load that fills L1
+    // with a line other lanes are storing into costs twice the stores
+    const bool was =
+        MT_K2_PART != 2 && MT_K2_PART != 3 && __ldcg(cv + dst) != 0;
+    const bool dm = mask[n * ms.s0 + d * ms.s1 + l * ms.s2] != 0;
+    const bool ok = ov[i] != 0 && dm;
+    // counted outside the write, so the load is not sunk behind the
+    // deliver test
+    cnt[0] = ok && was;
+    cnt[1] = ok && lt > ring - 1;
+    if (MT_K2_PART == 1 && ok)  // the loads alone, summed into a counter
+      cnt[0] += ot[i] + oa[i] + ob[i] + oc[i];
+    if (MT_K2_PART != 1 && ok) {
+      const bool fields = MT_K2_PART != 2;  // else constants
       cv[dst] = 1;
-      ct[dst] = ot[i];
-      ca[dst] = oa[i];
-      cb[dst] = ob[i];
-      cc[dst] = oc[i];
+      ct[dst] = fields ? ot[i] : i;
+      ca[dst] = fields ? oa[i] : i;
+      cb[dst] = fields ? ob[i] : i;
+      cc[dst] = fields ? oc[i] : i;
       if (cs) cs[dst] = rnd * kLaneStride + l;
     }
+    if (rows_per_counter > 0) k = n / rows_per_counter;
   }
-  if (rows_per_counter > 0) {  // uniform across the grid
-    const long long k = i / L / D / rows_per_counter;
-    if (ow) atomicAdd(overwrites + k, 1);
-    if (clipped) atomicAdd(lat_clipped + k, 1);
+  if (rows_per_counter == 0) {  // uniform across the grid
+    int* const dst[2] = {overwrites, lat_clipped};
+    mt_block_add<2>(cnt, dst);
     return;
   }
-  int n_ow = __syncthreads_count(ow);
-  int n_clip = __syncthreads_count(clipped);
-  if (threadIdx.x == 0) {
-    if (n_ow) atomicAdd(overwrites, n_ow);
-    if (n_clip) atomicAdd(lat_clipped, n_clip);
+  // the lanes of a warp lie in a few clusters: one add a cluster
+  const int lane = threadIdx.x & 31;
+  const bool any = cnt[0] || cnt[1];
+  unsigned todo = __ballot_sync(0xffffffffu, any);
+  while (todo) {
+    const int lead = __ffs(todo) - 1;
+    const int k0 = __shfl_sync(0xffffffffu, k, lead);
+    const bool mine = any && k == k0;
+    const int s_ow = __reduce_add_sync(0xffffffffu, mine ? cnt[0] : 0);
+    const int s_cl = __reduce_add_sync(0xffffffffu, mine ? cnt[1] : 0);
+    if (lane == lead) {
+      if (s_ow) atomicAdd(overwrites + k0, s_ow);
+      if (s_cl) atomicAdd(lat_clipped + k0, s_cl);
+    }
+    todo &= ~__ballot_sync(0xffffffffu, mine);
   }
 }
 
@@ -296,18 +341,27 @@ MT_API int mt_edge_write(void* const* p, int n_ptrs, const long long* v,
                          int n_ints, void* stream) {
   if (mt_bad_args(n_ptrs, 16, n_ints, 13) || v[11] < 0 || v[12] < 0)
     return cudaErrorInvalidValue;
-  long long ND = v[0] * v[1];
-  int D = (int)v[1], ring = (int)v[2], L = (int)v[3], uniform = (int)v[4];
-  Strides3 ls = {v[5], v[6], v[7]}, ms = {v[8], v[9], v[10]};
-  long long total = ND * L;
+  const long long N = v[0], D = v[1], ring = v[2], L = v[3];
+  // int32 indices: every element of the channels and of the strided views
+  if (N * D * ring * L > 0x7fffffffLL - kThreads)
+    return cudaErrorInvalidValue;
+  for (int j = 5; j < 11; j += 3)
+    if (v[j] < 0 || v[j + 1] < 0 || v[j + 2] < 0 ||
+        (N - 1) * v[j] + (D - 1) * v[j + 1] + (L - 1) * v[j + 2] >
+            0x7fffffffLL)
+      return cudaErrorInvalidValue;
+  const int total = (int)(N * D * L);
   if (total == 0) return cudaSuccess;
+  Strides3i ls = {(int)v[5], (int)v[6], (int)v[7]},
+            ms = {(int)v[8], (int)v[9], (int)v[10]};
   write_kernel<<<mt_blocks(total, kThreads), kThreads, 0,
                  (cudaStream_t)stream>>>(
       (u8*)p[0], (int*)p[1], (int*)p[2], (int*)p[3], (int*)p[4],
       (const u8*)p[5], (const int*)p[6], (const int*)p[7], (const int*)p[8],
       (const int*)p[9], (const int*)p[10], (const u8*)p[11],
-      (const int*)p[12], (int*)p[13], (int*)p[14], (int*)p[15], ND, D, ring,
-      L, uniform, ls, ms, v[11], v[12]);
+      (const int*)p[12], (int*)p[13], (int*)p[14], (int*)p[15], total,
+      (int)D, (int)ring, (int)L, (int)v[4], ls, ms, (int)v[11],
+      (int)v[12]);
   return cudaGetLastError();
 }
 

@@ -217,7 +217,7 @@ def main(n_nodes: int | None, values: int, seed: int,
         raise NotImplementedError(
             "fuzz --program raft runs the graded Raft fleet under faults, "
             "which maelstrom_tpu_torch does not run yet; it comes with the "
-            "cluster axis under faults")
+            "graded Raft fleet (bench_raft_graded.py)")
     else:
         raise ValueError(f"unknown fuzz program {program!r}")
     ok = all(r["ok"] for r in results)

@@ -149,6 +149,12 @@ def _check_channels(cfg: EdgeConfig, ch: EdgeChannels):
 
 # --- edge_write -----------------------------------------------------------
 
+# the most channel elements K2 indexes (int32, less a block of threads):
+# at D 4 and L 5, N x ring up to 107,374,169 (ring 1,073 at 100,000 nodes,
+# 107 at 1,000,000); past it edge_write raises
+K2_MAX_ELEMENTS = 2**31 - 1 - 256
+
+
 def _count(ch: EdgeChannels, mask):
     """The set entries of an [N, D, L] mask, for the channels' counters:
     one scalar, or on the cluster axis one count a cluster ([F] counters
@@ -339,6 +345,11 @@ def edge_write(cfg: EdgeConfig, ch: EdgeChannels, out: EdgeMsgs,
     if not K.use_kernel(ch.valid):
         return edge_write_plain(cfg, ch, out, round_, latency_rounds,
                                 deliver_mask)
+    if cfg.n_nodes * cfg.degree * cfg.ring * cfg.lanes > K2_MAX_ELEMENTS:
+        raise ValueError(f"edge_write: channels of {cfg.n_nodes} x "
+                         f"{cfg.degree} x {cfg.ring} x {cfg.lanes} "
+                         f"elements pass the kernel's int32 indices "
+                         f"({K2_MAX_ELEMENTS})")
     return _launch_write(K.EDGE_WRITE, cfg, ch, out, round_, latency_rounds,
                          deliver_mask, shape,
                          [cfg.n_nodes, cfg.degree, cfg.ring, cfg.lanes,

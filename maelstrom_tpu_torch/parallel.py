@@ -47,14 +47,13 @@ import torch
 from . import prng
 from .net import tpu as T
 from .net.tpu import I32, Msgs, NetConfig
-from .sim import ClusterAxis, SimState, _round_edge, make_sim
+from .sim import (FLEET_STREAM_SLICE, ClusterAxis, SimState, _round_edge,
+                  make_sim)
 from .tree import resolve_device, tree_map
 
 MULTI_GPU_SLICE = "the multi-GPU slice (torch.distributed)"
 FLEET_PROGRAMS_SLICE = ("the fleets of kafka, the pool-path programs, the "
                         "role partitions and the batched broadcast")
-FLEET_STREAM_SLICE = ("the continuous fleet slice (--fleet --continuous, "
-                      "telemetry rings on the cluster axis)")
 
 
 def _batched(program, base: SimState, F: int) -> SimState:

@@ -45,6 +45,9 @@ from .net.tpu import I32, INT32_MAX, Msgs, NetConfig, NetState
 from .nodes import NodeProgram
 from .tree import Struct, leaves, resolve_device, tree_map
 
+FLEET_STREAM_SLICE = ("the continuous fleet slice (--fleet --continuous, "
+                      "telemetry rings on the cluster axis)")
+
 
 @dataclass
 class SimState(Struct):
@@ -801,7 +804,8 @@ def _round_edge(program, cfg: NetConfig, sim: SimState, inject: Msgs,
     if cfg.telemetry and tel is not None:
         if axis is not None:
             raise NotImplementedError(
-                "telemetry on the cluster axis comes with the fleets")
+                f"telemetry on the cluster axis comes with "
+                f"{FLEET_STREAM_SLICE}")
         # the flight recorder's fold (K19): a node's sends are its edge
         # sends plus its uncompacted reply rows, and the latency buckets
         # read every valid reply row (`flat`), not the CC-capped

@@ -63,7 +63,8 @@ def test_fuzz_cli(tmp_path, capsys):
     out = capsys.readouterr().out
     assert '"all_ok": true' in out and out.count('"config"') == 4
     assert pcli.main(["fuzz", "--program", "raft", "--device", "cpu"]) == 2
-    assert "the cluster axis under faults" in capsys.readouterr().err
+    assert "the graded Raft fleet (bench_raft_graded.py)" in \
+        capsys.readouterr().err
 
 
 def _pinned():

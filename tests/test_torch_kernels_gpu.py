@@ -1824,3 +1824,272 @@ def test_threefry_batched_masks_and_latency_match_plain(cuda, F, n):
                                       torch.from_numpy(scale).to(d)))
     torch.cuda.synchronize()
     _equal(res[cuda], res["cpu"])
+
+
+# --- K3 and K2 redesigned: every V, the row form, the fleet's K2 ------------
+
+K3_VALUES = [1, 17, 63, 64, 65, 100, 1000, 1024, 4097, 40_000, 65_536]
+K3_MODES = {"efficient": {}, "eager": {"eager_resend": True},
+            "naive": {"naive_broadcast": True},
+            "naive-all": {"naive_broadcast": True, "skip_sender": False}}
+
+
+def _k3_inputs(rng, p, N, Kc=4):
+    """K3 inputs for N node rows of program `p`, with the hazards of the
+    selection and the folds: edge rows with no pending value or one
+    (fewer than per_nb) beside dense ones, many lanes and client rows
+    carrying one value, values outside [0, V), digests of every window,
+    of -1 and past the last."""
+    D, V, W, L = p.D, p.V, p.n_windows, p.edge_cfg.lanes
+    dens = rng.choice(np.array([0.0, 0.5 / V, 0.2, 0.9]), (N, D, 1))
+    state = {"seen": rng.random((N, V)) < 0.3,
+             "owed": rng.random((N, D, W)) < 0.3,
+             "pending": rng.random((N, D, V)) < dens,
+             "inflight": rng.random((N, D, V)) < 0.2,
+             "inflight_old": rng.random((N, D, V)) < 0.2}
+    etype = rng.choice(np.array([14, 14, 15, 0], np.int32), (N, D, L))
+    a = np.where(etype == 15, rng.integers(-1, W + 2, (N, D, L)),
+                 rng.integers(-3, V + 3, (N, D, L)))
+    a = np.where((etype == 14) & (rng.random((N, D, L)) < 0.3), V // 2, a)
+    edge_in = {"valid": rng.random((N, D, L)) < 0.7, "type": etype,
+               "a": a.astype(np.int32),
+               **{f: rng.integers(-2**31, 2**31, (N, D, L), dtype=np.int64
+                                  ).astype(np.int32) for f in ("b", "c")}}
+    ca = np.where(rng.random((N, Kc)) < 0.3, V // 2,
+                  rng.integers(-2, V + 2, (N, Kc)))
+    client = {"valid": rng.random((N, Kc)) < 0.6,
+              "type": rng.choice(np.array([10, 10, 12, 0], np.int32),
+                                 (N, Kc)),
+              "a": ca.astype(np.int32),
+              **{f: rng.integers(-5, 999, (N, Kc), dtype=np.int32)
+                 for f in ("src", "dest", "due", "mid", "reply_to", "b",
+                           "c")}}
+    return state, edge_in, client
+
+
+def _wrap_round(p):
+    """A round off the retry tick whose rotation starts at the largest
+    start it can, so the selection wraps past V."""
+    return max((r for r in range(1, 2 * p.V + 2) if r % p.retry_rounds),
+               key=lambda r: (r * p.per_nb) % p.V)
+
+
+@pytest.mark.parametrize("V", K3_VALUES)
+@pytest.mark.parametrize("mode", list(K3_MODES))
+@pytest.mark.parametrize("per_nb", [1, 4])
+@pytest.mark.parametrize("stalled", [False, True], ids=["", "stall"])
+def test_broadcast_step_every_v_matches_plain(cuda, V, mode, per_nb,
+                                              stalled):
+    """K3 at values not a multiple of 16, 64 or 512 (rows whose first and
+    last 16 bytes are partial), at one value, and at 40,000 and 65,536
+    values on 5 nodes (the bits in shared memory, and past it), in every
+    mode, on the retry tick and on a round whose rotation wraps."""
+    n = 5 if V >= 40_000 else 45
+    rng = np.random.default_rng(V * 8 + per_nb * 2 + stalled)
+    nodes = [f"n{i}" for i in range(n)]
+    opts = {"topology": "grid", "max_values": V,
+            "gossip_per_neighbor": per_nb, **K3_MODES[mode]}
+    progs = {d: get_program("broadcast", opts, nodes, device=d)
+             for d in ("cpu", "cuda")}
+    p = progs["cpu"]
+    assert int((p.neighbors < 0).sum()) > 0     # missing edges
+    state, edge_in, client = _k3_inputs(rng, p, n)
+    stall = rng.random(n) < 0.4 if stalled else None
+    name = "broadcast_step_stall" if stalled else "broadcast_step"
+    for rnd in (p.retry_rounds * 2, _wrap_round(p)):
+        before = K.launch_counts()[name]
+        out = {}
+        for d, prog in progs.items():
+            ctx = {"round": torch.tensor(rnd, dtype=torch.int32, device=d)}
+            if stalled:
+                ctx["stall"] = torch.tensor(stall, device=d)
+            out[d] = prog.edge_step(
+                _tensors(state, d), static.EdgeMsgs(**_tensors(edge_in, d)),
+                Msgs(**_tensors(client, d)), ctx)
+        torch.cuda.synchronize()
+        assert K.launch_counts()[name] == before + 1
+        for g, r in zip(out["cuda"], out["cpu"]):
+            _equal(g, r)
+
+
+@pytest.mark.parametrize("V", [17, 1024])
+@pytest.mark.parametrize("mode", ["efficient", "naive"])
+def test_broadcast_step_unaligned_planes_match_plain(cuda, V, mode):
+    """K3 on planes whose base pointers are not 16-byte aligned (views a
+    byte into their storage): the byte path."""
+    rng = np.random.default_rng(V)
+    nodes = [f"n{i}" for i in range(45)]
+    opts = {"topology": "grid", "max_values": V, "gossip_per_neighbor": 4,
+            **K3_MODES[mode]}
+    progs = {d: get_program("broadcast", opts, nodes, device=d)
+             for d in ("cpu", "cuda")}
+    p = progs["cpu"]
+    state, edge_in, client = _k3_inputs(rng, p, 45)
+
+    def offset(t):
+        flat = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        return view
+    out = {}
+    for d, prog in progs.items():
+        st = _tensors(state, d)
+        if d != "cpu":
+            st = {k: offset(v) for k, v in st.items()}
+            assert st["pending"].data_ptr() % 16
+        out[d] = prog.edge_step(
+            st, static.EdgeMsgs(**_tensors(edge_in, d)),
+            Msgs(**_tensors(client, d)),
+            {"round": torch.tensor(_wrap_round(p), dtype=torch.int32,
+                                   device=d)})
+    torch.cuda.synchronize()
+    for g, r in zip(out["cuda"], out["cpu"]):
+        _equal(g, r)
+
+
+@pytest.mark.parametrize("V", [17, 64, 1000])
+@pytest.mark.parametrize("mode", list(K3_MODES))
+@pytest.mark.parametrize("stalled", [False, True], ids=["", "stall"])
+def test_broadcast_step_rows_match_plain(cuda, V, mode, stalled):
+    """K3's row form: F = 7 clusters of 5 nodes, each at its own round
+    (one on its retry tick), row n reading neighbors[n % 5] and
+    round[n // 5]."""
+    F, n = 7, 5
+    rng = np.random.default_rng(V + F + stalled)
+    nodes = [f"n{i}" for i in range(n)]
+    opts = {"topology": "grid", "max_values": V, "gossip_per_neighbor": 4,
+            **K3_MODES[mode]}
+    progs = {d: get_program("broadcast", opts, nodes, device=d)
+             for d in ("cpu", "cuda")}
+    p = progs["cpu"]
+    state, edge_in, client = _k3_inputs(rng, p, F * n)
+    rnd = rng.choice(10_000, F, replace=False).astype(np.int32)
+    rnd[0] = p.retry_rounds * 3
+    stall = rng.random(F * n) < 0.4 if stalled else None
+    out = {}
+    for d, prog in progs.items():
+        out[d] = prog.step_rows(
+            _tensors(state, d), static.EdgeMsgs(**_tensors(edge_in, d)),
+            Msgs(**_tensors(client, d)), torch.tensor(rnd, device=d), None,
+            None if stall is None else torch.tensor(stall, device=d))
+    torch.cuda.synchronize()
+    for g, r in zip(out["cuda"], out["cpu"]):
+        _equal(g, r)
+
+
+@pytest.mark.parametrize("form", ["uniform-ring2", "lanes-ring4",
+                                  "fleet-uniform", "fleet-lanes-sent"])
+def test_edge_write_forms_match_plain(cuda, form):
+    """K2 over 10,000 node rows x 4 edges x 5 lanes (some 800 blocks), so
+    the overwrite and clipped counts sum over many warps and blocks: at
+    ring 2 under uniform arrival with the deliver mask an [N, D, 1]
+    view, at ring 4 with a latency a lane, and on the fleet's rows (2,000
+    clusters of 5) with [F] rounds and [F] counters, one with the sent
+    plane."""
+    N, D, L = 10_000, 4, 5
+    fleet = form.startswith("fleet")
+    ring = 2 if form == "uniform-ring2" else 4
+    uniform = "uniform" in form
+    F = 2_000 if fleet else 1
+    rng = np.random.default_rng(len(form))
+    cfg = static.EdgeConfig(n_nodes=N, degree=D, lanes=L, ring=ring,
+                            uniform_arrival=uniform)
+    shape = (N, D, ring, L)
+    ch = {"valid": rng.random(shape) < 0.5,
+          **{f: rng.integers(-99, 99, shape, dtype=np.int32)
+             for f in ("type", "a", "b", "c")}}
+    if form.endswith("sent"):
+        ch["sent"] = rng.integers(0, 9999, shape, dtype=np.int32)
+    out = {"valid": rng.random((N, D, L)) < 0.7,
+           **{f: rng.integers(-99, 99, (N, D, L), dtype=np.int32)
+              for f in ("type", "a", "b", "c")}}
+    lat = rng.integers(0, ring + 3, (N, D, L), dtype=np.int32)
+    mask = rng.random((N, D, 1)) < 0.8
+    rnd = (rng.integers(0, 1000, F).astype(np.int32) if fleet
+           else np.int32(17))
+    res = {}
+    for d in ("cpu", cuda):
+        zero = torch.zeros(F if fleet else (), dtype=torch.int32, device=d)
+        c = static.EdgeChannels(**_tensors(ch, d), overwrites=zero,
+                                lat_clipped=zero.clone())
+        res[d] = static.edge_write(
+            cfg, c, static.EdgeMsgs(**_tensors(out, d)),
+            torch.tensor(rnd, device=d), torch.tensor(lat, device=d),
+            torch.tensor(mask, device=d).expand(N, D, L))
+    torch.cuda.synchronize()
+    _equal(res[cuda], res["cpu"])
+    assert int(res["cpu"].overwrites.sum()) > 10_000
+    assert int(res["cpu"].lat_clipped.sum()) > 10_000
+
+
+@pytest.mark.parametrize("where", ["wrapper", "entry-channels",
+                                   "entry-strides"])
+def test_edge_write_refuses_past_int32(cuda, where):
+    """K2 indexes in int32: the wrapper refuses channels of more than
+    K2_MAX_ELEMENTS elements (here 2^27 nodes x 4 x 1 x 5, as zero-stride
+    views: nothing is allocated), and the C entry point refuses, before
+    any launch, channels or latency and mask strides past int32."""
+    if where == "wrapper":
+        N, D, ring, L = 2**27, 4, 1, 5
+        assert N * D * ring * L > static.K2_MAX_ELEMENTS
+        cfg = static.EdgeConfig(n_nodes=N, degree=D, lanes=L, ring=ring,
+                                uniform_arrival=True)
+
+        def view(shape, dtype):
+            return torch.zeros((), dtype=dtype, device=cuda).expand(shape)
+        ch = static.EdgeChannels(
+            valid=view((N, D, ring, L), torch.bool),
+            **{f: view((N, D, ring, L), torch.int32)
+               for f in ("type", "a", "b", "c")},
+            overwrites=torch.zeros((), dtype=torch.int32, device=cuda),
+            lat_clipped=torch.zeros((), dtype=torch.int32, device=cuda))
+        out = static.EdgeMsgs(valid=view((N, D, L), torch.bool),
+                              **{f: view((N, D, L), torch.int32)
+                                 for f in ("type", "a", "b", "c")})
+        with pytest.raises(ValueError, match="int32"):
+            static.edge_write(cfg, ch, out,
+                              torch.tensor(3, dtype=torch.int32,
+                                           device=cuda),
+                              view((N, D, L), torch.int32),
+                              view((N, D, L), torch.bool))
+        return
+    # four lanes of real tensors; the ints claim what the entry refuses
+    t8 = torch.zeros(4, dtype=torch.uint8, device=cuda)
+    t32 = torch.zeros(4, dtype=torch.int32, device=cuda)
+    tensors = [t8, t32, t32, t32, t32, t8, t32, t32, t32, t32, t32, t8,
+               t32[:1], t32[1:2], t32[2:3], None]
+    if where == "entry-channels":  # 2^31 channel elements
+        ints = [2**20, 4, 128, 4, 1, 0, 0, 0, 0, 0, 0, 0, 0]
+    else:  # a latency stride whose last element passes int32
+        ints = [4, 1, 1, 1, 0, 2**30, 0, 0, 0, 0, 0, 0, 0]
+    n0 = K.EDGE_WRITE.launches
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        K.EDGE_WRITE.launch(tensors, ints, t8.device)
+    assert K.EDGE_WRITE.launches == n0
+
+
+@pytest.mark.parametrize("V", [17, 64])
+@pytest.mark.parametrize("mode", ["efficient", "naive"])
+def test_broadcast_step_wide_items_match_plain(cuda, V, mode):
+    """K3 on a 100-node total topology: 99 edges of 5 lanes, so a row
+    folds a node's 499 items in many runs of its lanes."""
+    n = 100
+    rng = np.random.default_rng(V + n)
+    nodes = [f"n{i}" for i in range(n)]
+    opts = {"topology": "total", "max_values": V, "gossip_per_neighbor": 4,
+            **K3_MODES[mode]}
+    progs = {d: get_program("broadcast", opts, nodes, device=d)
+             for d in ("cpu", "cuda")}
+    p = progs["cpu"]
+    assert p.D == n - 1
+    state, edge_in, client = _k3_inputs(rng, p, n)
+    out = {}
+    for d, prog in progs.items():
+        out[d] = prog.edge_step(
+            _tensors(state, d), static.EdgeMsgs(**_tensors(edge_in, d)),
+            Msgs(**_tensors(client, d)),
+            {"round": torch.tensor(_wrap_round(p), dtype=torch.int32,
+                                   device=d)})
+    torch.cuda.synchronize()
+    for g, r in zip(out["cuda"], out["cpu"]):
+        _equal(g, r)
