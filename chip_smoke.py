@@ -3438,9 +3438,11 @@ def _batched_program(n, V, per_nb, eager=False, device="cuda", **opts):
 # K15's checks: the pinned runs' shapes (the CLI runs at V 1,024, the
 # ordered lin-kv run at V 2 x 12 x 1.6 + 256 = 294), the bench's, the
 # CLI default at 1,024 nodes, a 100,000-node stress shape, a wrap
-# shape whose batches span past id 65,536 (the proof's int32 sum wraps)
-# and a wide table past the kernel's shared-memory masks (V 280,000: the
-# masks in global scratch, more nodes than striding warps)
+# shape whose batches span past id 65,536 (the proof's int32 sum wraps),
+# a wide table (V 280,000, once past the first design's shared-memory
+# masks), small tables whose rows share a warp at every 16-byte offset
+# (V 17 and 64), and a table of three tiles whose pending runs end on
+# the rows' tile edges (`tile_edges`)
 BATCHED_SHAPES = {
     "cli5": (5, 1024, 2, False, 16),
     "ordered5": (5, 294, 2, False, 1),
@@ -3449,7 +3451,22 @@ BATCHED_SHAPES = {
     "stress100k": (100_000, 1024, 2, False, 64),
     "wrap": (64, 70_000, 2, False, 70_000),
     "wideV": (1089, 280_000, 2, False, 280_000),
+    "small17": (16, 17, 2, False, 4),
+    "small64": (33, 64, 4, True, 16),
+    "tile_edges": (17, 1501, 3, False, 64),
 }
+# K15's timed shapes (the smoke's kernels line reads stress100k)
+BATCHED_TIMED = ("cli5", "bench", "stress100k")
+
+
+def tile_edge_pending(N, D, V):
+    """[N, D, V] pending planes (on the card) whose runs end on each edge
+    row's first two 512-value tile edges: row r = n * D + d sits at byte
+    offset r * V % 16 of its plane, its tiles at t * 512 - offset."""
+    import torch
+    v = torch.arange(V, device="cuda")[None, None, :]
+    s = (torch.arange(N * D, device="cuda").reshape(N, D, 1) * V) % 16
+    return (v < 512 - s) | ((v >= 515 - s) & (v < 1024 - s))
 
 
 def _random_batched_inputs(g, prog, span):
@@ -3527,8 +3544,8 @@ def batched_kernel_checks(timed):
     """K15 broadcast_batched_step against its plain version at
     `BATCHED_SHAPES`, with and without the stall mask, on a retry-tick
     round and an ordinary one; every output field and state leaf exact,
-    the inputs untouched. Timed at the bench and stress shapes, the
-    stall form with some 40% of the nodes stalled."""
+    the inputs untouched. Timed at `BATCHED_TIMED`, the stall form with
+    some 40% of the nodes stalled."""
     import torch
     from maelstrom_tpu_torch import kernels as K
     g = torch.Generator(device="cuda")
@@ -3539,6 +3556,8 @@ def batched_kernel_checks(timed):
         prog = _batched_program(n, V, per_nb, eager)
         for rnd in (3 * prog.retry_rounds, 3 * prog.retry_rounds + 1):
             state, ein, cin = _random_batched_inputs(g, prog, span)
+            if shape == "tile_edges":
+                state["pending"] = tile_edge_pending(n, prog.D, V)
             stall = torch.rand(n, generator=g, device="cuda") < 0.4
             for st in (None, stall):
                 ctx = {"round": torch.tensor(rnd, dtype=torch.int32,
@@ -3566,7 +3585,7 @@ def batched_kernel_checks(timed):
                 if rnd % prog.retry_rounds == 1:
                     timing[shape, st is not None] = (prog, k15, ein, cin)
     for (shape, st), (prog, k15, ein, cin) in timing.items():
-        if shape not in ("bench", "stress100k"):
+        if shape not in BATCHED_TIMED:
             continue
         io, ops = batched_io_ops(prog, ein.valid.shape[2],
                                  cin.valid.shape[1])
@@ -6150,8 +6169,20 @@ def _fleet_carry(kind, F):
                                       device="cuda")
 
 
+def _cli_fleet_carry(name):
+    """The initial fleet state of `CLI_FLEET`'s run `name`, as its fleet
+    runner builds it (`FleetRunner`: every cluster row its standalone
+    state, the channels at the run's ring)."""
+    from maelstrom_tpu_torch import core
+    from maelstrom_tpu_torch.runner.fleet_runner import FleetRunner
+    store = os.path.join(ROOT, "store", "chip_smoke_carry")
+    test = core.build_test({**dict(CLI_FLEET)[name], "store_root": store})
+    return FleetRunner(test).sim
+
+
 def fleet_kernel_checks(timed):
-    """K32 at 10,000 clusters over the lin-kv carry and the fleet bench's,
+    """K32 at 10,000 clusters over the lin-kv carry and the fleet bench's
+    and at the 64-cluster CLI run's (`bcast64-seed`),
     K33 at 64, 512 and 10,000 clusters of 5 clients, and the fleet forms
     of K1/K2/K9 ([F] rounds), K3 (rows, with the stall mask), K5, K6, K7
     ([F, 2] keys, [F] probabilities and scales) and K8 (F-led) at 10,000
@@ -6200,11 +6231,16 @@ def fleet_kernel_checks(timed):
             ref = fn()
         return got, ref
 
-    # K32 over the two carries: 30% of the lanes held
-    live = torch.rand(F, generator=g, device="cuda") >= 0.3
-    held = int((~live).sum())
-    for kind in ("lin-kv", "broadcast"):
-        _prog, _cfg, old = _fleet_carry(kind, F)
+    # K32 over the two 10,000-cluster carries and the 64-cluster CLI
+    # run's: 30% of the lanes held
+    for kind in ("lin-kv", "broadcast", "bcast64"):
+        if kind == "bcast64":
+            old = _cli_fleet_carry("bcast64-seed")
+        else:
+            _prog, _cfg, old = _fleet_carry(kind, F)
+        Fk = old.key.shape[0]
+        live = torch.rand(Fk, generator=g, device="cuda") >= 0.3
+        held = int((~live).sum())
         parts = [old.net, old.nodes, old.key, old.channels]
         olds = [t for p in parts for _q, t in leaves(p)]
 
@@ -6216,15 +6252,17 @@ def fleet_kernel_checks(timed):
         S.fleet_hold(live, list(zip(news["k"], olds)))
         with K.forced_plain():
             S.fleet_hold(live, list(zip(news["p"], olds)))
-        row = sum(t.numel() // F * t.element_size() for t in olds)
-        node_row = sum(t.numel() // F * t.element_size()
+        row = sum(t.numel() // Fk * t.element_size() for t in olds)
+        node_row = sum(t.numel() // Fk * t.element_size()
                        for _q, t in leaves(old.nodes))
-        record(f"fleet_hold@{kind}10k", tuple(news["k"]), tuple(news["p"]),
-               2 * held * row + F, 0,
+        name = "fleet_hold@bcast64" if kind == "bcast64" else \
+            f"fleet_hold@{kind}10k"
+        record(name, tuple(news["k"]), tuple(news["p"]),
+               2 * held * row + Fk, 0,
                lambda: S.fleet_hold(live, list(zip(news["k"], olds))),
                lambda: S.fleet_hold(live, list(zip(news["p"], olds))),
-               {"clusters": F, "held": held, "row_bytes": row,
-                "node_row_bytes": node_row, "carry_bytes": row * F,
+               {"clusters": Fk, "held": held, "row_bytes": row,
+                "node_row_bytes": node_row, "carry_bytes": row * Fk,
                 "leaves": len(olds)})
         del old, olds, news
 

@@ -28,7 +28,7 @@
 // layout JAX fixes: the delivered lanes land in one ring slot of
 // [N, D, ring, L] planes, runs of L at ring * L apart, so every store
 // touches a part of its 32-byte sectors (its stores alone take some four
-// times the bound; scripts/time_k3_k2.py --variants times the parts,
+// times the bound; scripts/time_kernels.py --variants times the parts,
 // building this source with MT_K2_PART set: 1 the loads alone, 2 the
 // stores alone, 3 without the destination's valid read). Design: a
 // thread a lane, so a warp covers 32 consecutive lanes (the runs of some

@@ -15,11 +15,53 @@
 // which a round updates in place, a first K32 launch saves the held
 // lanes' rows into a scratch copy before the round and a second one
 // writes them back. Bound: bytes (a held row is read once and written
-// once; a live row costs one byte read of its flag). Design: one block a
-// cluster row: a live row's block leaves at once, a held one copies its
-// row of every leaf in turn, with 16-byte words when both ends and the
-// row size allow, 4-byte words next, bytes otherwise.
+// once; a live row costs one byte read of its flag): 176 MB, 0.0526 ms at
+// 3.35 TB/s, for 3,100 held rows of the 10,000-cluster lin-kv carry.
 //
+// The first design (one block of 256 threads a cluster row, the leaves
+// walked in turn, 0.1201 ms there) left most threads idle on leaves of a
+// few hundred bytes, waited on memory once a leaf, since a leaf's loads
+// were not issued before the last one's stores, and copied narrow leaves
+// byte by byte. This design:
+//
+// - A row's leaves are one flat space of 16-byte chunks, leaf k's from
+//   off[k] (the prefix table that the wrapper builds, sim.py hold_plan,
+//   cached by the shapes: rb / 16 chunks for a leaf of rb bytes a row,
+//   a multiple of 16, else ceil((rb + 15) / 16) cut on the 16-byte grid
+//   of the row's address, so that its middle chunks are aligned at any
+//   row offset). A thread finds its first chunk's leaf by a binary
+//   search of the table in shared memory and walks forward from it.
+// - A block takes R rows and a slice of S chunks of each: it reads the R
+//   live flags at once, lists its held rows in shared memory, and its
+//   threads stride over (held row, chunk) pairs, so a row's bytes spread
+//   over all the threads of its block, and a wide row over several
+//   blocks (the 64-cluster broadcast carry: 1.08 MB a row). R and S come
+//   from the plan: S at most 1,024 chunks (four a thread), R x S about
+//   4,096. A thread's chunks sit at the same places in every row, so
+//   their leaves are found once.
+// - Each thread holds kHoldBatch chunks in registers: their loads, through
+//   the non-coherent path (no pair's src is another's dst; the wrapper
+//   checks), are issued before any of its stores.
+// - A chunk whose two ends are 16-byte aligned moves as one 16-byte word;
+//   a partial head or tail chunk, and any chunk whose source and
+//   destination differ in alignment, moves as 4-byte words and bytes,
+//   held in registers like the others, so no chunk waits on its own load
+//   before the batch's other loads issue.
+// - The leaf table is staged in shared memory a leaf a warp at a time, so
+//   each read of the parameter bank is one address for the whole warp.
+//
+// On the card (NVIDIA H100 80GB HBM3, 700 W): 0.078 ms on the lin-kv
+// carry (a torch copy of the held rows' bytes, contiguous, 0.061), 0.025
+// on the fleet bench's (bound 0.010): JAX's F-led leaves scatter a held
+// row over every leaf's tensor, 127 bytes a leaf on the bench's carry,
+// and its loads alone reach 0.86 TB/s (PERF.md section 6,
+// scripts/time_kernels.py).
+//
+// scripts/time_kernels.py --variants times its parts by building this
+// source with MT_K32_PART set: 1 without its stores (the loads' words
+// summed into a flag no launch writes), 2 without its loads (zeros
+// stored), 3 the live flags and held lists alone.
+
 // K33 wave_reduce replaces maelstrom_tpu/runner/sessions.py
 // _wave_reduce_fn (:61-82): the two masked minima of the fleet's session
 // table, dl[f] = min over s of p_dl[f, s] where p_mid[f, s] >= 0, and
@@ -65,35 +107,199 @@ constexpr int kInt32Max = 0x7fffffff;
 
 // --- K32 ---------------------------------------------------------------
 
+constexpr int kHoldThreads = 256;
+constexpr int kHoldBatch = 4;  // chunks a thread holds at once
+constexpr int kHoldPos = 4;  // chunks of a row a thread copies, at most
+#ifndef MT_K32_PART
+#define MT_K32_PART 0  // the kernel; else a part of it (see the header)
+#endif
+
 struct HoldTable {
   char* dst[kMaxLeaves];
   const char* src[kMaxLeaves];
   long long row_bytes[kMaxLeaves];
+  int off[kMaxLeaves + 1];  // chunk offsets: leaf k's chunks from off[k]
 };
 
-__global__ void hold_kernel(HoldTable T, int leaves,
-                            const u8* __restrict__ live) {
-  const long long f = blockIdx.x;
-  if (live[f]) return;  // uniform across the block
-  for (int leaf = 0; leaf < leaves; ++leaf) {
-    const long long rb = T.row_bytes[leaf];
-    char* d = T.dst[leaf] + f * rb;
-    const char* s = T.src[leaf] + f * rb;
-    const uintptr_t align = (uintptr_t)d | (uintptr_t)s | (uintptr_t)rb;
-    if ((align & 15) == 0) {
-      uint4* d4 = reinterpret_cast<uint4*>(d);
-      const uint4* s4 = reinterpret_cast<const uint4*>(s);
-      for (long long i = threadIdx.x; i < rb / 16; i += blockDim.x)
-        d4[i] = s4[i];
-    } else if ((align & 3) == 0) {
-      int* d1 = reinterpret_cast<int*>(d);
-      const int* s1 = reinterpret_cast<const int*>(s);
-      for (long long i = threadIdx.x; i < rb / 4; i += blockDim.x)
-        d1[i] = s1[i];
-    } else {
-      for (long long i = threadIdx.x; i < rb; i += blockDim.x) d[i] = s[i];
+// A chunk in registers: its 16 bytes (or n < 16 of them) as four words,
+// moved as one 16-byte word (both ends 16-byte aligned, n 16), as 4-byte
+// words and a byte tail (both ends 4-byte aligned) or as bytes.
+struct HoldChunk {
+  uint4 q;
+  char* d;
+  int n, mode;  // mode 0 none, 1 a 16-byte word, 2 words, 3 bytes
+};
+
+// word w of the chunk: a 4-byte load where the chunk's ends allow, else
+// its bytes below n; every index known at compile time, so q stays in
+// registers
+__device__ __forceinline__ unsigned hold_word(const HoldChunk& c,
+                                              const char* s, int w) {
+  if (c.mode == 2 && 4 * w + 4 <= c.n)
+    return (unsigned)__ldg(reinterpret_cast<const int*>(s + 4 * w));
+  unsigned x = 0u;
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    if (4 * w + b < c.n)
+      x |= (unsigned)(unsigned char)__ldg(s + 4 * w + b) << (8 * b);
+  return x;
+}
+
+__device__ __forceinline__ void hold_load(HoldChunk& c, const char* s) {
+  c.q = make_uint4(0, 0, 0, 0);
+  if (MT_K32_PART == 2 || c.mode == 0) return;
+  if (c.mode == 1) {
+    c.q = __ldg(reinterpret_cast<const uint4*>(s));
+    return;
+  }
+  c.q = make_uint4(hold_word(c, s, 0), hold_word(c, s, 1),
+                   hold_word(c, s, 2), hold_word(c, s, 3));
+}
+
+__device__ __forceinline__ void hold_put(const HoldChunk& c, int w,
+                                         unsigned x) {
+  if (c.mode == 2 && 4 * w + 4 <= c.n) {
+    *reinterpret_cast<unsigned*>(c.d + 4 * w) = x;
+    return;
+  }
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    if (4 * w + b < c.n) c.d[4 * w + b] = (char)(x >> (8 * b));
+}
+
+__device__ __forceinline__ void hold_store(const HoldChunk& c) {
+  if (c.mode == 1) {
+    *reinterpret_cast<uint4*>(c.d) = c.q;
+  } else if (c.mode != 0) {
+    hold_put(c, 0, c.q.x);
+    hold_put(c, 1, c.q.y);
+    hold_put(c, 2, c.q.z);
+    hold_put(c, 3, c.q.w);
+  }
+}
+
+// Leaf k's chunks in the plan: a leaf of a multiple of 16 bytes a row has
+// rb / 16, cut from the row's start; any other leaf ceil((rb + 15) / 16),
+// cut on the 16-byte grid of the source row's address (its head and tail
+// partial, some chunk empty), so its middle chunks move as aligned words
+// whatever the row's offset.
+inline long long hold_chunks(long long rb) {
+  return rb % 16 == 0 ? rb / 16 : (rb + 30) / 16;
+}
+
+// chunk c of leaf k in cluster row f: its bytes, and its loads issued
+__device__ __forceinline__ void hold_chunk(HoldChunk& ch, char* const* dst,
+                                           const char* const* src,
+                                           const long long* rbs,
+                                           const int* off, int k, int c,
+                                           long long f) {
+  const long long rb = rbs[k], at = f * rb;
+  const char* sr = src[k] + at;
+  long long lo = 16LL * (c - off[k]), hi = lo + 16;
+  if (rb % 16) {  // on the source's 16-byte grid
+    const int o = (int)((uintptr_t)sr & 15);
+    lo = max(lo - o, 0LL);
+    hi = min(hi - o, rb);
+  }
+  ch.n = (int)(hi - lo);
+  ch.d = dst[k] + at + lo;
+  const char* sp = sr + lo;
+  const uintptr_t al = (uintptr_t)ch.d | (uintptr_t)sp;
+  ch.mode = ch.n <= 0 ? 0
+                      : (ch.n == 16 && (al & 15) == 0 ? 1
+                                                      : ((al & 3) == 0 ? 2
+                                                                       : 3));
+  hold_load(ch, sp);
+}
+
+// Block (x, y): rows [x * rows, x * rows + rows), chunks [y * slice, y *
+// slice + slice) of each. Thread t copies the chunks c0 + t + 256 p (p <
+// kHoldPos) of every held row: their leaves are found once (a binary
+// search, then a forward walk), and its (held row, p) pairs are taken
+// kHoldBatch at a time, their loads issued before their stores.
+__global__ void __launch_bounds__(kHoldThreads)
+    hold_kernel(HoldTable T, int leaves, const u8* __restrict__ live,
+                long long F, int rows, int slice, int* sink) {
+  __shared__ char* s_dst[kMaxLeaves];
+  __shared__ const char* s_src[kMaxLeaves];
+  __shared__ long long s_rb[kMaxLeaves];
+  __shared__ int s_off[kMaxLeaves + 1];
+  __shared__ int s_held[kHoldThreads];
+  __shared__ int s_n;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const long long f0 = (long long)blockIdx.x * rows;
+  const bool held = t < rows && f0 + t < F && live[f0 + t] == 0;
+  if (t == 0) s_n = 0;
+  // the leaf table, a leaf a warp at a time: each read is the same for
+  // the whole warp, so the parameter bank serves it at once
+  for (int k = warp; k <= leaves; k += kHoldThreads / 32) {
+    const int off = T.off[k];
+    if (k < leaves) {
+      char* d = T.dst[k];
+      const char* sp = T.src[k];
+      const long long rb = T.row_bytes[k];
+      if (lane == 0) {
+        s_dst[k] = d;
+        s_src[k] = sp;
+        s_rb[k] = rb;
+      }
+    }
+    if (lane == 0) s_off[k] = off;
+  }
+  __syncthreads();
+  if (held) s_held[atomicAdd(&s_n, 1)] = t;  // any order: rows are apart
+  __syncthreads();
+  const int c0 = blockIdx.y * slice + t;
+  const int c1 = min(s_off[leaves], blockIdx.y * slice + slice);
+  if (MT_K32_PART == 3 || s_n == 0 || c0 >= c1) return;
+  const int n_pos = min(kHoldPos, (c1 - c0 + kHoldThreads - 1) /
+                                      kHoldThreads);
+  // the leaves of this thread's chunks
+  int leaf[kHoldPos];
+  int k = 0, hi = leaves;  // s_off[k] <= c0 < s_off[hi]
+  while (hi - k > 1) {
+    const int mid = (k + hi) >> 1;
+    if (s_off[mid] <= c0)
+      k = mid;
+    else
+      hi = mid;
+  }
+#pragma unroll
+  for (int p = 0; p < kHoldPos; ++p) {
+    const int c = c0 + p * kHoldThreads;
+    if (p < n_pos)
+      while (s_off[k + 1] <= c) ++k;
+    leaf[p] = k;
+  }
+  int acc = 0;
+  const int pairs = s_n * n_pos;
+  for (int q0 = 0; q0 < pairs; q0 += kHoldBatch) {
+    HoldChunk ch[kHoldBatch];
+#pragma unroll
+    for (int u = 0; u < kHoldBatch; ++u) {
+      const int q = q0 + u;
+      ch[u].mode = 0;
+      ch[u].q = make_uint4(0, 0, 0, 0);
+      if (q >= pairs) continue;
+      const int h = q / n_pos, p = q - h * n_pos;
+      // leaf[p] by a select, so the array stays in registers
+      int kp = leaf[0];
+#pragma unroll
+      for (int i = 1; i < kHoldPos; ++i)
+        if (p == i) kp = leaf[i];
+      hold_chunk(ch[u], s_dst, s_src, s_rb, s_off, kp,
+                 c0 + p * kHoldThreads, f0 + s_held[h]);
+    }
+#pragma unroll
+    for (int u = 0; u < kHoldBatch; ++u) {
+      if (MT_K32_PART == 1)
+        acc += (int)(ch[u].q.x ^ ch[u].q.y ^ ch[u].q.z ^ ch[u].q.w);
+      else
+        hold_store(ch[u]);
     }
   }
+  // the loads' words reach a store the compiler cannot drop
+  if (MT_K32_PART == 1 && acc == 0x7fffffff && sink) *sink = acc;
 }
 
 // --- K33 ---------------------------------------------------------------
@@ -220,24 +426,43 @@ __global__ void quiet_fleet_kernel(FleetPlanes P, u8* __restrict__ quiet,
 }  // namespace
 
 // K32. ptrs: live (u8 [F]), then (dst, src) pairs, one a leaf (1 to 96
-//       leaves); ints: F, then each leaf's bytes a cluster row
+//       leaves); ints: F, each leaf's bytes a cluster row, the plan
+//       (hold_plan): the leaves' chunk offsets (leaves + 1 of them), rows
+//       a block, chunks a block slice
 MT_API int mt_fleet_hold(void* const* p, int n_ptrs, const long long* v,
                          int n_ints, void* stream) {
   const int leaves = (n_ptrs - 1) / 2;
   if (leaves < 1 || leaves > kMaxLeaves || n_ptrs != 1 + 2 * leaves ||
-      n_ints != 1 + leaves || v[0] < 0)
+      n_ints != 2 * leaves + 4 || v[0] < 0)
     return cudaErrorInvalidValue;
   HoldTable T;
+  const long long* off = v + 1 + leaves;
+  const long long rows = v[2 + 2 * leaves], slice = v[3 + 2 * leaves];
+  if (off[0] != 0 || rows < 1 || rows > kHoldThreads || slice < 1 ||
+      slice > kHoldThreads * kHoldPos)
+    return cudaErrorInvalidValue;
+  T.off[0] = 0;
   for (int k = 0; k < leaves; ++k) {
     T.dst[k] = (char*)p[1 + 2 * k];
     T.src[k] = (const char*)p[2 + 2 * k];
     T.row_bytes[k] = v[1 + k];
-    if (T.row_bytes[k] < 0 || !T.dst[k] || !T.src[k])
+    // the table must hold hold_chunks(row bytes) chunks a leaf
+    if (T.row_bytes[k] < 0 || !T.dst[k] || !T.src[k] ||
+        off[k + 1] - off[k] != hold_chunks(T.row_bytes[k]))
       return cudaErrorInvalidValue;
+    T.off[k + 1] = (int)off[k + 1];
   }
+  const long long C = off[leaves];
+  // (held row, chunk) pairs of a block in int
+  if (C > 0x7fffffffLL || rows * slice > 0x7fffffffLL - kHoldThreads *
+                                             kHoldBatch)
+    return cudaErrorInvalidValue;
   if (v[0] == 0) return cudaSuccess;
-  hold_kernel<<<(unsigned)v[0], kThreads, 0, (cudaStream_t)stream>>>(
-      T, leaves, (const u8*)p[0]);
+  const long long slices = C > 0 ? (C + slice - 1) / slice : 1;
+  if (slices > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(mt_blocks(v[0], (int)rows), (unsigned)slices);
+  hold_kernel<<<grid, kHoldThreads, 0, (cudaStream_t)stream>>>(
+      T, leaves, (const u8*)p[0], v[0], (int)rows, (int)slice, nullptr);
   return cudaGetLastError();
 }
 

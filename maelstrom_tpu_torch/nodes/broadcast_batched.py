@@ -37,7 +37,8 @@ from . import EncodeCapacityError, freeze_step, register
 from .broadcast import (_CLIENT_IN, _CLIENT_OUT, _EDGE, _STATE,
                         BroadcastProgram, T_DIGEST)
 
-__all__ = ["BroadcastBatchedProgram", "PROOF_MOD", "range_checksum"]
+__all__ = ["BroadcastBatchedProgram", "PROOF_MOD", "batched_plan",
+           "range_checksum"]
 
 T_BATCH = 20       # client -> node: a = lo, b = n, c = claim checksum
 T_BATCH_OK = 21    # node -> client: a = lo, b = expanded count,
@@ -45,6 +46,33 @@ T_BATCH_OK = 21    # node -> client: a = lo, b = expanded count,
 T_BREAD = 22
 T_BREAD_OK = 23    # bare ack; set materialized from the reply payload
 T_GRANGE = 24      # edge gossip: a = lo, b = n (a run of value ids)
+
+# K15's launch (csrc/broadcast_batched.cu): warps a block, values a tile
+# of a row that takes the whole warp, and the block's shared memory (two
+# 512-bit tile masks a warp)
+K15_WARPS = 8
+K15_TILE = 512
+K15_SMEM = K15_WARPS * 2 * (K15_TILE // 8)
+
+
+def batched_plan(N: int, D: int, V: int) -> dict:
+    """K15's launch plan for N nodes of D edges and V values: P lanes a
+    row, the fewest 16-byte lanes that cover V + 15 bytes (a row on any
+    16-byte offset), up to 32, so 32 / P rows share a warp; past 497
+    values a row takes the warp in tiles of 512 values (`tiles` at most,
+    by the row's offset). The edge rows' warps come first, then the node
+    rows'. The kernel checks P and the warp counts."""
+    P = 1
+    while P < 32 and 16 * P < V + 15:
+        P *= 2
+    rows = 32 // P
+    edge_warps = -(-N * D // rows)
+    node_warps = -(-N // rows)
+    return {"P": P, "rows_per_warp": rows,
+            "tiles": -(-(V + 15) // K15_TILE) if 16 * P < V + 15 else 1,
+            "edge_warps": edge_warps, "node_warps": node_warps,
+            "blocks": -(-(edge_warps + node_warps) // K15_WARPS),
+            "smem_bytes": K15_SMEM}
 
 
 @register
@@ -230,9 +258,11 @@ class BroadcastBatchedProgram(BroadcastProgram):
         if stall is not None:
             kernel = K.BROADCAST_BATCHED_STEP_STALL
             ptrs.append(stall.contiguous())
+        plan = batched_plan(N, D, self.V)
         kernel.launch(
             ptrs, [N, D, self.V, self.n_windows, L, Kc, Lout, self.per_nb,
-                   self.retry_rounds, int(self.eager_resend)], dev)
+                   self.retry_rounds, int(self.eager_resend), plan["P"],
+                   plan["edge_warps"], plan["node_warps"]], dev)
         return new_state, edge_out, client_out
 
     def edge_step(self, state, edge_in: EdgeMsgs, client_in, ctx):

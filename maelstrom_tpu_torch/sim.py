@@ -30,6 +30,7 @@ of the edge sends are kernel K8 (`csrc/faults.cu`)."""
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -1175,8 +1176,40 @@ def make_scan_fn(program, cfg: NetConfig, reply_cap: int = 256,
 
 # --- the fleet scan (make_fleet_scan_fn): K32 and K5's fleet form ----------
 
-# K32's leaves a launch (csrc/fleet.cu kMaxLeaves)
+# K32's leaves a launch (csrc/fleet.cu kMaxLeaves), the most 16-byte
+# chunks of a row one block copies, and the chunks of its rows a block
+# spans (a block's rows times its slice; the best of 1,024 to 16,384 on
+# an H100, scripts/time_kernels.py)
 _HOLD_LEAVES = 96
+_HOLD_SLICE = 1024
+_HOLD_BLOCK = 4096
+
+
+def hold_chunks(rb: int) -> int:
+    """K32's chunks of a leaf of `rb` bytes a cluster row: rb / 16 for a
+    multiple of 16, cut from the row's start; else ceil((rb + 15) / 16),
+    cut on the 16-byte grid of the row's address (csrc/fleet.cu
+    hold_chunk), enough for the row at any offset."""
+    return rb // 16 if rb % 16 == 0 else (rb + 30) // 16
+
+
+@functools.lru_cache(maxsize=64)
+def hold_plan(row_bytes: tuple) -> tuple:
+    """K32's launch plan for leaves of `row_bytes` bytes a cluster row:
+    (off, rows, slice). Leaf k's `hold_chunks` chunks are the chunks
+    [off[k], off[k + 1]) of one flat space a row; a block copies the
+    chunks [y * slice, (y + 1) * slice) of `rows` cluster rows, the
+    slices as even as 1,024 chunks a block allows and the rows as many
+    as fill 4,096 chunks (at most 256, one flag a thread). Depends on
+    the shapes alone."""
+    off = [0]
+    for rb in row_bytes:
+        off.append(off[-1] + hold_chunks(rb))
+    C = off[-1]
+    slices = max(1, -(-C // _HOLD_SLICE))
+    slice_ = max(1, -(-C // slices))
+    rows = max(1, min(256, _HOLD_BLOCK // slice_))
+    return tuple(off), rows, slice_
 
 
 def fleet_hold_plain(live, pairs) -> None:
@@ -1209,6 +1242,10 @@ def fleet_hold(live, pairs) -> int:
               for d, _s in todo)
     if not todo:
         return 0
+    if any(s.data_ptr() in seen for _d, s in todo):
+        # the kernel reads every src while it writes the dsts
+        raise ValueError("fleet_hold: a source is another pair's "
+                         "destination")
     if not K.use_kernel(live):
         fleet_hold_plain(live, todo)
         return row
@@ -1223,10 +1260,12 @@ def fleet_hold(live, pairs) -> int:
     live = live.contiguous()
     for lo in range(0, len(todo), _HOLD_LEAVES):
         part = todo[lo:lo + _HOLD_LEAVES]
+        rbs = tuple(d.numel() // max(F, 1) * d.element_size()
+                    for d, _s in part)
+        off, rows, slice_ = hold_plan(rbs)
         K.FLEET_HOLD.launch(
             [live] + [t for pair in part for t in pair],
-            [F] + [d.numel() // F * d.element_size() for d, _s in part],
-            live.device)
+            [F, *rbs, *off, rows, slice_], live.device)
     return row
 
 

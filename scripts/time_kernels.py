@@ -1,28 +1,34 @@
-"""Times K3 (broadcast_step: its stall and row forms too) and K2
-(edge_write: its fleet form too) on the card at the shapes chip_smoke.py
-times them, for one or more checkouts of the port in turns, and with
-`--variants` the kernels' parts.
+"""Times the port's redesigned kernels on the card at the shapes
+chip_smoke.py checks them, for one or more checkouts of the port in
+turns, and with `--variants` the kernels' parts: K3 (broadcast_step: its
+stall and row forms too), K2 (edge_write: its fleet form too), K15
+(broadcast_batched_step, with and without the stall mask) and K32
+(fleet_hold over the fleets' carries).
 
-    python3 scripts/time_k3_k2.py [--roots ROOT,ROOT,...] [--variants]
+    python3 scripts/time_kernels.py [--roots ROOT,ROOT,...] [--variants]
+                                    [--kernels k3,k2,k15,k32] [--profile]
 
 ROOTs are directories holding `maelstrom_tpu_torch/` and `chip_smoke.py`
 (default: this checkout). To compare a parent with a change on one card,
 unpack the parent into a directory that .gitignore lists and pass
 `--roots PARENT,.,.,PARENT`. Each root runs in its own process, since both
 packages carry one name, and builds its own kernels. Each process prints
-one JSON line: {root, kernels: {name@shape: {ms, bound_ms, ...}}}; times
-are device times from chip_smoke.cuda_ms (a torch.profiler trace of 20
-calls), bounds as chip_smoke.py counts them (the bytes each input read
-once, each output written once, over 3.35 TB/s).
+one JSON line: {root, nvidia_smi, kernels: {name@shape: {ms, bound_ms,
+...}}}; times are device times from chip_smoke.cuda_ms (a torch.profiler
+trace of 20 calls), bounds as chip_smoke.py counts them (the bytes each
+input read once, each output written once, over 3.35 TB/s). The shapes
+are this script's own, so a parent's chip_smoke.py serves as well.
 
-`--variants` (in the processes of this checkout) builds the port's own
-`csrc/broadcast.cu` and `csrc/edge.cu` again with a part flag each
-(`VARIANTS`: MT_K3_PART, MT_K3_CACHE_BUDGET, MT_K2_PART, which the
+`--variants` (in the first process of this checkout) builds the port's own
+sources again with a part flag each (`VARIANTS`: MT_K3_PART,
+MT_K3_CACHE_BUDGET, MT_K2_PART, MT_K15_PART, MT_K32_PART, which the
 sources document), launches each through the port's wrappers in place of
 the kernel, and times it at the same shapes as `name@shape+variant`. It
-adds `copy@shape`: one torch copy of the bytes K3's planes move there
-(seen and the three [N, D, V] planes read and written), the rate at which
-this card streams them.
+adds `copy@shape`: one torch copy of the bytes the kernel's planes or
+rows move there (read and written), the rate at which this card streams
+them. `--profile` adds `profile@cli_batched` and `profile@cli_fleet`:
+host and device ms a round and the device's idle share of the smoke's
+batched and 64-cluster fleet runs (`profile_runs`).
 """
 
 from __future__ import annotations
@@ -205,6 +211,120 @@ def time_k2(cs, out, tag=""):
                                 + ok * (16 + 17 + 1))}
 
 
+# K15's timed shapes: name: (nodes, values, ranges an edge, eager, client
+# batch span), chip_smoke.py's BATCHED_SHAPES entries of the same names
+K15_SHAPES = {"cli5": (5, 1024, 2, False, 16),
+              "bench": (4096, 512, 1, True, 32),
+              "cli1024": (1024, 1024, 2, False, 16),
+              "stress100k": (100_000, 1024, 2, False, 64)}
+
+
+def time_k15(cs, out, tag=""):
+    """K15 and its stall form (40% of the nodes stalled) on an ordinary
+    round at `K15_SHAPES`, on chip_smoke.py's random inputs."""
+    import torch
+    for name, (n, V, per_nb, eager, span) in K15_SHAPES.items():
+        g = torch.Generator(device="cuda")
+        g.manual_seed(n + V)
+        prog = cs._batched_program(n, V, per_nb, eager)
+        state, ein, cin = cs._random_batched_inputs(g, prog, span)
+        stall = torch.rand(n, generator=g, device="cuda") < 0.4
+        io, ops = cs.batched_io_ops(prog, ein.valid.shape[2],
+                                    cin.valid.shape[1])
+        for st in (None, stall):
+            ctx = {"round": torch.tensor(3 * prog.retry_rounds + 1,
+                                         dtype=torch.int32, device="cuda")}
+            if st is not None:
+                ctx["stall"] = st
+
+            def k15(ctx=ctx):
+                return prog.edge_step(state, ein, cin, ctx)
+            b, by = cs.bound_of(io, ops)
+            kern = "broadcast_batched_step" + ("_stall" if st is not None
+                                               else "")
+            out[f"{kern}@{name}{tag}"] = {"ms": cs.cuda_ms(k15),
+                                          "bound_ms": b, "bound_by": by}
+        del state, ein, cin
+        torch.cuda.empty_cache()
+
+
+def _cli_fleet_carry(cs, name):
+    """The initial fleet state of chip_smoke.CLI_FLEET's run `name`, as
+    its fleet runner builds it."""
+    from maelstrom_tpu_torch import core
+    from maelstrom_tpu_torch.runner.fleet_runner import FleetRunner
+    store = os.path.join(REPO, "store", "time_kernels_carry")
+    test = core.build_test({**dict(cs.CLI_FLEET)[name],
+                            "store_root": store})
+    return FleetRunner(test).sim
+
+
+def _k32_carries(cs):
+    """(shape, carry) of K32's timed shapes: the 10,000-cluster lin-kv
+    and fleet-bench carries, the 64-cluster CLI run's."""
+    F = cs.FLEET_SHAPE["clusters"]
+    yield "lin-kv10k", cs._fleet_carry("lin-kv", F)[2]
+    yield "broadcast10k", cs._fleet_carry("broadcast", F)[2]
+    yield "bcast64", _cli_fleet_carry(cs, "bcast64-seed")
+
+
+def _held(F):
+    import torch
+    g = torch.Generator(device="cuda")
+    g.manual_seed(32)
+    live = torch.rand(F, generator=g, device="cuda") >= 0.3
+    return live, int((~live).sum())
+
+
+def _carry_leaves(old):
+    from maelstrom_tpu_torch.tree import leaves
+    return [t for p in (old.net, old.nodes, old.key, old.channels)
+            for _q, t in leaves(p)]
+
+
+def time_k32(cs, out, tag=""):
+    """K32 over each carry of `_k32_carries` with 30% of the lanes held,
+    as chip_smoke.py's fleet_kernel_checks times it."""
+    import torch
+    from maelstrom_tpu_torch import sim as S
+    for shape, old in _k32_carries(cs):
+        F = old.key.shape[0]
+        live, held = _held(F)
+        olds = _carry_leaves(old)
+        pairs = [(t.clone(), t) for t in olds]
+        row = sum(t.numel() // F * t.element_size() for t in olds)
+
+        def k32():
+            S.fleet_hold(live, pairs)
+        k32()
+        out[f"fleet_hold@{shape}{tag}"] = {
+            "ms": cs.cuda_ms(k32), "bound_ms": cs.bound_ms(2 * held * row
+                                                           + F),
+            "clusters": F, "held": held, "row_bytes": row,
+            "leaves": len(olds)}
+        del old, olds, pairs
+        torch.cuda.empty_cache()
+
+
+def time_k32_copies(cs, out):
+    """A torch copy of the bytes K32 moves over each carry (the held
+    rows read and written)."""
+    import torch
+    for shape, old in _k32_carries(cs):
+        F = old.key.shape[0]
+        _live, held = _held(F)
+        row = sum(t.numel() // F * t.element_size()
+                  for t in _carry_leaves(old))
+        del old
+        src = torch.zeros(held * row, dtype=torch.uint8, device="cuda")
+        dst = torch.empty_like(src)
+        out[f"copy@fleet_hold@{shape}"] = {
+            "ms": cs.cuda_ms(lambda: dst.copy_(src)),
+            "bound_ms": cs.bound_ms(2 * held * row), "bytes": 2 * held * row}
+        del src, dst
+        torch.cuda.empty_cache()
+
+
 # name: (source, flag); the sources say what each part leaves out
 VARIANTS = {
     "nostores": ("broadcast.cu", "-DMT_K3_PART=1"),
@@ -214,7 +334,16 @@ VARIANTS = {
     "loads": ("edge.cu", "-DMT_K2_PART=1"),
     "stores": ("edge.cu", "-DMT_K2_PART=2"),
     "noread": ("edge.cu", "-DMT_K2_PART=3"),
+    "k15nostores": ("broadcast_batched.cu", "-DMT_K15_PART=1"),
+    "k15noplanes": ("broadcast_batched.cu", "-DMT_K15_PART=2"),
+    "k15noitems": ("broadcast_batched.cu", "-DMT_K15_PART=3"),
+    "k32loads": ("fleet.cu", "-DMT_K32_PART=1"),
+    "k32stores": ("fleet.cu", "-DMT_K32_PART=2"),
+    "k32flags": ("fleet.cu", "-DMT_K32_PART=3"),
 }
+# the kernel each source's variants time
+TIMERS = {"broadcast.cu": "k3", "edge.cu": "k2",
+          "broadcast_batched.cu": "k15", "fleet.cu": "k32"}
 
 
 class _Overlay:
@@ -231,13 +360,16 @@ class _Overlay:
             return getattr(self._base, name)
 
 
-def build_variants(K):
-    """One library a variant, from the port's own source and the flag,
-    each compiled by its own nvcc, all started together."""
+def build_variants(K, kernels):
+    """One library a variant of the `kernels` timed, from the port's own
+    source and the flag, each compiled by its own nvcc, all started
+    together."""
     build = os.path.join(K.BUILD, "variants")
     os.makedirs(build, exist_ok=True)
     procs = {}
     for name, (src, flag) in VARIANTS.items():
+        if TIMERS[src] not in kernels:
+            continue
         lib = os.path.join(build, f"lib{name}.so")
         procs[name] = (lib, subprocess.Popen(
             [K._nvcc(), *K.ARCH, *K.NVCC_FLAGS, flag, "-shared", "-o", lib,
@@ -260,7 +392,8 @@ def build_variants(K):
 def time_copies(cs, out):
     """A torch copy of the bytes K3's planes move (seen and three [N, D, V]
     planes, read and written) at the CLI shape (D 4) and the fleet rows'
-    (the 5-node grid's D 3)."""
+    (the 5-node grid's D 3); K15's at its stress shape (D 4) are the same
+    bytes as K3's at the CLI shape."""
     import torch
     _name, n, V, _per_nb, _cc, _p = cs.CLI_SHAPE
     rows = cs.FLEET_SHAPE["clusters"] * cs.FLEET_SHAPE["nodes"]
@@ -275,34 +408,86 @@ def time_copies(cs, out):
         del src, dst
 
 
-def time_variants(cs, K, out):
+# the runs `--profile` traces: (line, chip_smoke.py run list, run name,
+# timing.json's host seconds and count of the rounds the card ran, as
+# chip_smoke.py divides them)
+PROFILE_RUNS = (("cli_batched", "CLI_BATCHED", "batched5-e2e", "scan-s",
+                 "rounds-executed"),
+                ("cli_fleet", "CLI_FLEET", "bcast64-seed", "run-s",
+                 "scan-rounds"))
+
+
+def profile_runs(cs, out):
+    """Host and device ms a round and the idle share of the smoke's
+    `cli_batched` and `cli_fleet` paths: each run once on the host clock
+    (timing.json's scan seconds over its rounds, as chip_smoke.py reports
+    them) and once under torch.profiler (the device functions' time over
+    the same rounds; the profiler's own host cost does not reach the
+    device time). Idle share = 1 - device ms / host ms a round."""
+    import contextlib
+    import shutil
     import torch
-    libs = build_variants(K)
+    from maelstrom_tpu_torch import core
+    store = os.path.join(REPO, "store", "time_kernels_runs")
+    for line, runs, name, secs, key in PROFILE_RUNS:
+        opts = {**dict(getattr(cs, runs))[name], "store_root": store}
+        with contextlib.redirect_stdout(sys.stderr):
+            core.run(dict(opts))
+        with open(os.path.join(store, "latest", "timing.json")) as f:
+            tm = json.load(f)
+        rounds = tm[key]
+        host = 1e3 * tm[secs] / rounds
+        # device records alone: host-side op records would slow every
+        # round of the run
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof, \
+                contextlib.redirect_stdout(sys.stderr):
+            core.run(dict(opts))
+            torch.cuda.synchronize()
+        with open(os.path.join(store, "latest", "timing.json")) as f:
+            rounds2 = json.load(f)[key]
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   ) / 1e3 / rounds2
+        out[f"profile@{line}"] = {
+            "run": name, "rounds": rounds, "host_ms_per_round": host,
+            "device_busy_ms_per_round": busy,
+            "device_idle_share": max(0.0, 1 - busy / host)}
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def time_kernels(cs, out, kernels, tag=""):
+    import torch
+    for k in kernels:
+        {"k3": time_k3, "k2": time_k2, "k15": time_k15,
+         "k32": time_k32}[k](cs, out, tag)
+        torch.cuda.empty_cache()
+
+
+def time_variants(cs, K, out, kernels):
+    libs = build_variants(K, kernels)
     base = K._library()
     try:
         for name, lib in libs.items():
             K._state["lib"] = _Overlay(base, lib)
-            timer = time_k3 if VARIANTS[name][0] == "broadcast.cu" \
-                else time_k2
-            timer(cs, out, f"+{name}")
-            torch.cuda.empty_cache()
+            time_kernels(cs, out, [TIMERS[VARIANTS[name][0]]], f"+{name}")
     finally:
         K._state["lib"] = base
-    time_copies(cs, out)
+    if "k3" in kernels or "k15" in kernels:
+        time_copies(cs, out)
+    if "k32" in kernels:
+        time_k32_copies(cs, out)
 
 
-def worker(root, variants):
-    import torch
+def worker(root, variants, kernels, profile):
     cs = _smoke(os.path.abspath(root))
     from maelstrom_tpu_torch import kernels as K
     K.build()
     out = {}
-    time_k3(cs, out)
-    torch.cuda.empty_cache()
-    time_k2(cs, out)
+    time_kernels(cs, out, kernels)
     if variants:
-        torch.cuda.empty_cache()
-        time_variants(cs, K, out)
+        time_variants(cs, K, out, kernels)
+    if profile:
+        profile_runs(cs, out)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
@@ -314,17 +499,23 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--roots", default=".")
     ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--kernels", default="k3,k2,k15,k32")
+    ap.add_argument("--profile", action="store_true")
     ap.add_argument("--worker")
     a = ap.parse_args()
+    kernels = a.kernels.split(",")
     if a.worker:
-        worker(a.worker, a.variants)
+        worker(a.worker, a.variants, kernels, a.profile)
         return 0
-    rc = 0
+    rc, parts = 0, a.variants
     for root in a.roots.split(","):
-        same = os.path.abspath(root) == REPO
-        cmd = [sys.executable, os.path.abspath(__file__), "--worker", root]
-        if a.variants and same:
-            cmd.append("--variants")
+        cmd = [sys.executable, os.path.abspath(__file__), "--worker", root,
+               "--kernels", a.kernels]
+        if parts and os.path.abspath(root) == REPO:
+            cmd.append("--variants")  # once, in this checkout's first
+            parts = False
+        if a.profile:
+            cmd.append("--profile")
         rc |= subprocess.run(cmd, cwd=REPO).returncode
     return rc
 

@@ -31,6 +31,7 @@ import pytest
 
 from maelstrom_tpu import core as jcore
 from maelstrom_tpu.runner.fleet_runner import run_fleet_test as j_run_fleet
+from maelstrom_tpu.runner.tpu_runner import run_tpu_test as j_run_tpu
 from maelstrom_tpu_torch import cli as pcli
 from maelstrom_tpu_torch import core as pcore
 from maelstrom_tpu_torch.runner.fleet_runner import FleetRunner
@@ -102,6 +103,17 @@ def _solo(opts, tmp_root):
         os.makedirs(d)
         test = pcore.build_test({**opts, "device": "cpu"})
         run_tpu_test(test, d)
+        _CACHE[key] = _read(d)
+    return _CACHE[key]
+
+
+def _jax_solo(opts, tmp_root):
+    """The JAX package's standalone run of one cluster's options."""
+    key = _key("jax-solo", opts)
+    if key not in _CACHE:
+        d = os.path.join(tmp_root, f"jax-solo-{len(_CACHE)}")
+        os.makedirs(d)
+        j_run_tpu(jcore.build_test(dict(opts)), d)
         _CACHE[key] = _read(d)
     return _CACHE[key]
 
@@ -197,6 +209,25 @@ def test_capacity_sweep_matches_jax_and_solos(tmp_root):
     port = _check({**BROADCAST, "fleet": 2, "fleet_sweep": "capacity"},
                   tmp_root)
     assert len(port[1][0]) > len(port[0][0])
+
+
+def test_latency_scale_fleet_matches_solos_and_jax_solos(tmp_root):
+    """--fleet 4 --latency-scale 2: the port installs the scale on every
+    cluster row (the JAX fleet runner does not, so its fleet is no
+    reference here). Each cluster equals the port's standalone run and
+    the JAX package's standalone run of its seed; cluster 0's message
+    counts differ from its unscaled standalone run's, so the scale
+    shows."""
+    opts = {**BROADCAST, **UNIFORM, "rate": 30.0, "fleet": 4,
+            "latency_scale": 2.0}
+    port = _check(opts, tmp_root, jax=False)
+    spec = pcore.FleetSpec.from_test(opts)
+    for i, (ph, _pr) in enumerate(port):
+        jh, _jr = _jax_solo(spec.cluster_opts(opts, i), tmp_root)
+        assert ph == jh, f"cluster {i}: history differs from JAX's solo"
+    plain = {k: v for k, v in opts.items() if k != "latency_scale"}
+    _h, unscaled = _solo(spec.cluster_opts(plain, 0), tmp_root)
+    assert port[0][1]["net"]["all"] != unscaled["net"]["all"]
 
 
 # --- the CLI -----------------------------------------------------------------

@@ -9,8 +9,11 @@ Tolerance: exact (int32 and bool).
 The pool-path steps (K11, K12), the PN-counter step (K13, up to 1,500
 origins and spill lanes), K5's int32 payload form, the kafka step (K14,
 classic and group mode, up to 16 groups of 254 members) and the
-batched-broadcast step (K15, up to a 70,000-value table whose proof sums
-wrap, and a 300,256-value table whose masks pass shared memory) and the
+batched-broadcast step (K15, from a 1-value table up to a 70,000-value
+one whose proof sums wrap and a 300,256-value one, rows at every 16-byte
+offset, crafted runs across tiles and on tile and lane edges, fewer runs
+than per_nb and none), the fleet's held-lane copy (K32, leaves of 1 to
+4,000 bytes a row, 1 to 10,000 lanes, 96 and 97 leaves) and the
 device Elle checker's edge build and cycle screen (K16, K17: positions
 past both ends of the writer table, cyclic graphs that hit the
 iteration cap and acyclic ones that converge earlier, transaction
@@ -952,15 +955,24 @@ def random_batched_inputs(rng, prog, span=16):
     return state, edge_in, client_in
 
 
-# name: (nodes, values, ranges an edge, eager, batch span, topology)
+# name: (nodes, values, ranges an edge, eager, batch span, topology); a
+# V not a multiple of 16 puts the rows of 16 or more nodes at every
+# 16-byte offset
 BATCHED_SHAPES = {
     "grid5": (5, 1024, 2, False, 16, "grid"),
     "line7-missing-edges": (7, 100, 3, False, 8, "line"),
     "grid1000-eager": (1000, 512, 1, True, 32, "grid"),
     "tree4-odd-V": (50, 333, 4, False, 40, "tree4"),
     "wrap": (6, 70_000, 2, False, 70_000, "grid"),
-    # past the kernel's shared-memory masks: they go to global scratch
+    # the first design's global-scratch shape; one path at every V now
     "wideV-global-masks": (5, 300_256, 2, False, 300_256, "grid"),
+    "V1": (16, 1, 1, False, 1, "grid"),
+    "V17-offsets": (16, 17, 2, False, 4, "grid"),
+    "V40-line": (20, 40, 3, False, 8, "line"),
+    "V64-eager": (33, 64, 4, True, 16, "grid"),
+    "V65-offsets": (17, 65, 2, False, 16, "tree4"),
+    "V1024-offsets": (16, 1024, 3, False, 64, "grid"),
+    "V4097": (9, 4097, 4, False, 600, "grid"),
 }
 
 
@@ -1002,6 +1014,107 @@ def test_broadcast_batched_step_matches_plain(cuda, shape, tick, stalled):
     kern = K.BROADCAST_BATCHED_STEP_STALL if stalled else \
         K.BROADCAST_BATCHED_STEP
     assert kern.launches > 0
+
+
+def _crafted_pending(case, N, D, V):
+    """[N, D, V] pending planes of one run pattern: edge row r = n * D + d
+    sits at byte offset s = r * V % 16 of its plane, so its tiles of 512
+    values start at t * 512 - s."""
+    v = np.arange(V)[None, None, :]
+    s = (np.arange(N * D).reshape(N, D, 1) * V) % 16
+    runs = {
+        "dense": v >= 0,                  # one run across every tile
+        "none": v < 0,
+        # runs ending on the first two tile edges
+        "tile-edges": (v < 512 - s) | ((v >= 515 - s) & (v < 1024 - s)),
+        # runs of 16 on the lanes' 16-byte chunks
+        "lane-edges": ((v + s) // 16) % 2 == 0,
+        "one-run": (v >= V // 3) & (v < V // 3 + 7),  # fewer than per_nb
+        "alternate": v % 2 == 0,          # a run of one at every other
+    }[case]
+    return np.broadcast_to(runs, (N, D, V)).copy()
+
+
+@pytest.mark.parametrize("case", ["dense", "none", "tile-edges",
+                                  "lane-edges", "one-run", "alternate"])
+@pytest.mark.parametrize("V", [101, 1024, 1501])
+@pytest.mark.parametrize("per_nb", [1, 4])
+@pytest.mark.parametrize("eager", [False, True], ids=["", "eager"])
+def test_broadcast_batched_runs_match_plain(cuda, case, V, per_nb, eager):
+    """K15's run selection on crafted pending planes (runs across tiles,
+    ending on tile and lane edges, fewer runs than per_nb, none, runs of
+    one) at 17 nodes of a line (missing edges), rows at every 16-byte
+    offset; no arrivals or batches, so the runs stay as crafted, and the
+    digests in the last window or past it. Byte for byte against the
+    plain version on an ordinary round, the inputs untouched."""
+    n = 17
+    progs = {d: get_program("broadcast-batched",
+                            {"topology": "line", "max_values": V,
+                             "gossip_per_neighbor": per_nb,
+                             "eager_resend": eager},
+                            [f"n{i}" for i in range(n)], device=d)
+             for d in ("cpu", cuda)}
+    p = progs["cpu"]
+    rng = np.random.default_rng(V + per_nb)
+    state, edge_in, client_in = random_batched_inputs(rng, p)
+    state["pending"] = _crafted_pending(case, n, p.D, V)
+    client_in["valid"][:] = False
+    shape = edge_in["valid"].shape
+    edge_in["valid"] = np.zeros(shape, bool)
+    edge_in["valid"][:, :, 0] = True
+    edge_in["type"][:, :, 0] = 15
+    edge_in["a"][:, :, 0] = p.n_windows - rng.integers(0, 2, shape[:2])
+    rnd = 3 * p.retry_rounds + 1
+    out = {}
+    for d in ("cpu", cuda):
+        ctx = {"round": torch.tensor(rnd, dtype=torch.int32, device=d)}
+        st, ei = _tensors(state, d), _tensors(edge_in, d)
+        ci = _tensors(client_in, d)
+        out[d] = progs[d].edge_step(st, static.EdgeMsgs(**ei), Msgs(**ci),
+                                    ctx)
+        for got, ref in ((st, state), (ei, edge_in), (ci, client_in)):
+            _equal(got, _tensors(ref, d))
+    _equal(out[cuda], out["cpu"])
+    assert K.BROADCAST_BATCHED_STEP.launches > 0
+
+
+@pytest.mark.parametrize("V", [17, 1024])
+@pytest.mark.parametrize("stalled", [False, True], ids=["", "stall"])
+def test_broadcast_batched_unaligned_planes_match_plain(cuda, V, stalled):
+    """K15 on planes whose base pointers are not 16-byte aligned (views a
+    byte into their storage): the byte path, and seen's chunks read at
+    any offset. The inputs stay untouched."""
+    n = 20
+    progs = {d: get_program("broadcast-batched",
+                            {"topology": "grid", "max_values": V,
+                             "gossip_per_neighbor": 3},
+                            [f"n{i}" for i in range(n)], device=d)
+             for d in ("cpu", cuda)}
+    rng = np.random.default_rng(V + stalled)
+    state, edge_in, client_in = random_batched_inputs(rng, progs["cpu"])
+    stall = rng.random(n) < 0.4
+
+    def offset(t):
+        flat = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        return view
+    out = {}
+    for d in ("cpu", cuda):
+        ctx = {"round": torch.tensor(3 * progs["cpu"].retry_rounds,
+                                     dtype=torch.int32, device=d)}
+        if stalled:
+            ctx["stall"] = torch.tensor(stall, device=d)
+        st = _tensors(state, d)
+        if d != "cpu":
+            st = {k: offset(v) for k, v in st.items()}
+            assert st["pending"].data_ptr() % 16
+        out[d] = progs[d].edge_step(
+            st, static.EdgeMsgs(**_tensors(edge_in, d)),
+            Msgs(**_tensors(client_in, d)), ctx)
+        _equal(st, _tensors(state, d))
+    torch.cuda.synchronize()
+    _equal(out[cuda], out["cpu"])
 
 
 def _elle_inputs(g, vp, rp, tp, n_txns, acyclic):
@@ -1729,6 +1842,60 @@ def test_fleet_hold_matches_plain(cuda, F, live_p):
     for x, y, z in zip(res["cpu"], new, old):
         want = np.where(live.reshape((-1,) + (1,) * (y.ndim - 1)), y, z)
         np.testing.assert_array_equal(x.numpy(), want)
+
+
+# K32's leaves a row: widths of 1 to 4,000 bytes (bool and int32 rows,
+# so 16-byte, 4-byte and byte copies and partial last chunks)
+HOLD_WIDTHS = [((1,), np.bool_), ((2,), np.bool_), ((3,), np.bool_),
+               ((5,), np.bool_), ((4,), np.int32), ((17,), np.bool_),
+               ((1000,), np.int32)]
+
+
+@pytest.mark.parametrize("F", [1, 64, 10_000])
+@pytest.mark.parametrize("held", ["none", "all", "30%"])
+def test_fleet_hold_leaf_widths_match_plain(cuda, F, held):
+    """K32 over leaves of 1, 2, 3, 5, 16, 17 and 4,000 bytes a row, with
+    no lane, every lane and 30% of the lanes held; the sources stay
+    untouched."""
+    from maelstrom_tpu_torch.sim import fleet_hold
+    rng = np.random.default_rng(F + len(held))
+    live = {"none": np.ones(F, bool), "all": np.zeros(F, bool),
+            "30%": rng.random(F) >= 0.3}[held]
+    new = [rng.integers(0, 100, (F,) + w).astype(t) for w, t in HOLD_WIDTHS]
+    old = [rng.integers(0, 100, (F,) + w).astype(t) for w, t in HOLD_WIDTHS]
+    res = {}
+    for d in ("cpu", cuda):
+        dst = [torch.from_numpy(x.copy()).to(d) for x in new]
+        src = [torch.from_numpy(x.copy()).to(d) for x in old]
+        fleet_hold(torch.from_numpy(live).to(d), list(zip(dst, src)))
+        res[d] = tuple(dst)
+        for x, y in zip(src, old):
+            np.testing.assert_array_equal(x.cpu().numpy(), y)
+    torch.cuda.synchronize()
+    _equal(res[cuda], res["cpu"])
+
+
+@pytest.mark.parametrize("leaves,launches", [(96, 1), (97, 2)])
+def test_fleet_hold_leaf_table_launches(cuda, leaves, launches):
+    """96 leaves take one K32 launch, 97 two; every leaf held right."""
+    from maelstrom_tpu_torch.sim import fleet_hold
+    F = 300
+    rng = np.random.default_rng(leaves)
+    live = rng.random(F) >= 0.3
+    widths = [HOLD_WIDTHS[k % len(HOLD_WIDTHS)] for k in range(leaves)]
+    new = [rng.integers(0, 100, (F,) + w).astype(t) for w, t in widths]
+    old = [rng.integers(0, 100, (F,) + w).astype(t) for w, t in widths]
+    res = {}
+    for d in ("cpu", cuda):
+        dst = [torch.from_numpy(x.copy()).to(d) for x in new]
+        src = [torch.from_numpy(x.copy()).to(d) for x in old]
+        before = K.FLEET_HOLD.launches
+        fleet_hold(torch.from_numpy(live).to(d), list(zip(dst, src)))
+        if d != "cpu":
+            assert K.FLEET_HOLD.launches - before == launches
+        res[d] = tuple(dst)
+    torch.cuda.synchronize()
+    _equal(res[cuda], res["cpu"])
 
 
 @pytest.mark.parametrize("F,S,R", [(1, 8, 8), (64, 10, 8), (10_000, 10, 8),
